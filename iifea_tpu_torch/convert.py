@@ -1,0 +1,60 @@
+"""Carry the reference package's state into the port.
+
+The system has no weights; its state is the foreground mesh, the extraction
+operator and the stencil coefficients. ``from_numpy_state`` builds the
+port's objects from the JAX package's objects given as numpy arrays, so
+both packages can start from identical state:
+
+    >>> st = from_numpy_state(
+    ...     coords=mesh.coords, cells=mesh.cells, material=mesh.material,
+    ...     idx=M.idx_np, val=M.val_np, n_bg_dofs=M.n_bg_dofs,
+    ...     coeffs=np.asarray(S.coeffs), lattice_shape=S.shape,
+    ...     radius=S.radius, device="cpu")
+
+``coeffs`` must be the logical (m², nx1, ny1) planes (``S.coeffs``), never
+the TPU tile-padded storage.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from iifea_tpu_torch.mesh.core import Mesh
+from iifea_tpu_torch.ops.extraction import ExtractionOperator
+from iifea_tpu_torch.ops.stencil import StencilOperator2D
+
+
+class State(NamedTuple):
+    mesh: Mesh | None
+    M: ExtractionOperator | None
+    S: StencilOperator2D | None
+
+
+def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
+                     val=None, n_bg_dofs=None, coeffs=None,
+                     lattice_shape=None, radius: int = 2,
+                     device) -> State:
+    """Build whichever of (Mesh, ExtractionOperator, StencilOperator2D) the
+    given arrays determine; the others are None."""
+    mesh = None
+    if coords is not None:
+        mesh = Mesh(np.asarray(coords), np.asarray(cells),
+                    None if material is None else np.asarray(material))
+    M = None
+    if idx is not None:
+        M = ExtractionOperator(np.asarray(idx), np.asarray(val), n_bg_dofs,
+                               device)
+    S = None
+    if coeffs is not None:
+        C = np.array(coeffs)
+        shape = tuple(lattice_shape)
+        if C.shape[1:] != shape:
+            raise ValueError(
+                f"coefficient planes {C.shape} do not match lattice {shape} "
+                "(pass the logical S.coeffs, not the padded S.cp)"
+            )
+        S = StencilOperator2D(torch.as_tensor(C, device=device), shape,
+                              radius)
+    return State(mesh, M, S)

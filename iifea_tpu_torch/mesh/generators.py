@@ -1,0 +1,112 @@
+"""Structured 2D mesh generation and runtime extraction (numpy port of the
+parts of ``iifea_tpu/mesh/generators.py`` the lattice path uses).
+
+``immersed_square_problem`` is the synthetic cut-square workload: a
+structured foreground triangle mesh with the cells inside a rotated square
+marked as the block (material 2), and a coarser structured background
+triangle grid; M interpolates the background P1 space at the foreground
+nodes.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from iifea_tpu_torch.mesh.core import FunctionSpace, Mesh
+from iifea_tpu_torch.ops.extraction import ExtractionOperator
+
+
+def rectangle_mesh(p0, p1, nx: int, ny: int) -> Mesh:
+    """Structured triangle mesh, 2 triangles per quad ('right' diagonal);
+    vertex id = i·(ny+1) + j."""
+    x = np.linspace(p0[0], p1[0], nx + 1)
+    y = np.linspace(p0[1], p1[1], ny + 1)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    v00, v10 = vid(i, j).ravel(), vid(i + 1, j).ravel()
+    v01, v11 = vid(i, j + 1).ravel(), vid(i + 1, j + 1).ravel()
+    t1 = np.stack([v00, v10, v11], axis=1)
+    t2 = np.stack([v00, v11, v01], axis=1)
+    mesh = Mesh(coords, np.concatenate([t1, t2], axis=0))
+    mesh.structured = ("rect", np.asarray(p0, float), np.asarray(p1, float),
+                       nx, ny)
+    return mesh
+
+
+def locate_structured_rect(mesh: Mesh, points: np.ndarray,
+                           tol: float = 1e-10):
+    """O(1) vectorized point location in a structured rectangle_mesh.
+
+    Returns (cell ids, reference coordinates); outside points get id -1.
+    """
+    _, p0, p1, nx, ny = mesh.structured
+    points = np.asarray(points, dtype=np.float64)
+    rel = (points - p0) / (p1 - p0)
+    inside = (rel.min(1) >= -tol) & (rel.max(1) <= 1 + tol)
+    gx = np.clip(rel[:, 0] * nx, 0, nx * (1 - 1e-15))
+    gy = np.clip(rel[:, 1] * ny, 0, ny * (1 - 1e-15))
+    i = np.minimum(gx.astype(np.int64), nx - 1)
+    j = np.minimum(gy.astype(np.int64), ny - 1)
+    s = gx - i
+    t = gy - j
+    lower = s >= t  # triangle t1 = (v00, v10, v11) covers s >= t
+    quad = i * ny + j
+    cell = np.where(lower, quad, nx * ny + quad)
+    ref_lower = np.stack([s - t, t], axis=1)   # verts (0,0),(1,0),(1,1)
+    ref_upper = np.stack([s, t - s], axis=1)   # verts (0,0),(1,1),(0,1)
+    ref = np.where(lower[:, None], ref_lower, ref_upper)
+    return np.where(inside, cell, -1), ref
+
+
+def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
+                            degree: int = 1, tol: float = 1e-10,
+                            dtype=np.float64, *,
+                            device) -> ExtractionOperator:
+    """P1 interpolation matrix from a structured background triangle grid
+    to points: row i holds the basis values of the background cell that
+    contains point i. Points outside the grid get zero rows."""
+    if getattr(mesh_b, "structured", None) is None:
+        raise ValueError("the port locates points in rectangle_mesh grids")
+    Vb = FunctionSpace(mesh_b, degree=degree)
+    points = np.asarray(points, dtype=np.float64)
+    npts = points.shape[0]
+    cell_idx, ref = locate_structured_rect(mesh_b, points, tol)
+    inside = cell_idx >= 0
+    safe_cells = np.maximum(cell_idx, 0)
+    vals = Vb.element.tabulate(ref)                   # (np, 3)
+    cols = np.asarray(Vb.cell_dofs)[safe_cells]       # (np, 3)
+    rows = np.repeat(np.arange(npts), vals.shape[1])
+    mask = np.repeat(inside, vals.shape[1])
+    v = vals.ravel()
+    keep = mask & (np.abs(v) > 1e-14)
+    return ExtractionOperator.from_triples(
+        rows[keep], cols.ravel()[keep], v[keep], n_fg_nodes=npts,
+        n_bg_nodes=Vb.n_nodes, dtype=dtype, device=device,
+    )
+
+
+def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
+                            angle: float = 30.0, half_width: float = 0.6,
+                            degree: int = 1, dtype=np.float64, *, device):
+    """Rotated square of half-width ``half_width`` immersed in [-L/2, L/2]²:
+    foreground cells whose centroid lies inside are the block (material 2),
+    the rest material 1. Returns (mesh_f, M)."""
+    mesh_f = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_fg, n_fg)
+    cent = mesh_f.cell_coords.mean(1)
+    a = np.deg2rad(angle)
+    ca, sa = np.cos(a), np.sin(a)
+    u = ca * cent[:, 0] + sa * cent[:, 1]
+    v = -sa * cent[:, 0] + ca * cent[:, 1]
+    material = np.where(
+        (np.abs(u) <= half_width) & (np.abs(v) <= half_width), 2, 1
+    ).astype(np.int32)
+    mesh_f = Mesh(mesh_f.coords, mesh_f.cells, material)
+    mesh_b = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_bg, n_bg)
+    Vf = FunctionSpace(mesh_f, degree=degree)
+    M = transfer_matrix_simplex(mesh_b, np.asarray(Vf.node_coords),
+                                degree=degree, dtype=dtype, device=device)
+    return mesh_f, M
