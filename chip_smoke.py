@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (iifea_tpu_torch) on one GPU.
 
-Run from the repository root: ``python3 chip_smoke.py``. Phases, each
-printed on its own line; the first failure exits non-zero:
+Run from the repository root: ``python3 chip_smoke.py`` (``--phases`` runs
+a comma-separated subset, for debugging). Phases, each printed on its own
+line; the first failure exits non-zero:
 
   0. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
      requires torch.cuda.is_available().
-  1. build: compiles iifea_tpu_torch/csrc/stencil2d.cu with nvcc (sm_90a).
+  1. build: compiles every iifea_tpu_torch/csrc/*.cu (stencil2d.cu,
+     stencil3d.cu) with nvcc (sm_90a), one nvcc per source in parallel.
   2. kernels: stencil_mv and jacobi_smooth against their plain PyTorch
      versions on the card; median kernel and plain times at 1025², r=2.
-  3. small reference: the card's n_bg=64 solution checked with a host f64
-     residual, and the n_bg=24 card and host solutions compared.
-  4. main path: BinnedLatticeSolver.solve at n_bg=1024 (1,050,625
+  3. kernels3: stencil_mv3, jacobi_smooth3 and cheb_step3 against their
+     plain versions at small shapes and at 105³; a soak of thousands of
+     interleaved radius-2 launches over 105³, 53³, 27³ and 14³ (the 3D
+     V-cycle's levels), synchronised and compared; median times at 105³.
+  4. small reference: the card's n_bg=64 2D solution checked with a host
+     f64 residual, and the n_bg=24 card and host solutions compared.
+  5. small reference 3D: the card's n_bg=16 solution checked with a host
+     f64 residual; the n_bg=8 card and host solutions' error norms
+     compared.
+  6. main path 2D: BinnedLatticeSolver.solve at n_bg=1024 (1,050,625
      background dofs) once with the kernel launch counters reset, then
      per-stage times, a profiled warm solve (device busy share, top
      kernels), warm end-to-end times and error norms.
+  7. main path 3D: the same at n_bg=104 (105³ = 1,157,625 background
+     dofs, 13,182,000 foreground tetrahedra), with host setup per stage,
+     table bytes and peak device memory; its error norms must be below
+     those of an n_bg=52 solve.
 
 The line before the last is the kernel summary JSON, the last line the
 device JSON. Imports nothing of JAX.
@@ -30,12 +43,24 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-SOURCE = "iifea_tpu_torch/csrc/stencil2d.cu"
-REPLACES = {
-    "stencil_mv": "iifea_tpu/ops/pallas_stencil.py:127",
-    "jacobi_smooth": "iifea_tpu/ops/pallas_stencil.py:136",
+SOURCE2, SOURCE3 = ("iifea_tpu_torch/csrc/stencil2d.cu",
+                    "iifea_tpu_torch/csrc/stencil3d.cu")
+KERNELS = {   # name: (source, TPU kernel it replaces)
+    "stencil_mv": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:127"),
+    "jacobi_smooth": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:136"),
+    "stencil_mv3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
+    "jacobi_smooth3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
+    # the fused Chebyshev step extends jacobi_smooth3 to the 3D V-cycle's
+    # smoother: one pass per sweep
+    "cheb_step3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
+# f32 vectors each kernel reads or writes once besides its coefficient
+# planes: x, y; + invd, b; + d read and written
+VECTORS = {"stencil_mv": 2, "jacobi_smooth": 4, "stencil_mv3": 2,
+           "jacobi_smooth3": 4, "cheb_step3": 6}
 
 
 def fail(msg: str) -> None:
@@ -64,6 +89,21 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
+    """Least milliseconds the card needs for one call at ``shape``: the
+    larger of the compulsory bytes (each coefficient plane and vector read
+    or written once) over the memory rate and the f32 multiply-adds over
+    the f32 rate. Returns (ms, "bytes" | "operations")."""
+    n = 1
+    for s_ in shape:
+        n *= s_
+    taps = (2 * radius + 1) ** len(shape)
+    t_bytes = 4.0 * n * (taps + VECTORS[name]) / HBM_BYTES_PER_S
+    t_ops = (2.0 * taps + 4.0) * n / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_device():
@@ -99,7 +139,21 @@ def phase_build():
     log = path.with_suffix(".log")
     ptxas = log.read_text().strip().splitlines() if log.exists() else []
     phase("build", seconds=dt, library=str(path.relative_to(HERE)),
-          ptxas=[l for l in ptxas if "Used" in l])
+          sources=[str(p.relative_to(HERE)) for p in sk.SOURCES],
+          ptxas=[l for l in ptxas if "Used" in l or "Compiling" in l])
+
+
+def _check(worst, name, y, y_ref, shape, radius, **kv):
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max())
+    lim = TOL * float(y_ref.abs().max())
+    phase("kernel_check", kernel=name, shape=list(shape), radius=radius,
+          max_abs_err=err, bound=lim, **kv)
+    if not err <= lim:
+        fail(f"{name} {shape} r={radius}: {err} > {lim}")
+    worst[name] = max(worst.get(name, 0.0), err)
 
 
 def phase_kernels():
@@ -110,7 +164,7 @@ def phase_kernels():
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    worst = {"stencil_mv": 0.0, "jacobi_smooth": 0.0}
+    worst = {}
 
     def operands(shape, radius):
         m = 2 * radius + 1
@@ -121,21 +175,11 @@ def phase_kernels():
                          device=dev)
         return C, x, n
 
-    def check(name, y, y_ref, shape, radius):
-        torch.cuda.synchronize()
-        err = float((y - y_ref).abs().max())
-        bound = TOL * float(y_ref.abs().max())
-        phase("kernel_check", kernel=name, shape=list(shape), radius=radius,
-              max_abs_err=err, bound=bound)
-        if not err <= bound:
-            fail(f"{name} {shape} r={radius}: {err} > {bound}")
-        worst[name] = max(worst[name], err)
-
     for shape in [(17, 17), (33, 129), (40, 200)]:
         for radius in (1, 2):
             C, x, _ = operands(shape, radius)
-            check("stencil_mv", sk.stencil_mv(C, x, shape, radius),
-                  sk.stencil_mv_plain(C, x, shape, radius), shape, radius)
+            _check(worst, "stencil_mv", sk.stencil_mv(C, x, shape, radius),
+                   sk.stencil_mv_plain(C, x, shape, radius), shape, radius)
     timing = {}
     for shape in [(21, 35), (1025, 1025)]:
         C, x, n = operands(shape, 2)
@@ -145,34 +189,153 @@ def phase_kernels():
                             device=dev)
         om = 0.67
         if shape == (1025, 1025):
-            check("stencil_mv", sk.stencil_mv(C, x, shape, 2),
-                  sk.stencil_mv_plain(C, x, shape, 2), shape, 2)
-        check("jacobi_smooth", sk.jacobi_smooth(C, invd, b, x, om, shape, 2),
-              sk.jacobi_smooth_plain(C, invd, b, x, om, shape, 2), shape, 2)
+            _check(worst, "stencil_mv", sk.stencil_mv(C, x, shape, 2),
+                   sk.stencil_mv_plain(C, x, shape, 2), shape, 2)
+        _check(worst, "jacobi_smooth",
+               sk.jacobi_smooth(C, invd, b, x, om, shape, 2),
+               sk.jacobi_smooth_plain(C, invd, b, x, om, shape, 2), shape, 2)
         if shape == (1025, 1025):
             timing["stencil_mv"] = (
                 cuda_ms(lambda: sk.stencil_mv(C, x, shape, 2)),
                 cuda_ms(lambda: sk.stencil_mv_plain(C, x, shape, 2)),
+                shape,
             )
             timing["jacobi_smooth"] = (
                 cuda_ms(lambda: sk.jacobi_smooth(C, invd, b, x, om, shape, 2)),
                 cuda_ms(lambda: sk.jacobi_smooth_plain(C, invd, b, x, om,
                                                        shape, 2)),
+                shape,
             )
-    for name, (ms, plain_ms) in timing.items():
-        phase("kernel_time", kernel=name, shape=[1025, 1025], radius=2,
-              ms=ms, plain_ms=plain_ms)
+    for name, (ms, plain_ms, shape) in timing.items():
+        phase("kernel_time", kernel=name, shape=list(shape), radius=2,
+              ms=ms, plain_ms=plain_ms, bound_ms=bound(name, shape)[0])
+    return worst, timing
+
+
+N_BG3 = 104                      # 105³ = 1,157,625 background dofs
+SHAPE3 = (N_BG3 + 1,) * 3
+SOAK_ROUNDS = 400                # x 4 shapes x 3 kernels = 4,800 launches
+
+
+def phase_kernels3():
+    """The 3D kernels against their plain versions, a soak, and times."""
+    import numpy as np
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(1)
+    worst = {}
+
+    def operands(shape, radius):
+        m = 2 * radius + 1
+        n = shape[0] * shape[1] * shape[2]
+
+        def t(a):
+            return torch.tensor(a, dtype=torch.float32, device=dev)
+
+        return (t(rng.standard_normal((m ** 3, *shape))),
+                t(rng.standard_normal(n)), t(rng.standard_normal(n)),
+                t(rng.uniform(0.5, 2.0, n)), t(rng.standard_normal(n)))
+
+    def check_cheb(C, x, b, invd, d, shape, radius, alpha, beta):
+        d_in = None if beta == 0 else d.clone()
+        y, d_out = sk.cheb_step3(C, invd, b, x, d_in, alpha, beta, shape,
+                                 radius)
+        y_ref, d_ref = sk.cheb_step3_plain(C, invd, b, x,
+                                           None if beta == 0 else d,
+                                           alpha, beta, shape, radius)
+        _check(worst, "cheb_step3", y, y_ref, shape, radius, beta=beta)
+        _check(worst, "cheb_step3", d_out, d_ref, shape, radius, beta=beta,
+               what="d")
+
+    for shape in [(9, 9, 9), (13, 10, 17), SHAPE3]:
+        for radius in (1, 2):
+            C, x, *_ = operands(shape, radius)
+            _check(worst, "stencil_mv3", sk.stencil_mv3(C, x, shape, radius),
+                   sk.stencil_mv3_plain(C, x, shape, radius), shape, radius)
+            del C
+    for shape in [(11, 9, 14), SHAPE3]:
+        for radius in (1, 2):
+            if shape == SHAPE3 and radius == 1:
+                continue
+            C, x, b, invd, d = operands(shape, radius)
+            _check(worst, "jacobi_smooth3",
+                   sk.jacobi_smooth3(C, invd, b, x, 0.67, shape, radius),
+                   sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape,
+                                           radius), shape, radius)
+            check_cheb(C, x, b, invd, d, shape, radius, 1.7, 0.0)
+            check_cheb(C, x, b, invd, d, shape, radius, 1.3, 0.45)
+            del C
+
+    # soak: the V-cycle's level shapes, interleaved, never synchronised
+    # until the end; every repeat must reproduce its first result bitwise
+    levels = [(s,) * 3 for s in (105, 53, 27, 14)]
+    ops = [operands(sh, 2) for sh in levels]
+    first = []
+    for (C, x, b, invd, d), sh in zip(ops, levels):
+        y0 = sk.stencil_mv3(C, x, sh, 2)
+        j0 = sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 2)
+        c0, _ = sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, sh, 2)
+        first.append((y0, j0, c0))
+    mismatches = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(SOAK_ROUNDS):
+        for (C, x, b, invd, d), sh, (y0, j0, c0) in zip(ops, levels, first):
+            mismatches += (sk.stencil_mv3(C, x, sh, 2) != y0).sum()
+            mismatches += (sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 2)
+                           != j0).sum()
+            mismatches += (sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, sh,
+                                         2)[0] != c0).sum()
+    torch.cuda.synchronize()
+    soak_s = time.perf_counter() - t0
+    for (C, x, b, invd, d), sh, (y0, j0, c0) in zip(ops, levels, first):
+        _check(worst, "stencil_mv3", y0, sk.stencil_mv3_plain(C, x, sh, 2),
+               sh, 2, after="soak")
+        _check(worst, "jacobi_smooth3", j0,
+               sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, sh, 2), sh, 2,
+               after="soak")
+    phase("soak", launches=SOAK_ROUNDS * len(levels) * 3,
+          shapes=[list(sh) for sh in levels], radius=2, seconds=soak_s,
+          mismatches=int(mismatches))
+    if int(mismatches) != 0:
+        fail(f"soak: {int(mismatches)} values differ between repeats")
+    del ops, first
+
+    C, x, b, invd, d = operands(SHAPE3, 2)
+    sh = SHAPE3
+    timing = {
+        "stencil_mv3": (
+            cuda_ms(lambda: sk.stencil_mv3(C, x, sh, 2)),
+            cuda_ms(lambda: sk.stencil_mv3_plain(C, x, sh, 2)), sh),
+        "jacobi_smooth3": (
+            cuda_ms(lambda: sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 2)),
+            cuda_ms(lambda: sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, sh,
+                                                    2)), sh),
+        "cheb_step3": (
+            cuda_ms(lambda: sk.cheb_step3(C, invd, b, x, d, 1.3, 0.45, sh,
+                                          2)),
+            cuda_ms(lambda: sk.cheb_step3_plain(C, invd, b, x, d, 1.3, 0.45,
+                                                sh, 2)), sh),
+    }
+    for name, (ms, plain_ms, shape) in timing.items():
+        b_ms, by = bound(name, shape)
+        phase("kernel_time", kernel=name, shape=list(shape), radius=2,
+              ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+              gb_per_s=4.0 * (125 + VECTORS[name]) * x.numel() / ms / 1e6)
     return worst, timing
 
 
 N_BG = 1024                      # 1,050,625 background dofs (headline size)
 MAX_CG_ITERS = 96                # 2x the reference's 48 iterations at n_bg=1024
+MAX_CG_ITERS3 = 80               # 2x the reference's 40 iterations at n_bg=104
 
 
-def fg_of(n_bg: int) -> int:
-    """Foreground divisions: the sqrt(2) fg/bg spacing ratio of the
-    reference workloads (bench.py)."""
-    return int(n_bg * 1.4142) // 2 * 2
+def fg_of(n_bg: int, dim: int = 2) -> int:
+    """Foreground divisions: the fg/bg spacing ratio of the reference
+    workloads (bench.py): sqrt(2) in 2D, 1.26 in 3D."""
+    return int(n_bg * (1.4142 if dim == 2 else 1.26)) // 2 * 2
 
 
 def sync_time(fn):
@@ -185,23 +348,29 @@ def sync_time(fn):
     return out, time.perf_counter() - t
 
 
-def build_solver(n_bg: int, device):
-    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+def build_solver(n_bg: int, device, dim: int = 2):
+    from iifea_tpu_torch.mesh import generators
     from iifea_tpu_torch.models.poisson import PoissonProblem
     from iifea_tpu_torch.solvers.lattice_fast import BinnedLatticeSolver
 
+    gen = (generators.immersed_square_problem if dim == 2
+           else generators.immersed_cube_problem)
     t0 = time.perf_counter()
-    mesh, M = immersed_square_problem(n_fg=fg_of(n_bg), n_bg=n_bg,
-                                      device=device)
+    mesh, M = gen(n_fg=fg_of(n_bg, dim), n_bg=n_bg, device=device)
     t1 = time.perf_counter()
-    prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10, device=device)
+    mesh.facet_data
     t2 = time.perf_counter()
-    solver = BinnedLatticeSolver(prob, M, (n_bg + 1, n_bg + 1),
-                                 device=device)
+    prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10, device=device)
     t3 = time.perf_counter()
+    solver = BinnedLatticeSolver(prob, M, (n_bg + 1,) * dim, device=device)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
     return mesh, M, prob, solver, {
-        "immersed_square_problem": t1 - t0, "PoissonProblem": t2 - t1,
-        "BinnedLatticeSolver": t3 - t2}
+        "problem": t1 - t0, "facet_data": t2 - t1, "PoissonProblem": t3 - t2,
+        "BinnedLatticeSolver": t4 - t3}
 
 
 def phase_small_reference():
@@ -232,25 +401,61 @@ def phase_small_reference():
     u_cpu, info_cpu = s_cpu.solve(rtol=1e-10)
     b, Kc, Kf = s_cpu.assemble()
     d = s_cpu.probe(s_cpu.bind(Kc, Kf)).diag().abs() > 0
-    bound = 1e-7 * max(float(u_cpu.abs().max()), 1.0)
+    lim = 1e-7 * max(float(u_cpu.abs().max()), 1.0)
     err = float((u_gpu.cpu() - u_cpu)[d].abs().max())
-    phase("small_reference", n_bg=24, max_abs_diff=err, bound=bound,
+    phase("small_reference", n_bg=24, max_abs_diff=err, bound=lim,
           gpu=info_gpu, cpu=info_cpu)
-    if not err <= bound:
+    if not err <= lim:
         fail(f"card and host solves differ by {err}")
 
 
+def phase_small_reference3():
+    """3D small problems against host references: at n_bg=16 (17³ → 9³,
+    Chebyshev sweeps on the kernels) the card's solution has a
+    host-measured exact f64 residual below 1e-10; at n_bg=8 the card's and
+    the host's (plain versions) solutions give the same L2/H10 errors to
+    1e-8 relative (the JAX package's 3D end-to-end criterion: sliver-cut
+    dofs are numerically undetermined, the foreground field is not)."""
+    import torch
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", 0)
+    *_, s_gpu, _ = build_solver(16, gpu, dim=3)
+    *_, s_cpu, _ = build_solver(16, cpu, dim=3)
+    u_gpu, info = s_gpu.solve(rtol=1e-10)
+    b, Kc, Kf = s_cpu.assemble()
+    _, _, relres = s_cpu.residual(s_cpu.bind(Kc, Kf), b, u_gpu.cpu())
+    phase("small_reference3", n_bg=16, host_rel_residual=relres, **info)
+    if not relres < 1e-10:
+        fail(f"host-measured residual of the card's 3D solution {relres}")
+
+    _, M_g, p_gpu, s_gpu, _ = build_solver(8, gpu, dim=3)
+    _, M_c, p_cpu, s_cpu, _ = build_solver(8, cpu, dim=3)
+    u_gpu, info_gpu = s_gpu.solve(rtol=1e-10)
+    u_cpu, info_cpu = s_cpu.solve(rtol=1e-10)
+    n_gpu = p_gpu.error_norms(M_g.mv(u_gpu))
+    n_cpu = p_cpu.error_norms(M_c.mv(u_cpu))
+    rel = {k: abs(n_gpu[k] - n_cpu[k]) / abs(n_cpu[k]) for k in ("L2", "H10")}
+    phase("small_reference3", n_bg=8, norms_gpu=n_gpu, norms_cpu=n_cpu,
+          rel_diff=rel, gpu=info_gpu, cpu=info_cpu)
+    if not (info_gpu["rel_residual"] < 1e-10 and max(rel.values()) < 1e-8):
+        fail(f"3D card and host solves differ: {rel}, {info_gpu}")
+
+
 def on_cuda(solver, u, S32, mg) -> bool:
-    tensors = [u, S32.coeffs, mg.coarse_inv, solver.JinvT_b,
-               solver.wdetT_b, *mg.inv_diags,
-               *(lv.coeffs for lv in mg.levels),
-               *(t for t in solver.rhs_tables.values() if t is not None)]
+    tensors = [u, S32.coeffs, mg.coarse_inv, *mg.inv_diags,
+               *(lv.coeffs for lv in mg.levels), solver.M.idxT,
+               solver.M.valT]
+    if solver.dim == 2:
+        tensors += [solver.JinvT_b, solver.wdetT_b,
+                    *(t for t in solver.rhs_tables.values() if t is not None)]
     for red in solver.reducers:
         tensors += [red.val_b, red.kappa, red.perm]
+    for dom, _ in solver.prob.form.terms:
+        tensors += [dom.eldofsT, dom.h]
     return all(t.is_cuda for t in tensors)
 
 
-def profile_solve(solver) -> None:
+def profile_solve(solver, tag: str) -> None:
     """Device busy share and the top kernels of one warm solve, from
     torch.profiler (CUPTI); reports "not measured" if no device time shows."""
     from torch.autograd import DeviceType
@@ -265,21 +470,85 @@ def profile_solve(solver) -> None:
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in dev)
     if busy_us <= 0:
-        phase("profile", device_time="not measured", wall_seconds=wall)
+        phase(tag, device_time="not measured", wall_seconds=wall)
         return
     dev.sort(key=lambda e: -e[1])
-    phase("profile", wall_seconds=wall, device_busy_seconds=busy_us / 1e6,
+    phase(tag, wall_seconds=wall, device_busy_seconds=busy_us / 1e6,
           device_idle_share=1.0 - busy_us / 1e6 / wall,
           kernel_launches=sum(c for *_, c in dev),
           top=[{"name": k[:80], "seconds": t / 1e6, "count": c}
-               for k, t, c in dev[:8]])
+               for k, t, c in dev[:10]])
+
+
+def stage_times(solver, tag: str):
+    """Per-stage times of a warm solve (PERF.md's phases), synced per
+    stage, and each stage's peak device memory."""
+    import torch
+
+    t_cg, t_res = [0.0], [0.0]
+    cg0, res0 = solver.cg, solver.residual
+    peak = {}
+
+    def timed(fn, acc):
+        def wrapped(*a):
+            out, dt = sync_time(lambda: fn(*a))
+            acc[0] += dt
+            return out
+        return wrapped
+
+    def stage(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, dt = sync_time(fn)
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        return out, dt
+
+    solver.cg, solver.residual = timed(cg0, t_cg), timed(res0, t_res)
+    try:
+        (b64, Kc, Kf), t_asm = stage("assemble", solver.assemble)
+        bound_, t_bind = stage("bind", lambda: solver.bind(Kc, Kf))
+        S32, t_probe = stage("probe", lambda: solver.probe(bound_))
+        mg, t_mg = stage("build_mg", lambda: solver.build_mg(S32))
+        (x, relres, iters), t_ref = stage(
+            "refine", lambda: solver.refine(S32, mg, bound_, b64, 1e-10))
+    finally:
+        solver.cg, solver.residual = cg0, res0
+    phase(tag, element_jacobians_rhs=t_asm, bind=t_bind,
+          stencil_extraction=t_probe, multigrid_hierarchy=t_mg,
+          refine=t_ref, refine_cg=t_cg[0], refine_residual=t_res[0],
+          cg_iters=iters, rel_residual=relres, peak_gib=peak,
+          levels=[list(lv.shape) for lv in mg.levels])
+    return S32, mg
+
+
+def drive(solver, names, max_iters: int, tag: str):
+    """The main path once through the user entry point, counted: every
+    launch counter is 0 just before and read just after."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launches()
+    (u, info), t_first = sync_time(lambda: solver.solve(rtol=1e-10))
+    counts = sk.launches()
+    launches = {k: counts[k] for k in names}
+    phase(tag, first_seconds=t_first, launches=launches,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30, **info)
+    if not info["rel_residual"] < 1e-10:
+        fail(f"{tag}: relative f64 residual {info['rel_residual']} >= 1e-10")
+    if not info["cg_iters"] <= max_iters:
+        fail(f"{tag}: {info['cg_iters']} CG iterations > {max_iters}")
+    if min(launches.values()) <= 0:
+        fail(f"{tag}: a kernel was not launched on the main path: "
+             f"{launches}")
+    if not (u.shape == (solver.M.n_bg_dofs,) and bool(torch.isfinite(u).all())):
+        fail(f"{tag}: solution is not a finite vector of the background size")
+    return u, launches
 
 
 def phase_main_path():
     """Returns the kernel launch counts of one solve() at n_bg = N_BG."""
     import torch
-
-    from iifea_tpu_torch.ops import stencil_kernels as sk
 
     dev = torch.device("cuda", 0)
     mesh, M, prob, solver, setup = build_solver(N_BG, dev)
@@ -290,50 +559,13 @@ def phase_main_path():
           n_facets=prob.facet_dom.n_elem,
           tables=[list(r.meta) for r in solver.reducers], seconds=setup)
 
-    # the main path, once, through the user entry point; counted
-    torch.cuda.reset_peak_memory_stats()
-    sk.reset_launches()
-    (u, info), t_first = sync_time(lambda: solver.solve(rtol=1e-10))
-    launches = {"stencil_mv": sk.stencil_mv.launches,
-                "jacobi_smooth": sk.jacobi_smooth.launches}
-    phase("solve", first_seconds=t_first, launches=launches,
-          peak_gib=torch.cuda.max_memory_allocated() / 2**30, **info)
-    if not info["rel_residual"] < 1e-10:
-        fail(f"relative f64 residual {info['rel_residual']} >= 1e-10")
-    if not info["cg_iters"] <= MAX_CG_ITERS:
-        fail(f"{info['cg_iters']} CG iterations > {MAX_CG_ITERS}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel was not launched on the main path: {launches}")
-    if not (u.shape == (M.n_bg_dofs,) and bool(torch.isfinite(u).all())):
-        fail("solution is not a finite vector of the background size")
-
-    # per-stage times of a warm solve (PERF.md's phases), synced per stage
-    t_cg, t_res = [0.0], [0.0]
-    cg0, res0 = solver.cg, solver.residual
-
-    def timed(fn, acc):
-        def wrapped(*a):
-            out, dt = sync_time(lambda: fn(*a))
-            acc[0] += dt
-            return out
-        return wrapped
-
-    solver.cg, solver.residual = timed(cg0, t_cg), timed(res0, t_res)
-    (b64, Kc, Kf), t_asm = sync_time(solver.assemble)
-    bound, t_bind = sync_time(lambda: solver.bind(Kc, Kf))
-    S32, t_probe = sync_time(lambda: solver.probe(bound))
-    mg, t_mg = sync_time(lambda: solver.build_mg(S32))
-    (x, relres, iters), t_ref = sync_time(
-        lambda: solver.refine(S32, mg, bound, b64, 1e-10))
-    solver.cg, solver.residual = cg0, res0
-    phase("stages", element_jacobians_rhs=t_asm, bind=t_bind,
-          stencil_extraction=t_probe, multigrid_hierarchy=t_mg,
-          refine=t_ref, refine_cg=t_cg[0], refine_residual=t_res[0],
-          cg_iters=iters, rel_residual=relres, levels=len(mg.levels))
+    u, launches = drive(solver, ("stencil_mv", "jacobi_smooth"),
+                        MAX_CG_ITERS, "solve")
+    S32, mg = stage_times(solver, "stages")
     if not on_cuda(solver, u, S32, mg):
         fail("a solver tensor is not on the card")
 
-    profile_solve(solver)
+    profile_solve(solver, "profile")
     totals = []
     for _ in range(3):
         _, dt = sync_time(lambda: solver.solve(rtol=1e-10))
@@ -346,21 +578,90 @@ def phase_main_path():
     return launches
 
 
-def main() -> None:
-    phase_device()
-    phase_build()
-    worst, timing = phase_kernels()
-    phase_small_reference()
-    launches = phase_main_path()
+def phase_main_path3():
+    """The 3D main path at n_bg = N_BG3; returns its kernel launch
+    counts."""
     import torch
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": worst[name], "ms": timing[name][0],
-         "plain_ms": timing[name][1]}
-        for name in ("stencil_mv", "jacobi_smooth")
-    ]}), flush=True)
+    dev = torch.device("cuda", 0)
+    mesh, M, prob, solver, setup = build_solver(N_BG3, dev, dim=3)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is enabled for f32 convolutions or matmuls")
+    phase("setup3", n_bg=N_BG3, n_fg=fg_of(N_BG3, 3), n_bg_dofs=M.n_bg_dofs,
+          n_cells=mesh.n_cells, n_block_cells=prob.cell_dom.n_elem,
+          n_facets=prob.facet_dom.n_elem,
+          tables=[list(r.meta) for r in solver.reducers],
+          table_bytes=[r.nbytes() for r in solver.reducers],
+          device_gib=torch.cuda.memory_allocated() / 2**30, seconds=setup)
+
+    u, launches = drive(solver, ("stencil_mv3", "jacobi_smooth3",
+                                 "cheb_step3"), MAX_CG_ITERS3, "solve3")
+    S32, mg = stage_times(solver, "stages3")
+    if not on_cuda(solver, u, S32, mg):
+        fail("a 3D solver tensor is not on the card")
+    profile_solve(solver, "profile3")
+    totals = []
+    for _ in range(2):
+        _, dt = sync_time(lambda: solver.solve(rtol=1e-10))
+        totals.append(dt)
+    norms = prob.error_norms(M.mv(u))
+    del solver, S32, mg, u, prob, M, mesh
+    torch.cuda.empty_cache()
+
+    _, M52, p52, s52, _ = build_solver(52, dev, dim=3)
+    u52, info52 = s52.solve(rtol=1e-10)
+    norms52 = p52.error_norms(M52.mv(u52))
+    phase("end_to_end3", warm_seconds=totals, best=min(totals),
+          error_norms=norms, error_norms_n_bg52=norms52, n_bg52=info52)
+    if not all(v == v and 0 < v < norms52[k] for k, v in norms.items()):
+        fail(f"3D error norms {norms} not below n_bg=52's {norms52}")
+    return launches
+
+
+PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
+          "small_reference3", "main_path", "main_path3")
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    run = set(PHASES)
+    if args[:1] == ["--phases"] and len(args) == 2:
+        run = set(args[1].split(",")) | {"device", "build"}
+    elif args:
+        fail(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
+    t0 = time.perf_counter()
+    worst, timing, launches = {}, {}, {}
+    phase_device()
+    phase_build()
+    for name, fn in (("kernels", phase_kernels),
+                     ("kernels3", phase_kernels3)):
+        if name in run:
+            w, t = fn()
+            worst.update(w)
+            timing.update(t)
+    if "small_reference" in run:
+        phase_small_reference()
+    if "small_reference3" in run:
+        phase_small_reference3()
+    if "main_path" in run:
+        launches.update(phase_main_path())
+    if "main_path3" in run:
+        launches.update(phase_main_path3())
+    import torch
+
+    phase("elapsed", seconds=time.perf_counter() - t0)
+    if run != set(PHASES):
+        fail(f"only phases {sorted(run)} ran: no result")
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        ms, plain_ms, shape = timing[name]
+        b_ms, by = bound(name, shape)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": worst[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": None})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

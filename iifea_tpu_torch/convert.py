@@ -11,8 +11,10 @@ both packages can start from identical state:
     ...     coeffs=np.asarray(S.coeffs), lattice_shape=S.shape,
     ...     radius=S.radius, device="cpu")
 
-``coeffs`` must be the logical (m², nx1, ny1) planes (``S.coeffs``), never
-the TPU tile-padded storage.
+``coeffs`` must be the logical (m², nx1, ny1) or (m³, nx1, ny1, nz1)
+planes (``S.coeffs``), never the TPU tile-padded storage; their rank picks
+``StencilOperator2D`` or ``StencilOperator3D``. A tetrahedron mesh (3D
+coords, 4 vertices per cell) is carried like a triangle mesh.
 """
 from __future__ import annotations
 
@@ -23,20 +25,20 @@ import torch
 
 from iifea_tpu_torch.mesh.core import Mesh
 from iifea_tpu_torch.ops.extraction import ExtractionOperator
-from iifea_tpu_torch.ops.stencil import StencilOperator2D
+from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
 
 
 class State(NamedTuple):
     mesh: Mesh | None
     M: ExtractionOperator | None
-    S: StencilOperator2D | None
+    S: StencilOperator2D | StencilOperator3D | None
 
 
 def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
                      val=None, n_bg_dofs=None, coeffs=None,
                      lattice_shape=None, radius: int = 2,
                      device) -> State:
-    """Build whichever of (Mesh, ExtractionOperator, StencilOperator2D) the
+    """Build whichever of (Mesh, ExtractionOperator, stencil operator) the
     given arrays determine; the others are None."""
     mesh = None
     if coords is not None:
@@ -55,6 +57,6 @@ def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
                 f"coefficient planes {C.shape} do not match lattice {shape} "
                 "(pass the logical S.coeffs, not the padded S.cp)"
             )
-        S = StencilOperator2D(torch.as_tensor(C, device=device), shape,
-                              radius)
+        cls = StencilOperator2D if C.ndim == 3 else StencilOperator3D
+        S = cls(torch.as_tensor(C, device=device), shape, radius)
     return State(mesh, M, S)

@@ -1,9 +1,10 @@
 """Mesh and function-space core (numpy copy of ``iifea_tpu/mesh/core.py``
-for 2D P1 triangle meshes).
+for P1 triangle and tetrahedron meshes).
 
 Host-side frozen numpy arrays: node ids are dof ids. The unique-facet
-extraction is numpy only (no native library), done with a stable sort of
-int64 vertex-pair keys, so it stays fast at millions of cells.
+extraction is numpy only (no native library), done with one stable sort of
+the sorted facet vertex tuples, so it stays fast at tens of millions of
+(cell, facet) incidences.
 """
 from __future__ import annotations
 
@@ -12,32 +13,38 @@ from functools import cached_property
 
 import numpy as np
 
-from iifea_tpu_torch.ops.reference_elements import TRI_FACETS, ReferenceElement
+from iifea_tpu_torch.ops.reference_elements import (
+    ReferenceElement,
+    local_facets,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class FacetData:
-    """Unique edges of a triangle mesh.
+    """Unique facets (edges in 2D, triangles in 3D) of a simplex mesh.
 
     facet_cells[f] = (c0, c1) adjacent cells, c1 = -1 on the boundary.
     facet_local[f] = local facet index of f within c0 / c1 (-1 if none).
     """
 
-    facets: np.ndarray       # (n_facets, 2) vertex ids (sorted within row)
+    facets: np.ndarray       # (n_facets, dim) vertex ids (sorted within row)
     facet_cells: np.ndarray  # (n_facets, 2) int32
     facet_local: np.ndarray  # (n_facets, 2) int32
 
 
 class Mesh:
-    """An immutable triangle mesh."""
+    """An immutable simplex mesh (triangles in 2D, tetrahedra in 3D)."""
 
     def __init__(self, coords: np.ndarray, cells: np.ndarray,
                  material: np.ndarray | None = None):
         self.coords = np.asarray(coords, dtype=np.float64)
         self.cells = np.ascontiguousarray(cells, dtype=np.int32)
         self.dim = self.coords.shape[1]
-        if self.dim != 2 or self.cells.shape[1] != 3:
-            raise ValueError("the port covers 2D triangle meshes")
+        if self.dim not in (2, 3) or self.cells.shape[1] != self.dim + 1:
+            raise ValueError(
+                "the port covers triangle (2D) and tetrahedron (3D) meshes, "
+                f"got {self.cells.shape[1]} vertices per cell in {self.dim}D"
+            )
         self.n_cells = self.cells.shape[0]
         self.n_verts = self.coords.shape[0]
         if material is None:
@@ -48,13 +55,18 @@ class Mesh:
 
     @cached_property
     def cell_coords(self) -> np.ndarray:
-        """(n_cells, 3, 2) vertex coordinates per cell."""
+        """(n_cells, dim+1, dim) vertex coordinates per cell."""
         return self.coords[self.cells]
 
     @cached_property
     def cell_diameters(self) -> np.ndarray:
         """UFL CellDiameter: max vertex-pair distance per cell."""
-        x = self.cell_coords
+        return self.diameters_of(np.arange(self.n_cells))
+
+    def diameters_of(self, cell_ids: np.ndarray) -> np.ndarray:
+        """``cell_diameters[cell_ids]`` without the whole-mesh temporaries
+        (a (n_cells, 4, 4, 3) f64 array is 5 GB at 13M tetrahedra)."""
+        x = self.coords[self.cells[np.asarray(cell_ids, dtype=np.int64)]]
         d = x[:, :, None, :] - x[:, None, :, :]
         return np.sqrt((d * d).sum(-1)).max(axis=(1, 2))
 
@@ -62,19 +74,20 @@ class Mesh:
 
     @cached_property
     def facet_data(self) -> FacetData:
-        """Unique edges, numbered in order of first appearance in the
+        """Unique facets, numbered in order of first appearance in the
         (cell, local facet) scan, the order of the reference's native mesh
-        library; that first incidence takes slot 0, the second slot 1."""
-        nlf = TRI_FACETS.shape[0]
-        pairs = np.sort(self.cells[:, TRI_FACETS].reshape(-1, 2), axis=1)
-        pairs = pairs.astype(np.int64)
-        key = pairs[:, 0] * self.n_verts + pairs[:, 1]
-        order = np.argsort(key, kind="stable")
-        ks = key[order]
-        first = np.ones(ks.size, dtype=bool)
-        first[1:] = ks[1:] != ks[:-1]
+        library; that first incidence takes slot 0, the last later one
+        slot 1."""
+        lf = local_facets(self.dim)
+        nlf, nfv = lf.shape
+        tup = np.sort(self.cells[:, lf].reshape(-1, nfv), axis=1)
+        order = _stable_row_order(tup, self.n_verts)
+        ts = tup[order]
+        first = np.ones(order.size, dtype=bool)
+        first[1:] = (ts[1:] != ts[:-1]).any(axis=1)
+        del ts
         n_facets = int(first.sum())
-        # renumber the key-sorted facets by their first incidence
+        # renumber the sorted facets by their first incidence
         first_pos = order[first]
         rank = np.empty(n_facets, dtype=np.int64)
         rank[np.argsort(first_pos)] = np.arange(n_facets)
@@ -84,8 +97,8 @@ class Mesh:
         slot = np.where(first, 0, 1)
         facet_cells[fid, slot] = (order // nlf).astype(np.int32)
         facet_local[fid, slot] = (order % nlf).astype(np.int32)
-        facets = np.empty((n_facets, 2), dtype=np.int32)
-        facets[rank] = pairs[first_pos]
+        facets = np.empty((n_facets, nfv), dtype=np.int32)
+        facets[rank] = tup[first_pos]
         return FacetData(facets, facet_cells, facet_local)
 
     @cached_property
@@ -107,6 +120,21 @@ class Mesh:
         out[marker == 4] = 2
         out[marker == 3] = 3
         return out
+
+
+def _stable_row_order(tup: np.ndarray, n: int) -> np.ndarray:
+    """Stable lexicographic order of the rows of ``tup`` (values < n).
+
+    A row packs into one unsigned 64-bit key a·n² + b·n + c while n^width
+    fits (2.25M vertices in 3D: n³ ≈ 1.14e19 overflows int64 but not
+    uint64); otherwise a lexsort."""
+    width = tup.shape[1]
+    if n ** width < 2 ** 64:
+        key = np.zeros(tup.shape[0], dtype=np.uint64)
+        for col in range(width):
+            key = key * np.uint64(n) + tup[:, col].astype(np.uint64)
+        return np.argsort(key, kind="stable")
+    return np.lexsort(tup.T[::-1])
 
 
 class FunctionSpace:

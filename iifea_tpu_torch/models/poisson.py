@@ -1,11 +1,12 @@
 """Immersed Poisson with Nitsche boundary conditions (port of
-``iifea_tpu/models/poisson.py`` for the 2D P1 lattice path).
+``iifea_tpu/models/poisson.py`` for the 2D and 3D P1 lattice paths).
 
   cell:   ∫ ∇u·∇v dx − ∫ f v dx
   facet:  −∫_Γ (∇u·n) v dS + sgn ∫_Γ (g − u)(∇v·n) dS
           [+ β h⁻¹ ∫_Γ (u − g) v dS  if sym or over_penalize]
 
-with u_exact = sin(π(x²+y²))·cos(π(x−y)), g = u_exact on Γ, and the source
+with u_exact = sin(π(x²+y²))·cos(π(x−y)) in 2D and
+sin(π(x²+y²+z²))·cos(π(x+y+z)) in 3D, g = u_exact on Γ, and the source
 f = −tr Hess u_exact through ``torch.func.hessian``. The element stiffness
 of the cell term and the right-hand side tables are computed in native f64
 (the reference's double-float emulation has no counterpart on the GPU).
@@ -35,9 +36,26 @@ def u_exact(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def source(x: torch.Tensor) -> torch.Tensor:
-    """f = −div grad u_exact at one point, by autodiff."""
-    return -torch.trace(hessian(u_exact)(x))
+def u_exact3(x: torch.Tensor) -> torch.Tensor:
+    """Manufactured solution at one point x (3,)."""
+    return torch.sin(math.pi * (x[0] ** 2 + x[1] ** 2 + x[2] ** 2)) * (
+        torch.cos(math.pi * (x[0] + x[1] + x[2]))
+    )
+
+
+def u_exact_fn(dim: int):
+    return u_exact if dim == 2 else u_exact3
+
+
+def source_fn(u_ex):
+    """f = −div grad u_ex, by autodiff."""
+    def f(x: torch.Tensor) -> torch.Tensor:
+        return -torch.trace(hessian(u_ex)(x))
+
+    return f
+
+
+source = source_fn(u_exact)
 
 
 def eval_points(fn, xqT: torch.Tensor) -> torch.Tensor:
@@ -71,6 +89,8 @@ class PoissonProblem:
         self.sgn = 1.0 if self.sym else -1.0
         self.beta = float(beta_value)
         self.over_penalize = bool(over_penalize)
+        self.u_ex = u_exact_fn(mesh.dim)
+        self.f = source_fn(self.u_ex)
         qd = k if quad_degree is None else quad_degree
         cells = np.where(mesh.material == block_id)[0]
         facets = np.where(mesh.classify_facets_by_material() == surf_id)[0]
@@ -85,12 +105,13 @@ class PoissonProblem:
 
     # -- element kernels ------------------------------------------------------
 
-    @staticmethod
-    def _cell_kernel():
+    def _cell_kernel(self):
+        f = self.f
+
         def kern(u_loc, aux_loc, ctx, params):
             U = u_loc[:, 0]
             gu = torch.einsum("qbd,b->qd", ctx.gphi, U)
-            fx = vmap(source)(ctx.x)
+            fx = vmap(f)(ctx.x)
             r = torch.einsum("q,qd,qbd->b", ctx.w, gu, ctx.gphi)
             r = r - torch.einsum("q,q,qb->b", ctx.w, fx, ctx.phi)
             return r[:, None]
@@ -98,7 +119,7 @@ class PoissonProblem:
         return kern
 
     def _facet_kernel(self):
-        sgn, beta = self.sgn, self.beta
+        sgn, beta, u_ex = self.sgn, self.beta, self.u_ex
         penalize = self.over_penalize or self.sym
 
         def kern(u_loc, aux_loc, ctx, params):
@@ -106,7 +127,7 @@ class PoissonProblem:
             uq = torch.einsum("qb,b->q", ctx.phi, U)
             gu = torch.einsum("qbd,b->qd", ctx.gphi, U)
             gun = gu @ ctx.n
-            gq = vmap(u_exact)(ctx.x)
+            gq = vmap(u_ex)(ctx.x)
             gphin = torch.einsum("qbd,d->qb", ctx.gphi, ctx.n)
             r = -torch.einsum("q,q,qb->b", ctx.w, gun, ctx.phi)
             r = r + sgn * torch.einsum("q,q,qb->b", ctx.w, gq - uq, gphin)
@@ -126,8 +147,8 @@ class PoissonProblem:
         w·g·β/h on the boundary facets."""
         cd, fd = self.cell_dom, self.facet_dom
         red_c, red_f = reducers
-        F = cd.wdetT * eval_points(source, cd.xqT)           # (nq, nE)
-        Wg = fd.wT * eval_points(u_exact, fd.xqT)            # (nq, nF)
+        F = cd.wdetT * eval_points(self.f, cd.xqT)           # (nq, nE)
+        Wg = fd.wT * eval_points(self.u_ex, fd.xqT)          # (nq, nF)
         gphin = torch.einsum("qbdF,dF->qbF", fd.gphiT, fd.normalT)
         penalize = self.sym or self.over_penalize
         return {
@@ -169,24 +190,26 @@ class PoissonProblem:
     def error_norms(self, u_f: torch.Tensor) -> dict:
         """Relative L2, H1-seminorm and Nitsche-H1 errors of a foreground
         field against u_exact."""
+        u_ex = self.u_ex
+
         def e_sq(u_loc, aux_loc, ctx, params):
             eq = torch.einsum("qb,b->q", ctx.phi, u_loc[:, 0]) - vmap(
-                u_exact)(ctx.x)
+                u_ex)(ctx.x)
             return torch.einsum("q,q->", ctx.w, eq ** 2)
 
         def ge_sq(u_loc, aux_loc, ctx, params):
             gu = torch.einsum("qbd,b->qd", ctx.gphi, u_loc[:, 0])
-            ge = gu - vmap(grad(u_exact))(ctx.x)
+            ge = gu - vmap(grad(u_ex))(ctx.x)
             return torch.einsum("q,qd->", ctx.w, ge ** 2)
 
         def edge_sq(u_loc, aux_loc, ctx, params):
             return e_sq(u_loc, aux_loc, ctx, params) / ctx.h
 
         def exact_sq(u_loc, aux_loc, ctx, params):
-            return torch.einsum("q,q->", ctx.w, vmap(u_exact)(ctx.x) ** 2)
+            return torch.einsum("q,q->", ctx.w, vmap(u_ex)(ctx.x) ** 2)
 
         def gexact_sq(u_loc, aux_loc, ctx, params):
-            g = vmap(grad(u_exact))(ctx.x)
+            g = vmap(grad(u_ex))(ctx.x)
             return torch.einsum("q,qd->", ctx.w, g ** 2)
 
         def edge_exact_sq(u_loc, aux_loc, ctx, params):

@@ -10,8 +10,11 @@ reference). A kernel is written for ONE element,
 and batched with ``torch.func.vmap`` over the trailing element axis; element
 Jacobians come from ``torch.func.jacfwd`` of the kernel.
 
-Not ported here: residual/matvec assembly and its scatter tables (the
-general path), Hessian tabulation.
+Residuals and the foreground operator application scatter element
+vectors with ``index_add_``: on CUDA the order in which several elements
+add onto one dof is not fixed, so f64 results may differ in the last bits
+from run to run. Not ported: multi-field scatter tables, Hessian
+tabulation.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from torch.func import jacfwd, vmap
 
 from iifea_tpu_torch.mesh.core import FunctionSpace, flat_dofs
 from iifea_tpu_torch.ops import quadrature
-from iifea_tpu_torch.ops.reference_elements import TRI_FACETS
+from iifea_tpu_torch.ops.reference_elements import local_facets
 
 # elements per vmap(jacfwd) batch: bounds the tangent-batched temporaries
 JAC_CHUNK = 262144
@@ -111,7 +114,7 @@ def build_cell_domain(space: FunctionSpace, cell_ids: np.ndarray,
     cell_ids = np.asarray(cell_ids, dtype=np.int64)
     qp, wq = quadrature.cell_rule(mesh.dim, quad_degree)
     el = space.element
-    verts = mesh.cell_coords[cell_ids]           # (nE, 3, 2)
+    verts = mesh.coords[mesh.cells[cell_ids]]    # (nE, dim+1, dim)
     J = np.swapaxes(verts[:, 1:, :] - verts[:, :1, :], 1, 2)
     detJ = np.linalg.det(J)
     Jinv = np.linalg.inv(J)
@@ -125,7 +128,7 @@ def build_cell_domain(space: FunctionSpace, cell_ids: np.ndarray,
         JinvT=_soa(Jinv, dtype, device),
         wdetT=_soa(wdet, dtype, device),
         xqT=_soa(xq, dtype, device),
-        h=torch.as_tensor(mesh.cell_diameters[cell_ids].astype(dtype),
+        h=torch.as_tensor(mesh.diameters_of(cell_ids).astype(dtype),
                           device=device),
         phi=torch.as_tensor(el.tabulate(qp).astype(dtype), device=device),
         gphi_ref=torch.as_tensor(el.tabulate_grad(qp).astype(dtype),
@@ -154,22 +157,29 @@ def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
     )
 
     el = space.element
+    lfacets = local_facets(mesh.dim)
     fqp, fwq = quadrature.facet_rule(mesh.dim, quad_degree)
     ref_pts = np.stack(
-        [el.facet_to_cell_points(lf, fqp) for lf in range(len(TRI_FACETS))]
+        [el.facet_to_cell_points(lf, fqp) for lf in range(len(lfacets))]
     )
     phi_tab = np.stack([el.tabulate(p) for p in ref_pts])
     gphi_tab = np.stack([el.tabulate_grad(p) for p in ref_pts])
 
-    verts = mesh.cell_coords[plus_cell]          # (nF, 3, 2)
+    verts = mesh.coords[mesh.cells[plus_cell]]   # (nF, dim+1, dim)
     J = np.swapaxes(verts[:, 1:, :] - verts[:, :1, :], 1, 2)
     Jinv = np.linalg.inv(J)
     fverts = np.take_along_axis(
-        verts, TRI_FACETS[plus_local][:, :, None].astype(np.int64), axis=1
-    )                                            # (nF, 2, 2)
-    t = fverts[:, 1] - fverts[:, 0]
-    meas = np.linalg.norm(t, axis=1)
-    nrm = np.stack([t[:, 1], -t[:, 0]], axis=1) / meas[:, None]
+        verts, lfacets[plus_local][:, :, None].astype(np.int64), axis=1
+    )                                            # (nF, dim, dim)
+    if mesh.dim == 2:
+        t = fverts[:, 1] - fverts[:, 0]
+        meas = np.linalg.norm(t, axis=1)
+        nrm = np.stack([t[:, 1], -t[:, 0]], axis=1) / meas[:, None]
+    else:
+        cr = np.cross(fverts[:, 1] - fverts[:, 0], fverts[:, 2] - fverts[:, 0])
+        nn = np.linalg.norm(cr, axis=1)
+        meas = 0.5 * nn
+        nrm = cr / nn[:, None]
     # orient outward from the plus cell
     flip = np.einsum(
         "fd,fd->f", nrm, fverts.mean(axis=1) - verts.mean(axis=1)
@@ -188,7 +198,7 @@ def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
         gphiT=_soa(gphi, dtype, device),
         wT=_soa(w, dtype, device),
         xqT=_soa(xq, dtype, device),
-        h=torch.as_tensor(mesh.cell_diameters[plus_cell].astype(dtype),
+        h=torch.as_tensor(mesh.diameters_of(plus_cell).astype(dtype),
                           device=device),
         normalT=_soa(nrm, dtype, device),
         flat_eldofs_np=fl,
@@ -209,30 +219,71 @@ class Form:
         self.n_dofs = space.n_dofs
         self.n_fields = space.n_fields
 
-    def jacobian_blocks(self, u: torch.Tensor, params=None):
-        """Per-term dense element Jacobians K (ne, ne, nE): forward-mode
-        autodiff of each element residual kernel, vmapped over elements in
-        chunks of JAC_CHUNK."""
+    def _local(self, kern, nb, params, with_jac):
+        """vmapped per-element (jacobian, residual) of a term's kernel; the
+        residual is the primal of the jacfwd evaluation. Without the
+        jacobian the first slot repeats the residual (vmap maps tensors)."""
+        nf = self.n_fields
+
+        def flat_res(uf, c):
+            r = kern(uf.reshape(nb, nf), {}, c, params).reshape(-1)
+            return r, r
+
+        def local(ul, c):
+            uf = ul.reshape(-1)
+            if with_jac:
+                return jacfwd(flat_res, has_aux=True)(uf, c)
+            return flat_res(uf, c)
+
+        return vmap(local, in_dims=(-1, -1), out_dims=-1)
+
+    def _assemble(self, u, params, with_jac, with_res):
+        """Per-term blocks (ne, ne, nE) and/or the assembled residual, in
+        element chunks of JAC_CHUNK."""
         blocks = []
+        r = torch.zeros(self.n_dofs, dtype=u.dtype, device=u.device)
         nf = self.n_fields
         for dom, kern in self.terms:
             ne, nE = dom.eldofsT.shape
             nb = ne // nf
-            K = torch.zeros((ne, ne, nE), dtype=u.dtype, device=u.device)
-
-            def local_jac(ul, c, kern=kern, nb=nb):
-                def flat_res(uf):
-                    return kern(uf.reshape(nb, nf), {}, c, params).reshape(-1)
-
-                return jacfwd(flat_res)(ul.reshape(-1))
-
-            vjac = vmap(local_jac, in_dims=(-1, -1), out_dims=-1)
+            K = (torch.zeros((ne, ne, nE), dtype=u.dtype, device=u.device)
+                 if with_jac else None)
+            vloc = self._local(kern, nb, params, with_jac)
             for s in range(0, nE, JAC_CHUNK):
                 sl = slice(s, min(s + JAC_CHUNK, nE))
                 u_loc = u[dom.eldofsT[:, sl]].reshape(nb, nf, -1)
-                K[..., sl] = vjac(u_loc, dom.ctx(sl))
+                Kc, rl = vloc(u_loc, dom.ctx(sl))
+                if with_jac:
+                    K[..., sl] = Kc
+                if with_res:
+                    r.index_add_(0, dom.eldofsT[:, sl].reshape(-1),
+                                 rl.reshape(-1))
             blocks.append(K)
-        return blocks
+        return blocks, r
+
+    def jacobian_blocks(self, u: torch.Tensor, params=None):
+        """Per-term dense element Jacobians K (ne, ne, nE): forward-mode
+        autodiff of each element residual kernel, vmapped over elements in
+        chunks of JAC_CHUNK."""
+        return self._assemble(u, params, True, False)[0]
+
+    def residual(self, u: torch.Tensor, params=None) -> torch.Tensor:
+        """Assembled residual (n_dofs,)."""
+        return self._assemble(u, params, False, True)[1]
+
+    def jacobian_and_residual(self, u: torch.Tensor, params=None):
+        """(per-term blocks, assembled residual) in one pass per term: the
+        primal comes out of the same jacfwd evaluation as the tangents."""
+        return self._assemble(u, params, True, True)
+
+    def matvec(self, blocks, x: torch.Tensor) -> torch.Tensor:
+        """The foreground operator y = A_f x from element blocks."""
+        y = torch.zeros(self.n_dofs, dtype=x.dtype, device=x.device)
+        for (dom, _), K in zip(self.terms, blocks):
+            xe = x[dom.eldofsT]                                # (ne, nE)
+            ye = (K * xe[None]).sum(dim=1)                     # (ne, nE)
+            y.index_add_(0, dom.eldofsT.reshape(-1), ye.reshape(-1))
+        return y
 
 
 def integrate(domain, kernel, u: torch.Tensor, params=None) -> torch.Tensor:

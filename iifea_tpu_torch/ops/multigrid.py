@@ -1,14 +1,17 @@
-"""Geometric multigrid on 2D stencil operators (port of the 2D Jacobi part
-of ``iifea_tpu/ops/multigrid.py``).
+"""Geometric multigrid on 2D and 3D stencil operators (port of the 2D
+Jacobi cycle and of ``StencilMultigrid3D`` in ``iifea_tpu/ops/multigrid.py``).
 
-* transfers: 3x3 full weighting with stride 2 (``F.conv2d``) and bilinear
-  interpolation by interleaving, P = 4 Rᵀ, so the V-cycle is symmetric;
+* transfers: full weighting with stride 2 (``F.conv2d``/``F.conv3d``) and
+  bi/trilinear interpolation by interleaving, P = 2^dim Rᵀ, so the V-cycle
+  is symmetric;
 * coarse operators: the Galerkin product R A P computed directly as ONE
-  strided convolution over the coefficient planes ((2r+1)² input and output
-  channels, 3x3 window);
-* smoothing: weighted Jacobi with fixed sweep counts (a linear, symmetric
-  preconditioner, valid inside CG) on the fused ``jacobi_smooth`` kernel;
-  the V-cycle residual uses the ``stencil_mv`` kernel;
+  strided convolution over the coefficient planes ((2r+1)^dim input and
+  output channels, 3^dim window);
+* smoothing, 2D: weighted Jacobi with fixed sweep counts (a linear,
+  symmetric preconditioner, valid inside CG) on the fused ``jacobi_smooth``
+  kernel; 3D: Chebyshev on the l1-Jacobi scaling over the fixed interval
+  [1.05/8, 1.05], one fused ``cheb_step3`` kernel per sweep; the V-cycle
+  residuals use the ``stencil_mv``/``stencil_mv3`` kernels;
 * coarsest level: a dense Newton–Schulz pseudo-inverse.
 
 Float32 convolutions and matrix products must run in full f32: TF32 keeps
@@ -25,13 +28,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iifea_tpu_torch.ops.stencil import StencilOperator2D
+from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
 
 _KERNEL = np.array(
     [[0.25, 0.5, 0.25], [0.5, 1.0, 0.5], [0.25, 0.5, 0.25]]
 )
 _W1 = np.array([0.5, 1.0, 0.5])
-DENSE_CAP = 4096    # largest coarsest level inverted densely
+_KERNEL3 = _W1[:, None, None] * _W1[None, :, None] * _W1[None, None, :]
+DENSE_CAP = 4096    # largest 2D coarsest level inverted densely
+DENSE_CAP3 = 8192   # largest 3D coarsest level inverted densely
 
 
 def _restrict(x2: torch.Tensor) -> torch.Tensor:
@@ -54,6 +59,17 @@ def _prolong(xc2: torch.Tensor) -> torch.Tensor:
     """Bilinear interpolation (P = 4 Rᵀ): separable interleave, rows then
     columns."""
     return _interleave(_interleave(xc2, 0), 1)
+
+
+def _restrict3(x3: torch.Tensor) -> torch.Tensor:
+    """3D full weighting: trilinear kernel / 8, stride 2."""
+    k = torch.as_tensor(_KERNEL3 / 8.0, dtype=x3.dtype, device=x3.device)
+    return F.conv3d(x3[None, None], k[None, None], stride=2, padding=1)[0, 0]
+
+
+def _prolong3(xc3: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation (P = 8 Rᵀ): separable interleave per axis."""
+    return _interleave(_interleave(_interleave(xc3, 0), 1), 2)
 
 
 # -- direct Galerkin composition ------------------------------------------------
@@ -91,6 +107,15 @@ def _rap_kernel2(radius: int) -> np.ndarray:
     return np.ascontiguousarray(K.reshape(m * m, m * m, 3, 3))
 
 
+def _rap_kernel3(radius: int) -> np.ndarray:
+    """(m³, m³, 3, 3, 3) (out, in, kd, kh, kw) conv kernel of the 3D direct
+    RAP."""
+    k1 = _rap_k1(radius)
+    m = 2 * radius + 1
+    K = 0.125 * np.einsum("adu,bev,cfw->abcdefuvw", k1, k1, k1)
+    return np.ascontiguousarray(K.reshape(m ** 3, m ** 3, 3, 3, 3))
+
+
 def _masked_coeffs2(fine: StencilOperator2D) -> torch.Tensor:
     """Coefficients with off-grid taps zeroed: the zero-padded apply never
     reads them, but the direct RAP does."""
@@ -116,6 +141,54 @@ def _coarsen(fine: StencilOperator2D) -> StencilOperator2D:
                         device=fine.device)
     y = F.conv2d(_masked_coeffs2(fine)[None], K, stride=2, padding=1)
     return StencilOperator2D(y[0], cshape, fine.radius)
+
+
+def _masked_coeffs3(fine: StencilOperator3D) -> torch.Tensor:
+    """3D counterpart of ``_masked_coeffs2`` (the mask is separable)."""
+    r = fine.radius
+    dev = fine.device
+
+    def axis(n):
+        i = torch.arange(n, device=dev)
+        return [(i + o >= 0) & (i + o < n) for o in range(-r, r + 1)]
+
+    mx, my, mz = (axis(s) for s in fine.shape)
+    m = 2 * r + 1
+    mask = torch.stack([
+        mx[a][:, None, None] & my[b][None, :, None] & mz[c][None, None, :]
+        for a in range(m) for b in range(m) for c in range(m)
+    ]).to(fine.dtype)
+    return fine.coeffs * mask
+
+
+def _coarsen3(fine: StencilOperator3D) -> StencilOperator3D:
+    """3D direct Galerkin coarse operator: one strided conv3d over the
+    coefficient planes ((2r+1)³ channels in and out, 3³ window, stride 2).
+    The JAX package's in-channel chunking (a 16 GB TPU workaround) is not
+    needed on an 80 GB card."""
+    cshape = tuple((s - 1) // 2 + 1 for s in fine.shape)
+    K = torch.as_tensor(_rap_kernel3(fine.radius), dtype=fine.dtype,
+                        device=fine.device)
+    y = F.conv3d(_masked_coeffs3(fine)[None], K, stride=2, padding=1)
+    return StencilOperator3D(y[0], cshape, fine.radius)
+
+
+def _invd3_l1(S: StencilOperator3D) -> torch.Tensor:
+    """1 / ℓ1 row sums, the l1-Jacobi smoother diagonal (unit guard on zero
+    rows). For SPD A, λ(D_l1⁻¹A) ∈ [0, 1], so the smoother is stable on
+    sliver-cut stencils where plain weighted Jacobi diverges. Row i's
+    entries are exactly coeffs[:, i]."""
+    d = S.coeffs.abs().sum(dim=0).reshape(-1)
+    return 1.0 / torch.where(d > 0, d, torch.ones_like(d))
+
+
+def _dense_inverse3(S: StencilOperator3D) -> torch.Tensor:
+    """Soft-truncated pseudo-inverse of the coarsest 3D operator; see
+    ``_dense_inverse``."""
+    A = S.mv_ref(torch.eye(S.n, dtype=S.dtype, device=S.device)).T
+    d = torch.diagonal(A)
+    A = A + torch.diag((d.abs() == 0).to(A.dtype))
+    return _pinv(A)
 
 
 def _invd(S: StencilOperator2D) -> torch.Tensor:
@@ -195,6 +268,82 @@ class StencilMultigrid:
         rc = _restrict(r.reshape(S.shape)).reshape(-1)
         xc = self._vcycle(lvl + 1, rc)
         x = x + _prolong(xc.reshape(self.levels[lvl + 1].shape)).reshape(-1)
+        return self._smooth(lvl, x, b, self.nu_post)
+
+    def minv(self, r: torch.Tensor) -> torch.Tensor:
+        return self._vcycle(0, r)
+
+
+class StencilMultigrid3D:
+    """Symmetric V-cycle preconditioner for a StencilOperator3D.
+
+    Coarsens while every side s has (s - 1) even and s > ``min_size``
+    (105 → 53 → 27 → 14 at n_bg=104); the coarsest level is inverted
+    densely when it has ≤ DENSE_CAP3 nodes, else smoothed
+    ``coarse_sweeps`` times. Smoothing is Chebyshev on the l1-Jacobi scaled
+    operator over the fixed interval [CHEB_HI/CHEB_ALPHA, CHEB_HI]: the l1
+    scaling bounds the spectrum by 1, so no eigenvalue estimate is needed
+    and the smoother stays stable on sliver-cut stencils, where plain
+    weighted Jacobi diverges.
+    """
+
+    CHEB_HI = 1.05
+    CHEB_ALPHA = 8.0
+
+    def __init__(self, S: StencilOperator3D, nu_pre: int = 2,
+                 nu_post: int = 2, coarse_sweeps: int = 60,
+                 min_size: int = 9):
+        self.nu_pre, self.nu_post = nu_pre, nu_post
+        self.coarse_sweeps = coarse_sweeps
+        self.levels = [S]
+        while all((s - 1) % 2 == 0 and s > min_size
+                  for s in self.levels[-1].shape):
+            self.levels.append(_coarsen3(self.levels[-1]))
+        self.inv_diags = [_invd3_l1(lv) for lv in self.levels]
+        self.coarse_inv = (_dense_inverse3(self.levels[-1])
+                           if self.levels[-1].n <= DENSE_CAP3 else None)
+
+    def _smooth(self, lvl: int, x, b, sweeps: int, x_zero: bool = False):
+        """``sweeps`` Chebyshev steps from x; ``x_zero`` says x is the zero
+        vector (the pre-smoother's start)."""
+        if sweeps <= 0:
+            return x
+        S = self.levels[lvl]
+        invd = self.inv_diags[lvl]
+        hi = self.CHEB_HI
+        lo = hi / self.CHEB_ALPHA
+        theta = 0.5 * (hi + lo)
+        delta = 0.5 * (hi - lo)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        if x_zero:
+            # from x = 0 the first step is a weighted-Jacobi sweep with
+            # ω = 1/θ, and its direction d equals the new x exactly (a
+            # copy: the next fused step updates d in place while reading x)
+            x = S.jacobi_smooth(invd, b, x, 1.0 / theta)
+            d = x.clone()
+        else:
+            x, d = S.cheb_sweep(invd, b, x, None, 1.0 / theta, 0.0)
+        for _ in range(sweeps - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            x, d = S.cheb_sweep(invd, b, x, d, 2.0 * rho_new / delta,
+                                rho_new * rho)
+            rho = rho_new
+        return x
+
+    def _vcycle(self, lvl: int, b):
+        S = self.levels[lvl]
+        if lvl == len(self.levels) - 1:
+            if self.coarse_inv is not None:
+                return self.coarse_inv @ b
+            return self._smooth(lvl, torch.zeros_like(b), b,
+                                self.coarse_sweeps, x_zero=True)
+        x = self._smooth(lvl, torch.zeros_like(b), b, self.nu_pre,
+                         x_zero=True)
+        r = b - S.mv(x)
+        rc = _restrict3(r.reshape(S.shape)).reshape(-1)
+        xc = self._vcycle(lvl + 1, rc)
+        x = x + _prolong3(xc.reshape(self.levels[lvl + 1].shape)).reshape(-1)
         return self._smooth(lvl, x, b, self.nu_post)
 
     def minv(self, r: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Quadrature on the reference triangle and interval (numpy copy of the 2D
-part of ``iifea_tpu/ops/quadrature.py``).
+"""Quadrature on the reference triangle, tetrahedron and interval (numpy
+copy of the low-degree part of ``iifea_tpu/ops/quadrature.py``).
 
-Weights sum to the reference measure: 1/2 for the triangle, 1 for [0, 1].
+Weights sum to the reference measure: 1/2 for the triangle, 1/6 for the
+tetrahedron, 1 for [0, 1]. 3D facet rules are rescaled to sum to 1: the
+physical facet measure (½‖a×b‖) is applied separately.
 """
 from __future__ import annotations
 
@@ -27,6 +29,26 @@ def triangle_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
     return pts, wts
 
 
+def _tet_perm4(a: float) -> np.ndarray:
+    """4 barycentric permutations of (b,a,a,a) mapped to (x,y,z), b=1-3a."""
+    b = 1.0 - 3.0 * a
+    return np.array([[a, a, a], [b, a, a], [a, b, a], [a, a, b]])
+
+
+def tet_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
+    """Keast rules on the unit tetrahedron, degree ≤ 2."""
+    d = max(int(degree), 1)
+    if d == 1:
+        pts = np.array([[0.25, 0.25, 0.25]])
+        wts = np.array([1 / 6])
+    elif d == 2:
+        pts = _tet_perm4(0.138196601125011)     # (5 - sqrt(5)) / 20
+        wts = np.full(4, 1 / 24)
+    else:
+        raise ValueError(f"tetrahedron rules up to degree 2, got {degree}")
+    return pts, wts
+
+
 def interval_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
     """Gauss-Legendre on [0, 1] exact to the given degree; pts shape (n, 1)."""
     n = max((int(degree) + 2) // 2, 1)
@@ -35,12 +57,15 @@ def interval_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def cell_rule(dim: int, degree: int) -> tuple[np.ndarray, np.ndarray]:
-    if dim != 2:
-        raise ValueError(f"the port covers 2D cells, got dim={dim}")
-    return triangle_rule(degree)
+    if dim not in (2, 3):
+        raise ValueError(f"the port covers 2D and 3D cells, got dim={dim}")
+    return triangle_rule(degree) if dim == 2 else tet_rule(degree)
 
 
 def facet_rule(dim: int, degree: int) -> tuple[np.ndarray, np.ndarray]:
-    if dim != 2:
-        raise ValueError(f"the port covers 2D facets, got dim={dim}")
-    return interval_rule(degree)
+    if dim not in (2, 3):
+        raise ValueError(f"the port covers 2D and 3D facets, got dim={dim}")
+    if dim == 2:
+        return interval_rule(degree)
+    pts, wts = triangle_rule(degree)
+    return pts, wts * 2.0

@@ -1,19 +1,25 @@
-"""Hand-written CUDA kernels for the 2D stencil apply and Jacobi sweep.
+"""Hand-written CUDA kernels for the 2D and 3D stencil applies and
+smoothing sweeps.
 
-Port of the Pallas TPU kernels ``iifea_tpu/ops/pallas_stencil.py``
-(``stencil_mv`` and ``jacobi_smooth``) to Hopper. The CUDA source is
-``iifea_tpu_torch/csrc/stencil2d.cu``; it is compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/iifea_tpu_torch/`` at the repository
-root (a plain C interface loaded with ``ctypes``), keyed by a hash of the
-source and flags, so a fresh checkout builds everything it runs.
+Port of the Pallas TPU kernels of ``iifea_tpu/ops/pallas_stencil.py`` to
+Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cu``) and
+``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``, which also holds
+the fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother). Every
+``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` at first use
+(one nvcc per source, run together, then one link) into one shared library
+in ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
+loaded with ``ctypes``), keyed by a hash of all sources and the flags, so a
+fresh checkout builds everything it runs.
 
-Dispatch rule of both wrappers: a CPU tensor runs the plain PyTorch version
+Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version
 in this module; a CUDA tensor always launches the kernel (or raises). Each
 wrapper counts its kernel launches in ``<wrapper>.launches``.
 
-Layout: coefficients are ``((2r+1)², nx1, ny1)`` contiguous f32 planes with
-plane index k = (oi+r)·m + (oj+r); vectors are flat ``(nx1·ny1,)`` with node
-id = i·ny1 + j. x is zero outside the lattice.
+Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous f32 planes
+with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
+``((2r+1)³, nx1, ny1, nz1)`` with k = ((oi+r)·m + (oj+r))·m + (ok+r) and
+node id (i·ny1 + j)·nz1 + k. Vectors are flat. x is zero outside the
+lattice.
 """
 from __future__ import annotations
 
@@ -28,11 +34,11 @@ import torch
 import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "stencil2d.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "iifea_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -61,6 +67,39 @@ def jacobi_smooth_plain(C, invd, b, x, omega, shape, radius):
     return x + omega * invd * (b - stencil_mv_plain(C, x, shape, radius))
 
 
+def stencil_mv3_plain(C, x, shape, radius):
+    """y = A x as (2r+1)³ shifted multiply-adds over the zero-padded x.
+
+    Any float dtype; x may carry leading batch dims (..., n)."""
+    nx1, ny1, nz1 = shape
+    r = radius
+    m = 2 * r + 1
+    x3 = x.reshape(*x.shape[:-1], nx1, ny1, nz1)
+    xp = F.pad(x3, (r, r, r, r, r, r))
+    y = torch.zeros_like(x3)
+    for oi in range(m):
+        for oj in range(m):
+            for ok in range(m):
+                k = (oi * m + oj) * m + ok
+                y = y + C[k] * xp[..., oi:oi + nx1, oj:oj + ny1,
+                                  ok:ok + nz1]
+    return y.reshape(x.shape)
+
+
+def jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius):
+    """One 3D weighted-Jacobi sweep x + ω·invd·(b − A x)."""
+    return x + omega * invd * (b - stencil_mv3_plain(C, x, shape, radius))
+
+
+def cheb_step3_plain(C, invd, b, x, d, alpha, beta, shape, radius):
+    """One Chebyshev smoothing step: r = invd·(b − A x), d' = α·r + β·d,
+    x' = x + d'. ``d`` is None on the first step (β = 0). Returns
+    (x', d')."""
+    r = invd * (b - stencil_mv3_plain(C, x, shape, radius))
+    dn = alpha * r if d is None else alpha * r + beta * d
+    return x + dn, dn
+
+
 # -- build and load -------------------------------------------------------------
 
 
@@ -73,28 +112,49 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the shared library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the shared library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libstencil2d_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libstencil_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the CUDA source unless a library for this exact source and
-    flag set exists. The compiler's resource report (registers, shared
-    memory, spills) is kept beside the library as ``.log``."""
+    """Compile every CUDA source unless a library for these exact sources
+    and flags exists: one nvcc per source, all started together, then one
+    link. The compiler's resource report (registers, shared memory,
+    spills) is kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    jobs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log = []
+    for cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}")
+        log.append(stdout + stderr)
+    tmp = out.with_name(f"{tag}.tmp")
+    cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+            f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n"
+            f"{res.stderr}"
         )
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)
     return out
 
@@ -104,28 +164,37 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stencil2d_mv.argtypes = [p, p, p, i, i, i, p]
-    lib.stencil2d_mv.restype = i
     lib.stencil2d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, p]
-    lib.stencil2d_jacobi.restype = i
+    lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, p]
+    lib.stencil3d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, i, p]
+    lib.stencil3d_cheb.argtypes = [p, p, p, p, p, f, f, p, i, i, i, i, p]
+    for fn in (lib.stencil2d_mv, lib.stencil2d_jacobi, lib.stencil3d_mv,
+               lib.stencil3d_jacobi, lib.stencil3d_cheb):
+        fn.restype = i
     return lib
 
 
 # -- wrappers -------------------------------------------------------------------
 
 
-def _check(C, x, shape, radius, *planes) -> str:
-    """Validate the operands; returns the device type ('cpu' or 'cuda')."""
+def _check(C, x, shape, radius, *planes, dim: int = 2) -> str:
+    """Validate the operands of a ``dim``-D kernel; returns the device type
+    ('cpu' or 'cuda')."""
     if radius not in (1, 2):
         raise ValueError(f"radius must be 1 or 2, got {radius}")
-    nx1, ny1 = shape
+    shape = tuple(shape)
+    if len(shape) != dim:
+        raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
     m = 2 * radius + 1
-    if tuple(C.shape) != (m * m, nx1, ny1):
-        raise ValueError(
-            f"coefficients {tuple(C.shape)} != {(m * m, nx1, ny1)}"
-        )
+    want = (m ** len(shape), *shape)
+    if tuple(C.shape) != want:
+        raise ValueError(f"coefficients {tuple(C.shape)} != {want}")
+    n = 1
+    for s_ in shape:
+        n *= s_
     for v in (x, *planes):
-        if tuple(v.shape) != (nx1 * ny1,):
-            raise ValueError(f"vector {tuple(v.shape)} != {(nx1 * ny1,)}")
+        if tuple(v.shape) != (n,):
+            raise ValueError(f"vector {tuple(v.shape)} != {(n,)}")
     for t in (C, x, *planes):
         if t.dtype != torch.float32:
             raise TypeError(f"stencil kernels take float32, got {t.dtype}")
@@ -175,10 +244,78 @@ def jacobi_smooth(C, invd, b, x, omega, shape, radius):
     return y
 
 
-stencil_mv.launches = 0
-jacobi_smooth.launches = 0
+def stencil_mv3(C, x, shape, radius):
+    """y = A x on a 3D lattice (f32). CPU: plain version; CUDA: the
+    stencil3d_mv kernel."""
+    if _check(C, x, shape, radius, dim=3) == "cpu":
+        return stencil_mv3_plain(C, x, shape, radius)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _lib().stencil3d_mv(
+            C.data_ptr(), x.data_ptr(), y.data_ptr(), *shape, radius,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil3d_mv")
+    stencil_mv3.launches += 1
+    return y
+
+
+def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
+    """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32). CPU:
+    plain version; CUDA: the stencil3d_jacobi kernel."""
+    if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
+        return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _lib().stencil3d_jacobi(
+            C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
+            float(omega), y.data_ptr(), *shape, radius,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil3d_jacobi")
+    jacobi_smooth3.launches += 1
+    return y
+
+
+def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
+    """One Chebyshev smoothing step in one pass on a 3D lattice (f32):
+    r = invd·(b − A x), d' = α·r + β·d, x' = x + d'. ``d`` is None on the
+    first step (β must be 0). Returns (x', d'). CPU: plain version; CUDA:
+    the stencil3d_cheb kernel, which writes x' to a new tensor and d' over
+    ``d`` (each point reads only its own d)."""
+    if d is None and beta != 0:
+        raise ValueError("the first Chebyshev step (d=None) takes beta=0")
+    if d is not None and d.data_ptr() == x.data_ptr():
+        raise ValueError("d is updated in place and must not alias x")
+    planes = (invd, b) if d is None else (invd, b, d)
+    if _check(C, x, shape, radius, *planes, dim=3) == "cpu":
+        return cheb_step3_plain(C, invd, b, x, d, alpha, beta, shape, radius)
+    y = torch.empty_like(x)
+    if d is None:
+        d = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _lib().stencil3d_cheb(
+            C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
+            d.data_ptr(), float(alpha), float(beta), y.data_ptr(), *shape,
+            radius, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil3d_cheb")
+    cheb_step3.launches += 1
+    return y, d
+
+
+WRAPPERS = (stencil_mv, jacobi_smooth, stencil_mv3, jacobi_smooth3,
+            cheb_step3)
 
 
 def reset_launches() -> None:
-    stencil_mv.launches = 0
-    jacobi_smooth.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    """Launch counts of every wrapper, by name."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+reset_launches()

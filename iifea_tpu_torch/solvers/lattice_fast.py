@@ -1,6 +1,7 @@
-"""The 2D lattice fast solve (port of the 2D binned mode of
-``iifea_tpu/solvers/lattice_fast.py``).
+"""The lattice fast solve (port of the 2D binned mode and the 3D window
+mode of ``iifea_tpu/solvers/lattice_fast.py``).
 
+2D (binned mode):
   setup (host, once): lattice-binned tables (ops/lattice_bin.py), rhs
                       quadrature tables and slot-bound cell geometry
   solve:  assemble  f64 P1 cell stiffness on the bound geometry, Nitsche
@@ -11,11 +12,24 @@
           refine    f32 MG-PCG passes, refined with f64 binned residuals
                     until the relative f64 residual is below rtol
 
-The f32 CG matvec, the V-cycle residual and the V-cycle smoother run on the
-hand-written CUDA kernels when the solver lives on a GPU.
+3D (window mode):
+  setup (once):   cell-window tables (ops/cell_window.py)
+  solve:  assemble  Form.jacobian_and_residual in f64: compact element
+                    blocks (ne, ne, nE) per term and b = −Mᵀ r
+          bind      nothing: the probe binds per slab from compact blocks
+          probe     window congruence G = EᵀKE and placement into the
+                    radius-2 3D stencil planes (f64, cast to f32)
+          build_mg  StencilMultigrid3D (conv RAP, Chebyshev on the l1
+                    scaling, dense coarsest level)
+          refine    f32 MG-PCG passes, refined with the exact f64 residual
+                    b − Mᵀ A_f M x (ops/projection.BackgroundOperator)
+
+The f32 CG matvec, the V-cycle residuals and the V-cycle smoothers run on
+the hand-written CUDA kernels when the solver lives on a GPU.
 
 Scope: scalar P1 problems with one cell term and one boundary-facet term
-on a 2D lattice. Construction raises ``LatticeBinError`` otherwise.
+on a lattice whose dimension is the mesh's (2 or 3). Construction raises
+``LatticeBinError`` otherwise.
 """
 from __future__ import annotations
 
@@ -23,18 +37,21 @@ import numpy as np
 import torch
 
 from iifea_tpu_torch.models.poisson import p1_stiffness_arrays
-from iifea_tpu_torch.ops import lattice_bin
+from iifea_tpu_torch.ops import cell_window, lattice_bin
 from iifea_tpu_torch.ops.assembly import Form
-from iifea_tpu_torch.ops.multigrid import StencilMultigrid
-from iifea_tpu_torch.ops.stencil import StencilOperator2D
+from iifea_tpu_torch.ops.multigrid import StencilMultigrid, StencilMultigrid3D
+from iifea_tpu_torch.ops.projection import BackgroundOperator
+from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
 from iifea_tpu_torch.solvers import krylov
 
 
 class BinnedLatticeSolver:
-    """End-to-end immersed solve on a 2D lattice background.
+    """End-to-end immersed solve on a 2D or 3D lattice background.
 
     >>> solver = BinnedLatticeSolver(prob, M, (n_bg + 1, n_bg + 1),
     ...                              device="cuda")
+    >>> solver3 = BinnedLatticeSolver(prob3, M3, (n_bg + 1,) * 3,
+    ...                               device="cuda")
     >>> u_b, info = solver.solve(rtol=1e-10)
 
     ``u_b`` is the f64 background solution; ``info`` reports the achieved
@@ -46,12 +63,10 @@ class BinnedLatticeSolver:
         self.prob = prob
         self.M = M
         self.shape = tuple(lattice_shape)
-        if len(self.shape) != 2:
+        self.dim = len(self.shape)
+        if self.dim != prob.mesh.dim:
             raise lattice_bin.LatticeBinError(
-                f"the port covers 2D lattices, got {len(self.shape)}D; the "
-                "3D path (StencilOperator3D, cell windows) is the second "
-                "slice of the port"
-            )
+                f"a {self.dim}D lattice under a {prob.mesh.dim}D mesh")
         for what, dev in (("problem", prob.device), ("extraction", M.device)):
             if dev != self.device:
                 raise ValueError(f"{what} lives on {dev}, solver on "
@@ -71,6 +86,10 @@ class BinnedLatticeSolver:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
+        if self.dim == 3:
+            self.reducers = cell_window.build_window_projection(
+                form, M, self.shape, device=self.device)
+            return
         self.reducers = lattice_bin.build_binned_projection(
             form, M, self.shape, device=self.device)
         self.rhs_tables = prob.rhs_tables(self.reducers)
@@ -83,29 +102,45 @@ class BinnedLatticeSolver:
     # -- pipeline stages --------------------------------------------------------
 
     def assemble(self):
-        """(b64, bound cell stiffness (3, 3, L, nc), facet blocks (3, 3, nF)),
-        all f64."""
+        """2D: (b64, bound cell stiffness (3, 3, L, nc), facet blocks
+        (3, 3, nF)); 3D: (b64, compact cell blocks (4, 4, nE), compact
+        facet blocks (4, 4, nF)). All f64."""
+        u0 = torch.zeros(self.prob.space.n_dofs, dtype=torch.float64,
+                         device=self.device)
+        if self.dim == 3:
+            (K_cell, K_facet), r = self.prob.form.jacobian_and_residual(u0)
+            return -self.M.rmv(r), K_cell, K_facet
         b64 = lattice_bin.project_rhs_binned(
             self.reducers, self.prob.rhs_el(self.rhs_tables))
         K_cell_b = p1_stiffness_arrays(self.JinvT_b, self.wdetT_b, self.gref)
-        u0 = torch.zeros(self.prob.space.n_dofs, dtype=torch.float64,
-                         device=self.device)
         K_facet = self.facet_form.jacobian_blocks(u0)[0]
         return b64, K_cell_b, K_facet
 
     def bind(self, K_cell_b, K_facet):
+        if self.dim == 3:
+            return [K_cell_b, K_facet]
         return [K_cell_b, self.reducers[1].bind_blocks(K_facet)]
 
-    def probe(self, bound) -> StencilOperator2D:
+    def probe(self, bound):
+        if self.dim == 3:
+            C = cell_window.stencil_planes_windows(self.reducers, bound)
+            return StencilOperator3D(C.to(torch.float32), self.shape, 2)
         C = lattice_bin.stencil_planes_binned_bound(self.reducers, bound)
         return StencilOperator2D(C.to(torch.float32), self.shape, 2)
 
-    def build_mg(self, S32: StencilOperator2D) -> StencilMultigrid:
+    def build_mg(self, S32):
+        if self.dim == 3:
+            return StencilMultigrid3D(S32)
         return StencilMultigrid(S32)
 
     def residual(self, bound, b64, x64):
-        """(r64, r32, relres): exact f64 residual on the binned operator."""
-        r64 = b64 - lattice_bin.apply_binned(self.reducers, bound, x64)
+        """(r64, r32, relres): exact f64 residual, on the binned operator in
+        2D and on Mᵀ A_f M from the compact blocks in 3D."""
+        if self.dim == 3:
+            A64 = BackgroundOperator(self.prob.form, bound, self.M)
+            r64 = b64 - A64.mv(x64)
+        else:
+            r64 = b64 - lattice_bin.apply_binned(self.reducers, bound, x64)
         relres = float(torch.linalg.vector_norm(r64)
                        / torch.linalg.vector_norm(b64))
         return r64, r64.to(torch.float32), relres

@@ -80,7 +80,10 @@ def test_torch_slice_rejects_unsupported(reference):
 
 def test_torch_port_imports_no_jax():
     code = ("import sys, iifea_tpu_torch, iifea_tpu_torch.solvers.lattice_fast"
-            ", iifea_tpu_torch.convert; "
+            ", iifea_tpu_torch.convert, iifea_tpu_torch.ops.cell_window"
+            ", iifea_tpu_torch.ops.projection, iifea_tpu_torch.ops.multigrid"
+            ", iifea_tpu_torch.ops.stencil_kernels"
+            ", iifea_tpu_torch.mesh.generators; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'iifea_tpu' not in sys.modules, 'iifea_tpu imported'")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -96,13 +96,14 @@ def test_torch_stencil_wrappers_reject_bad_operands():
 
 
 def test_torch_stencil_kernel_build_is_keyed_by_source():
-    """The library name follows the source and flags; nothing is compiled
-    at import time."""
+    """The library name follows every source and the flags; nothing is
+    compiled at import time."""
     p = sk.library_path()
     assert p.parent == sk.BUILD_DIR
-    assert p.name.startswith("libstencil2d_") and p.suffix == ".so"
+    assert p.name.startswith("libstencil_") and p.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in sk.NVCC_FLAGS
-    assert sk.SOURCE.exists()
+    assert {s.name for s in sk.SOURCES} >= {"stencil2d.cu", "stencil3d.cu"}
+    assert all(s.exists() for s in sk.SOURCES)
 
 
 @pytest.mark.gpu
