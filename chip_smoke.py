@@ -10,35 +10,55 @@ line; the first failure exits non-zero:
   1. build: compiles every iifea_tpu_torch/csrc/*.cu (stencil2d.cu,
      stencil3d.cu) with nvcc (sm_90a), one nvcc per source in parallel.
   2. kernels: stencil_mv and jacobi_smooth against their plain PyTorch
-     versions on the card; median kernel and plain times at 1025², r=2.
+     versions on the card; at every level shape the 2D V-cycle smooths
+     (1025², 513², 257², 129², 65²; r=2) the device time per launch (a
+     CUDA graph of 50 launches, one event pair around its replay), the
+     per-call time from an idle card (one event pair around one call: the
+     wrapper's host work included) and the bound; the plain version's
+     device time at 1025².
   3. kernels3: stencil_mv3, jacobi_smooth3 and cheb_step3 against their
      plain versions at small shapes and at 105³; a soak of thousands of
      interleaved radius-2 launches over 105³, 53³, 27³ and 14³ (the 3D
-     V-cycle's levels), synchronised and compared; median times at 105³.
+     V-cycle's levels), synchronised and compared; times as in phase 2 at
+     105³, 53³ and 27³.
   4. small reference: the card's n_bg=64 2D solution checked with a host
      f64 residual, and the n_bg=24 card and host solutions compared.
   5. small reference 3D: the card's n_bg=16 solution checked with a host
      f64 residual; the n_bg=8 card and host solutions' error norms
      compared.
   6. main path 2D: BinnedLatticeSolver.solve at n_bg=1024 (1,050,625
-     background dofs) once with the kernel launch counters reset, then
-     per-stage times, a profiled warm solve (device busy share, top
-     kernels), warm end-to-end times and error norms.
-  7. main path 3D: the same at n_bg=104 (105³ = 1,157,625 background
-     dofs, 13,182,000 foreground tetrahedra), with host setup per stage,
-     table bytes and peak device memory; its error norms must be below
-     those of an n_bg=52 solve.
+     background dofs) once with the kernel launch counters reset (and
+     counted per lattice shape), then per-stage times, a profiled warm
+     solve (device busy share, top kernels), warm end-to-end times and
+     error norms. Then the solver front-end on the same problem (the
+     solver freed first): assemble_background_system and
+     solve_ksp(pc='mg') with CG and with GMRES, each counted, checked for
+     residual, iterations, kernels, device and agreement with the
+     BinnedLatticeSolver's solution.
+  7. main path 3D: the same at n_bg=104 (105³ = 1,157,625 background dofs,
+     13,182,000 foreground tetrahedra), with host setup per stage, table
+     bytes and peak device memory, and the front-end with CG; its error
+     norms must be below those of an n_bg=52 solve.
+  8. demo: ``python3 -m iifea_tpu_torch.demos.poisson --ref 4 --solv gmres
+     --pc jacobi`` on the card (the general operator, no stencil kernel),
+     held against the same demo on the host.
 
+Then ``kernel_shapes``: every timed (kernel, shape) with its launches in the
+main-path solves and launches × (device ms − bound ms) per kernel.
 The line before the last is the kernel summary JSON, the last line the
 device JSON. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -55,6 +75,10 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "cheb_step3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
+GRAPH_LAUNCHES = 50           # captured calls per timed CUDA graph
+# the V-cycle's smoothed levels (the coarsest, 33² and 14³, is dense)
+LEVELS2 = [(s_, s_) for s_ in (1025, 513, 257, 129, 65)]
+LEVELS3 = [(s_,) * 3 for s_ in (105, 53, 27)]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 # f32 vectors each kernel reads or writes once besides its coefficient
@@ -72,8 +96,10 @@ def phase(tag: str, **kv) -> None:
     print(json.dumps({"phase": tag, **kv}), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median milliseconds of fn() on the card, one CUDA event pair each."""
+def call_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median milliseconds of one call of fn() from an idle card: one CUDA
+    event pair around the call, so the interval holds the wrapper's host
+    work before the launch as well as the kernel."""
     import torch
 
     for _ in range(warm):
@@ -89,6 +115,54 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """Device milliseconds per call of fn(): a CUDA graph of ``launches``
+    captured calls, one CUDA event pair around each replay, divided by the
+    count; the median of ``reps`` replays. No host time is in the
+    interval. Consecutive calls find their operands in the 50 MB L2 where
+    they fit, as the V-cycle's repeated sweeps on one level do."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_kernel(name, shape, fn, plain=None) -> dict:
+    """One ``kernel_time`` line: device ms, call ms and bound at ``shape``
+    (and the plain version's device ms where ``plain`` is given)."""
+    b_ms, by = bound(name, shape)
+    row = {"kernel": name, "shape": list(shape), "radius": 2,
+           "device_ms": device_ms(fn), "call_ms": call_ms(fn),
+           "bound_ms": b_ms, "bound_by": by}
+    if plain is not None:
+        row["plain_ms"] = device_ms(plain, launches=10, reps=3)
+    row["share_of_bound"] = b_ms / row["device_ms"]
+    phase("kernel_time", **row)
+    return row
 
 
 def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
@@ -180,36 +254,41 @@ def phase_kernels():
             C, x, _ = operands(shape, radius)
             _check(worst, "stencil_mv", sk.stencil_mv(C, x, shape, radius),
                    sk.stencil_mv_plain(C, x, shape, radius), shape, radius)
-    timing = {}
     for shape in [(21, 35), (1025, 1025)]:
         C, x, n = operands(shape, 2)
         b = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
                          device=dev)
         invd = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32,
                             device=dev)
-        om = 0.67
         if shape == (1025, 1025):
             _check(worst, "stencil_mv", sk.stencil_mv(C, x, shape, 2),
                    sk.stencil_mv_plain(C, x, shape, 2), shape, 2)
         _check(worst, "jacobi_smooth",
-               sk.jacobi_smooth(C, invd, b, x, om, shape, 2),
-               sk.jacobi_smooth_plain(C, invd, b, x, om, shape, 2), shape, 2)
-        if shape == (1025, 1025):
-            timing["stencil_mv"] = (
-                cuda_ms(lambda: sk.stencil_mv(C, x, shape, 2)),
-                cuda_ms(lambda: sk.stencil_mv_plain(C, x, shape, 2)),
-                shape,
-            )
-            timing["jacobi_smooth"] = (
-                cuda_ms(lambda: sk.jacobi_smooth(C, invd, b, x, om, shape, 2)),
-                cuda_ms(lambda: sk.jacobi_smooth_plain(C, invd, b, x, om,
-                                                       shape, 2)),
-                shape,
-            )
-    for name, (ms, plain_ms, shape) in timing.items():
-        phase("kernel_time", kernel=name, shape=list(shape), radius=2,
-              ms=ms, plain_ms=plain_ms, bound_ms=bound(name, shape)[0])
-    return worst, timing
+               sk.jacobi_smooth(C, invd, b, x, 0.67, shape, 2),
+               sk.jacobi_smooth_plain(C, invd, b, x, 0.67, shape, 2), shape,
+               2)
+    rows = []
+    for shape in LEVELS2:
+        C, x, n = operands(shape, 2)
+        b = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                         device=dev)
+        invd = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32,
+                            device=dev)
+        main = shape == LEVELS2[0]
+
+        def mv(C=C, x=x, shape=shape, f=sk.stencil_mv):
+            return f(C, x, shape, 2)
+
+        def jac(C=C, x=x, b=b, invd=invd, shape=shape, f=sk.jacobi_smooth):
+            return f(C, invd, b, x, 0.67, shape, 2)
+
+        rows.append(time_kernel(
+            "stencil_mv", shape, mv,
+            partial(mv, f=sk.stencil_mv_plain) if main else None))
+        rows.append(time_kernel(
+            "jacobi_smooth", shape, jac,
+            partial(jac, f=sk.jacobi_smooth_plain) if main else None))
+    return worst, rows
 
 
 N_BG3 = 104                      # 105³ = 1,157,625 background dofs
@@ -303,28 +382,28 @@ def phase_kernels3():
         fail(f"soak: {int(mismatches)} values differ between repeats")
     del ops, first
 
-    C, x, b, invd, d = operands(SHAPE3, 2)
-    sh = SHAPE3
-    timing = {
-        "stencil_mv3": (
-            cuda_ms(lambda: sk.stencil_mv3(C, x, sh, 2)),
-            cuda_ms(lambda: sk.stencil_mv3_plain(C, x, sh, 2)), sh),
-        "jacobi_smooth3": (
-            cuda_ms(lambda: sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 2)),
-            cuda_ms(lambda: sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, sh,
-                                                    2)), sh),
-        "cheb_step3": (
-            cuda_ms(lambda: sk.cheb_step3(C, invd, b, x, d, 1.3, 0.45, sh,
-                                          2)),
-            cuda_ms(lambda: sk.cheb_step3_plain(C, invd, b, x, d, 1.3, 0.45,
-                                                sh, 2)), sh),
-    }
-    for name, (ms, plain_ms, shape) in timing.items():
-        b_ms, by = bound(name, shape)
-        phase("kernel_time", kernel=name, shape=list(shape), radius=2,
-              ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-              gb_per_s=4.0 * (125 + VECTORS[name]) * x.numel() / ms / 1e6)
-    return worst, timing
+    rows = []
+    for sh in LEVELS3:
+        C, x, b, invd, d = operands(sh, 2)
+        main = sh == LEVELS3[0]
+
+        def mv(C=C, x=x, sh=sh, f=sk.stencil_mv3):
+            return f(C, x, sh, 2)
+
+        def jac(C=C, x=x, b=b, invd=invd, sh=sh, f=sk.jacobi_smooth3):
+            return f(C, invd, b, x, 0.67, sh, 2)
+
+        def cheb(C=C, x=x, b=b, invd=invd, d=d, sh=sh, f=sk.cheb_step3):
+            return f(C, invd, b, x, d, 1.3, 0.45, sh, 2)
+
+        for name, fn, plain in (
+                ("stencil_mv3", mv, sk.stencil_mv3_plain),
+                ("jacobi_smooth3", jac, sk.jacobi_smooth3_plain),
+                ("cheb_step3", cheb, sk.cheb_step3_plain)):
+            rows.append(time_kernel(name, sh, fn,
+                                    partial(fn, f=plain) if main else None))
+        del C, x, b, invd, d
+    return worst, rows
 
 
 N_BG = 1024                      # 1,050,625 background dofs (headline size)
@@ -511,7 +590,10 @@ def stage_times(solver, tag: str):
         (x, relres, iters), t_ref = stage(
             "refine", lambda: solver.refine(S32, mg, bound_, b64, 1e-10))
     finally:
-        solver.cg, solver.residual = cg0, res0
+        # drop the instance attributes: a bound method stored on its own
+        # instance is a reference cycle that would keep the solver (and
+        # its tables) alive after the caller's del
+        del solver.cg, solver.residual
     phase(tag, element_jacobians_rhs=t_asm, bind=t_bind,
           stencil_extraction=t_probe, multigrid_hierarchy=t_mg,
           refine=t_ref, refine_cg=t_cg[0], refine_residual=t_res[0],
@@ -520,30 +602,166 @@ def stage_times(solver, tag: str):
     return S32, mg
 
 
-def drive(solver, names, max_iters: int, tag: str):
-    """The main path once through the user entry point, counted: every
-    launch counter is 0 just before and read just after."""
+@contextlib.contextmanager
+def count_by_shape(by_shape: Counter):
+    """Count the stencil kernels' launches per lattice shape while the
+    block runs. Every launch goes through a StencilOperator2D/3D method
+    (``mv``, ``jacobi_smooth``, ``cheb_sweep``); each is called through a
+    shim that reads the wrappers' own counters before and after the call
+    and books the difference under the operator's shape."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+    from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
+
+    def shim(method):
+        def counted(self, *a, **kw):
+            before = sk.launches()
+            out = method(self, *a, **kw)
+            shape = "x".join(map(str, self.shape))
+            for k, n in sk.launches().items():
+                if n != before[k]:
+                    by_shape[f"{k}@{shape}"] += n - before[k]
+            return out
+        return counted
+
+    saved = [(cls, name, cls.__dict__[name])
+             for cls in (StencilOperator2D, StencilOperator3D)
+             for name in ("mv", "jacobi_smooth", "cheb_sweep")
+             if name in cls.__dict__]
+    for cls, name, method in saved:
+        setattr(cls, name, shim(method))
+    try:
+        yield
+    finally:
+        for cls, name, method in saved:
+            setattr(cls, name, method)
+
+
+def counted_run(fn, names, tag):
+    """fn() with every launch counter set to 0 just before and read just
+    after; fails unless each kernel in ``names`` launched, and unless the
+    per-shape counts add up to the wrappers' own counters. Returns
+    (fn's result, seconds, launches by kernel, launches by kernel@shape)."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
+    by_shape = Counter()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launches()
-    (u, info), t_first = sync_time(lambda: solver.solve(rtol=1e-10))
+    with count_by_shape(by_shape):
+        out, seconds = sync_time(fn)
     counts = sk.launches()
     launches = {k: counts[k] for k in names}
+    for k, n in counts.items():
+        if sum(v for key, v in by_shape.items()
+               if key.split("@")[0] == k) != n:
+            fail(f"{tag}: per-shape launch counts of {k} do not add up "
+                 f"to its counter {n}: {dict(by_shape)}")
+    if min(launches.values()) <= 0:
+        fail(f"{tag}: a kernel was not launched on the path: {launches}")
+    return out, seconds, launches, dict(by_shape)
+
+
+def drive(solver, names, max_iters: int, tag: str):
+    """The main path once through the user entry point, counted."""
+    import torch
+
+    (u, info), t_first, launches, by_shape = counted_run(
+        lambda: solver.solve(rtol=1e-10), names, tag)
     phase(tag, first_seconds=t_first, launches=launches,
+          launches_by_shape=by_shape,
           peak_gib=torch.cuda.max_memory_allocated() / 2**30, **info)
     if not info["rel_residual"] < 1e-10:
         fail(f"{tag}: relative f64 residual {info['rel_residual']} >= 1e-10")
     if not info["cg_iters"] <= max_iters:
         fail(f"{tag}: {info['cg_iters']} CG iterations > {max_iters}")
-    if min(launches.values()) <= 0:
-        fail(f"{tag}: a kernel was not launched on the main path: "
-             f"{launches}")
     if not (u.shape == (solver.M.n_bg_dofs,) and bool(torch.isfinite(u).all())):
         fail(f"{tag}: solution is not a finite vector of the background size")
-    return u, launches
+    return u, launches, by_shape
+
+
+def front_end(prob, M, u_ref, shape, methods, names, max_iters, tag):
+    """The solver front-end on the main path's problem, as a user of the
+    library drives it: ``assemble_background_system`` (generic jacfwd
+    blocks), then ``solve_ksp(pc='mg')`` once per method, each counted.
+
+    Each solve must reach an f64 relative residual below 1e-10, measured
+    here through the general ``BackgroundOperator.mv``, within
+    ``max_iters``, with every solver tensor on the card, and agree with the
+    BinnedLatticeSolver's solution ``u_ref``:
+
+    * max |x − u_ref| ≤ 1e-6·max|u_ref| over the supported dofs, those
+      whose diagonal is at least 1e-3 of the largest. Dofs below that are
+      cut to slivers: at a 1e-10 residual their values are not determined
+      (at n_bg=1024 they reach 3e7 in u_ref while the solution is O(1)),
+      and two Krylov methods legitimately leave different values there;
+    * the L2/H10 errors of M x within 1e-6 relative, or within 1e-9 of
+      u_exact's norm (ten times the solves' 1e-10 residual: the 2D L2
+      error is 4.4e-6, so 1e-6 of it is below what the tolerance fixes).
+
+    The phase line also carries the difference on every dof with a nonzero
+    diagonal, per support threshold, and the L2 norm of the foreground
+    field difference M(x − u_ref) relative to M u_ref."""
+    import torch
+
+    from iifea_tpu_torch.api import l2_norm
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+    from iifea_tpu_torch.solvers import ksp
+
+    device_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64,
+                     device=u_ref.device)
+    (A, b), t_asm = sync_time(
+        lambda: assemble_background_system(prob.form, u0, M))
+    reducers, t_tab = sync_time(lambda: ksp.lattice_tables(prob.form, M,
+                                                           shape))
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    d = A.diag().abs()
+    supported = d >= 1e-3 * d.max()
+    lim = 1e-6 * float(u_ref[supported].abs().max())
+    norms_ref = prob.error_norms(M.mv(u_ref))
+    u_ref_l2 = l2_norm(M.mv(u_ref), prob.cell_dom)
+    tensors = [b, *A.blocks, M.idxT, M.valT]
+    for red in reducers:
+        tensors += [red.val_b, red.kappa, red.perm]
+    for method in methods:
+        (x, info), t_solve, launches, by_shape = counted_run(
+            lambda: ksp.solve_ksp(A, b, method=method, pc="mg", rtol=1e-10,
+                                  lattice_shape=shape, monitor=False),
+            names, f"{tag} {method}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        relres = float(torch.linalg.vector_norm(b - A.mv(x))
+                       / torch.linalg.vector_norm(b))
+        e = (x - u_ref).abs()
+        diff = float(e[supported].max())
+        by_support = {f"{t:g}": float(e[d > t * d.max()].max())
+                      for t in (0.0, 1e-12, 1e-6, 1e-3, 5e-2)}
+        field = l2_norm(M.mv(x - u_ref), prob.cell_dom) / u_ref_l2
+        norms = prob.error_norms(M.mv(x))
+        gap = {k: abs(norms[k] - norms_ref[k]) for k in ("L2", "H10")}
+        phase(tag, method=method, pc="mg", rel_residual=relres,
+              iters=info.iters, history=info.history,
+              assemble_seconds=t_asm, tables_seconds=t_tab,
+              solve_seconds=t_solve, device_gib_before=device_gib,
+              setup_peak_gib=setup_peak, peak_gib=peak, launches=launches,
+              launches_by_shape=by_shape, max_abs_diff=diff, bound=lim,
+              diff_by_support=by_support, max_abs_u_ref=float(
+                  u_ref.abs().max()), field_rel_diff=field,
+              error_norms=norms, error_norms_binned=norms_ref,
+              norms_rel_diff={k: gap[k] / norms_ref[k] for k in gap})
+        if not relres < 1e-10:
+            fail(f"{tag} {method}: f64 relative residual {relres} >= 1e-10")
+        if not info.iters <= max_iters:
+            fail(f"{tag} {method}: {info.iters} iterations > {max_iters}")
+        if not all(t.is_cuda for t in [x, *tensors]):
+            fail(f"{tag} {method}: a solver tensor is not on the card")
+        if not diff <= lim:
+            fail(f"{tag} {method}: differs from BinnedLatticeSolver by "
+                 f"{diff} > {lim} on supported dofs")
+        if not all(gap[k] <= 1e-6 * norms_ref[k] + 1e-9 for k in gap):
+            fail(f"{tag} {method}: error norms {norms} differ from "
+                 f"BinnedLatticeSolver's {norms_ref}")
 
 
 def phase_main_path():
@@ -559,8 +777,8 @@ def phase_main_path():
           n_facets=prob.facet_dom.n_elem,
           tables=[list(r.meta) for r in solver.reducers], seconds=setup)
 
-    u, launches = drive(solver, ("stencil_mv", "jacobi_smooth"),
-                        MAX_CG_ITERS, "solve")
+    names = ("stencil_mv", "jacobi_smooth")
+    u, launches, by_shape = drive(solver, names, MAX_CG_ITERS, "solve")
     S32, mg = stage_times(solver, "stages")
     if not on_cuda(solver, u, S32, mg):
         fail("a solver tensor is not on the card")
@@ -575,7 +793,11 @@ def phase_main_path():
           error_norms=norms)
     if not all(v == v and 0 < v < 1e-2 for v in norms.values()):
         fail(f"error norms out of range: {norms}")
-    return launches
+    del solver, S32, mg
+    torch.cuda.empty_cache()
+    front_end(prob, M, u, (N_BG + 1,) * 2, ("cg", "gmres"), names,
+              MAX_CG_ITERS, "front_end")
+    return launches, by_shape
 
 
 def phase_main_path3():
@@ -594,8 +816,8 @@ def phase_main_path3():
           table_bytes=[r.nbytes() for r in solver.reducers],
           device_gib=torch.cuda.memory_allocated() / 2**30, seconds=setup)
 
-    u, launches = drive(solver, ("stencil_mv3", "jacobi_smooth3",
-                                 "cheb_step3"), MAX_CG_ITERS3, "solve3")
+    names = ("stencil_mv3", "jacobi_smooth3", "cheb_step3")
+    u, launches, by_shape = drive(solver, names, MAX_CG_ITERS3, "solve3")
     S32, mg = stage_times(solver, "stages3")
     if not on_cuda(solver, u, S32, mg):
         fail("a 3D solver tensor is not on the card")
@@ -605,7 +827,11 @@ def phase_main_path3():
         _, dt = sync_time(lambda: solver.solve(rtol=1e-10))
         totals.append(dt)
     norms = prob.error_norms(M.mv(u))
-    del solver, S32, mg, u, prob, M, mesh
+    del solver, S32, mg
+    torch.cuda.empty_cache()
+    front_end(prob, M, u, SHAPE3, ("cg",), names, MAX_CG_ITERS3,
+              "front_end3")
+    del u, prob, M, mesh
     torch.cuda.empty_cache()
 
     _, M52, p52, s52, _ = build_solver(52, dev, dim=3)
@@ -615,11 +841,70 @@ def phase_main_path3():
           error_norms=norms, error_norms_n_bg52=norms52, n_bg52=info52)
     if not all(v == v and 0 < v < norms52[k] for k, v in norms.items()):
         fail(f"3D error norms {norms} not below n_bg=52's {norms52}")
-    return launches
+    return launches, by_shape
+
+
+def phase_demo():
+    """The Poisson demo as a user runs it, on the card (``python3 -m
+    iifea_tpu_torch.demos.poisson --ref 4 --solv gmres --pc jacobi``: the
+    general gather-bound A.mv and the exact A.diag, no stencil kernel),
+    held against the same demo run in this process on the host: the card's
+    GMRES must reach the host run's tolerance, and the L2/H10/H1 errors
+    agree to 1e-6 relative."""
+    import io
+
+    from iifea_tpu_torch.demos import poisson as demo
+
+    argv = ["--ref", "4", "--solv", "gmres", "--pc", "jacobi"]
+    wall = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "iifea_tpu_torch.demos.poisson", *argv],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - wall
+    if res.returncode != 0:
+        fail(f"demo exited {res.returncode}: {res.stderr[-2000:]}")
+    out = res.stdout
+    conv = re.search(r"Converged in (\d+) iterations\. \(residual norm "
+                     r"(\S+)\)", out)
+    norms = {}
+    for k in ("L2", "H10", "H1"):
+        m = re.search(rf"^{k} norm: (\S+)$", out, re.M)
+        norms[k] = float(m.group(1)) if m else float("nan")
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = demo.main(argv + ["--device", "cpu"])
+    tol = max(1e-8 * host["info"].history[0], 1e-9)
+    rel = {k: abs(norms[k] - host["norms"][k]) / host["norms"][k]
+           for k in norms}
+    iters, resnorm = ((int(conv.group(1)), float(conv.group(2))) if conv
+                      else (None, float("nan")))
+    phase("demo", argv=argv, seconds=wall, iters=iters, resnorm=resnorm,
+          tol=tol, error_norms=norms, host_iters=host["info"].iters,
+          host_error_norms=host["norms"], norms_rel_diff=rel)
+    if not resnorm <= tol:
+        fail(f"demo: GMRES residual {resnorm} above {tol}")
+    if not max(rel.values()) <= 1e-6:
+        fail(f"demo: card norms {norms} differ from the host's "
+             f"{host['norms']}")
 
 
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
-          "small_reference3", "main_path", "main_path3")
+          "small_reference3", "main_path", "main_path3", "demo")
+
+
+def kernel_shapes(timing, by_shape):
+    """Each timed (kernel, shape) with its main-path launches, and per
+    kernel the launches × (device ms − bound ms) summed over the shapes."""
+    rows, excess = [], Counter()
+    for r in timing:
+        n = by_shape.get(f"{r['kernel']}@{'x'.join(map(str, r['shape']))}",
+                         0)
+        rows.append({**r, "launches": n})
+        excess[r["kernel"]] += n * (r["device_ms"] - r["bound_ms"])
+    timed = {f"{r['kernel']}@{'x'.join(map(str, r['shape']))}"
+             for r in timing}
+    phase("kernel_shapes", rows=rows, excess_ms=dict(excess),
+          untimed={k: v for k, v in by_shape.items() if k not in timed})
+    return rows
 
 
 def main() -> None:
@@ -630,7 +915,7 @@ def main() -> None:
     elif args:
         fail(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
     t0 = time.perf_counter()
-    worst, timing, launches = {}, {}, {}
+    worst, timing, launches, by_shape = {}, [], {}, {}
     phase_device()
     phase_build()
     for name, fn in (("kernels", phase_kernels),
@@ -638,29 +923,33 @@ def main() -> None:
         if name in run:
             w, t = fn()
             worst.update(w)
-            timing.update(t)
+            timing += t
     if "small_reference" in run:
         phase_small_reference()
     if "small_reference3" in run:
         phase_small_reference3()
-    if "main_path" in run:
-        launches.update(phase_main_path())
-    if "main_path3" in run:
-        launches.update(phase_main_path3())
+    for name, fn in (("main_path", phase_main_path),
+                     ("main_path3", phase_main_path3)):
+        if name in run:
+            n, s_ = fn()
+            launches.update(n)
+            by_shape.update(s_)
+    if "demo" in run:
+        phase_demo()
     import torch
 
+    kernel_shapes(timing, by_shape)
     phase("elapsed", seconds=time.perf_counter() - t0)
     if run != set(PHASES):
         fail(f"only phases {sorted(run)} ran: no result")
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms, shape = timing[name]
-        b_ms, by = bound(name, shape)
+        t = next(r for r in timing if r["kernel"] == name and "plain_ms" in r)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": worst[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": None})
+                     "max_abs_err": worst[name], "ms": t["device_ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,15 @@ class Mesh:
         """UFL CellDiameter: max vertex-pair distance per cell."""
         return self.diameters_of(np.arange(self.n_cells))
 
+    @cached_property
+    def cell_volumes(self) -> np.ndarray:
+        x = self.cell_coords
+        det = np.linalg.det(x[:, 1:, :] - x[:, :1, :])
+        return np.abs(det) / (2.0 if self.dim == 2 else 6.0)
+
+    def hmax(self) -> float:
+        return float(self.cell_diameters.max())
+
     def diameters_of(self, cell_ids: np.ndarray) -> np.ndarray:
         """``cell_diameters[cell_ids]`` without the whole-mesh temporaries
         (a (n_cells, 4, 4, 3) f64 array is 5 GB at 13M tetrahedra)."""
@@ -138,22 +147,21 @@ def _stable_row_order(tup: np.ndarray, n: int) -> np.ndarray:
 
 
 class FunctionSpace:
-    """Scalar P1 Lagrange space: cell dofs are the mesh's vertex ids."""
+    """P1 Lagrange space with ``n_fields`` components: cell dofs are the
+    mesh's vertex ids (node ids); the per-field dof id is
+    node·n_fields + field."""
 
     def __init__(self, mesh: Mesh, degree: int = 1, n_fields: int = 1):
-        if degree != 1 or n_fields != 1:
-            raise ValueError(
-                f"the port covers scalar P1 spaces, got degree={degree} "
-                f"n_fields={n_fields}"
-            )
+        if degree != 1:
+            raise ValueError(f"the port covers P1 spaces, got degree={degree}")
         self.mesh = mesh
         self.degree = 1
-        self.n_fields = 1
+        self.n_fields = int(n_fields)
         self.element = ReferenceElement(mesh.dim, 1)
         self.cell_dofs = mesh.cells
         self.n_nodes = mesh.n_verts
         self.node_coords = mesh.coords
-        self.n_dofs = self.n_nodes
+        self.n_dofs = self.n_nodes * self.n_fields
 
 
 def flat_dofs(node_ids: np.ndarray, n_fields: int) -> np.ndarray:

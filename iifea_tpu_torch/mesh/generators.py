@@ -74,6 +74,56 @@ def box_mesh(p0, p1, nx: int, ny: int, nz: int) -> Mesh:
     return mesh
 
 
+def _rotate(coords: np.ndarray, angle_deg: float,
+            axis: int = 2) -> np.ndarray:
+    """Rotate points by ``angle_deg`` in the plane (2D) or about ``axis``
+    (3D; about y in DOLFIN's sense)."""
+    a = np.deg2rad(angle_deg)
+    ca, sa = np.cos(a), np.sin(a)
+    out = coords.copy()
+    if coords.shape[1] == 2:
+        out[:, 0] = ca * coords[:, 0] - sa * coords[:, 1]
+        out[:, 1] = sa * coords[:, 0] + ca * coords[:, 1]
+        return out
+    i, j = [(1, 2), (0, 2), (0, 1)][axis]
+    u, v = coords[:, i].copy(), coords[:, j].copy()
+    s = -sa if axis == 1 else sa
+    out[:, i] = ca * u - s * v
+    out[:, j] = s * u + ca * v
+    return out
+
+
+def generate_unfitted_mesh(L_f: float, L_b: float, N_f: int, N_b: int,
+                           dim: int = 2, rotate_f: bool = False,
+                           rotate_b: bool = False, angle: float = 30.0):
+    """generateUnfittedMesh parity: (foreground, background) structured
+    meshes, optionally rotated. The reference's 2D foreground uses (N_f,
+    N_b) divisions, reproduced verbatim. A rotated mesh loses its
+    structured tag (``transfer_matrix_simplex`` locates points only in an
+    unrotated grid)."""
+    if dim == 2:
+        mesh_f = rectangle_mesh((-L_f / 2, -L_f / 2), (L_f / 2, L_f / 2),
+                                N_f, N_b)
+        mesh_b = rectangle_mesh((-L_b / 2, -L_b / 2), (L_b / 2, L_b / 2),
+                                N_b, N_b)
+        if rotate_f:
+            mesh_f = Mesh(_rotate(mesh_f.coords, angle), mesh_f.cells)
+        if rotate_b:
+            mesh_b = Mesh(_rotate(mesh_b.coords, angle), mesh_b.cells)
+    elif dim == 3:
+        mesh_b = box_mesh((-L_b / 2,) * 3, (L_b / 2,) * 3, N_b, N_b, N_b)
+        mesh_f = box_mesh((-L_f / 2,) * 3, (L_f / 2,) * 3, N_f, N_f, N_f)
+        if rotate_f:
+            mesh_f = Mesh(_rotate(_rotate(mesh_f.coords, angle, 2), angle, 1),
+                          mesh_f.cells)
+        if rotate_b:
+            mesh_b = Mesh(_rotate(_rotate(mesh_b.coords, angle, 2), angle, 1),
+                          mesh_b.cells)
+    else:
+        raise ValueError(f"Dimension of {dim} is not supported!")
+    return mesh_f, mesh_b
+
+
 def locate_structured_rect(mesh: Mesh, points: np.ndarray,
                            tol: float = 1e-10):
     """O(1) vectorized point location in a structured rectangle_mesh.
@@ -134,7 +184,7 @@ def locate_structured_box(mesh: Mesh, points: np.ndarray,
 def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
                             degree: int = 1, tol: float = 1e-10,
                             dtype=np.float64, *,
-                            device) -> ExtractionOperator:
+                            device="cuda") -> ExtractionOperator:
     """P1 interpolation matrix from a structured background triangle or
     tetrahedron grid to points: row i holds the basis values of the
     background cell that contains point i. Points outside the grid get zero
@@ -164,7 +214,8 @@ def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
 
 def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
                             angle: float = 30.0, half_width: float = 0.6,
-                            degree: int = 1, dtype=np.float64, *, device):
+                            degree: int = 1, dtype=np.float64, *,
+                            device="cuda"):
     """Rotated square of half-width ``half_width`` immersed in [-L/2, L/2]²:
     foreground cells whose centroid lies inside are the block (material 2),
     the rest material 1. Returns (mesh_f, M)."""
@@ -187,7 +238,8 @@ def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
 
 def immersed_cube_problem(n_fg: int, n_bg: int, L: float = 2.0,
                           angle: float = 30.0, half_width: float = 0.6,
-                          degree: int = 1, dtype=np.float64, *, device):
+                          degree: int = 1, dtype=np.float64, *,
+                          device="cuda"):
     """3D analog of immersed_square_problem: a cube of half-width
     ``half_width``, rotated by ``angle`` about z then y, immersed in a
     structured tetrahedron block over [-L/2, L/2]³. Background node ids

@@ -1,15 +1,17 @@
 """Immersed Poisson with Nitsche boundary conditions (port of
-``iifea_tpu/models/poisson.py`` for the 2D and 3D P1 lattice paths).
+``iifea_tpu/models/poisson.py`` for P1 simplices).
 
   cell:   ∫ ∇u·∇v dx − ∫ f v dx
   facet:  −∫_Γ (∇u·n) v dS + sgn ∫_Γ (g − u)(∇v·n) dS
           [+ β h⁻¹ ∫_Γ (u − g) v dS  if sym or over_penalize]
 
-with u_exact = sin(π(x²+y²))·cos(π(x−y)) in 2D and
+sgn = 1 for symmetric Nitsche, −1 for the nonsymmetric (penalty-free)
+variant. By default u_exact = sin(π(x²+y²))·cos(π(x−y)) in 2D and
 sin(π(x²+y²+z²))·cos(π(x+y+z)) in 3D, g = u_exact on Γ, and the source
-f = −tr Hess u_exact through ``torch.func.hessian``. The element stiffness
-of the cell term and the right-hand side tables are computed in native f64
-(the reference's double-float emulation has no counterpart on the GPU).
+f = −tr Hess u_exact through ``torch.func.hessian``; both can be given.
+The element stiffness of the cell term and the right-hand side tables of
+the lattice solver are computed in native f64 (the reference's
+double-float emulation has no counterpart on the GPU).
 """
 from __future__ import annotations
 
@@ -81,7 +83,11 @@ class PoissonProblem:
     def __init__(self, mesh: Mesh, k: int = 1, sym: bool = True,
                  beta_value: float = 10.0, over_penalize: bool = False,
                  block_id: int = 2, surf_id: int = 3,
-                 quad_degree: int | None = None, *, device):
+                 quad_degree: int | None = None, u_exact=None, f=None, *,
+                 device="cuda"):
+        """``u_exact``/``f``: pointwise functions of one point x (dim,) for
+        the boundary data g and the source (default: the manufactured
+        solution above and f = −Δu_exact)."""
         self.device = torch.device(device)
         self.mesh = mesh
         self.space = FunctionSpace(mesh, degree=k, n_fields=1)
@@ -89,8 +95,8 @@ class PoissonProblem:
         self.sgn = 1.0 if self.sym else -1.0
         self.beta = float(beta_value)
         self.over_penalize = bool(over_penalize)
-        self.u_ex = u_exact_fn(mesh.dim)
-        self.f = source_fn(self.u_ex)
+        self.u_ex = u_exact or u_exact_fn(mesh.dim)
+        self.f = f or source_fn(self.u_ex)
         qd = k if quad_degree is None else quad_degree
         cells = np.where(mesh.material == block_id)[0]
         facets = np.where(mesh.classify_facets_by_material() == surf_id)[0]
@@ -228,3 +234,45 @@ class PoissonProblem:
             "H1": float(torch.sqrt(norm_L2 + norm_H10 + norm_edge)
                         / torch.sqrt(L2 + H10 + edge)),
         }
+
+
+def select_coercive_beta(mesh, M, k: int = 1, beta0: float = 10.0,
+                         max_doublings: int = 4, **prob_kw):
+    """Smallest β in {β0·2^j} whose projected symmetric Nitsche operator is
+    positive definite on supported dofs (zero rows excluded), checked by a
+    shift-invert Lanczos on the explicit host export: the symmetric Nitsche
+    form is coercive iff its projected matrix is SPD there. Demo sizes only.
+    Returns (beta, prob), ``prob`` built at the selected β on M's device
+    unless ``device`` is given."""
+    import scipy.sparse.linalg as spla
+
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+
+    prob_kw.setdefault("device", M.device)
+    prob = None
+    for j in range(max_doublings + 1):
+        beta = beta0 * 2.0 ** j
+        prob = PoissonProblem(mesh, k=k, sym=True, beta_value=beta,
+                              **prob_kw)
+        A, _ = assemble_background_system(
+            prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
+                                   device=prob.device), M)
+        A_sp = A.to_scipy().tocsr()
+        d = np.abs(A_sp.diagonal())
+        alive = np.where(d > 1e-12 * max(d.max(), 1e-300))[0]
+        sub = A_sp[np.ix_(alive, alive)].tocsc()
+        sub = 0.5 * (sub + sub.T)
+        # shift-invert at a tiny negative shift: the marginal-coercivity
+        # failure is eigenvalues just below zero, i.e. the smallest |λ|
+        scale = float(d[alive].max())
+        try:
+            vals = spla.eigsh(
+                sub, k=min(3, sub.shape[0] - 1), sigma=-1e-8 * scale,
+                which="LM", maxiter=1000, return_eigenvectors=False,
+            )
+            lam = float(np.min(vals))
+        except (RuntimeError, ValueError, spla.ArpackError):
+            lam = -np.inf             # singular factor / no convergence
+        if lam > 0:
+            return beta, prob
+    return beta, prob

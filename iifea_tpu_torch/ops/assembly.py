@@ -1,5 +1,5 @@
-"""Batched element assembly core (port of the core of
-``iifea_tpu/ops/assembly.py``).
+"""Batched element assembly engine (port of ``iifea_tpu/ops/assembly.py``
+for P1 simplices).
 
 Domains are built in numpy on the host and hold their data as tensors on
 ``device`` with the element axis last ("struct of planes", as in the
@@ -7,14 +7,18 @@ reference). A kernel is written for ONE element,
 
     kernel(u_loc, aux_loc, ctx, params) -> r_loc (nb, n_fields),
 
-and batched with ``torch.func.vmap`` over the trailing element axis; element
-Jacobians come from ``torch.func.jacfwd`` of the kernel.
+with u_loc (nb, n_fields) the local dofs, aux_loc {name: (nb, n_fields)}
+extra discrete fields gathered like u, ctx the element's CellCtx/FacetCtx
+and params anything the kernel closes over (not batched). It is batched
+with ``torch.func.vmap`` over the trailing element axis; element Jacobians
+come from ``torch.func.jacfwd`` of the kernel, in element chunks of
+JAC_CHUNK.
 
-Residuals and the foreground operator application scatter element
+Residuals and the foreground operator applications scatter element
 vectors with ``index_add_``: on CUDA the order in which several elements
 add onto one dof is not fixed, so f64 results may differ in the last bits
-from run to run. Not ported: multi-field scatter tables, Hessian
-tabulation.
+from run to run. Not ported: Hessian tabulation (P2 and the biharmonic
+model, later slices).
 """
 from __future__ import annotations
 
@@ -225,34 +229,40 @@ class Form:
         jacobian the first slot repeats the residual (vmap maps tensors)."""
         nf = self.n_fields
 
-        def flat_res(uf, c):
-            r = kern(uf.reshape(nb, nf), {}, c, params).reshape(-1)
+        def flat_res(uf, al, c):
+            r = kern(uf.reshape(nb, nf), al, c, params).reshape(-1)
             return r, r
 
-        def local(ul, c):
+        def local(ul, al, c):
             uf = ul.reshape(-1)
             if with_jac:
-                return jacfwd(flat_res, has_aux=True)(uf, c)
-            return flat_res(uf, c)
+                return jacfwd(flat_res, has_aux=True)(uf, al, c)
+            return flat_res(uf, al, c)
 
-        return vmap(local, in_dims=(-1, -1), out_dims=-1)
+        return vmap(local, in_dims=(-1, -1, -1), out_dims=-1)
 
-    def _assemble(self, u, params, with_jac, with_res):
+    def _gather(self, dom, vec, sl=slice(None)):
+        """(nb, n_fields, nE) local values of a dof vector."""
+        ne = dom.eldofsT.shape[0]
+        idx = dom.eldofsT[:, sl]
+        return vec[idx].reshape(ne // self.n_fields, self.n_fields, -1)
+
+    def _assemble(self, u, aux, params, with_jac, with_res):
         """Per-term blocks (ne, ne, nE) and/or the assembled residual, in
         element chunks of JAC_CHUNK."""
         blocks = []
+        aux = aux or {}
         r = torch.zeros(self.n_dofs, dtype=u.dtype, device=u.device)
         nf = self.n_fields
         for dom, kern in self.terms:
             ne, nE = dom.eldofsT.shape
-            nb = ne // nf
             K = (torch.zeros((ne, ne, nE), dtype=u.dtype, device=u.device)
                  if with_jac else None)
-            vloc = self._local(kern, nb, params, with_jac)
+            vloc = self._local(kern, ne // nf, params, with_jac)
             for s in range(0, nE, JAC_CHUNK):
                 sl = slice(s, min(s + JAC_CHUNK, nE))
-                u_loc = u[dom.eldofsT[:, sl]].reshape(nb, nf, -1)
-                Kc, rl = vloc(u_loc, dom.ctx(sl))
+                al = {k: self._gather(dom, v, sl) for k, v in aux.items()}
+                Kc, rl = vloc(self._gather(dom, u, sl), al, dom.ctx(sl))
                 if with_jac:
                     K[..., sl] = Kc
                 if with_res:
@@ -261,20 +271,19 @@ class Form:
             blocks.append(K)
         return blocks, r
 
-    def jacobian_blocks(self, u: torch.Tensor, params=None):
+    def jacobian_blocks(self, u: torch.Tensor, aux=None, params=None):
         """Per-term dense element Jacobians K (ne, ne, nE): forward-mode
-        autodiff of each element residual kernel, vmapped over elements in
-        chunks of JAC_CHUNK."""
-        return self._assemble(u, params, True, False)[0]
+        autodiff of each element residual kernel."""
+        return self._assemble(u, aux, params, True, False)[0]
 
-    def residual(self, u: torch.Tensor, params=None) -> torch.Tensor:
+    def residual(self, u: torch.Tensor, aux=None, params=None) -> torch.Tensor:
         """Assembled residual (n_dofs,)."""
-        return self._assemble(u, params, False, True)[1]
+        return self._assemble(u, aux, params, False, True)[1]
 
-    def jacobian_and_residual(self, u: torch.Tensor, params=None):
+    def jacobian_and_residual(self, u: torch.Tensor, aux=None, params=None):
         """(per-term blocks, assembled residual) in one pass per term: the
         primal comes out of the same jacfwd evaluation as the tangents."""
-        return self._assemble(u, params, True, True)
+        return self._assemble(u, aux, params, True, True)
 
     def matvec(self, blocks, x: torch.Tensor) -> torch.Tensor:
         """The foreground operator y = A_f x from element blocks."""
@@ -285,13 +294,27 @@ class Form:
             y.index_add_(0, dom.eldofsT.reshape(-1), ye.reshape(-1))
         return y
 
+    def matvec_t(self, blocks, x: torch.Tensor) -> torch.Tensor:
+        """The transposed foreground operator y = A_fᵀ x."""
+        y = torch.zeros(self.n_dofs, dtype=x.dtype, device=x.device)
+        for (dom, _), K in zip(self.terms, blocks):
+            xe = x[dom.eldofsT]                                # (ne, nE)
+            ye = (K * xe[:, None]).sum(dim=0)                  # (ne, nE)
+            y.index_add_(0, dom.eldofsT.reshape(-1), ye.reshape(-1))
+        return y
 
-def integrate(domain, kernel, u: torch.Tensor, params=None) -> torch.Tensor:
-    """∫ kernel over a cell/facet domain of a scalar field; ``kernel(u_loc,
-    aux_loc, ctx, params) -> scalar`` per element."""
+
+def integrate(domain, kernel, u: torch.Tensor, aux=None, params=None,
+              n_fields: int = 1) -> torch.Tensor:
+    """∫ kernel over a cell/facet domain; ``kernel(u_loc, aux_loc, ctx,
+    params) -> scalar`` per element, u_loc (nb, n_fields)."""
     ne, nE = domain.eldofsT.shape
-    u_loc = u[domain.eldofsT].reshape(ne, 1, nE)
-    vals = vmap(kernel, in_dims=(-1, None, -1, None), out_dims=0)(
-        u_loc, {}, domain.ctx(), params
+
+    def gather(vec):
+        return vec[domain.eldofsT].reshape(ne // n_fields, n_fields, nE)
+
+    al = {k: gather(v) for k, v in (aux or {}).items()}
+    vals = vmap(kernel, in_dims=(-1, -1, -1, None), out_dims=0)(
+        gather(u), al, domain.ctx(), params
     )
     return vals.sum()

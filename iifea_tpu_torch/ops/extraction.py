@@ -5,7 +5,8 @@ row-major ELL (``idx_np``/``val_np``, (n_fg, kmax)); the device copy is
 slot-major (kmax, n_fg). ``mv`` is a gather and weighted slot sum; ``rmv``
 is an f64 ``index_add_`` (on CUDA its order of accumulation onto a repeated
 background dof is not fixed, so results may differ in the last bits from
-run to run).
+run to run). ``to_scipy`` exports M as a host CSR matrix for the direct
+solve.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 class ExtractionOperator:
     """Sparse M of shape (n_fg_dofs, n_bg_dofs) in ELL form."""
 
-    def __init__(self, idx, val, n_bg_dofs: int, device):
+    def __init__(self, idx, val, n_bg_dofs: int, device="cuda"):
         self.idx_np = np.asarray(idx)
         self.val_np = np.asarray(val)
         self.n_bg_dofs = int(n_bg_dofs)
@@ -33,7 +34,7 @@ class ExtractionOperator:
     @classmethod
     def from_triples(cls, fg_nodes, bg_nodes, weights, n_fg_nodes: int,
                      n_bg_nodes: int | None = None, dtype=np.float64, *,
-                     device) -> "ExtractionOperator":
+                     device="cuda") -> "ExtractionOperator":
         """Build M from 0-based (fg_node, bg_node, weight) triples; a
         duplicate (fg, bg) pair keeps its last weight."""
         fg_nodes = np.asarray(fg_nodes, dtype=np.int64)
@@ -64,6 +65,14 @@ class ExtractionOperator:
         val[fg_s, pos] = w_s
         return cls(idx, val, m, device)
 
+    @classmethod
+    def identity(cls, n_nodes: int, n_fields: int = 1, dtype=np.float64, *,
+                 device="cuda") -> "ExtractionOperator":
+        """Identity extraction: the fitted-FEM path (``--Ex False``)."""
+        n = n_nodes * n_fields
+        return cls(np.arange(n, dtype=np.int32)[:, None],
+                   np.ones((n, 1), dtype=dtype), n, device)
+
     def mv(self, u_b: torch.Tensor) -> torch.Tensor:
         """u_f = M u_b."""
         return (self.valT * u_b[self.idxT]).sum(dim=0)
@@ -74,3 +83,18 @@ class ExtractionOperator:
         out = torch.zeros(self.n_bg_dofs, dtype=data.dtype,
                           device=self.device)
         return out.index_add_(0, self.idxT.reshape(-1), data)
+
+    def row_blocks(self, eldofsT: torch.Tensor):
+        """ELL planes of the foreground dof ids (ne, nE): (idx, val), each
+        (kmax, ne, nE)."""
+        return self.idxT[:, eldofsT], self.valT[:, eldofsT]
+
+    def to_scipy(self):
+        """Host CSR copy of M (n_fg, n_bg) for the direct solve."""
+        import scipy.sparse as sp
+
+        rows = np.repeat(np.arange(self.n_fg_dofs), self.idx_np.shape[1])
+        return sp.coo_matrix(
+            (self.val_np.ravel(), (rows, self.idx_np.ravel())),
+            shape=(self.n_fg_dofs, self.n_bg_dofs),
+        ).tocsr()

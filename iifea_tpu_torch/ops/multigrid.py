@@ -16,8 +16,8 @@ Jacobi cycle and of ``StencilMultigrid3D`` in ``iifea_tpu/ops/multigrid.py``).
 
 Float32 convolutions and matrix products must run in full f32: TF32 keeps
 about three digits, which would perturb the coarse operators at ~1e-3.
-``BinnedLatticeSolver`` turns TF32 off; callers using this module directly
-on a GPU must do the same.
+``full_f32()`` turns TF32 off; ``BinnedLatticeSolver`` and ``solve_ksp``
+call it, and callers using this module directly on a GPU must too.
 
 Zero rows (background dofs without foreground support) get unit diagonal
 guards; their components stay zero through the cycle.
@@ -37,6 +37,15 @@ _W1 = np.array([0.5, 1.0, 0.5])
 _KERNEL3 = _W1[:, None, None] * _W1[None, :, None] * _W1[None, None, :]
 DENSE_CAP = 4096    # largest 2D coarsest level inverted densely
 DENSE_CAP3 = 8192   # largest 3D coarsest level inverted densely
+
+
+def full_f32() -> None:
+    """Run f32 convolutions (restriction, Galerkin RAP) and matrix products
+    (coarse pseudo-inverse) in full f32, not TF32 (cuDNN's default for
+    convolutions): its ~3 digits would perturb the coarse operators at
+    ~1e-3 and drift the CG iteration count. Process-wide."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _restrict(x2: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,19 @@
 """Galerkin projection onto the background basis, A_b = Mᵀ A_f M (port of
-``BackgroundOperator.mv`` in ``iifea_tpu/ops/projection.py``).
+``iifea_tpu/ops/projection.py``).
 
 Matrix-free: A_b x = Mᵀ(A_f(M x)), composed from the extraction ELL ops and
-the element-block matvec. This is the exact operator of the projected
-system, which the 3D lattice solve refines its f64 residual against.
+the element-block matvec. What needs explicit structure:
+
+* the exact diagonal of A_b (Jacobi preconditioning, BFR trimming),
+  computed on the device per element block in chunks;
+* the explicit A_b as a host scipy CSR matrix for the sparse direct solve.
+
+``assemble_background_system`` linearizes a Form around a foreground state
+and returns (A_b, b_b): the solver front-end's entry point.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from iifea_tpu_torch.ops.assembly import Form
@@ -14,19 +21,130 @@ from iifea_tpu_torch.ops.extraction import ExtractionOperator
 
 
 class BackgroundOperator:
-    """The linearized background operator Mᵀ A_f M from element blocks.
+    """The linearized background operator Mᵀ A_f M from element blocks,
+    optionally BFR-trimmed and shifted.
 
-    Both scatters (``Form.matvec`` onto foreground dofs and ``M.rmv`` onto
-    background dofs) are ``index_add_``: on CUDA the order in which several
-    contributions add onto one dof is not fixed, so ``mv`` may differ in the
-    last bits of f64 from run to run."""
+    With a trim mask t, application reproduces PETSc ``zeroRows``: trimmed
+    rows become identity rows, other rows keep their (untrimmed) column
+    entries. ``shift`` (n_bg,) applies A + diag(shift); trim overrides shift
+    on trimmed rows.
+
+    The scatters (``Form.matvec`` onto foreground dofs, ``M.rmv`` onto
+    background dofs, the diagonal's) are ``index_add_``: on CUDA their order
+    is not fixed, so f64 results may differ in the last bits from run to
+    run."""
 
     def __init__(self, form: Form, blocks: list[torch.Tensor],
-                 M: ExtractionOperator):
+                 M: ExtractionOperator, trim_mask: torch.Tensor | None = None,
+                 shift: torch.Tensor | None = None):
         self.form = form
         self.blocks = blocks
         self.M = M
         self.n = M.n_bg_dofs
+        self.trim_mask = trim_mask
+        self.shift = shift
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        return self.M.rmv(self.form.matvec(self.blocks, self.M.mv(x)))
+        y = self.M.rmv(self.form.matvec(self.blocks, self.M.mv(x)))
+        if self.shift is not None:
+            y = y + self.shift * x
+        if self.trim_mask is not None:
+            y = torch.where(self.trim_mask, x, y)
+        return y
+
+    def mv_t(self, x: torch.Tensor) -> torch.Tensor:
+        """Transpose application (condition estimation). With trimming, the
+        transpose of the row substitution zeroes the trimmed columns of Aᵀ
+        and keeps unit diagonals."""
+        xi = (x if self.trim_mask is None
+              else torch.where(self.trim_mask, 0.0, x))
+        y = self.M.rmv(self.form.matvec_t(self.blocks, self.M.mv(xi)))
+        if self.shift is not None:
+            y = y + self.shift * xi
+        if self.trim_mask is not None:
+            y = y + torch.where(self.trim_mask, x, 0.0)
+        return y
+
+    def with_trim(self, mask) -> "BackgroundOperator":
+        return BackgroundOperator(self.form, self.blocks, self.M, mask,
+                                  self.shift)
+
+    def with_shift(self, shift) -> "BackgroundOperator":
+        """A + diag(shift) (pseudo-transient continuation)."""
+        return BackgroundOperator(self.form, self.blocks, self.M,
+                                  self.trim_mask, shift)
+
+    # -- exact diagonal -------------------------------------------------------
+
+    def diag(self, chunk: int = 65536) -> torch.Tensor:
+        """diag(Mᵀ A_f M), exact, block-wise on the device.
+
+        For an element block K (ne, ne) with extraction rows (idx, val) of
+        its dofs ((km, ne) each), the contribution to diag[j] is
+        Σ_{a,k,b,l} val[k,a] K[a,b] val[l,b] [idx[k,a]=j][idx[l,b]=j]: per
+        chunk of elements, one batched compare of the index planes, one
+        contraction and one ``index_add_``."""
+        d = torch.zeros(self.n, dtype=self.blocks[0].dtype,
+                        device=self.blocks[0].device)
+        for (dom, _), K in zip(self.form.terms, self.blocks):
+            midx, mval = self.M.row_blocks(dom.eldofsT)   # (km, ne, nE)
+            for s in range(0, K.shape[-1], chunk):
+                ic = midx[..., s:s + chunk]
+                vc = mval[..., s:s + chunk].to(K.dtype)
+                eq = (ic[:, :, None, None, :]
+                      == ic[None, None, :, :, :]).to(K.dtype)
+                T = torch.einsum("abE,KaLbE,LbE->KaE",
+                                 K[..., s:s + chunk], eq, vc) * vc
+                d.index_add_(0, ic.reshape(-1), T.reshape(-1))
+        if self.shift is not None:
+            d = d + self.shift
+        if self.trim_mask is not None:
+            d = torch.where(self.trim_mask, 1.0, d)
+        return d
+
+    # -- explicit export (direct-solver path) ---------------------------------
+
+    def to_scipy(self):
+        """Explicit A_b as a host scipy CSR matrix, Mᵀ A_f M (the reference's
+        PtAP), for the sparse direct solve."""
+        import scipy.sparse as sp
+
+        n_fg = self.form.n_dofs
+        A_f = sp.csr_matrix((n_fg, n_fg))
+        for (dom, _), K in zip(self.form.terms, self.blocks):
+            fl = dom.flat_eldofs_np                       # (nE, ne)
+            ne = fl.shape[1]
+            rows = np.repeat(fl, ne, axis=1).ravel()
+            cols = np.tile(fl, (1, ne)).ravel()
+            Kel = np.moveaxis(K.cpu().numpy(), -1, 0)     # (nE, ne, ne)
+            A_f = A_f + sp.coo_matrix((Kel.ravel(), (rows, cols)),
+                                      shape=(n_fg, n_fg)).tocsr()
+        Msp = self.M.to_scipy()
+        A_b = (Msp.T @ A_f @ Msp).tocsr()
+        if self.shift is not None:
+            A_b = (A_b + sp.diags(self.shift.cpu().numpy())).tocsr()
+        if self.trim_mask is not None:
+            A_b = _zero_rows_scipy(
+                A_b, np.flatnonzero(self.trim_mask.cpu().numpy()))
+        return A_b
+
+
+def _zero_rows_scipy(A, rows):
+    """PETSc MatZeroRows semantics: zero the rows, put 1 on the diagonal."""
+    A = A.tolil()
+    for r in rows:
+        A.rows[r] = [int(r)]
+        A.data[r] = [1.0]
+    return A.tocsr()
+
+
+def assemble_background_system(form: Form, u_f: torch.Tensor,
+                               M: ExtractionOperator, aux=None, params=None,
+                               rhs_sign: float = -1.0):
+    """Linear system of the linearization around ``u_f``:
+    A_b = Mᵀ (dR/du) M and b_b = Mᵀ (rhs_sign · R(u_f)). rhs_sign = −1 solves
+    J du = −R (the demos); +1 is Newton's J du = R, u −= du. Blocks and
+    residual come from one jacfwd pass per term; everything lives on
+    ``u_f``'s device."""
+    blocks, res = form.jacobian_and_residual(u_f, aux, params)
+    return BackgroundOperator(form, blocks, M), M.rmv(rhs_sign * res)

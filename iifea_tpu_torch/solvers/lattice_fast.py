@@ -39,7 +39,11 @@ import torch
 from iifea_tpu_torch.models.poisson import p1_stiffness_arrays
 from iifea_tpu_torch.ops import cell_window, lattice_bin
 from iifea_tpu_torch.ops.assembly import Form
-from iifea_tpu_torch.ops.multigrid import StencilMultigrid, StencilMultigrid3D
+from iifea_tpu_torch.ops.multigrid import (
+    StencilMultigrid,
+    StencilMultigrid3D,
+    full_f32,
+)
 from iifea_tpu_torch.ops.projection import BackgroundOperator
 from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
 from iifea_tpu_torch.solvers import krylov
@@ -58,7 +62,7 @@ class BinnedLatticeSolver:
     relative f64 residual and the total f32 CG iterations.
     """
 
-    def __init__(self, prob, M, lattice_shape, *, device):
+    def __init__(self, prob, M, lattice_shape, *, device="cuda"):
         self.device = torch.device(device)
         self.prob = prob
         self.M = M
@@ -79,12 +83,7 @@ class BinnedLatticeSolver:
             raise lattice_bin.LatticeBinError(
                 "BinnedLatticeSolver expects the [cell, facet] form, got "
                 f"{len(form.terms)} terms")
-        # f32 convolutions (restriction, Galerkin RAP) and matrix products
-        # (coarse pseudo-inverse) must not run in TF32: its ~3 digits would
-        # perturb the coarse operators at ~1e-3 and drift the CG iteration
-        # count. cuDNN defaults to TF32 for convolutions.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        full_f32()
 
         if self.dim == 3:
             self.reducers = cell_window.build_window_projection(
