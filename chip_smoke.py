@@ -9,9 +9,11 @@ line; the first failure exits non-zero:
      requires torch.cuda.is_available().
   1. build: compiles every iifea_tpu_torch/csrc/*.cu (stencil2d.cu,
      stencil3d.cu) with nvcc (sm_90a), one nvcc per source in parallel.
-  2. kernels: stencil_mv and jacobi_smooth against their plain PyTorch
+  2. kernels: stencil_mv (also accumulating, and as the block apply of
+     nF² launches) and jacobi_smooth against their plain PyTorch
      versions on the card; at every level shape the 2D V-cycle smooths
-     (1025², 513², 257², 129², 65²; r=2) the device time per launch (a
+     (1025², 513², 257², 129², 65²; r=2, and 33², 17² for stencil_mv,
+     which the block V-cycle adds) the device time per launch (a
      CUDA graph of 50 launches, one event pair around its replay), the
      per-call time from an idle card (one event pair around one call: the
      wrapper's host work included) and the bound; the plain version's
@@ -42,9 +44,22 @@ line; the first failure exits non-zero:
   8. demo: ``python3 -m iifea_tpu_torch.demos.poisson --ref 4 --solv gmres
      --pc jacobi`` on the card (the general operator, no stencil kernel),
      held against the same demo on the host.
+  9. elasticity (the block path): at n_bg=64 the card's block-MG CG and
+     point-block-Jacobi CG against host SuperLU (error norms to 1e-8
+     relative); then ``assemble_background_system`` + ``solve_ksp(cg,
+     pc='mg', n_fields=2)`` at n_bg=512 (2 × 513² = 526,338 background
+     dofs), once counted per lattice shape (every block apply is nF² = 4
+     ``stencil_mv`` launches; no plain stencil apply on the card outside
+     the coarsest level's dense inverse), then per-stage times, a profiled
+     solve and peak memory; its error norms must be below an n_bg=256
+     solve's with an L2 rate above 1.5.
+  10. demo_elasticity: ``python3 -m iifea_tpu_torch.demos.linear_elasticity
+     --mesh-root synthetic --k 1 --ref 3`` on the card (block-MG CG),
+     held against the same demo on the host (norms to 1e-8 relative).
 
 Then ``kernel_shapes``: every timed (kernel, shape) with its launches in the
-main-path solves and launches × (device ms − bound ms) per kernel.
+main-path solves (2D, 3D and elasticity, added) and launches × (device ms
+− bound ms) per kernel.
 The line before the last is the kernel summary JSON, the last line the
 device JSON. Imports nothing of JAX.
 """
@@ -78,6 +93,10 @@ TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
 GRAPH_LAUNCHES = 50           # captured calls per timed CUDA graph
 # the V-cycle's smoothed levels (the coarsest, 33² and 14³, is dense)
 LEVELS2 = [(s_, s_) for s_ in (1025, 513, 257, 129, 65)]
+# the block V-cycle smooths 513² down to 17² (9² is dense); the shapes it
+# adds to LEVELS2 (stencil_mv only: it smooths by point-block Jacobi)
+BLOCK_SMOOTHED = [(s_, s_) for s_ in (513, 257, 129, 65, 33, 17)]
+BLOCK_EXTRA = [s_ for s_ in BLOCK_SMOOTHED if s_ not in LEVELS2]
 LEVELS3 = [(s_,) * 3 for s_ in (105, 53, 27)]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
@@ -267,6 +286,28 @@ def phase_kernels():
                sk.jacobi_smooth(C, invd, b, x, 0.67, shape, 2),
                sk.jacobi_smooth_plain(C, invd, b, x, 0.67, shape, 2), shape,
                2)
+    # the accumulating entry (y += A x) and the 2-field block apply built
+    # on it, at the block V-cycle's finest and coarsest smoothed shapes
+    for shape in [(33, 129), BLOCK_SMOOTHED[0], BLOCK_SMOOTHED[-1]]:
+        C, x, n = operands(shape, 2)
+        y0 = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                          device=dev)
+        _check(worst, "stencil_mv",
+               sk.stencil_mv(C, x, shape, 2, out=y0.clone(), accumulate=True),
+               y0 + sk.stencil_mv_plain(C, x, shape, 2), shape, 2,
+               what="accumulate")
+        Cb = torch.tensor(rng.standard_normal((2, 2, 25, *shape)),
+                          dtype=torch.float32, device=dev)
+        xb = torch.tensor(rng.standard_normal(2 * n), dtype=torch.float32,
+                          device=dev)
+        before = sk.stencil_mv.launches
+        yb = sk.stencil_mv_block(Cb, xb, shape, 2)
+        if sk.stencil_mv.launches - before != 4:
+            fail(f"block apply launched {sk.stencil_mv.launches - before} "
+                 "stencil_mv kernels, not nF² = 4")
+        _check(worst, "stencil_mv", yb,
+               sk.stencil_mv_block_plain(Cb, xb, shape, 2), shape, 2,
+               what="block nF=2")
     rows = []
     for shape in LEVELS2:
         C, x, n = operands(shape, 2)
@@ -288,6 +329,11 @@ def phase_kernels():
         rows.append(time_kernel(
             "jacobi_smooth", shape, jac,
             partial(jac, f=sk.jacobi_smooth_plain) if main else None))
+    for shape in BLOCK_EXTRA:
+        C, x, _ = operands(shape, 2)
+        rows.append(time_kernel(
+            "stencil_mv", shape,
+            partial(sk.stencil_mv, C, x, shape, 2)))
     return worst, rows
 
 
@@ -534,15 +580,15 @@ def on_cuda(solver, u, S32, mg) -> bool:
     return all(t.is_cuda for t in tensors)
 
 
-def profile_solve(solver, tag: str) -> None:
-    """Device busy share and the top kernels of one warm solve, from
+def profile_solve(solve, tag: str) -> None:
+    """Device busy share and the top kernels of one warm ``solve()``, from
     torch.profiler (CUPTI); reports "not measured" if no device time shows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _, wall = sync_time(lambda: solver.solve(rtol=1e-10))
+        _, wall = sync_time(solve)
     # kernel-level events only: op-level events carry the same device time
     dev = [(e.key, e.self_device_time_total, e.count)
            for e in prof.key_averages()
@@ -605,12 +651,16 @@ def stage_times(solver, tag: str):
 @contextlib.contextmanager
 def count_by_shape(by_shape: Counter):
     """Count the stencil kernels' launches per lattice shape while the
-    block runs. Every launch goes through a StencilOperator2D/3D method
-    (``mv``, ``jacobi_smooth``, ``cheb_sweep``); each is called through a
-    shim that reads the wrappers' own counters before and after the call
-    and books the difference under the operator's shape."""
+    block runs. Every launch goes through a StencilOperator2D/3D/Block2D
+    method (``mv``, ``jacobi_smooth``, ``cheb_sweep``); each is called
+    through a shim that reads the wrappers' own counters before and after
+    the call and books the difference under the operator's shape."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
-    from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
+    from iifea_tpu_torch.ops.stencil import (
+        StencilOperator2D,
+        StencilOperator3D,
+        StencilOperatorBlock2D,
+    )
 
     def shim(method):
         def counted(self, *a, **kw):
@@ -624,7 +674,8 @@ def count_by_shape(by_shape: Counter):
         return counted
 
     saved = [(cls, name, cls.__dict__[name])
-             for cls in (StencilOperator2D, StencilOperator3D)
+             for cls in (StencilOperator2D, StencilOperator3D,
+                         StencilOperatorBlock2D)
              for name in ("mv", "jacobi_smooth", "cheb_sweep")
              if name in cls.__dict__]
     for cls, name, method in saved:
@@ -783,7 +834,7 @@ def phase_main_path():
     if not on_cuda(solver, u, S32, mg):
         fail("a solver tensor is not on the card")
 
-    profile_solve(solver, "profile")
+    profile_solve(lambda: solver.solve(rtol=1e-10), "profile")
     totals = []
     for _ in range(3):
         _, dt = sync_time(lambda: solver.solve(rtol=1e-10))
@@ -821,7 +872,7 @@ def phase_main_path3():
     S32, mg = stage_times(solver, "stages3")
     if not on_cuda(solver, u, S32, mg):
         fail("a 3D solver tensor is not on the card")
-    profile_solve(solver, "profile3")
+    profile_solve(lambda: solver.solve(rtol=1e-10), "profile3")
     totals = []
     for _ in range(2):
         _, dt = sync_time(lambda: solver.solve(rtol=1e-10))
@@ -887,8 +938,250 @@ def phase_demo():
              f"{host['norms']}")
 
 
+N_BG_EL = 512                    # bench.py --workload elasticity's default
+MAX_CG_ITERS_EL = 136            # 2x the reference's 68 iterations at 512
+
+
+def build_elasticity(n_bg: int, device):
+    """bench.py's elasticity workload at ``n_bg``: the immersed square with
+    n_fg = 2·n_bg, two fields, ImmersedElasticityProblem(k=1, sym=True),
+    assembled by the generic front-end at u = 0. Returns (prob, M, A, b,
+    seconds per stage)."""
+    import torch
+
+    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+
+    t0 = time.perf_counter()
+    mesh, M = immersed_square_problem(n_fg=2 * n_bg, n_bg=n_bg, n_fields=2,
+                                      device=device)
+    mesh.facet_data
+    t1 = time.perf_counter()
+    prob = ImmersedElasticityProblem(mesh, k=1, sym=True, device=device)
+    t2 = time.perf_counter()
+    u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
+    (A, b), t_asm = sync_time(
+        lambda: assemble_background_system(prob.form, u0, M))
+    return prob, M, A, b, {"problem": t1 - t0, "ImmersedElasticityProblem":
+                           t2 - t1, "assemble": t_asm}
+
+
+def el_solve(A, b, n_bg, **kw):
+    from iifea_tpu_torch.solvers import ksp
+
+    kw = {"method": "cg", "pc": "mg", "rtol": 1e-10, **kw}
+    if kw["pc"] == "mg":
+        kw["lattice_shape"] = (n_bg + 1, n_bg + 1)
+    return ksp.solve_ksp(A, b, n_fields=2, monitor=False, **kw)
+
+
+def rel_residual(A, b, x) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(b - A.mv(x))
+                 / torch.linalg.vector_norm(b))
+
+
+@contextlib.contextmanager
+def timed_calls(targets, acc: Counter):
+    """Replace each (module, name) by a wrapper that adds its synced
+    seconds to acc[name] while the block runs."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(fn, name):
+        def timed(*a, **kw):
+            out, dt = sync_time(lambda: fn(*a, **kw))
+            acc[name] += dt
+            return out
+        return timed
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn, name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_on_card(counts: Counter):
+    """Count the plain stencil applies (``stencil_mv_plain``, through which
+    every plain 2D apply goes) on card tensors while the block runs, split
+    into those inside the coarsest block level's dense inverse (set-up:
+    the identity's columns through ``mv_ref``, as the reference does) and
+    all others."""
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    plain, dense = sk.stencil_mv_plain, multigrid._dense_inverse_block
+    where = ["elsewhere"]
+
+    def counted_plain(C, x, *a, **kw):
+        if x.is_cuda:
+            counts[where[0]] += 1
+        return plain(C, x, *a, **kw)
+
+    def counted_dense(S):
+        where[0] = "dense_inverse"
+        try:
+            return dense(S)
+        finally:
+            where[0] = "elsewhere"
+
+    sk.stencil_mv_plain = counted_plain
+    multigrid._dense_inverse_block = counted_dense
+    try:
+        yield
+    finally:
+        sk.stencil_mv_plain = plain
+        multigrid._dense_inverse_block = dense
+
+
+def phase_elasticity():
+    """The block path: small references against host SuperLU, then the
+    n_bg = N_BG_EL solve counted, staged, profiled, and its error norms
+    against an n_bg=256 solve's. Returns its launch counts."""
+    import math
+
+    import torch
+
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.solvers import ksp
+
+    dev = torch.device("cuda", 0)
+
+    # -- n_bg=64 against host LU (the JAX spec test_models.py:168-190) ------
+    prob, M, A, b, _ = build_elasticity(64, dev)
+    u_lu, _ = el_solve(A, b, 64, method="direct")
+    n_lu = prob.error_norms(M.mv(u_lu))
+    for pc, rtol in (("mg", 1e-11), ("bjacobi", 1e-12)):
+        (u, info), dt = sync_time(lambda: el_solve(A, b, 64, pc=pc,
+                                                   rtol=rtol))
+        norms = prob.error_norms(M.mv(u))
+        rel = {k: abs(norms[k] - n_lu[k]) / n_lu[k] for k in n_lu}
+        phase("elasticity_small", n_bg=64, pc=pc, rtol=rtol,
+              iters=info.iters, rel_residual=rel_residual(A, b, u),
+              seconds=dt, error_norms=norms, error_norms_lu=n_lu,
+              norms_rel_diff=rel)
+        if not (u.is_cuda and max(rel.values()) <= 1e-8):
+            fail(f"elasticity n_bg=64 pc={pc}: norms {norms} differ from "
+                 f"host LU's {n_lu} by {rel}")
+    del prob, M, A, b, u_lu, u
+
+    # -- the main path at n_bg = N_BG_EL --------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob, M, A, b, setup = build_elasticity(N_BG_EL, dev)
+    phase("elasticity_setup", n_bg=N_BG_EL, n_fg=2 * N_BG_EL,
+          n_bg_dofs=M.n_bg_dofs, n_cells=prob.mesh.n_cells,
+          n_block_cells=prob.cell_dom.n_elem,
+          n_facets=prob.facet_dom.n_elem, seconds=setup,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    names = ("stencil_mv",)
+    plain = Counter()
+    with plain_on_card(plain):
+        (u, info), t_first, launches, by_shape = counted_run(
+            lambda: el_solve(A, b, N_BG_EL), names, "elasticity")
+    relres = rel_residual(A, b, u)
+    norms = prob.error_norms(M.mv(u))
+    phase("elasticity", first_seconds=t_first, iters=info.iters,
+          passes=len(info.history) - 1, history=info.history,
+          rel_residual=relres, error_norms=norms, launches=launches,
+          launches_by_shape=by_shape, plain_applies_on_card=dict(plain),
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not relres < 1e-10:
+        fail(f"elasticity: f64 relative residual {relres} >= 1e-10")
+    if not info.iters <= MAX_CG_ITERS_EL:
+        fail(f"elasticity: {info.iters} CG iterations > {MAX_CG_ITERS_EL}")
+    if not (u.shape == (M.n_bg_dofs,) and u.is_cuda
+            and bool(torch.isfinite(u).all())):
+        fail("elasticity: the solution is not a finite card vector of the "
+             "background size")
+    missing = [s_ for s_ in BLOCK_SMOOTHED
+               if by_shape.get(f"stencil_mv@{s_[0]}x{s_[1]}", 0) <= 0]
+    if missing:
+        fail(f"elasticity: no stencil_mv launch at the smoothed shapes "
+             f"{missing}: {by_shape}")
+    if plain["elsewhere"]:
+        fail(f"elasticity: {plain['elsewhere']} plain stencil applies on "
+             "the card outside the coarse dense inverse")
+
+    # stages of a warm solve: probe, hierarchy, deflation, Krylov + refine
+    stages = Counter()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls([(ksp, "_probe_block"),
+                      (multigrid, "StencilMultigridBlock"),
+                      (ksp, "_deflation_space")], stages):
+        (u2, info2), t_warm = sync_time(lambda: el_solve(A, b, N_BG_EL))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hier = stages["StencilMultigridBlock"]
+    phase("elasticity_stages", assemble=setup["assemble"],
+          probe=stages["_probe_block"], hierarchy=hier,
+          deflation=stages["_deflation_space"],
+          solve=t_warm - sum(stages.values()), solve_ksp=t_warm,
+          iters=info2.iters, rel_residual=rel_residual(A, b, u2),
+          peak_gib=peak)
+    profile_solve(lambda: el_solve(A, b, N_BG_EL), "elasticity_profile")
+    del u2
+    del A, b
+    torch.cuda.empty_cache()
+
+    # -- convergence: below the n_bg=256 solve's errors, L2 rate > 1.5 ------
+    p256, M256, A256, b256, _ = build_elasticity(N_BG_EL // 2, dev)
+    u256, info256 = el_solve(A256, b256, N_BG_EL // 2)
+    n256 = p256.error_norms(M256.mv(u256))
+    rate = math.log2(n256["L2"] / norms["L2"])
+    phase("elasticity_convergence", error_norms=norms,
+          error_norms_n_bg256=n256, l2_rate=rate, iters_n_bg256=info256.iters,
+          rel_residual_n_bg256=rel_residual(A256, b256, u256))
+    if not all(v == v and 0 < v < n256[k] for k, v in norms.items()):
+        fail(f"elasticity: error norms {norms} not below n_bg=256's {n256}")
+    if not rate > 1.5:
+        fail(f"elasticity: L2 rate {rate} <= 1.5")
+    return launches, by_shape
+
+
+def phase_demo_elasticity():
+    """The elasticity demo as a user runs it, on the card (block-MG CG on
+    the stencil_mv kernel), held against the same demo run in this process
+    on the host: L2/H10 errors equal to 1e-8 relative."""
+    import io
+
+    from iifea_tpu_torch.demos import linear_elasticity as demo
+
+    argv = ["--mesh-root", "synthetic", "--k", "1", "--ref", "3"]
+    wall = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "iifea_tpu_torch.demos.linear_elasticity",
+         *argv], cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - wall
+    if res.returncode != 0:
+        fail(f"elasticity demo exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    out = res.stdout
+    conv = re.search(r"Converged in (\d+) iterations", out)
+    norms = {}
+    for k in ("L2", "H10"):
+        m = re.search(rf"^relative {k} norm: (\S+)$", out, re.M)
+        norms[k] = float(m.group(1)) if m else float("nan")
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = demo.main(argv + ["--device", "cpu"])
+    rel = {k: abs(norms[k] - host["norms"][k]) / host["norms"][k]
+           for k in norms}
+    phase("demo_elasticity", argv=argv, seconds=wall,
+          iters=int(conv.group(1)) if conv else None, error_norms=norms,
+          host_iters=host["info"].iters, host_error_norms=host["norms"],
+          norms_rel_diff=rel)
+    if not (conv and max(rel.values()) <= 1e-8):
+        fail(f"elasticity demo: card norms {norms} differ from the host's "
+             f"{host['norms']}")
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
-          "small_reference3", "main_path", "main_path3", "demo")
+          "small_reference3", "main_path", "main_path3", "demo",
+          "elasticity", "demo_elasticity")
 
 
 def kernel_shapes(timing, by_shape):
@@ -915,7 +1208,7 @@ def main() -> None:
     elif args:
         fail(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
     t0 = time.perf_counter()
-    worst, timing, launches, by_shape = {}, [], {}, {}
+    worst, timing, launches, by_shape = {}, [], Counter(), Counter()
     phase_device()
     phase_build()
     for name, fn in (("kernels", phase_kernels),
@@ -928,14 +1221,18 @@ def main() -> None:
         phase_small_reference()
     if "small_reference3" in run:
         phase_small_reference3()
+    # each main path's counted solve; the 2D and elasticity solves both
+    # launch stencil_mv, and Counter.update adds their counts
     for name, fn in (("main_path", phase_main_path),
-                     ("main_path3", phase_main_path3)):
+                     ("main_path3", phase_main_path3),
+                     ("demo", phase_demo),
+                     ("elasticity", phase_elasticity),
+                     ("demo_elasticity", phase_demo_elasticity)):
         if name in run:
-            n, s_ = fn()
-            launches.update(n)
-            by_shape.update(s_)
-    if "demo" in run:
-        phase_demo()
+            counts = fn()
+            if counts is not None:
+                launches.update(counts[0])
+                by_shape.update(counts[1])
     import torch
 
     kernel_shapes(timing, by_shape)

@@ -12,9 +12,11 @@ both packages can start from identical state:
     ...     radius=S.radius, device="cpu")
 
 ``coeffs`` must be the logical (m², nx1, ny1) or (m³, nx1, ny1, nz1)
-planes (``S.coeffs``), never the TPU tile-padded storage; their rank picks
-``StencilOperator2D`` or ``StencilOperator3D``. A tetrahedron mesh (3D
-coords, 4 vertices per cell) is carried like a triangle mesh.
+planes (``S.coeffs``), never the TPU tile-padded storage, or a 2D block
+operator's (nF, nF, m², nx1, ny1) planes; their rank picks
+``StencilOperator2D``, ``StencilOperator3D`` or ``StencilOperatorBlock2D``.
+A tetrahedron mesh (3D coords, 4 vertices per cell) is carried like a
+triangle mesh.
 """
 from __future__ import annotations
 
@@ -25,13 +27,17 @@ import torch
 
 from iifea_tpu_torch.mesh.core import Mesh
 from iifea_tpu_torch.ops.extraction import ExtractionOperator
-from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
+from iifea_tpu_torch.ops.stencil import (
+    StencilOperator2D,
+    StencilOperator3D,
+    StencilOperatorBlock2D,
+)
 
 
 class State(NamedTuple):
     mesh: Mesh | None
     M: ExtractionOperator | None
-    S: StencilOperator2D | StencilOperator3D | None
+    S: StencilOperator2D | StencilOperator3D | StencilOperatorBlock2D | None
 
 
 def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
@@ -52,11 +58,12 @@ def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
     if coeffs is not None:
         C = np.array(coeffs)
         shape = tuple(lattice_shape)
-        if C.shape[1:] != shape:
+        if C.shape[-len(shape):] != shape:
             raise ValueError(
                 f"coefficient planes {C.shape} do not match lattice {shape} "
                 "(pass the logical S.coeffs, not the padded S.cp)"
             )
-        cls = StencilOperator2D if C.ndim == 3 else StencilOperator3D
+        cls = {3: StencilOperator2D, 4: StencilOperator3D,
+               5: StencilOperatorBlock2D}[C.ndim]
         S = cls(torch.as_tensor(C, device=device), shape, radius)
     return State(mesh, M, S)

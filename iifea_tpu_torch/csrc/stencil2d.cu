@@ -6,6 +6,8 @@
 // `_smooth_kernel`):
 //
 //   y[i,j] = sum_k C[k,i,j] * x[i+oi, j+oj],   k = (oi+r)*m + (oj+r), m = 2r+1
+//   accumulating apply: y += A x               (block operators: y[f1] is
+//                                               the sum of nF field applies)
 //   jacobi: y = x + omega * invd * (b - A x)   (one pass, A x never stored)
 //
 // with x zero outside the (nx, ny) lattice. C is stored as m*m contiguous
@@ -34,7 +36,7 @@ namespace {
 constexpr int kTileX = 8;   // output rows per block (blockDim.y)
 constexpr int kTileY = 32;  // output cols per block (blockDim.x), one warp
 
-template <int R, bool SMOOTH>
+template <int R, bool SMOOTH, bool ACC>
 __global__ void __launch_bounds__(kTileX * kTileY)
 stencil2d_kernel(const float* __restrict__ C, const float* __restrict__ x,
                  const float* __restrict__ invd, const float* __restrict__ b,
@@ -78,12 +80,14 @@ stencil2d_kernel(const float* __restrict__ C, const float* __restrict__ x,
   if (SMOOTH) {
     const float xc = xs[threadIdx.y + R][threadIdx.x + R];
     y[p] = xc + omega * invd[p] * (b[p] - acc);
+  } else if (ACC) {
+    y[p] += acc;
   } else {
     y[p] = acc;
   }
 }
 
-template <bool SMOOTH>
+template <bool SMOOTH, bool ACC>
 int launch(const float* C, const float* x, const float* invd, const float* b,
            float omega, float* y, int nx, int ny, int radius,
            cudaStream_t stream) {
@@ -91,10 +95,10 @@ int launch(const float* C, const float* x, const float* invd, const float* b,
   const dim3 block(kTileY, kTileX);
   const dim3 grid((ny + kTileY - 1) / kTileY, (nx + kTileX - 1) / kTileX);
   if (radius == 1) {
-    stencil2d_kernel<1, SMOOTH><<<grid, block, 0, stream>>>(
+    stencil2d_kernel<1, SMOOTH, ACC><<<grid, block, 0, stream>>>(
         C, x, invd, b, omega, y, nx, ny);
   } else if (radius == 2) {
-    stencil2d_kernel<2, SMOOTH><<<grid, block, 0, stream>>>(
+    stencil2d_kernel<2, SMOOTH, ACC><<<grid, block, 0, stream>>>(
         C, x, invd, b, omega, y, nx, ny);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -109,16 +113,23 @@ extern "C" {
 // y = A x
 int stencil2d_mv(const float* C, const float* x, float* y, int nx, int ny,
                  int radius, void* stream) {
-  return launch<false>(C, x, nullptr, nullptr, 0.0f, y, nx, ny, radius,
-                       (cudaStream_t)stream);
+  return launch<false, false>(C, x, nullptr, nullptr, 0.0f, y, nx, ny,
+                              radius, (cudaStream_t)stream);
+}
+
+// y += A x (y must not alias x)
+int stencil2d_mv_acc(const float* C, const float* x, float* y, int nx,
+                     int ny, int radius, void* stream) {
+  return launch<false, true>(C, x, nullptr, nullptr, 0.0f, y, nx, ny,
+                             radius, (cudaStream_t)stream);
 }
 
 // y = x + omega * invd * (b - A x)
 int stencil2d_jacobi(const float* C, const float* invd, const float* b,
                      const float* x, float omega, float* y, int nx, int ny,
                      int radius, void* stream) {
-  return launch<true>(C, x, invd, b, omega, y, nx, ny, radius,
-                      (cudaStream_t)stream);
+  return launch<true, false>(C, x, invd, b, omega, y, nx, ny, radius,
+                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

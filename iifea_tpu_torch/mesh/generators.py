@@ -182,13 +182,14 @@ def locate_structured_box(mesh: Mesh, points: np.ndarray,
 
 
 def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
-                            degree: int = 1, tol: float = 1e-10,
-                            dtype=np.float64, *,
+                            degree: int = 1, n_fields: int = 1,
+                            tol: float = 1e-10, dtype=np.float64, *,
                             device="cuda") -> ExtractionOperator:
     """P1 interpolation matrix from a structured background triangle or
     tetrahedron grid to points: row i holds the basis values of the
-    background cell that contains point i. Points outside the grid get zero
-    rows."""
+    background cell that contains point i, replicated over ``n_fields``
+    fields (ExtractionOperator's multi-field layout). Points outside the
+    grid get zero rows."""
     if getattr(mesh_b, "structured", None) is None:
         raise ValueError("the port locates points in rectangle_mesh and "
                          "box_mesh grids")
@@ -208,17 +209,20 @@ def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
     keep = mask & (np.abs(v) > 1e-14)
     return ExtractionOperator.from_triples(
         rows[keep], cols.ravel()[keep], v[keep], n_fg_nodes=npts,
-        n_bg_nodes=Vb.n_nodes, dtype=dtype, device=device,
+        n_bg_nodes=Vb.n_nodes, n_fields=n_fields, dtype=dtype,
+        device=device,
     )
 
 
 def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
                             angle: float = 30.0, half_width: float = 0.6,
-                            degree: int = 1, dtype=np.float64, *,
+                            degree: int = 1, n_fields: int = 1,
+                            dtype=np.float64, *,
                             device="cuda"):
     """Rotated square of half-width ``half_width`` immersed in [-L/2, L/2]²:
     foreground cells whose centroid lies inside are the block (material 2),
-    the rest material 1. Returns (mesh_f, M)."""
+    the rest material 1. M carries ``n_fields`` fields per node (2 for
+    2D elasticity). Returns (mesh_f, M)."""
     mesh_f = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_fg, n_fg)
     cent = mesh_f.cell_coords.mean(1)
     a = np.deg2rad(angle)
@@ -232,13 +236,15 @@ def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
     mesh_b = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_bg, n_bg)
     Vf = FunctionSpace(mesh_f, degree=degree)
     M = transfer_matrix_simplex(mesh_b, np.asarray(Vf.node_coords),
-                                degree=degree, dtype=dtype, device=device)
+                                degree=degree, n_fields=n_fields,
+                                dtype=dtype, device=device)
     return mesh_f, M
 
 
 def immersed_cube_problem(n_fg: int, n_bg: int, L: float = 2.0,
                           angle: float = 30.0, half_width: float = 0.6,
-                          degree: int = 1, dtype=np.float64, *,
+                          degree: int = 1, n_fields: int = 1,
+                          dtype=np.float64, *,
                           device="cuda"):
     """3D analog of immersed_square_problem: a cube of half-width
     ``half_width``, rotated by ``angle`` about z then y, immersed in a
@@ -265,5 +271,6 @@ def immersed_cube_problem(n_fg: int, n_bg: int, L: float = 2.0,
     mesh_b = box_mesh((-L / 2,) * 3, (L / 2,) * 3, n_bg, n_bg, n_bg)
     Vf = FunctionSpace(mesh_f, degree=degree)
     M = transfer_matrix_simplex(mesh_b, np.asarray(Vf.node_coords),
-                                degree=degree, dtype=dtype, device=device)
+                                degree=degree, n_fields=n_fields,
+                                dtype=dtype, device=device)
     return mesh_f, M

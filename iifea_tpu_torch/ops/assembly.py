@@ -209,6 +209,12 @@ def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
     )
 
 
+def scatter_into_multi(Y: torch.Tensor, domain, data: torch.Tensor):
+    """Y (k, n_dofs) += the stacked element vectors ``data`` (k, ne·nE),
+    scattered onto the domain's dofs; returns Y."""
+    return Y.index_add_(1, domain.eldofsT.reshape(-1), data)
+
+
 class Term(NamedTuple):
     domain: CellDomain | FacetDomain
     kernel: Callable
@@ -293,6 +299,17 @@ class Form:
             ye = (K * xe[None]).sum(dim=1)                     # (ne, nE)
             y.index_add_(0, dom.eldofsT.reshape(-1), ye.reshape(-1))
         return y
+
+    def matvec_multi(self, blocks, X: torch.Tensor) -> torch.Tensor:
+        """Stacked y = A_f x for k right-hand sides: (k, n_dofs) ->
+        (k, n_dofs)."""
+        k = X.shape[0]
+        Y = torch.zeros((k, self.n_dofs), dtype=X.dtype, device=X.device)
+        for (dom, _), K in zip(self.terms, blocks):
+            xe = X[:, dom.eldofsT]                             # (k, ne, nE)
+            ye = torch.einsum("abE,kbE->kaE", K, xe)
+            scatter_into_multi(Y, dom, ye.reshape(k, -1))
+        return Y
 
     def matvec_t(self, blocks, x: torch.Tensor) -> torch.Tensor:
         """The transposed foreground operator y = A_fᵀ x."""

@@ -1,12 +1,17 @@
 """The extraction operator M (background -> foreground interpolation).
 
-Port of ``iifea_tpu/ops/extraction.py`` for scalar fields. The host copy is
-row-major ELL (``idx_np``/``val_np``, (n_fg, kmax)); the device copy is
-slot-major (kmax, n_fg). ``mv`` is a gather and weighted slot sum; ``rmv``
-is an f64 ``index_add_`` (on CUDA its order of accumulation onto a repeated
+Port of ``iifea_tpu/ops/extraction.py``. The host copy is row-major ELL
+(``idx_np``/``val_np``, (n_fg, kmax)); the device copy is slot-major
+(kmax, n_fg). ``mv`` is a gather and weighted slot sum; ``rmv`` is an f64
+``index_add_`` (on CUDA its order of accumulation onto a repeated
 background dof is not fixed, so results may differ in the last bits from
-run to run). ``to_scipy`` exports M as a host CSR matrix for the direct
-solve.
+run to run). The ``*_multi`` variants take stacked (k, n) vectors, the
+right-hand-side axis first. ``to_scipy`` exports M as a host CSR matrix for
+the direct solve.
+
+Multi-field layout, as in the reference: foreground dofs interleave fields
+(node·n_fields + field), background dofs are field-blocked
+(node + field·m, m background nodes).
 """
 from __future__ import annotations
 
@@ -33,10 +38,12 @@ class ExtractionOperator:
 
     @classmethod
     def from_triples(cls, fg_nodes, bg_nodes, weights, n_fg_nodes: int,
-                     n_bg_nodes: int | None = None, dtype=np.float64, *,
+                     n_bg_nodes: int | None = None, n_fields: int = 1,
+                     dtype=np.float64, *,
                      device="cuda") -> "ExtractionOperator":
         """Build M from 0-based (fg_node, bg_node, weight) triples; a
-        duplicate (fg, bg) pair keeps its last weight."""
+        duplicate (fg, bg) pair keeps its last weight. Scalar triples are
+        replicated across ``n_fields`` fields in the multi-field layout."""
         fg_nodes = np.asarray(fg_nodes, dtype=np.int64)
         bg_nodes = np.asarray(bg_nodes, dtype=np.int64)
         weights = np.asarray(weights, dtype=np.float64)
@@ -50,8 +57,8 @@ class ExtractionOperator:
 
         counts = np.bincount(fg_nodes, minlength=n_fg_nodes)
         kmax = max(int(counts.max()) if len(counts) else 1, 1)
-        idx = np.zeros((n_fg_nodes, kmax), dtype=np.int32)
-        val = np.zeros((n_fg_nodes, kmax), dtype=dtype)
+        idx = np.zeros((n_fg_nodes * n_fields, kmax), dtype=np.int32)
+        val = np.zeros((n_fg_nodes * n_fields, kmax), dtype=dtype)
         order = np.argsort(fg_nodes, kind="stable")
         fg_s, bg_s, w_s = fg_nodes[order], bg_nodes[order], weights[order]
         pos = np.zeros(len(fg_s), dtype=np.int64)
@@ -61,9 +68,10 @@ class ExtractionOperator:
             pos = np.arange(len(fg_s)) - np.maximum.accumulate(
                 np.where(new_row, np.arange(len(fg_s)), 0)
             )
-        idx[fg_s, pos] = bg_s
-        val[fg_s, pos] = w_s
-        return cls(idx, val, m, device)
+        for f in range(n_fields):
+            idx[fg_s * n_fields + f, pos] = bg_s + f * m
+            val[fg_s * n_fields + f, pos] = w_s
+        return cls(idx, val, m * n_fields, device)
 
     @classmethod
     def identity(cls, n_nodes: int, n_fields: int = 1, dtype=np.float64, *,
@@ -83,6 +91,18 @@ class ExtractionOperator:
         out = torch.zeros(self.n_bg_dofs, dtype=data.dtype,
                           device=self.device)
         return out.index_add_(0, self.idxT.reshape(-1), data)
+
+    def mv_multi(self, U: torch.Tensor) -> torch.Tensor:
+        """(k, n_bg) -> (k, n_fg)."""
+        return (self.valT[None] * U[:, self.idxT]).sum(dim=1)
+
+    def rmv_multi(self, R: torch.Tensor) -> torch.Tensor:
+        """(k, n_fg) -> (k, n_bg)."""
+        k = R.shape[0]
+        data = (self.valT[None] * R[:, None, :]).reshape(k, -1)
+        out = torch.zeros((k, self.n_bg_dofs), dtype=data.dtype,
+                          device=self.device)
+        return out.index_add_(1, self.idxT.reshape(-1), data)
 
     def row_blocks(self, eldofsT: torch.Tensor):
         """ELL planes of the foreground dof ids (ne, nE): (idx, val), each

@@ -1,5 +1,7 @@
-"""Geometric multigrid on 2D and 3D stencil operators (port of the 2D
-Jacobi cycle and of ``StencilMultigrid3D`` in ``iifea_tpu/ops/multigrid.py``).
+"""Geometric multigrid on 2D and 3D stencil operators and on 2D block
+(multi-field) stencil operators (port of the 2D Jacobi cycle,
+``StencilMultigrid3D`` and ``StencilMultigridBlock`` in
+``iifea_tpu/ops/multigrid.py``).
 
 * transfers: full weighting with stride 2 (``F.conv2d``/``F.conv3d``) and
   bi/trilinear interpolation by interleaving, P = 2^dim Rᵀ, so the V-cycle
@@ -10,9 +12,14 @@ Jacobi cycle and of ``StencilMultigrid3D`` in ``iifea_tpu/ops/multigrid.py``).
 * smoothing, 2D: weighted Jacobi with fixed sweep counts (a linear,
   symmetric preconditioner, valid inside CG) on the fused ``jacobi_smooth``
   kernel; 3D: Chebyshev on the l1-Jacobi scaling over the fixed interval
-  [1.05/8, 1.05], one fused ``cheb_step3`` kernel per sweep; the V-cycle
-  residuals use the ``stencil_mv``/``stencil_mv3`` kernels;
-* coarsest level: a dense Newton–Schulz pseudo-inverse.
+  [1.05/8, 1.05], one fused ``cheb_step3`` kernel per sweep; block: ω = 1
+  point-block Jacobi on the l1-regularised nodal (nF×nF) blocks, the block
+  residual on the ``stencil_mv`` kernel (nF² launches) and the 2×2 update
+  as torch ops; the V-cycle residuals use the ``stencil_mv``/``stencil_mv3``
+  kernels;
+* coarsest level: a dense Newton–Schulz pseudo-inverse (a warning when it
+  is too large to form, since Jacobi sweeps leave the V-cycle weak on low
+  frequencies).
 
 Float32 convolutions and matrix products must run in full f32: TF32 keeps
 about three digits, which would perturb the coarse operators at ~1e-3.
@@ -24,11 +31,17 @@ guards; their components stay zero through the cycle.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
+from iifea_tpu_torch.ops.stencil import (
+    StencilOperator2D,
+    StencilOperator3D,
+    StencilOperatorBlock2D,
+)
 
 _KERNEL = np.array(
     [[0.25, 0.5, 0.25], [0.5, 1.0, 0.5], [0.25, 0.5, 0.25]]
@@ -37,6 +50,7 @@ _W1 = np.array([0.5, 1.0, 0.5])
 _KERNEL3 = _W1[:, None, None] * _W1[None, :, None] * _W1[None, None, :]
 DENSE_CAP = 4096    # largest 2D coarsest level inverted densely
 DENSE_CAP3 = 8192   # largest 3D coarsest level inverted densely
+DENSE_CAP_BLOCK = 8192   # largest block coarsest level (dofs, all fields)
 
 
 def full_f32() -> None:
@@ -48,10 +62,27 @@ def full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _warn_weak_coarse(shape, wanted: bool, possible: bool) -> None:
+    """Warn when a dense coarsest level was wanted but the hierarchy
+    bottoms out too large for it: the coarsening halves a side s only while
+    (s − 1) is even, so a side that is not 2^k·m + 1 with a small odd m
+    stops early, and sweeps on a large coarsest level leave the V-cycle
+    weak on low frequencies."""
+    if wanted and not possible:
+        warnings.warn(
+            f"multigrid: the coarsest level {tuple(shape)} exceeds the "
+            "dense-inverse cap; the V-cycle will be weak on low frequencies. "
+            "Choose the lattice so every side coarsens to O(10): side = "
+            "2^k·m + 1 with a small odd m.", stacklevel=3)
+
+
 def _restrict(x2: torch.Tensor) -> torch.Tensor:
-    """Full weighting: y[i,j] = (1/4) Σ k[a,b] x[2i+a-1, 2j+b-1]."""
+    """Full weighting: y[i,j] = (1/4) Σ k[a,b] x[2i+a-1, 2j+b-1]; x2 may
+    carry leading batch dims (..., nx, ny)."""
     k = torch.as_tensor(_KERNEL / 4.0, dtype=x2.dtype, device=x2.device)
-    return F.conv2d(x2[None, None], k[None, None], stride=2, padding=1)[0, 0]
+    y = F.conv2d(x2.reshape(-1, 1, *x2.shape[-2:]), k[None, None], stride=2,
+                 padding=1)
+    return y.reshape(*x2.shape[:-2], *y.shape[-2:])
 
 
 def _interleave(a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -66,8 +97,8 @@ def _interleave(a: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _prolong(xc2: torch.Tensor) -> torch.Tensor:
     """Bilinear interpolation (P = 4 Rᵀ): separable interleave, rows then
-    columns."""
-    return _interleave(_interleave(xc2, 0), 1)
+    columns; xc2 may carry leading batch dims (..., nx, ny)."""
+    return _interleave(_interleave(xc2, -2), -1)
 
 
 def _restrict3(x3: torch.Tensor) -> torch.Tensor:
@@ -252,11 +283,9 @@ class StencilMultigrid:
         for _ in shapes[1:]:
             self.levels.append(_coarsen(self.levels[-1]))
         self.inv_diags = [_invd(lv) for lv in self.levels]
-        last = shapes[-1]
-        self.coarse_inv = (
-            _dense_inverse(self.levels[-1])
-            if last[0] * last[1] <= DENSE_CAP else None
-        )
+        dense_ok = self.levels[-1].n <= DENSE_CAP
+        _warn_weak_coarse(shapes[-1], True, dense_ok)
+        self.coarse_inv = _dense_inverse(self.levels[-1]) if dense_ok else None
 
     def _smooth(self, lvl: int, x, b, sweeps: int):
         S = self.levels[lvl]
@@ -309,8 +338,10 @@ class StencilMultigrid3D:
                   for s in self.levels[-1].shape):
             self.levels.append(_coarsen3(self.levels[-1]))
         self.inv_diags = [_invd3_l1(lv) for lv in self.levels]
-        self.coarse_inv = (_dense_inverse3(self.levels[-1])
-                           if self.levels[-1].n <= DENSE_CAP3 else None)
+        dense_ok = self.levels[-1].n <= DENSE_CAP3
+        _warn_weak_coarse(self.levels[-1].shape, True, dense_ok)
+        self.coarse_inv = (_dense_inverse3(self.levels[-1]) if dense_ok
+                           else None)
 
     def _smooth(self, lvl: int, x, b, sweeps: int, x_zero: bool = False):
         """``sweeps`` Chebyshev steps from x; ``x_zero`` says x is the zero
@@ -353,6 +384,136 @@ class StencilMultigrid3D:
         rc = _restrict3(r.reshape(S.shape)).reshape(-1)
         xc = self._vcycle(lvl + 1, rc)
         x = x + _prolong3(xc.reshape(self.levels[lvl + 1].shape)).reshape(-1)
+        return self._smooth(lvl, x, b, self.nu_post)
+
+    def minv(self, r: torch.Tensor) -> torch.Tensor:
+        return self._vcycle(0, r)
+
+
+# -- block (multi-field) hierarchy ----------------------------------------------
+
+
+def _coarsen_block(fine: StencilOperatorBlock2D) -> StencilOperatorBlock2D:
+    """Direct block Galerkin coarse operator: the per-field transfers act
+    alike on every (f1, f2) block, so the scalar RAP conv (``_coarsen``)
+    runs once over the nF² blocks as a batch."""
+    cshape = tuple((s - 1) // 2 + 1 for s in fine.shape)
+    nF = fine.n_fields
+    m2 = (2 * fine.radius + 1) ** 2
+    K = torch.as_tensor(_rap_kernel2(fine.radius), dtype=fine.dtype,
+                        device=fine.device)
+    C = _masked_coeffs2(fine).reshape(nF * nF, m2, *fine.shape)
+    y = F.conv2d(C, K, stride=2, padding=1)
+    return StencilOperatorBlock2D(y.reshape(nF, nF, m2, *cshape), cshape,
+                                  fine.radius)
+
+
+def _adjugate_inv(Bn: torch.Tensor):
+    """Closed-form (cofactor) inverses of (n, k, k) blocks, k ≤ 3. Returns
+    (inverse, determinant); a zero determinant gives non-finite entries."""
+    k = Bn.shape[-1]
+    if k == 1:
+        det = Bn[:, 0, 0]
+        return (1.0 / det)[:, None, None], det
+    if k == 2:
+        a, b = Bn[:, 0, 0], Bn[:, 0, 1]
+        c, d = Bn[:, 1, 0], Bn[:, 1, 1]
+        det = a * d - b * c
+        adj = torch.stack([torch.stack([d, -b], -1),
+                           torch.stack([-c, a], -1)], -2)
+        return adj / det[:, None, None], det
+    if k == 3:
+        B = Bn
+        c00 = B[:, 1, 1] * B[:, 2, 2] - B[:, 1, 2] * B[:, 2, 1]
+        c01 = B[:, 1, 2] * B[:, 2, 0] - B[:, 1, 0] * B[:, 2, 2]
+        c02 = B[:, 1, 0] * B[:, 2, 1] - B[:, 1, 1] * B[:, 2, 0]
+        c10 = B[:, 0, 2] * B[:, 2, 1] - B[:, 0, 1] * B[:, 2, 2]
+        c11 = B[:, 0, 0] * B[:, 2, 2] - B[:, 0, 2] * B[:, 2, 0]
+        c12 = B[:, 0, 1] * B[:, 2, 0] - B[:, 0, 0] * B[:, 2, 1]
+        c20 = B[:, 0, 1] * B[:, 1, 2] - B[:, 0, 2] * B[:, 1, 1]
+        c21 = B[:, 0, 2] * B[:, 1, 0] - B[:, 0, 0] * B[:, 1, 2]
+        c22 = B[:, 0, 0] * B[:, 1, 1] - B[:, 0, 1] * B[:, 1, 0]
+        det = B[:, 0, 0] * c00 + B[:, 0, 1] * c01 + B[:, 0, 2] * c02
+        adj = torch.stack([torch.stack([c00, c10, c20], -1),
+                           torch.stack([c01, c11, c21], -1),
+                           torch.stack([c02, c12, c22], -1)], -2)
+        return adj / det[:, None, None], det
+    raise NotImplementedError(f"closed-form inverse for k <= 3, got {k}")
+
+
+def _point_binv(S: StencilOperatorBlock2D) -> torch.Tensor:
+    """(nF, nF, nn) inverses of the l1-regularised nodal blocks
+    B_i + diag(Σ |off-block row entries|), the block analog of the l1-Jacobi
+    diagonal (λ(D⁻¹A) ≤ 1 for SPD A, so ω = 1 sweeps contract); identity on
+    singular blocks (unsupported nodes)."""
+    B = S.point_block_diag()                                  # (nF, nF, nn)
+    nF, nn = B.shape[0], B.shape[-1]
+    l1_off = (S.coeffs.abs().sum(dim=(1, 2)).reshape(nF, nn)
+              - B.abs().sum(dim=1))
+    eye = torch.eye(nF, dtype=B.dtype, device=B.device)
+    inv, det = _adjugate_inv((B + eye[:, :, None] * l1_off[:, None, :])
+                             .permute(2, 0, 1))
+    ok = (det.abs() > 1e-30)[:, None, None]
+    return torch.where(ok, inv, eye[None]).permute(1, 2, 0).contiguous()
+
+
+def _dense_inverse_block(S: StencilOperatorBlock2D) -> torch.Tensor:
+    """Soft-truncated pseudo-inverse of the coarsest block operator; see
+    ``_dense_inverse``."""
+    A = S.mv_ref(torch.eye(S.n, dtype=S.dtype, device=S.device)).T
+    d = torch.diagonal(A)
+    A = A + torch.diag((d.abs() == 0).to(A.dtype))
+    return _pinv(A)
+
+
+class StencilMultigridBlock:
+    """Symmetric V-cycle preconditioner for a StencilOperatorBlock2D:
+    per-field full-weighting/bilinear transfers, the batched direct RAP,
+    ω-weighted point-block Jacobi on the l1-regularised nodal blocks, and a
+    dense pseudo-inverse on the coarsest level when it has ≤
+    DENSE_CAP_BLOCK dofs (else ``coarse_sweeps`` sweeps). Coarsens while
+    every side s has (s − 1) even and s > ``min_size``
+    (513 → 257 → … → 17 → 9 at n_bg=512)."""
+
+    def __init__(self, S: StencilOperatorBlock2D, nu_pre: int = 2,
+                 nu_post: int = 2, omega: float = 1.0,
+                 coarse_sweeps: int = 60, min_size: int = 9,
+                 coarse_dense: bool = True):
+        self.nu_pre, self.nu_post = nu_pre, nu_post
+        self.omega = omega
+        self.coarse_sweeps = coarse_sweeps
+        self.levels = [S]
+        while all((s - 1) % 2 == 0 and s > min_size
+                  for s in self.levels[-1].shape):
+            self.levels.append(_coarsen_block(self.levels[-1]))
+        self.binvs = [_point_binv(lv) for lv in self.levels]
+        dense_ok = coarse_dense and self.levels[-1].n <= DENSE_CAP_BLOCK
+        _warn_weak_coarse(self.levels[-1].shape, coarse_dense, dense_ok)
+        self.coarse_inv = (_dense_inverse_block(self.levels[-1]) if dense_ok
+                           else None)
+
+    def _smooth(self, lvl: int, x, b, sweeps: int):
+        S = self.levels[lvl]
+        Binv = self.binvs[lvl]
+        nF = S.n_fields
+        for _ in range(sweeps):
+            r = (b - S.mv(x)).reshape(1, nF, -1)
+            x = x + self.omega * (Binv * r).sum(dim=1).reshape(-1)
+        return x
+
+    def _vcycle(self, lvl: int, b):
+        S = self.levels[lvl]
+        nF = S.n_fields
+        if lvl == len(self.levels) - 1:
+            if self.coarse_inv is not None:
+                return self.coarse_inv @ b
+            return self._smooth(lvl, torch.zeros_like(b), b,
+                                self.coarse_sweeps)
+        x = self._smooth(lvl, torch.zeros_like(b), b, self.nu_pre)
+        r = (b - S.mv(x)).reshape(nF, *S.shape)
+        xc = self._vcycle(lvl + 1, _restrict(r).reshape(-1))
+        xc = xc.reshape(nF, *self.levels[lvl + 1].shape)
+        x = x + _prolong(xc).reshape(-1)
         return self._smooth(lvl, x, b, self.nu_post)
 
     def minv(self, r: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@
 Matrix-free: A_b x = Mᵀ(A_f(M x)), composed from the extraction ELL ops and
 the element-block matvec. What needs explicit structure:
 
-* the exact diagonal of A_b (Jacobi preconditioning, BFR trimming),
-  computed on the device per element block in chunks;
+* the exact diagonal of A_b (Jacobi preconditioning, BFR trimming) and
+  its per-node field blocks (point-block Jacobi), computed on the device
+  per element block in chunks;
 * the explicit A_b as a host scipy CSR matrix for the sparse direct solve.
 
 ``assemble_background_system`` linearizes a Form around a foreground state
@@ -51,6 +52,18 @@ class BackgroundOperator:
         if self.trim_mask is not None:
             y = torch.where(self.trim_mask, x, y)
         return y
+
+    def mv_multi(self, X: torch.Tensor) -> torch.Tensor:
+        """Stacked application to k vectors, (k, n_bg) -> (k, n_bg): one
+        gather, element product and scatter for all of them (the stencil
+        probe's path)."""
+        Y = self.M.rmv_multi(
+            self.form.matvec_multi(self.blocks, self.M.mv_multi(X)))
+        if self.shift is not None:
+            Y = Y + self.shift[None, :] * X
+        if self.trim_mask is not None:
+            Y = torch.where(self.trim_mask[None, :], X, Y)
+        return Y
 
     def mv_t(self, x: torch.Tensor) -> torch.Tensor:
         """Transpose application (condition estimation). With trimming, the
@@ -101,6 +114,46 @@ class BackgroundOperator:
         if self.trim_mask is not None:
             d = torch.where(self.trim_mask, 1.0, d)
         return d
+
+    def block_diag(self, n_fields: int, chunk: int = 65536) -> torch.Tensor:
+        """Per-node (nf, nf) diagonal blocks of Mᵀ A_f M, exact: the block
+        at node j holds A_b[j + fa·m, j + fb·m] (field-blocked background
+        dofs, m nodes). ``diag``'s element-block reduction with the dof
+        equality split into node equality and a pair of field masks.
+        Returns (m, nf, nf); a trimmed (node, field) row becomes the
+        identity row of its block."""
+        nf = int(n_fields)
+        if self.n % nf:
+            raise ValueError(f"{self.n} dofs do not split into {nf} fields")
+        m = self.n // nf
+        K0 = self.blocks[0]
+        out = torch.zeros((nf, nf, m), dtype=K0.dtype, device=K0.device)
+        for (dom, _), K in zip(self.form.terms, self.blocks):
+            midx, mval = self.M.row_blocks(dom.eldofsT)   # (km, ne, nE)
+            for s in range(0, K.shape[-1], chunk):
+                node = midx[..., s:s + chunk] % m
+                fld = midx[..., s:s + chunk] // m
+                vc = mval[..., s:s + chunk].to(K.dtype)
+                eqn = (node[:, :, None, None, :]
+                       == node[None, None, :, :, :]).to(K.dtype)
+                Kc = K[..., s:s + chunk]
+                for fa in range(nf):
+                    va = torch.where(fld == fa, vc, 0.0)
+                    for fb in range(nf):
+                        vb = torch.where(fld == fb, vc, 0.0)
+                        T = torch.einsum("abE,KaLbE,LbE->KaE", Kc, eqn,
+                                         vb) * va
+                        out[fa, fb].index_add_(0, node.reshape(-1),
+                                               T.reshape(-1))
+        blocks = out.permute(2, 0, 1)                     # (m, nf, nf)
+        eye = torch.eye(nf, dtype=K0.dtype, device=K0.device)
+        if self.shift is not None:
+            sh = self.shift.reshape(nf, m).T              # (m, nf)
+            blocks = blocks + sh[:, :, None] * eye
+        if self.trim_mask is not None:
+            tm = self.trim_mask.reshape(nf, m).T          # (m, nf)
+            blocks = torch.where(tm[:, :, None], eye[None], blocks)
+        return blocks.contiguous()
 
     # -- explicit export (direct-solver path) ---------------------------------
 

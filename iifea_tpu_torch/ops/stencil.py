@@ -15,12 +15,65 @@ reference has no counterpart here.
 f32 applies and sweeps go through the hand-written kernels of
 ``ops/stencil_kernels.py``; other dtypes (the f64 checks) use the plain
 shifted-slice form ``mv_ref``.
+
+``probe_multi`` extracts the planes from any operator given only its
+stacked application (k, n) -> (k, n), by coloured probing: the (2r+1)^dim
+indicator combs of the lattice phases (i mod m, j mod m[, k mod m]) go
+through one stacked application; same-colour points have disjoint stencil
+neighbourhoods, so coefficient k at node q is the response of the colour
+of q + offset_k at q. The block operator probes nF·m² colours (field ×
+phase). A probe point outside the lattice has no in-grid point of its
+colour within the radius, so off-grid taps come out exactly 0.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
 from iifea_tpu_torch.ops import stencil_kernels as sk
+
+
+def chunked_mv_multi(matvec_multi, X: torch.Tensor,
+                     chunk: int | None = None) -> torch.Tensor:
+    """matvec_multi over the rows of X (k, n) in chunks of ``chunk`` rows,
+    which bounds the general apply's (k, dofs per element, elements)
+    temporaries."""
+    k = X.shape[0]
+    if chunk is None or chunk >= k:
+        return matvec_multi(X)
+    chunk = max(int(chunk), 1)
+    return torch.cat([matvec_multi(X[s:s + chunk])
+                      for s in range(0, k, chunk)])
+
+
+def _combs(shape, radius, dtype, device) -> torch.Tensor:
+    """(m^dim, n) indicator combs, colour c = Σ phase_d·m^(dim−1−d)."""
+    m = 2 * radius + 1
+    axes = torch.meshgrid(*(torch.arange(s, device=device) for s in shape),
+                          indexing="ij")
+    color = torch.zeros(shape, dtype=torch.int64, device=device)
+    for a in axes:
+        color = color * m + a % m
+    return (color.reshape(1, -1) == torch.arange(
+        m ** len(shape), device=device)[:, None]).to(dtype)
+
+
+def _distribute_probe(Y: torch.Tensor, shape, radius: int) -> torch.Tensor:
+    """Probe responses Y (m^dim, n), colours ordered as ``_combs``, into
+    coefficient planes (m^dim, *shape): plane k (offset o) at node q is
+    Y[colour(q + o), q], one gather along the colour axis."""
+    m = 2 * radius + 1
+    dim = len(shape)
+    axes = torch.meshgrid(*(torch.arange(s, device=Y.device)
+                            for s in shape), indexing="ij")
+    idx = []
+    for o in itertools.product(range(-radius, radius + 1), repeat=dim):
+        c = torch.zeros(shape, dtype=torch.int64, device=Y.device)
+        for a, oa in zip(axes, o):
+            c = c * m + (a + oa) % m
+        idx.append(c)
+    return torch.gather(Y.reshape(m ** dim, *shape), 0, torch.stack(idx))
 
 
 class StencilOperator2D:
@@ -74,6 +127,31 @@ class StencilOperator2D:
     def diag(self) -> torch.Tensor:
         m = 2 * self.radius + 1
         return self.coeffs[self.radius * m + self.radius].reshape(-1)
+
+    @staticmethod
+    def probe_multi(matvec_multi, shape, radius: int = 2,
+                    dtype=torch.float32, chunk: int | None = None,
+                    device="cuda") -> "StencilOperator2D":
+        """The (2r+1)² planes of the operator behind ``matvec_multi`` by
+        one stacked (m², n) probe (in chunks of ``chunk`` rows). The combs
+        are built in ``dtype``; the planes are cast to it, whatever dtype
+        the operator computes in."""
+        X = _combs(shape, radius, dtype, device)
+        Y = chunked_mv_multi(matvec_multi, X, chunk).to(dtype)
+        return StencilOperator2D.from_probe_y(Y, shape, radius, dtype)
+
+    @staticmethod
+    def from_probe_y(Y: torch.Tensor, shape, radius: int = 2,
+                     dtype=torch.float32) -> "StencilOperator2D":
+        """Probe responses Y (m², n), colour c = (i mod m)·m + (j mod m),
+        into a stencil operator."""
+        return StencilOperator2D(_distribute_probe(Y.to(dtype), shape,
+                                                   radius), shape, radius)
+
+    def verify(self, matvec, seed: int = 0, n_checks: int = 2) -> float:
+        """Largest relative error of ``mv`` against ``matvec`` on random
+        vectors."""
+        return _verify(self, matvec, seed, n_checks)
 
 
 class StencilOperator3D:
@@ -140,3 +218,125 @@ class StencilOperator3D:
         r = self.radius
         m = 2 * r + 1
         return self.coeffs[(r * m + r) * m + r].reshape(-1)
+
+    @staticmethod
+    def probe_multi(matvec_multi, shape, radius: int = 2,
+                    dtype=torch.float32, chunk: int | None = None,
+                    device="cuda") -> "StencilOperator3D":
+        """The (2r+1)³ planes by one stacked (m³, n) probe; see
+        ``StencilOperator2D.probe_multi``."""
+        X = _combs(shape, radius, dtype, device)
+        Y = chunked_mv_multi(matvec_multi, X, chunk).to(dtype)
+        return StencilOperator3D(_distribute_probe(Y, shape, radius), shape,
+                                 radius)
+
+    def verify(self, matvec, seed: int = 0, n_checks: int = 2) -> float:
+        """Largest relative error of ``mv`` against ``matvec`` on random
+        vectors."""
+        return _verify(self, matvec, seed, n_checks)
+
+
+class StencilOperatorBlock2D:
+    """Block (multi-field) stencil operator on an (nx1, ny1) lattice, for
+    vector problems: background dofs are field-blocked (node + field·nn),
+    so a vector reshapes to (nF, nx1, ny1) planes and
+
+        y[f1] = Σ_f2 Σ_|o|≤r C[f1, f2, k(o)] ⊙ shift_o(x[f2]),
+
+    coefficients (nF, nF, (2r+1)², nx1, ny1). Each C[f1, f2] is a scalar
+    operator's planes, so an f32 apply is nF² launches of the stencil_mv
+    kernel (``stencil_kernels.stencil_mv_block``)."""
+
+    def __init__(self, coeffs: torch.Tensor, shape, radius: int):
+        self.shape = tuple(int(s) for s in shape)
+        self.radius = int(radius)
+        m = 2 * self.radius + 1
+        nF = coeffs.shape[0]
+        if tuple(coeffs.shape) != (nF, nF, m * m, *self.shape):
+            raise ValueError(
+                f"block coefficients {tuple(coeffs.shape)} do not match "
+                f"{(nF, nF, m * m, *self.shape)}"
+            )
+        self.coeffs = coeffs.contiguous()
+        self.n_fields = nF
+        self.nn = self.shape[0] * self.shape[1]
+        self.n = nF * self.nn
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.coeffs.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.coeffs.device
+
+    def to(self, dtype: torch.dtype) -> "StencilOperatorBlock2D":
+        return StencilOperatorBlock2D(self.coeffs.to(dtype), self.shape,
+                                      self.radius)
+
+    @staticmethod
+    def probe_multi(matvec_multi, shape, n_fields: int, radius: int = 2,
+                    dtype=torch.float32, chunk: int | None = None,
+                    device="cuda") -> "StencilOperatorBlock2D":
+        """All nF² blocks by one stacked (nF·m², nF·nn) probe: colour
+        f2·m² + c is comb c on field f2; the response on field f1 holds
+        C[f1, f2]."""
+        nF = n_fields
+        m2 = (2 * radius + 1) ** 2
+        nn = shape[0] * shape[1]
+        combs = _combs(shape, radius, dtype, device)           # (m², nn)
+        X = torch.zeros((nF, m2, nF, nn), dtype=dtype, device=device)
+        for f in range(nF):
+            X[f, :, f] = combs
+        Y = chunked_mv_multi(matvec_multi, X.reshape(nF * m2, nF * nn),
+                             chunk).to(dtype)
+        Y = Y.reshape(nF, m2, nF, nn)                  # [f2, c, f1, q]
+        C = torch.stack([
+            torch.stack([_distribute_probe(Y[f2, :, f1], shape, radius)
+                         for f2 in range(nF)])
+            for f1 in range(nF)
+        ])
+        return StencilOperatorBlock2D(C, shape, radius)
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A x: the stencil_mv kernel for f32 (nF² launches); the plain
+        ``mv_ref`` for other dtypes on the CPU. On a card a non-f32
+        operator raises: the kernels are f32 only."""
+        if self.coeffs.dtype == torch.float32 or self.device.type == "cuda":
+            return sk.stencil_mv_block(self.coeffs, x, self.shape,
+                                       self.radius)
+        return self.mv_ref(x)
+
+    def mv_ref(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain shifted-slice apply; x may be batched (..., n)."""
+        return sk.stencil_mv_block_plain(self.coeffs, x, self.shape,
+                                         self.radius)
+
+    def diag(self) -> torch.Tensor:
+        k0 = self.radius * (2 * self.radius + 1) + self.radius
+        return torch.stack([self.coeffs[f, f, k0]
+                            for f in range(self.n_fields)]).reshape(-1)
+
+    def point_block_diag(self) -> torch.Tensor:
+        """(nF, nF, nn) nodal blocks (point-block Jacobi)."""
+        k0 = self.radius * (2 * self.radius + 1) + self.radius
+        return self.coeffs[:, :, k0].reshape(self.n_fields, self.n_fields,
+                                             self.nn)
+
+    def verify(self, matvec, seed: int = 0, n_checks: int = 2) -> float:
+        """Largest relative error of ``mv`` against ``matvec`` on random
+        vectors."""
+        return _verify(self, matvec, seed, n_checks)
+
+
+def _verify(S, matvec, seed: int, n_checks: int) -> float:
+    g = torch.Generator().manual_seed(seed)
+    worst = 0.0
+    for _ in range(n_checks):
+        x = torch.randn(S.n, generator=g, dtype=torch.float64).to(
+            dtype=S.dtype, device=S.device)
+        y_ref = matvec(x)
+        num = float(torch.linalg.vector_norm(S.mv(x) - y_ref))
+        den = float(torch.linalg.vector_norm(y_ref)) or 1.0
+        worst = max(worst, num / den)
+    return worst

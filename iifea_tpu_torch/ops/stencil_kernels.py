@@ -2,7 +2,9 @@
 smoothing sweeps.
 
 Port of the Pallas TPU kernels of ``iifea_tpu/ops/pallas_stencil.py`` to
-Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cu``) and
+Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cu``; the apply
+can also accumulate, y += A x, which carries the block operators'
+``stencil_mv_block``) and
 ``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``, which also holds
 the fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother). Every
 ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` at first use
@@ -59,6 +61,20 @@ def stencil_mv_plain(C, x, shape, radius):
         for oj in range(-r, r + 1):
             k = (oi + r) * m + (oj + r)
             y = y + C[k] * xp[..., oi + r:oi + r + nx1, oj + r:oj + r + ny1]
+    return y.reshape(x.shape)
+
+
+def stencil_mv_block_plain(C, x, shape, radius):
+    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] on field-blocked vectors
+    (nF·n,); C is (nF, nF, (2r+1)², nx1, ny1). x may carry leading batch
+    dims (..., nF·n)."""
+    nF = C.shape[0]
+    xs = x.reshape(*x.shape[:-1], nF, -1)
+    y = torch.stack([
+        sum(stencil_mv_plain(C[f1, f2], xs[..., f2, :], shape, radius)
+            for f2 in range(nF))
+        for f1 in range(nF)
+    ], dim=-2)
     return y.reshape(x.shape)
 
 
@@ -164,11 +180,13 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stencil2d_mv.argtypes = [p, p, p, i, i, i, p]
+    lib.stencil2d_mv_acc.argtypes = [p, p, p, i, i, i, p]
     lib.stencil2d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, p]
     lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, p]
     lib.stencil3d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, i, p]
     lib.stencil3d_cheb.argtypes = [p, p, p, p, p, f, f, p, i, i, i, i, p]
-    for fn in (lib.stencil2d_mv, lib.stencil2d_jacobi, lib.stencil3d_mv,
+    for fn in (lib.stencil2d_mv, lib.stencil2d_mv_acc, lib.stencil2d_jacobi,
+               lib.stencil3d_mv,
                lib.stencil3d_jacobi, lib.stencil3d_cheb):
         fn.restype = i
     return lib
@@ -212,18 +230,50 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def stencil_mv(C, x, shape, radius):
-    """y = A x (f32). CPU: plain version; CUDA: the stencil2d_mv kernel."""
-    if _check(C, x, shape, radius) == "cpu":
-        return stencil_mv_plain(C, x, shape, radius)
-    y = torch.empty_like(x)
+def stencil_mv(C, x, shape, radius, out=None, accumulate=False):
+    """y = A x (f32), written to ``out`` when given, or added to it
+    (``accumulate``: out += A x). CPU: plain version; CUDA: the
+    stencil2d_mv kernel (stencil2d_mv_acc when accumulating)."""
+    planes = () if out is None else (out,)
+    if accumulate and out is None:
+        raise ValueError("accumulate=True needs out")
+    if out is not None and out.data_ptr() == x.data_ptr():
+        raise ValueError("out must not alias x")
+    if _check(C, x, shape, radius, *planes) == "cpu":
+        y = stencil_mv_plain(C, x, shape, radius)
+        if out is None:
+            return y
+        return out.add_(y) if accumulate else out.copy_(y)
+    y = torch.empty_like(x) if out is None else out
+    entry = _lib().stencil2d_mv_acc if accumulate else _lib().stencil2d_mv
     with torch.cuda.device(x.device):
-        rc = _lib().stencil2d_mv(
+        rc = entry(
             C.data_ptr(), x.data_ptr(), y.data_ptr(), shape[0], shape[1],
             radius, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil2d_mv")
     stencil_mv.launches += 1
+    return y
+
+
+def stencil_mv_block(C, x, shape, radius):
+    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32) on field-blocked
+    vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous: nF²
+    ``stencil_mv`` calls, the first per output field writing y[f1] and the
+    others adding to it. CPU: plain versions; CUDA: nF² launches."""
+    nF = C.shape[0]
+    if C.dim() != 5 or C.shape[1] != nF:
+        raise ValueError(f"block coefficients {tuple(C.shape)} are not "
+                         "(nF, nF, m², nx1, ny1)")
+    if not C.is_contiguous():
+        raise ValueError("stencil kernels take contiguous tensors")
+    xs = x.view(nF, -1)
+    y = torch.empty_like(x)
+    ys = y.view(nF, -1)
+    for f1 in range(nF):
+        for f2 in range(nF):
+            stencil_mv(C[f1, f2], xs[f2], shape, radius, out=ys[f1],
+                       accumulate=f2 > 0)
     return y
 
 

@@ -4,21 +4,26 @@
   method 'cg' | 'gmres' | 'gcr' | 'bicgstab'   Krylov on the device
          'direct' | 'mumps'                    host SuperLU (solvers/direct)
   pc     'none', 'jacobi' (exact diagonal of Mᵀ A_f M)
-         'mg'     geometric multigrid on a lattice background: the projected
-                  operator is assembled into radius-2 stencil planes from
-                  the lattice-binned (2D) or cell-window (3D) tables and
-                  preconditioned by a V-cycle; needs ``lattice_shape``
+         'bjacobi' point-block Jacobi on the exact (nF, nF) node blocks
+                  (``BackgroundOperator.block_diag``); pointwise Jacobi
+                  with a single field, as in the reference
+         'mg'     geometric multigrid on a lattice background; needs
+                  ``lattice_shape``. The projected operator becomes stencil
+                  planes by one of three routes: radius 2, untrimmed,
+                  unshifted, single-field, binnable: the direct assembly
+                  from the lattice-binned (2D) or cell-window (3D) tables;
+                  otherwise the coloured general probe of ``A.mv_multi``
+                  (``StencilOperator2D/3D.probe_multi``); n_fields > 1 (2D):
+                  the block probe, preconditioned by ``StencilMultigridBlock``
+                  with field-constant null-mode deflation
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
-Not ported yet, and raising ``NotImplementedError``: pc='bjacobi' on a
-multi-field system and pc='asm' (ROADMAP.md item 13, with the block
-workloads), and the pc='mg' cases that need the coloured general probe, a
-trim mask, a shift, a stencil radius other than 2 or a form the lattice
-tables cannot bin (ROADMAP.md item 12a). With a single field pc='bjacobi'
-is pointwise Jacobi, as in the reference.
+Not ported yet, and raising ``NotImplementedError``: pc='asm' (ROADMAP.md
+item 13b), pc='mg' on a 3D multi-field system (item 13a), and on CUDA a
+stencil radius the kernels do not take (3: item 14).
 
-The MG route (``_mg_solve``) differs from the JAX package in two ways, by
-design:
+The MG route (``_mg_solve``) differs from the JAX package in these ways,
+by design:
 
 * ``mixed`` (f32 probe, MG and Krylov, refined against the exact f64
   operator until the f64 relative residual meets rtol) turns on by default
@@ -30,6 +35,11 @@ design:
 * The Krylov matvec is ``S.mv``, the hand kernel for f32 stencils, as in
   ``BinnedLatticeSolver``; JAX applies ``S.mv_ref`` because of a TPU
   layout clash between a Pallas call and the V-cycle's convolutions.
+* The general probe applies the operator in its own dtype (f64) and casts
+  the planes to the stencil dtype; that is JAX's arithmetic, where the f32
+  combs meet f64 extraction weights. Its column chunk follows a fixed
+  budget for the 80 GB card (``PROBE_BUDGET_BYTES``), not an environment
+  variable.
 """
 from __future__ import annotations
 
@@ -45,6 +55,12 @@ from iifea_tpu_torch.solvers.direct import solve_direct
 from iifea_tpu_torch.solvers.trim import apply_trim_rhs, trim_mask_from_diag
 
 _NO_GPU_PC = {"ICC", "ILU", "ILUT"}
+
+# live temporaries of one general-probe chunk (the stacked element gather
+# and products, (ne + 3) per column): sized for the 80 GB card. The n_bg=512
+# elasticity probe (754,974 block cells, 6 dofs each, 50 f64 columns,
+# ~326 MB per column) runs unchunked.
+PROBE_BUDGET_BYTES = 16 * 2 ** 30
 
 # the lattice tables are a host pass over every element plus device
 # uploads: repeated solve_ksp(pc='mg') calls on the same (form, M) reuse
@@ -71,6 +87,65 @@ def lattice_tables(form, M, shape):
     return None if out is _UNBINNABLE else out
 
 
+def _probe_chunk(A, dtype) -> int | None:
+    """Probe columns per chunk so the stacked ``A.mv_multi``'s live
+    temporaries stay under PROBE_BUDGET_BYTES."""
+    per_col, n_temps = 0, 4
+    for dom, _ in A.form.terms:
+        ne, nE = dom.eldofsT.shape
+        if ne * nE > per_col:
+            per_col, n_temps = ne * nE, ne + 3
+    if per_col == 0:
+        return None
+    item = torch.empty((), dtype=dtype).element_size()
+    return max(int(PROBE_BUDGET_BYTES // (n_temps * per_col * item)), 1)
+
+
+def _probe_general(A, shape, radius, dtype):
+    """Stencil operator of A by the coloured probe of ``A.mv_multi`` in
+    A's dtype, cast to ``dtype``."""
+    from iifea_tpu_torch.ops.stencil import StencilOperator2D, StencilOperator3D
+
+    adt = A.blocks[0].dtype
+    op = StencilOperator2D if len(shape) == 2 else StencilOperator3D
+    S = op.probe_multi(A.mv_multi, shape, radius=radius, dtype=adt,
+                       chunk=_probe_chunk(A, adt), device=A.M.device)
+    return S.to(dtype)
+
+
+def _probe_block(A, shape, n_fields, radius, dtype):
+    """Block stencil operator of A by the nF·(2r+1)² colour probe."""
+    from iifea_tpu_torch.ops.stencil import StencilOperatorBlock2D
+
+    adt = A.blocks[0].dtype
+    S = StencilOperatorBlock2D.probe_multi(
+        A.mv_multi, shape, n_fields=n_fields, radius=radius, dtype=adt,
+        chunk=_probe_chunk(A, adt), device=A.M.device)
+    return S.to(dtype)
+
+
+def _deflation_space(S, n_fields, dtype):
+    """Field-constant null-mode deflation: for each field, the normalised
+    indicator of its supported nodes, kept if the stencil maps it to
+    (numerically) zero, as an enclosed flow's constant pressure. A V-cycle's
+    coarse pseudo-inverse would amplify such near-null content. Returns the
+    (q, n) orthonormal rows, or None."""
+    dgf = S.point_block_diag()
+    sig = float(S.coeffs.abs().sum(dim=(1, 2)).max())
+    qs = []
+    for f in range(n_fields):
+        v = torch.zeros((n_fields, S.nn), dtype=dtype, device=S.device)
+        v[f] = (dgf[f, f].abs() > 0).to(dtype)
+        v = v.reshape(-1)
+        vn = float(torch.linalg.vector_norm(v))
+        if vn == 0.0:
+            continue
+        v = v / vn
+        if float(torch.linalg.vector_norm(S.mv(v))) < 1e-8 * sig:
+            qs.append(v)
+    return torch.stack(qs) if qs else None
+
+
 def _probe(reducers, blocks, shape, dtype):
     """Stencil operator of Mᵀ A_f M from the compact element blocks: the
     direct congruence assembly, f64 tables and blocks, cast to ``dtype``."""
@@ -84,13 +159,20 @@ def _probe(reducers, blocks, shape, dtype):
     return StencilOperator3D(C.to(dtype), shape, 2)
 
 
-def _run_stencil_krylov(S, mg, b, x0, rtol, atol, method, max_it, restart):
+def _run_stencil_krylov(S, mg, Q, b, x0, rtol, atol, method, max_it,
+                        restart):
     """MG-preconditioned Krylov on a stencil operator: CG for 'cg', (F)GMRES
-    for every other method, as in the reference."""
+    for every other method, as in the reference. With a deflation space Q
+    the preconditioner is P·mg·P, P = I − QᵀQ."""
+    minv = mg.minv
+    if Q is not None:
+        def minv(r):
+            z = mg.minv(r - Q.T @ (Q @ r))
+            return z - Q.T @ (Q @ z)
     # check every 4 iterations: a V-cycle per iteration costs more than
     # the host sync of a check, and CG's default of 8 would run further
     # past the tolerance
-    kw = dict(minv=mg.minv, rtol=rtol, atol=atol, max_it=max_it,
+    kw = dict(minv=minv, rtol=rtol, atol=atol, max_it=max_it,
               check_every=4)
     if method == "cg":
         return krylov.cg(S.mv, b, x0, **kw)
@@ -105,22 +187,15 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
     from iifea_tpu_torch.ops.multigrid import (
         StencilMultigrid,
         StencilMultigrid3D,
+        StencilMultigridBlock,
         full_f32,
     )
 
     shape = tuple(int(s) for s in lattice_shape)
-    if n_fields > 1:
+    if n_fields > 1 and len(shape) != 2:
         raise NotImplementedError(
-            "pc='mg' on a multi-field system needs the block stencil "
-            "operators (ROADMAP.md item 13)")
-    reducers = None
-    if A.trim_mask is None and A.shift is None and stencil_radius == 2:
-        reducers = lattice_tables(A.form, A.M, shape)
-    if reducers is None:
-        raise NotImplementedError(
-            "pc='mg' with a trim mask, a shift, stencil_radius != 2 or a form "
-            "the lattice tables cannot bin needs the coloured general probe "
-            "(ROADMAP.md item 12a)")
+            "pc='mg' on a 3D multi-field system needs the 3D block stencil "
+            "operators (ROADMAP.md item 13a)")
     if mixed is None:
         mixed = b.dtype == torch.float64 and b.device.type == "cuda"
     sdt = torch.float32 if mixed else b.dtype
@@ -128,12 +203,26 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
         raise ValueError(
             "on CUDA pc='mg' runs the f32 stencil kernels: pass an f32 "
             "system or mixed=True (the default for f64 systems)")
+    if b.device.type == "cuda" and stencil_radius not in (1, 2):
+        raise NotImplementedError(
+            f"stencil_radius={stencil_radius}: the CUDA stencil kernels take "
+            "radius 1 or 2 (radius 3, the biharmonic: ROADMAP.md item 14)")
     full_f32()
-    S = _probe(reducers, A.blocks, shape, sdt)
-    mg = StencilMultigrid(S) if len(shape) == 2 else StencilMultigrid3D(S)
+    Q = None
+    if n_fields > 1:
+        S = _probe_block(A, shape, n_fields, stencil_radius, sdt)
+        mg = StencilMultigridBlock(S)
+        Q = _deflation_space(S, n_fields, sdt)
+    else:
+        reducers = None
+        if A.trim_mask is None and A.shift is None and stencil_radius == 2:
+            reducers = lattice_tables(A.form, A.M, shape)
+        S = (_probe(reducers, A.blocks, shape, sdt) if reducers is not None
+             else _probe_general(A, shape, stencil_radius, sdt))
+        mg = StencilMultigrid(S) if len(shape) == 2 else StencilMultigrid3D(S)
 
     if not mixed:
-        return _run_stencil_krylov(S, mg, b, x0, rtol, atol, method,
+        return _run_stencil_krylov(S, mg, Q, b, x0, rtol, atol, method,
                                    max_it, restart)
 
     # -- mixed precision: f32 MG-Krylov passes + f64 refinement --------------
@@ -151,7 +240,8 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
         # contract only as far as this pass needs (0.25x margin for the
         # f32 apply error), clamped to the f32 floor
         rtol_pass = min(max(0.25 * rtol_eff / relf, 1e-6), 3e-2)
-        dx, info = _run_stencil_krylov(S, mg, r64.to(torch.float32), zero32,
+        dx, info = _run_stencil_krylov(S, mg, Q, r64.to(torch.float32),
+                                       zero32,
                                        rtol_pass, 0.0, method, max_it,
                                        restart)
         iters += info.iters
@@ -193,9 +283,10 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
         return torch.as_tensor(u, dtype=b.dtype, device=b.device), None
 
     x0 = torch.zeros_like(b) if x0 is None else x0
-    if pc in ("asm", "ASM") or (pc == "bjacobi" and n_fields > 1):
+    if pc in ("asm", "ASM"):
         raise NotImplementedError(
-            f"pc='{pc}' waits for the block workloads (ROADMAP.md item 13)")
+            "pc='asm' (restricted additive Schwarz) is not ported yet "
+            "(ROADMAP.md item 13b)")
     if pc == "mg":
         if lattice_shape is None:
             raise ValueError(
@@ -205,12 +296,17 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
                             stencil_radius=stencil_radius,
                             restart=gmres_restart, mixed=mixed)
     else:
-        if pc == "bjacobi":
+        if pc == "bjacobi" and n_fields <= 1:
             warnings.warn(
                 "pc='bjacobi' with a single field is pointwise jacobi; "
                 "pass n_fields>1 for field-coupled blocks", stacklevel=2)
             pc = "jacobi"
-        minv = precond.jacobi(A.diag()) if pc == "jacobi" else None
+        if pc == "bjacobi":
+            minv = precond.block_jacobi(A.block_diag(n_fields))
+        elif pc == "jacobi":
+            minv = precond.jacobi(A.diag())
+        else:
+            minv = None
         kw = dict(minv=minv, rtol=rtol, atol=atol, max_it=max_it)
         if method == "cg":
             x, info = krylov.cg(A.mv, b, x0, **kw)

@@ -149,7 +149,8 @@ def test_torch_solve_ksp_nonsymmetric_bicgstab():
 
 
 def test_torch_solve_ksp_options(square):
-    """bfr trimming, the ICC fallback and the cases not ported yet."""
+    """bfr trimming, the ICC fallback, pc='mg' on a trimmed operator (the
+    coloured general probe) and the case not ported yet."""
     A, b = square.A, square.b
     x_ref, _ = square.ref(method="gmres", pc="jacobi", rtol=1e-10,
                           bfr_tol=1e-9)
@@ -164,11 +165,15 @@ def test_torch_solve_ksp_options(square):
         x_jac, _ = solve_ksp(A, b, method="cg", pc="jacobi", rtol=1e-10,
                              monitor=False)
     assert torch.equal(x_icc, x_jac)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         solve_ksp(A, b, pc="asm", monitor=False)
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        solve_ksp(A.with_trim(A.diag() <= 0), b, pc="mg",
-                  lattice_shape=square.shape, monitor=False)
+    mask = A.diag() <= 0
+    x_ref, it_ref = square.ref(method="cg", pc="mg", rtol=1e-10,
+                               lattice_shape=square.shape, bfr_tol=0.0)
+    x, info = solve_ksp(A.with_trim(mask), b, pc="mg", method="cg",
+                        rtol=1e-10, lattice_shape=square.shape, monitor=False)
+    assert info.converged and abs(info.iters - it_ref) < MG_CHECK
+    assert square.agree(x, x_ref)
     with pytest.raises(ValueError, match="lattice_shape"):
         solve_ksp(A, b, pc="mg", monitor=False)
 
