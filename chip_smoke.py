@@ -36,11 +36,14 @@ line; the first failure exits non-zero:
      solver freed first): assemble_background_system and
      solve_ksp(pc='mg') with CG and with GMRES, each counted, checked for
      residual, iterations, kernels, device and agreement with the
-     BinnedLatticeSolver's solution.
+     BinnedLatticeSolver's solution; then solve_ksp(pc='mg') with BFR
+     trimming, whose planes come from the coloured general probe of
+     A.mv_multi, with its residual, peak memory and error-norm gates.
   7. main path 3D: the same at n_bg=104 (105³ = 1,157,625 background dofs,
      13,182,000 foreground tetrahedra), with host setup per stage, table
-     bytes and peak device memory, and the front-end with CG; its error
-     norms must be below those of an n_bg=52 solve.
+     bytes and peak device memory, the front-end with CG and the trimmed
+     general-probe solve; its error norms must be below those of an
+     n_bg=52 solve.
   8. demo: ``python3 -m iifea_tpu_torch.demos.poisson --ref 4 --solv gmres
      --pc jacobi`` on the card (the general operator, no stencil kernel),
      held against the same demo on the host.
@@ -292,8 +295,9 @@ def phase_kernels():
         C, x, n = operands(shape, 2)
         y0 = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
                           device=dev)
-        _check(worst, "stencil_mv",
-               sk.stencil_mv(C, x, shape, 2, out=y0.clone(), accumulate=True),
+        y = y0.clone()
+        sk._launch_mv(C, x, y, shape, 2, accumulate=True)
+        _check(worst, "stencil_mv", y,
                y0 + sk.stencil_mv_plain(C, x, shape, 2), shape, 2,
                what="accumulate")
         Cb = torch.tensor(rng.standard_normal((2, 2, 25, *shape)),
@@ -813,6 +817,57 @@ def front_end(prob, M, u_ref, shape, methods, names, max_iters, tag):
         if not all(gap[k] <= 1e-6 * norms_ref[k] + 1e-9 for k in gap):
             fail(f"{tag} {method}: error norms {norms} differ from "
                  f"BinnedLatticeSolver's {norms_ref}")
+    general_probe(prob, M, A, b, norms_ref, shape, names, max_iters, tag)
+
+
+BFR_TOL = 1e-9      # the parity tests' trim: zero and near-zero diagonals
+
+
+def general_probe(prob, M, A, b, norms_ref, shape, names, max_iters, tag):
+    """``solve_ksp(cg, pc='mg', bfr_tol=BFR_TOL)`` on the same system,
+    counted: the BFR trim mask turns the binned/window assembly off, so the
+    stencil planes come from the coloured general probe of ``A.mv_multi``
+    (f64, in column chunks under ``ksp.PROBE_BUDGET_BYTES``) and the same
+    kernels run the V-cycle. Gates: the probe ran, the trimmed system's
+    f64 relative residual below 1e-10 within ``max_iters``, the solution
+    on the card, and the error norms within 1e-6 relative (or 1e-9) of the
+    binned solution's (the trimmed dofs carry no physical support)."""
+    import torch
+
+    from iifea_tpu_torch.solvers import ksp
+    from iifea_tpu_torch.solvers.trim import apply_trim_rhs, trim_mask_from_diag
+
+    mask = trim_mask_from_diag(A.diag(), BFR_TOL)
+    At, bt = A.with_trim(mask), apply_trim_rhs(b, mask)
+    stages = Counter()
+    with timed_calls([(ksp, "_probe_general")], stages):
+        (x, info), t_solve, launches, by_shape = counted_run(
+            lambda: ksp.solve_ksp(A, b, method="cg", pc="mg", rtol=1e-10,
+                                  bfr_tol=BFR_TOL, lattice_shape=shape,
+                                  monitor=False),
+            names, f"{tag} general probe")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    relres = rel_residual(At, bt, x)
+    norms = prob.error_norms(M.mv(x))
+    gap = {k: abs(norms[k] - norms_ref[k]) for k in ("L2", "H10")}
+    phase(f"{tag}_general_probe", bfr_tol=BFR_TOL, trimmed=int(mask.sum()),
+          columns=(2 * 2 + 1) ** len(shape),
+          chunk=ksp._probe_chunk(A, torch.float64),
+          probe_seconds=stages["_probe_general"], solve_seconds=t_solve,
+          iters=info.iters, rel_residual=relres, peak_gib=peak,
+          launches=launches, launches_by_shape=by_shape, error_norms=norms,
+          norms_rel_diff={k: gap[k] / norms_ref[k] for k in gap})
+    if not stages["_probe_general"] > 0:
+        fail(f"{tag} general probe: the trimmed solve did not probe A")
+    if not relres < 1e-10:
+        fail(f"{tag} general probe: f64 relative residual {relres} >= 1e-10")
+    if not info.iters <= max_iters:
+        fail(f"{tag} general probe: {info.iters} iterations > {max_iters}")
+    if not x.is_cuda:
+        fail(f"{tag} general probe: the solution is not on the card")
+    if not all(gap[k] <= 1e-6 * norms_ref[k] + 1e-9 for k in gap):
+        fail(f"{tag} general probe: error norms {norms} differ from "
+             f"BinnedLatticeSolver's {norms_ref}")
 
 
 def phase_main_path():

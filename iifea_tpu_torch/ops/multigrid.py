@@ -62,13 +62,12 @@ def full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _warn_weak_coarse(shape, wanted: bool, possible: bool) -> None:
-    """Warn when a dense coarsest level was wanted but the hierarchy
-    bottoms out too large for it: the coarsening halves a side s only while
-    (s − 1) is even, so a side that is not 2^k·m + 1 with a small odd m
-    stops early, and sweeps on a large coarsest level leave the V-cycle
-    weak on low frequencies."""
-    if wanted and not possible:
+def _warn_weak_coarse(shape, possible: bool) -> None:
+    """Warn when the hierarchy bottoms out too large for a dense coarsest
+    level: the coarsening halves a side s only while (s − 1) is even, so a
+    side that is not 2^k·m + 1 with a small odd m stops early, and sweeps
+    on a large coarsest level leave the V-cycle weak on low frequencies."""
+    if not possible:
         warnings.warn(
             f"multigrid: the coarsest level {tuple(shape)} exceeds the "
             "dense-inverse cap; the V-cycle will be weak on low frequencies. "
@@ -284,7 +283,7 @@ class StencilMultigrid:
             self.levels.append(_coarsen(self.levels[-1]))
         self.inv_diags = [_invd(lv) for lv in self.levels]
         dense_ok = self.levels[-1].n <= DENSE_CAP
-        _warn_weak_coarse(shapes[-1], True, dense_ok)
+        _warn_weak_coarse(shapes[-1], dense_ok)
         self.coarse_inv = _dense_inverse(self.levels[-1]) if dense_ok else None
 
     def _smooth(self, lvl: int, x, b, sweeps: int):
@@ -339,7 +338,7 @@ class StencilMultigrid3D:
             self.levels.append(_coarsen3(self.levels[-1]))
         self.inv_diags = [_invd3_l1(lv) for lv in self.levels]
         dense_ok = self.levels[-1].n <= DENSE_CAP3
-        _warn_weak_coarse(self.levels[-1].shape, True, dense_ok)
+        _warn_weak_coarse(self.levels[-1].shape, dense_ok)
         self.coarse_inv = (_dense_inverse3(self.levels[-1]) if dense_ok
                            else None)
 
@@ -477,8 +476,7 @@ class StencilMultigridBlock:
 
     def __init__(self, S: StencilOperatorBlock2D, nu_pre: int = 2,
                  nu_post: int = 2, omega: float = 1.0,
-                 coarse_sweeps: int = 60, min_size: int = 9,
-                 coarse_dense: bool = True):
+                 coarse_sweeps: int = 60, min_size: int = 9):
         self.nu_pre, self.nu_post = nu_pre, nu_post
         self.omega = omega
         self.coarse_sweeps = coarse_sweeps
@@ -487,8 +485,8 @@ class StencilMultigridBlock:
                   for s in self.levels[-1].shape):
             self.levels.append(_coarsen_block(self.levels[-1]))
         self.binvs = [_point_binv(lv) for lv in self.levels]
-        dense_ok = coarse_dense and self.levels[-1].n <= DENSE_CAP_BLOCK
-        _warn_weak_coarse(self.levels[-1].shape, coarse_dense, dense_ok)
+        dense_ok = self.levels[-1].n <= DENSE_CAP_BLOCK
+        _warn_weak_coarse(self.levels[-1].shape, dense_ok)
         self.coarse_inv = (_dense_inverse_block(self.levels[-1]) if dense_ok
                            else None)
 

@@ -299,10 +299,10 @@ class StencilOperatorBlock2D:
         return StencilOperatorBlock2D(C, shape, radius)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x: the stencil_mv kernel for f32 (nF² launches); the plain
-        ``mv_ref`` for other dtypes on the CPU. On a card a non-f32
-        operator raises: the kernels are f32 only."""
-        if self.coeffs.dtype == torch.float32 or self.device.type == "cuda":
+        """y = A x: on a card the stencil_mv kernel (nF² launches; a
+        non-f32 operator raises, the kernels are f32 only), on the CPU the
+        plain ``mv_ref``."""
+        if self.device.type == "cuda":
             return sk.stencil_mv_block(self.coeffs, x, self.shape,
                                        self.radius)
         return self.mv_ref(x)

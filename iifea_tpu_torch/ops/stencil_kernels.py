@@ -230,21 +230,9 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def stencil_mv(C, x, shape, radius, out=None, accumulate=False):
-    """y = A x (f32), written to ``out`` when given, or added to it
-    (``accumulate``: out += A x). CPU: plain version; CUDA: the
-    stencil2d_mv kernel (stencil2d_mv_acc when accumulating)."""
-    planes = () if out is None else (out,)
-    if accumulate and out is None:
-        raise ValueError("accumulate=True needs out")
-    if out is not None and out.data_ptr() == x.data_ptr():
-        raise ValueError("out must not alias x")
-    if _check(C, x, shape, radius, *planes) == "cpu":
-        y = stencil_mv_plain(C, x, shape, radius)
-        if out is None:
-            return y
-        return out.add_(y) if accumulate else out.copy_(y)
-    y = torch.empty_like(x) if out is None else out
+def _launch_mv(C, x, y, shape, radius, accumulate):
+    """One stencil2d_mv launch writing A x to y (stencil2d_mv_acc when
+    ``accumulate``: y += A x). Checked CUDA operands only."""
     entry = _lib().stencil2d_mv_acc if accumulate else _lib().stencil2d_mv
     with torch.cuda.device(x.device):
         rc = entry(
@@ -253,14 +241,22 @@ def stencil_mv(C, x, shape, radius, out=None, accumulate=False):
         )
     _raise_on(rc, "stencil2d_mv")
     stencil_mv.launches += 1
+
+
+def stencil_mv(C, x, shape, radius):
+    """y = A x (f32). CPU: plain version; CUDA: the stencil2d_mv kernel."""
+    if _check(C, x, shape, radius) == "cpu":
+        return stencil_mv_plain(C, x, shape, radius)
+    y = torch.empty_like(x)
+    _launch_mv(C, x, y, shape, radius, accumulate=False)
     return y
 
 
 def stencil_mv_block(C, x, shape, radius):
     """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32) on field-blocked
-    vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous: nF²
-    ``stencil_mv`` calls, the first per output field writing y[f1] and the
-    others adding to it. CPU: plain versions; CUDA: nF² launches."""
+    vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous. CPU: plain
+    version; CUDA: nF² stencil_mv launches, the first per output field
+    writing y[f1] and the others adding to it (stencil2d_mv_acc)."""
     nF = C.shape[0]
     if C.dim() != 5 or C.shape[1] != nF:
         raise ValueError(f"block coefficients {tuple(C.shape)} are not "
@@ -268,11 +264,13 @@ def stencil_mv_block(C, x, shape, radius):
     if not C.is_contiguous():
         raise ValueError("stencil kernels take contiguous tensors")
     xs = x.view(nF, -1)
+    if _check(C[0, 0], xs[0], shape, radius) == "cpu":
+        return stencil_mv_block_plain(C, x, shape, radius)
     y = torch.empty_like(x)
     ys = y.view(nF, -1)
     for f1 in range(nF):
         for f2 in range(nF):
-            stencil_mv(C[f1, f2], xs[f2], shape, radius, out=ys[f1],
+            _launch_mv(C[f1, f2], xs[f2], ys[f1], shape, radius,
                        accumulate=f2 > 0)
     return y
 

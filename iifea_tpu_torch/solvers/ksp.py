@@ -59,7 +59,9 @@ _NO_GPU_PC = {"ICC", "ILU", "ILUT"}
 # live temporaries of one general-probe chunk (the stacked element gather
 # and products, (ne + 3) per column): sized for the 80 GB card. The n_bg=512
 # elasticity probe (754,974 block cells, 6 dofs each, 50 f64 columns,
-# ~326 MB per column) runs unchunked.
+# ~326 MB per column) runs unchunked; the trimmed 3D n_bg=104 Poisson probe
+# (2,847,276 cells, 125 columns, ~638 MB per column) in chunks of 26, its
+# solve peaking at 19.2 GiB (chip_smoke.py, H100 80GB HBM3 at 700 W).
 PROBE_BUDGET_BYTES = 16 * 2 ** 30
 
 # the lattice tables are a host pass over every element plus device

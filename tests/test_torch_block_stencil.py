@@ -6,29 +6,20 @@ block stencil probe, apply and multigrid pieces, on the immersed
 elasticity system (tests/test_models.py's workload) at n_bg = 8 and 16.
 f64 throughout: 1e-12 relative, the V-cycle 1e-10."""
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from iifea_tpu.mesh.generators import immersed_square_problem as j_square
-from iifea_tpu.models.elasticity import ImmersedElasticityProblem as JElastic
 from iifea_tpu.ops import multigrid as jmg
 from iifea_tpu.ops.extraction import ExtractionOperator as JExtraction
-from iifea_tpu.ops.projection import BackgroundOperator as JBackgroundOperator
-from iifea_tpu.ops.projection import (
-    assemble_background_system as j_assemble,
-)
-from iifea_tpu.ops.stencil import StencilOperatorBlock2D as JBlock
 from iifea_tpu.solvers import precond as jprecond
 from iifea_tpu_torch.convert import from_numpy_state
-from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
 from iifea_tpu_torch.ops import multigrid as mg
 from iifea_tpu_torch.ops import stencil_kernels as sk
 from iifea_tpu_torch.ops.extraction import ExtractionOperator
-from iifea_tpu_torch.ops.projection import assemble_background_system
 from iifea_tpu_torch.ops.stencil import StencilOperatorBlock2D
 from iifea_tpu_torch.solvers import precond
+from torch_elastic_pair import elastic
 
 
 def _rel(a, b):
@@ -36,43 +27,9 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-class Elastic:
-    """The immersed elasticity system (n_fg = 2·n_bg, two fields) assembled
-    by both packages, and its block stencil probed by both."""
-
-    def __init__(self, n_bg):
-        mesh_j, self.M_j = j_square(n_fg=2 * n_bg, n_bg=n_bg, n_fields=2)
-        prob_j = JElastic(mesh_j, k=1)
-        A, self.b_j = jax.jit(lambda u: j_assemble(prob_j.form, u, self.M_j))(
-            jnp.zeros(prob_j.form.n_dofs))
-        self.A_j = JBackgroundOperator(prob_j.form, A.blocks, self.M_j)
-        st = from_numpy_state(
-            coords=mesh_j.coords, cells=mesh_j.cells,
-            material=mesh_j.material, idx=self.M_j.idx_np,
-            val=self.M_j.val_np, n_bg_dofs=self.M_j.n_bg_dofs, device="cpu")
-        self.M = st.M
-        self.prob = ImmersedElasticityProblem(st.mesh, k=1, device="cpu")
-        self.A, self.b = assemble_background_system(
-            self.prob.form,
-            torch.zeros(self.prob.space.n_dofs, dtype=torch.float64), st.M)
-        self.shape = (n_bg + 1, n_bg + 1)
-        self.S_j = JBlock.probe_multi(self.A_j.mv_multi, self.shape,
-                                      n_fields=2, dtype=jnp.float64)
-        self.S = StencilOperatorBlock2D.probe_multi(
-            self.A.mv_multi, self.shape, n_fields=2, dtype=torch.float64,
-            device="cpu")
-
-
 @pytest.fixture(scope="module")
 def systems():
-    cache = {}
-
-    def get(n_bg):
-        if n_bg not in cache:
-            cache[n_bg] = Elastic(n_bg)
-        return cache[n_bg]
-
-    return get
+    return elastic
 
 
 @pytest.mark.parametrize("n_fields", [1, 2, 3])
@@ -162,15 +119,15 @@ def test_torch_block_probe(systems, n_bg):
 
 
 def test_torch_block_apply_f32_is_the_plain_version(systems):
-    """On the CPU the f32 block apply (the kernel wrapper's route) runs the
-    plain version: nF² accumulating stencil_mv calls equal the plain block
-    apply, and no kernel is counted."""
+    """On the CPU the f32 block apply, and the kernel wrapper given CPU
+    tensors, run the plain version and count no kernel."""
     S = systems(8).S.to(torch.float32)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(S.n)).float()
     before = sk.stencil_mv.launches
-    y = S.mv(x)
+    y_ref = sk.stencil_mv_block_plain(S.coeffs, x, S.shape, 2)
+    assert torch.equal(S.mv(x), y_ref)
+    assert torch.equal(sk.stencil_mv_block(S.coeffs, x, S.shape, 2), y_ref)
     assert sk.stencil_mv.launches == before
-    assert _rel(y, sk.stencil_mv_block_plain(S.coeffs, x, S.shape, 2)) < 1e-6
     with pytest.raises(ValueError):
         sk.stencil_mv_block(S.coeffs[0], x, S.shape, 2)
 
@@ -207,24 +164,26 @@ def test_torch_block_multigrid_minv(systems):
     assert _rel(mgt.minv(torch.from_numpy(r)), mgj.minv(jnp.asarray(r))) < 1e-10
 
 
-@pytest.mark.parametrize("coarse_dense", [True, False])
-def test_torch_block_multigrid_weak_coarse_warning(coarse_dense):
-    """The warning fires only when a dense coarsest level was wanted and
-    is too large to form (2 × 65² dofs > DENSE_CAP_BLOCK), not when the
-    caller asked for coarse sweeps (the reference warns for both)."""
+@pytest.mark.parametrize("side,min_size,warns", [(65, 65, True),
+                                                 (17, 9, False)])
+def test_torch_block_multigrid_weak_coarse_warning(side, min_size, warns):
+    """The warning fires only when the coarsest level is too large for the
+    dense inverse (min_size=65 stops at 2 × 65² dofs > DENSE_CAP_BLOCK),
+    not when the hierarchy reaches a dense 9² level (17² → 9²)."""
     import warnings
 
     rng = np.random.default_rng(10)
-    C = torch.from_numpy(rng.uniform(-0.1, 0.1, (2, 2, 25, 65, 65)))
+    C = torch.from_numpy(rng.uniform(-0.1, 0.1, (2, 2, 25, side, side)))
     C[0, 0, 12] += 4.0
     C[1, 1, 12] += 4.0
-    S = StencilOperatorBlock2D(C, (65, 65), 2)
+    S = StencilOperatorBlock2D(C, (side, side), 2)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        m = mg.StencilMultigridBlock(S, min_size=65, coarse_dense=coarse_dense)
-    assert m.coarse_inv is None and len(m.levels) == 1
+        m = mg.StencilMultigridBlock(S, min_size=min_size)
+    assert (m.coarse_inv is None) == warns
+    assert m.levels[-1].shape == ((65, 65) if warns else (9, 9))
     assert [str(w.message).startswith("multigrid: the coarsest level")
-            for w in caught] == ([True] if coarse_dense else [])
+            for w in caught] == ([True] if warns else [])
 
 
 def test_torch_convert_block_planes(systems):

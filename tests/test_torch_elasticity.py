@@ -9,18 +9,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from iifea_tpu.mesh.generators import immersed_square_problem as j_square
-from iifea_tpu.models.elasticity import ImmersedElasticityProblem as JElastic
-from iifea_tpu.ops.projection import BackgroundOperator as JBackgroundOperator
-from iifea_tpu.ops.projection import (
-    assemble_background_system as j_assemble,
-)
 from iifea_tpu.solvers.ksp import solve_ksp as j_solve_ksp
-from iifea_tpu_torch.convert import from_numpy_state
 from iifea_tpu_torch.demos import linear_elasticity as demo
 from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
 from iifea_tpu_torch.ops.projection import assemble_background_system
 from iifea_tpu_torch.solvers.ksp import solve_ksp
+from torch_elastic_pair import elastic
 
 
 def _rel(a, b):
@@ -28,42 +22,9 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-class Elastic:
-    """The immersed elasticity problem (n_fg = 2·n_bg, two fields) in both
-    packages, assembled at u = 0."""
-
-    def __init__(self, n_bg):
-        mesh_j, self.M_j = j_square(n_fg=2 * n_bg, n_bg=n_bg, n_fields=2)
-        self.prob_j = JElastic(mesh_j, k=1)
-        form_j = self.prob_j.form
-        A, self.b_j = jax.jit(lambda u: j_assemble(form_j, u, self.M_j))(
-            jnp.zeros(form_j.n_dofs))
-        self.A_j = JBackgroundOperator(form_j, A.blocks, self.M_j)
-        st = from_numpy_state(
-            coords=mesh_j.coords, cells=mesh_j.cells,
-            material=mesh_j.material, idx=self.M_j.idx_np,
-            val=self.M_j.val_np, n_bg_dofs=self.M_j.n_bg_dofs, device="cpu")
-        self.M = st.M
-        self.prob = ImmersedElasticityProblem(st.mesh, k=1, device="cpu")
-        self.A, self.b = assemble_background_system(
-            self.prob.form,
-            torch.zeros(self.prob.space.n_dofs, dtype=torch.float64), st.M)
-        self.shape = (n_bg + 1, n_bg + 1)
-
-    def norms(self, u):
-        return self.prob.error_norms(self.M.mv(u))
-
-
 @pytest.fixture(scope="module")
 def systems():
-    cache = {}
-
-    def get(n_bg):
-        if n_bg not in cache:
-            cache[n_bg] = Elastic(n_bg)
-        return cache[n_bg]
-
-    return get
+    return elastic
 
 
 def test_torch_elasticity_model(systems):
@@ -128,20 +89,16 @@ def test_torch_elasticity_mixed_mg_solve(systems):
         assert abs(n[k] - n_lu[k]) < 1e-8 * n_lu[k]
 
 
-def test_torch_demo_elasticity_matches_jax(capsys):
+def test_torch_demo_elasticity_matches_jax(systems, capsys):
     """--ref 2 (n_fg=32, n_bg=16) in-process against the JAX demo's steps."""
     out = demo.main(["--mesh-root", "synthetic", "--k", "1", "--ref", "2",
                      "--device", "cpu"])
     printed = capsys.readouterr().out
-    mesh_j, M_j = j_square(n_fg=32, n_bg=16, degree=1, n_fields=2)
-    prob_j = JElastic(mesh_j, k=1, sym=True)
-    A, b = jax.jit(lambda u: j_assemble(prob_j.form, u, M_j))(
-        jnp.zeros(prob_j.form.n_dofs))
-    A = JBackgroundOperator(prob_j.form, A.blocks, M_j)
-    u_p, info_j = j_solve_ksp(A, b, method="cg", pc="mg", rtol=1e-10,
-                              lattice_shape=(17, 17), n_fields=2,
+    s = systems(16)                  # the demo's problem at --ref 2
+    u_p, info_j = j_solve_ksp(s.A_j, s.b_j, method="cg", pc="mg",
+                              rtol=1e-10, lattice_shape=(17, 17), n_fields=2,
                               monitor=False)
-    ref = prob_j.error_norms(M_j.mv(u_p))
+    ref = s.prob_j.error_norms(s.M_j.mv(u_p))
     assert out["info"].iters == int(info_j.iters)
     for k in ("L2", "H10"):
         assert abs(out["norms"][k] - ref[k]) <= 1e-8 * ref[k], k
