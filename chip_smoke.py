@@ -9,15 +9,20 @@ line; the first failure exits non-zero:
      requires torch.cuda.is_available().
   1. build: compiles every iifea_tpu_torch/csrc/*.cu (stencil2d.cu,
      stencil3d.cu) with nvcc (sm_90a), one nvcc per source in parallel.
-  2. kernels: stencil_mv (also accumulating, and as the block apply of
-     nF² launches) and jacobi_smooth against their plain PyTorch
-     versions on the card; at every level shape the 2D V-cycle smooths
-     (1025², 513², 257², 129², 65²; r=2, and 33², 17² for stencil_mv,
-     which the block V-cycle adds) the device time per launch (a
-     CUDA graph of 50 launches, one event pair around its replay), the
+  2. kernels: stencil_mv, jacobi_smooth, stencil_mv_block (the block
+     apply and residual in one launch) and smooth (a level's ν sweeps and
+     trailing residual, by each route: one launch per pass, and one
+     cooperative launch where the level's tiles are co-resident; where
+     they are not, that launch must be refused) against their plain
+     PyTorch versions on the card,
+     for 1 to 3 fields, r = 1, 2, ν = 1, 2, 3, from x and from zero, with
+     and without the residual, at odd shapes and at every level shape; at
+     every level shape the V-cycles smooth (scalar 1025² … 65², block
+     513² … 17²; r=2) the device time per launch or per smoothing call (a
+     CUDA graph of 50 calls, one event pair around its replay), the
      per-call time from an idle card (one event pair around one call: the
-     wrapper's host work included) and the bound; the plain version's
-     device time at 1025².
+     wrapper's host work included) and the bound; the plain versions'
+     device times at the main-path shapes.
   3. kernels3: stencil_mv3, jacobi_smooth3 and cheb_step3 against their
      plain versions at small shapes and at 105³; a soak of thousands of
      interleaved radius-2 launches over 105³, 53³, 27³ and 14³ (the 3D
@@ -51,9 +56,10 @@ line; the first failure exits non-zero:
      point-block-Jacobi CG against host SuperLU (error norms to 1e-8
      relative); then ``assemble_background_system`` + ``solve_ksp(cg,
      pc='mg', n_fields=2)`` at n_bg=512 (2 × 513² = 526,338 background
-     dofs), once counted per lattice shape (every block apply is nF² = 4
-     ``stencil_mv`` launches; no plain stencil apply on the card outside
-     the coarsest level's dense inverse), then per-stage times, a profiled
+     dofs), once counted per lattice shape (every block apply is one
+     launch, at most 1,056 stencil launches per solve; no plain stencil
+     apply on the card outside the coarsest level's dense inverse), then
+     per-stage times, a profiled
      solve and peak memory; its error norms must be below an n_bg=256
      solve's with an L2 rate above 1.5.
   10. demo_elasticity: ``python3 -m iifea_tpu_torch.demos.linear_elasticity
@@ -62,7 +68,9 @@ line; the first failure exits non-zero:
 
 Then ``kernel_shapes``: every timed (kernel, shape) with its launches in the
 main-path solves (2D, 3D and elasticity, added) and launches × (device ms
-− bound ms) per kernel.
+− bound ms) per kernel; a block operator's shape carries its field count
+first (2x513x513), and a smoothing call is booked by its form
+(``smooth_call@…:pre`` from zero with the residual, ``:post`` from x).
 The line before the last is the kernel summary JSON, the last line the
 device JSON. Imports nothing of JAX.
 """
@@ -91,6 +99,12 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     # the fused Chebyshev step extends jacobi_smooth3 to the 3D V-cycle's
     # smoother: one pass per sweep
     "cheb_step3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
+    # stencil_mv for block operators: all nF output fields in one launch,
+    # with the residual epilogue b − A x
+    "stencil_mv_block": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:127"),
+    # jacobi_smooth for a whole level: ν sweeps and the residual in one
+    # launch (a cooperative grid)
+    "smooth": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:136"),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
 GRAPH_LAUNCHES = 50           # captured calls per timed CUDA graph
@@ -100,6 +114,12 @@ LEVELS2 = [(s_, s_) for s_ in (1025, 513, 257, 129, 65)]
 # adds to LEVELS2 (stencil_mv only: it smooths by point-block Jacobi)
 BLOCK_SMOOTHED = [(s_, s_) for s_ in (513, 257, 129, 65, 33, 17)]
 BLOCK_EXTRA = [s_ for s_ in BLOCK_SMOOTHED if s_ not in LEVELS2]
+N_FIELDS_EL = 2               # fields of the elasticity block operator
+# the V-cycle's two smoothing calls per level: (from zero, with residual)
+FORMS = {"pre": (True, True), "post": (False, False)}
+NU = 2                        # sweeps per smoothing call (nu_pre = nu_post)
+MAX_STENCIL_LAUNCHES_EL = 1056   # a quarter of the 4,224 of nF² launches
+MAX_LAUNCHES_EL = 8500        # all kernels of the profiled elasticity solve
 LEVELS3 = [(s_,) * 3 for s_ in (105, 53, 27)]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
@@ -141,10 +161,10 @@ def call_ms(fn, reps: int = 20, warm: int = 3) -> float:
 
 def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     """Device milliseconds per call of fn(): a CUDA graph of ``launches``
-    captured calls, one CUDA event pair around each replay, divided by the
-    count; the median of ``reps`` replays. No host time is in the
-    interval. Consecutive calls find their operands in the 50 MB L2 where
-    they fit, as the V-cycle's repeated sweeps on one level do."""
+    captured calls (cooperative launches are captured like any other), one CUDA event pair around each replay, divided by the count;
+    the median of ``reps`` replays. No host time is in the interval.
+    Consecutive calls find their operands in the 50 MB L2 where they fit,
+    as the V-cycle's repeated sweeps on one level do."""
     import torch
 
     side = torch.cuda.Stream()
@@ -173,11 +193,12 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def time_kernel(name, shape, fn, plain=None) -> dict:
+def time_kernel(name, shape, fn, plain=None, bound_=None, **kv) -> dict:
     """One ``kernel_time`` line: device ms, call ms and bound at ``shape``
-    (and the plain version's device ms where ``plain`` is given)."""
-    b_ms, by = bound(name, shape)
-    row = {"kernel": name, "shape": list(shape), "radius": 2,
+    (and the plain version's device ms where ``plain`` is given).
+    ``bound_`` is (ms, by) where the row is not one launch of ``name``."""
+    b_ms, by = bound_ or bound(name, shape)
+    row = {"kernel": name, "shape": list(shape), "radius": 2, **kv,
            "device_ms": device_ms(fn), "call_ms": call_ms(fn),
            "bound_ms": b_ms, "bound_by": by}
     if plain is not None:
@@ -185,6 +206,15 @@ def time_kernel(name, shape, fn, plain=None) -> dict:
     row["share_of_bound"] = b_ms / row["device_ms"]
     phase("kernel_time", **row)
     return row
+
+
+def _bound_ms(words: float, flops: float, n: int) -> tuple[float, str]:
+    """The larger of ``words`` f32 values per point over the memory rate and
+    ``flops`` per point over the f32 rate, on n points, in ms."""
+    t_bytes = 4.0 * n * words / HBM_BYTES_PER_S
+    t_ops = flops * n / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
@@ -196,10 +226,51 @@ def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
     for s_ in shape:
         n *= s_
     taps = (2 * radius + 1) ** len(shape)
-    t_bytes = 4.0 * n * (taps + VECTORS[name]) / HBM_BYTES_PER_S
-    t_ops = (2.0 * taps + 4.0) * n / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _bound_ms(taps + VECTORS[name], 2.0 * taps + 4.0, n)
+
+
+def bound_passes(shape, n_fields: int, passes, radius: int = 2):
+    """The bound of a sequence of passes on an nF-field 2D operator, the
+    same work whatever launches carry it: per pass every value it needs
+    moved once. "apply": nF² plane sets, x read, y written; "residual":
+    also b read; "sweep": also the nF² Binv planes; "zero" (the sweep from
+    x = 0): Binv and b read, x written, no plane. nF = 1 gives ``bound``'s
+    stencil_mv and jacobi_smooth."""
+    nF, taps = n_fields, (2 * radius + 1) ** 2
+    words = {"apply": nF * nF * taps + 2 * nF,
+             "residual": nF * nF * taps + 3 * nF,
+             "sweep": nF * nF * (taps + 1) + 3 * nF,
+             "zero": nF * nF + 2 * nF}
+    flops = {"apply": 2.0 * nF * nF * taps,
+             "residual": 2.0 * nF * nF * taps + nF,
+             "sweep": 2.0 * nF * nF * (taps + 1) + 3.0 * nF,
+             "zero": 3.0 * nF * nF}
+    return _bound_ms(sum(words[p] for p in passes),
+                     sum(flops[p] for p in passes), shape[0] * shape[1])
+
+
+def bound_call(shape, n_fields: int, sweeps: int, from_zero: bool,
+               with_residual: bool, radius: int = 2):
+    """The bound of one smoothing call as a function of its operands: every
+    input read once (the nF² plane sets, the nF² Binv planes, b, and x
+    unless from zero) and every output written once (x_ν, and r with the
+    residual), whatever passes carry it; the operations are those of its
+    passes, which no fusion saves."""
+    nF, taps = n_fields, (2 * radius + 1) ** 2
+    words = (nF * nF * (taps + 1) + nF + nF * (not from_zero) + nF
+             + nF * with_residual)
+    sweep, zero = 2.0 * nF * nF * (taps + 1) + 3.0 * nF, 3.0 * nF * nF
+    first = zero if from_zero and sweeps > 0 else 0.0
+    flops = (first + sweep * (sweeps - bool(first))
+             + (2.0 * nF * nF * taps + nF) * with_residual)
+    return _bound_ms(words, flops, shape[0] * shape[1])
+
+
+def passes_of(sweeps: int, from_zero: bool, with_residual: bool):
+    """The passes of one smoothing call."""
+    return (["zero"] * (from_zero and sweeps > 0)
+            + ["sweep"] * (sweeps - bool(from_zero and sweeps > 0))
+            + ["residual"] * with_residual)
 
 
 def phase_device():
@@ -233,23 +304,210 @@ def phase_build():
     sk._lib()
     dt = time.perf_counter() - t
     log = path.with_suffix(".log")
-    ptxas = log.read_text().strip().splitlines() if log.exists() else []
     phase("build", seconds=dt, library=str(path.relative_to(HERE)),
           sources=[str(p.relative_to(HERE)) for p in sk.SOURCES],
-          ptxas=[l for l in ptxas if "Used" in l or "Compiling" in l])
+          ptxas=ptxas_report(log.read_text() if log.exists() else ""))
 
 
-def _check(worst, name, y, y_ref, shape, radius, **kv):
+def ptxas_report(log: str) -> list:
+    """Per kernel of the compiler's ``-Xptxas -v`` report: registers, shared
+    memory, stack and spill bytes. The name is the mangled one cut to the
+    kernel and its template arguments."""
+    rows, row = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"\d+((?:pass|level|stencil)\w*?)E?v?P",
+                             m.group(1))
+            row = {"kernel": name.group(1) if name else m.group(1)}
+            rows.append(row)
+        elif row is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    row[key] = int(m.group(1))
+    return rows
+
+
+def _check(worst, name, y, y_ref, shape, radius, quiet=False, **kv):
+    """Hold y against y_ref at TOL·max|y_ref|; fails above it. ``quiet``
+    prints nothing (the caller prints a summary line). Returns the error."""
     import torch
 
     torch.cuda.synchronize()
     err = float((y - y_ref).abs().max())
     lim = TOL * float(y_ref.abs().max())
-    phase("kernel_check", kernel=name, shape=list(shape), radius=radius,
-          max_abs_err=err, bound=lim, **kv)
+    if not quiet:
+        phase("kernel_check", kernel=name, shape=list(shape), radius=radius,
+              max_abs_err=err, bound=lim, **kv)
     if not err <= lim:
-        fail(f"{name} {shape} r={radius}: {err} > {lim}")
+        fail(f"{name} {shape} r={radius} {kv}: {err} > {lim}")
     worst[name] = max(worst.get(name, 0.0), err)
+    return err
+
+
+ROUTES = ("per_pass", "grid")                 # sk.PER_PASS, sk.GRID
+
+
+def level_operands(rng, shape, radius, n_fields, dev):
+    """A diagonally dominant nF-field operator (n_fields = 0: scalar
+    planes and the flat 1/diag), its smoother blocks, b and x on the
+    card."""
+    import torch
+
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops.stencil import StencilOperatorBlock2D
+
+    nF, m2 = max(n_fields, 1), (2 * radius + 1) ** 2
+    C = torch.tensor(rng.uniform(-0.1, 0.1, (nF, nF, m2, *shape)),
+                     dtype=torch.float32, device=dev)
+    for f in range(nF):
+        C[f, f, m2 // 2] += 4.0
+    n = nF * shape[0] * shape[1]
+    b, x = (torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                         device=dev) for _ in range(2))
+    if n_fields == 0:
+        C = C[0, 0].contiguous()
+        return C, (1.0 / C[m2 // 2]).reshape(-1).contiguous(), b, x
+    return C, multigrid._point_binv(StencilOperatorBlock2D(C, shape,
+                                                           radius)), b, x
+
+
+TILE = (8, 32)     # output rows x columns per block of csrc/stencil2d.cu
+
+
+def fitting_routes(C, binv, b, x, shape, radius, nF):
+    """The routes of a smoothing call that take this level: one launch per
+    pass always, the fused launch where the library's plan (tile count
+    against the co-resident blocks) says the level fits. The plan is held
+    to the launch: a level that fits must launch (a fused launch that
+    raises there fails the run), one that does not fit must be refused."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    routed = sk._smooth_route(tuple(shape), radius, nF, b.device.index or 0)
+    tiles = -(-shape[0] // TILE[0]) * -(-shape[1] // TILE[1])
+    try:
+        sk._smooth_cuda(sk.GRID, C, binv, b, x, 0.8, 1, shape, radius, nF,
+                        True)
+        launched = True
+    except RuntimeError as e:
+        launched, why = False, str(e)
+    if launched != (routed == sk.GRID):
+        fail(f"smooth at {shape} nF={nF}, {tiles} tiles: the plan says "
+             f"{ROUTES[routed]}, the fused launch "
+             + ("ran" if launched else f"was refused: {why}"))
+    return [sk.PER_PASS] + [sk.GRID] * launched
+
+
+def check_level_entries(worst, rng, shape, radius, n_fields, dev, sweeps,
+                        forms):
+    """stencil_mv_block (apply, residual: one launch each) and smooth by
+    every route against their plain versions at ``shape``; the fused
+    route must be one launch a call. Prints one summary line; returns
+    whether every fused result equalled the per-pass launches bitwise."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    C, binv, b, x = level_operands(rng, shape, radius, n_fields, dev)
+    nF = max(n_fields, 1)
+    y_ref = sk.apply_plain(C, x, shape, radius)
+    before = sk.launches()
+    y = sk.stencil_mv_block(C, x, shape, radius)
+    r = sk.stencil_mv_block(C, x, shape, radius, b=b)
+    if sk.launches() != {**before, "stencil_mv_block":
+                         before["stencil_mv_block"] + 2}:
+        fail(f"block apply and residual at {shape} were not one "
+             f"stencil_mv_block launch each: {before} -> {sk.launches()}")
+    errs = [_check(worst, "stencil_mv_block", y, y_ref, shape, radius,
+                   quiet=True, n_fields=n_fields),
+            _check(worst, "stencil_mv_block", r, b - y_ref, shape, radius,
+                   quiet=True, n_fields=n_fields, what="residual")]
+    bitwise, checks = True, 2
+    fits = fitting_routes(C, binv, b, x, shape, radius, nF)
+    for nu in sweeps:
+        for from_zero, with_residual in forms:
+            start = None if from_zero else x
+            ref = sk.smooth_plain(C, binv, b, start, 0.8, nu, shape, radius,
+                                  with_residual)
+            outs, ran = [], []
+            for route in fits:
+                before = sk.smooth.launches
+                outs.append(sk._smooth_cuda(route, C, binv, b, start, 0.8,
+                                            nu, shape, radius, nF,
+                                            with_residual))
+                ran.append(ROUTES[route])
+                if sk.smooth.launches - before != (route != sk.PER_PASS):
+                    fail(f"smooth {ROUTES[route]} at {shape} made "
+                         f"{sk.smooth.launches - before} fused launches")
+            outs.append(sk.smooth(C, binv, b, start, 0.8, nu, shape, radius,
+                                  with_residual))
+            for route, out in zip((*ran, "routed"), outs):
+                name = "jacobi_smooth" if route == "per_pass" else "smooth"
+                for k, (v, v_ref) in enumerate(
+                        zip(*((out, ref) if with_residual
+                              else ((out,), (ref,))))):
+                    errs.append(_check(
+                        worst, name, v, v_ref, shape, radius, quiet=True,
+                        n_fields=n_fields, sweeps=nu, from_zero=from_zero,
+                        route=route, what="residual" if k else "x"))
+                    first = outs[0][k] if with_residual else outs[0]
+                    bitwise &= bool(torch.equal(v, first))
+                    checks += 1
+    phase("kernel_check", kernel="stencil_mv_block, smooth",
+          shape=list(shape), radius=radius, n_fields=n_fields,
+          sweeps=list(sweeps), forms=[list(f) for f in forms],
+          routes=[*(ROUTES[d] for d in fits), "routed"], checks=checks,
+          max_abs_err=max(errs), fused_bitwise_equal_per_pass=bitwise,
+          routed=ROUTES[sk._smooth_route(tuple(shape), radius, nF,
+                                         dev.index or 0)])
+    return bitwise
+
+
+def time_level(rng, shape, n_fields, dev, main_block, main_smooth):
+    """``kernel_time`` rows of the block entries at one level shape, r=2:
+    stencil_mv_block (apply), and each form of the V-cycle's smoothing call
+    (NU sweeps; "pre" from zero with the residual, "post" from x) by every
+    route that takes the level, the routed one as kernel "smooth_call".
+    ``bound_ms`` is the call's (``bound_call``: operands moved once),
+    ``per_pass_bound_ms`` the sum of its passes' bounds, which the rows
+    of single launches add up to. ``main_*``: also time the plain version
+    (the rows of the kernel summary)."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    C, binv, b, x = level_operands(rng, shape, 2, n_fields, dev)
+    nF = max(n_fields, 1)
+    key = list(shape) if n_fields == 0 else [nF, *shape]
+    rows = [time_kernel(
+        "stencil_mv_block", key, partial(sk.stencil_mv_block, C, x, shape, 2),
+        partial(sk.apply_plain, C, x, shape, 2) if main_block else None,
+        bound_=bound_passes(shape, nF, ["apply"]))]
+    routed = sk._smooth_route(tuple(shape), 2, nF, dev.index or 0)
+    fits = fitting_routes(C, binv, b, x, shape, 2, nF)
+    for form, (from_zero, with_residual) in FORMS.items():
+        start = None if from_zero else x
+        bnd = bound_call(shape, nF, NU, from_zero, with_residual)
+        per_pass = bound_passes(shape, nF, passes_of(NU, from_zero,
+                                                     with_residual))[0]
+        for route in fits:
+            fn = partial(sk._smooth_cuda, route, C, binv, b, start, 0.67,
+                         NU, shape, 2, nF, with_residual)
+            is_main = main_smooth and route == routed and form == "pre"
+            rows.append(time_kernel(
+                "smooth_call" if route == routed else "smooth_other_route",
+                key, fn,
+                partial(sk.smooth_plain, C, binv, b, start, 0.67, NU,
+                        shape, 2, with_residual) if is_main else None,
+                bound_=bnd, per_pass_bound_ms=per_pass, form=form,
+                route=ROUTES[route],
+                launches_per_call=(
+                    1 if route != sk.PER_PASS
+                    else NU - (from_zero and NU >= 2) + with_residual)))
+    return rows
 
 
 def phase_kernels():
@@ -289,29 +547,28 @@ def phase_kernels():
                sk.jacobi_smooth(C, invd, b, x, 0.67, shape, 2),
                sk.jacobi_smooth_plain(C, invd, b, x, 0.67, shape, 2), shape,
                2)
-    # the accumulating entry (y += A x) and the 2-field block apply built
-    # on it, at the block V-cycle's finest and coarsest smoothed shapes
-    for shape in [(33, 129), BLOCK_SMOOTHED[0], BLOCK_SMOOTHED[-1]]:
-        C, x, n = operands(shape, 2)
-        y0 = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
-                          device=dev)
-        y = y0.clone()
-        sk._launch_mv(C, x, y, shape, 2, accumulate=True)
-        _check(worst, "stencil_mv", y,
-               y0 + sk.stencil_mv_plain(C, x, shape, 2), shape, 2,
-               what="accumulate")
-        Cb = torch.tensor(rng.standard_normal((2, 2, 25, *shape)),
-                          dtype=torch.float32, device=dev)
-        xb = torch.tensor(rng.standard_normal(2 * n), dtype=torch.float32,
-                          device=dev)
-        before = sk.stencil_mv.launches
-        yb = sk.stencil_mv_block(Cb, xb, shape, 2)
-        if sk.stencil_mv.launches - before != 4:
-            fail(f"block apply launched {sk.stencil_mv.launches - before} "
-                 "stencil_mv kernels, not nF² = 4")
-        _check(worst, "stencil_mv", yb,
-               sk.stencil_mv_block_plain(Cb, xb, shape, 2), shape, 2,
-               what="block nF=2")
+    # the block entries: 1 to 3 fields (0: scalar planes), r = 1, 2,
+    # ν = 1, 2, 3, from x and from zero, with and without the residual, by
+    # every route, at odd shapes; then r = 2, ν = NU in the V-cycle's two
+    # forms at every level shape
+    bitwise = True
+    all_forms = [(z, w) for z in (False, True) for w in (False, True)]
+    for shape in [(17, 17), (33, 129), (40, 200)]:
+        for radius in (1, 2):
+            for n_fields in (0, 1, 2, 3):
+                bitwise &= check_level_entries(
+                    worst, rng, shape, radius, n_fields, dev, (1, 2, 3),
+                    all_forms)
+    level_sets = ((0, LEVELS2), (N_FIELDS_EL, BLOCK_SMOOTHED),
+                  (3, BLOCK_SMOOTHED[1:]))
+    for n_fields, shapes in level_sets:
+        for shape in shapes:
+            bitwise &= check_level_entries(
+                worst, rng, shape, 2, n_fields, dev, (NU,),
+                list(FORMS.values()))
+    phase("kernel_check", kernel="smooth",
+          fused_bitwise_equal_per_pass=bitwise)
+
     rows = []
     for shape in LEVELS2:
         C, x, n = operands(shape, 2)
@@ -333,11 +590,25 @@ def phase_kernels():
         rows.append(time_kernel(
             "jacobi_smooth", shape, jac,
             partial(jac, f=sk.jacobi_smooth_plain) if main else None))
+        del C, x, b, invd
     for shape in BLOCK_EXTRA:
         C, x, _ = operands(shape, 2)
         rows.append(time_kernel(
             "stencil_mv", shape,
             partial(sk.stencil_mv, C, x, shape, 2)))
+    # the largest level whose smoothing call is one launch gives the
+    # summary's "smooth" row
+    fused = [sh for sh in LEVELS2
+             if sk._smooth_route(sh, 2, 1, 0) != sk.PER_PASS]
+    if not fused:
+        fail("no scalar level's smoothing call is routed to one launch")
+    for n_fields, shapes in level_sets[:2]:
+        for shape in shapes:
+            rows += time_level(
+                rng, shape, n_fields, dev,
+                main_block=(n_fields, shape) == (N_FIELDS_EL,
+                                                 BLOCK_SMOOTHED[0]),
+                main_smooth=n_fields == 0 and shape == fused[0])
     return worst, rows
 
 
@@ -584,9 +855,10 @@ def on_cuda(solver, u, S32, mg) -> bool:
     return all(t.is_cuda for t in tensors)
 
 
-def profile_solve(solve, tag: str) -> None:
+def profile_solve(solve, tag: str):
     """Device busy share and the top kernels of one warm ``solve()``, from
-    torch.profiler (CUPTI); reports "not measured" if no device time shows."""
+    torch.profiler (CUPTI); reports "not measured" if no device time shows.
+    Returns the count of kernel launches (None when not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -600,13 +872,14 @@ def profile_solve(solve, tag: str) -> None:
     busy_us = sum(t for _, t, _ in dev)
     if busy_us <= 0:
         phase(tag, device_time="not measured", wall_seconds=wall)
-        return
+        return None
     dev.sort(key=lambda e: -e[1])
     phase(tag, wall_seconds=wall, device_busy_seconds=busy_us / 1e6,
           device_idle_share=1.0 - busy_us / 1e6 / wall,
           kernel_launches=sum(c for *_, c in dev),
           top=[{"name": k[:80], "seconds": t / 1e6, "count": c}
                for k, t, c in dev[:10]])
+    return sum(c for *_, c in dev)
 
 
 def stage_times(solver, tag: str):
@@ -656,9 +929,12 @@ def stage_times(solver, tag: str):
 def count_by_shape(by_shape: Counter):
     """Count the stencil kernels' launches per lattice shape while the
     block runs. Every launch goes through a StencilOperator2D/3D/Block2D
-    method (``mv``, ``jacobi_smooth``, ``cheb_sweep``); each is called
-    through a shim that reads the wrappers' own counters before and after
-    the call and books the difference under the operator's shape."""
+    method (``mv``, ``smooth``, ``jacobi_smooth``, ``cheb_sweep``); each is called through a shim that reads the wrappers'
+    own counters before and after the call and books the difference under
+    the operator's shape (a block operator's led by its field count). A
+    ``smooth`` call is also booked itself, by its form, as
+    ``smooth_call@shape:pre`` (from zero, with the residual), ``:post``
+    (from x, without) or ``:other``."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
     from iifea_tpu_torch.ops.stencil import (
         StencilOperator2D,
@@ -666,24 +942,30 @@ def count_by_shape(by_shape: Counter):
         StencilOperatorBlock2D,
     )
 
-    def shim(method):
+    def shim(name, method):
         def counted(self, *a, **kw):
             before = sk.launches()
             out = method(self, *a, **kw)
-            shape = "x".join(map(str, self.shape))
+            shape = "x".join(map(str, (
+                *([self.n_fields] if hasattr(self, "n_fields") else []),
+                *self.shape)))
             for k, n in sk.launches().items():
                 if n != before[k]:
                     by_shape[f"{k}@{shape}"] += n - before[k]
+            if name == "smooth":
+                form = (a[2] is None, isinstance(out, tuple))
+                by_shape[f"smooth_call@{shape}:" + next(
+                    (k for k, v in FORMS.items() if v == form), "other")] += 1
             return out
         return counted
 
     saved = [(cls, name, cls.__dict__[name])
              for cls in (StencilOperator2D, StencilOperator3D,
                          StencilOperatorBlock2D)
-             for name in ("mv", "jacobi_smooth", "cheb_sweep")
+             for name in ("mv", "smooth", "jacobi_smooth", "cheb_sweep")
              if name in cls.__dict__]
     for cls, name, method in saved:
-        setattr(cls, name, shim(method))
+        setattr(cls, name, shim(name, method))
     try:
         yield
     finally:
@@ -883,7 +1165,7 @@ def phase_main_path():
           n_facets=prob.facet_dom.n_elem,
           tables=[list(r.meta) for r in solver.reducers], seconds=setup)
 
-    names = ("stencil_mv", "jacobi_smooth")
+    names = ("stencil_mv", "jacobi_smooth", "stencil_mv_block", "smooth")
     u, launches, by_shape = drive(solver, names, MAX_CG_ITERS, "solve")
     S32, mg = stage_times(solver, "stages")
     if not on_cuda(solver, u, S32, mg):
@@ -1134,7 +1416,7 @@ def phase_elasticity():
           n_block_cells=prob.cell_dom.n_elem,
           n_facets=prob.facet_dom.n_elem, seconds=setup,
           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    names = ("stencil_mv",)
+    names = ("stencil_mv_block", "jacobi_smooth", "smooth")
     plain = Counter()
     with plain_on_card(plain):
         (u, info), t_first, launches, by_shape = counted_run(
@@ -1154,11 +1436,15 @@ def phase_elasticity():
             and bool(torch.isfinite(u).all())):
         fail("elasticity: the solution is not a finite card vector of the "
              "background size")
-    missing = [s_ for s_ in BLOCK_SMOOTHED
-               if by_shape.get(f"stencil_mv@{s_[0]}x{s_[1]}", 0) <= 0]
+    missing = [s_ for s_ in BLOCK_SMOOTHED if not any(
+        by_shape.get(f"{k}@{N_FIELDS_EL}x{s_[0]}x{s_[1]}", 0) > 0
+        for k in names)]
     if missing:
-        fail(f"elasticity: no stencil_mv launch at the smoothed shapes "
+        fail(f"elasticity: no stencil launch at the smoothed shapes "
              f"{missing}: {by_shape}")
+    if not sum(launches.values()) <= MAX_STENCIL_LAUNCHES_EL:
+        fail(f"elasticity: {sum(launches.values())} stencil launches per "
+             f"solve > {MAX_STENCIL_LAUNCHES_EL}: {launches}")
     if plain["elsewhere"]:
         fail(f"elasticity: {plain['elsewhere']} plain stencil applies on "
              "the card outside the coarse dense inverse")
@@ -1178,7 +1464,11 @@ def phase_elasticity():
           solve=t_warm - sum(stages.values()), solve_ksp=t_warm,
           iters=info2.iters, rel_residual=rel_residual(A, b, u2),
           peak_gib=peak)
-    profile_solve(lambda: el_solve(A, b, N_BG_EL), "elasticity_profile")
+    n_all = profile_solve(lambda: el_solve(A, b, N_BG_EL),
+                          "elasticity_profile")
+    if n_all is not None and not n_all <= MAX_LAUNCHES_EL:
+        fail(f"elasticity: {n_all} kernel launches in the profiled solve > "
+             f"{MAX_LAUNCHES_EL}")
     del u2
     del A, b
     torch.cuda.empty_cache()
@@ -1200,7 +1490,7 @@ def phase_elasticity():
 
 def phase_demo_elasticity():
     """The elasticity demo as a user runs it, on the card (block-MG CG on
-    the stencil_mv kernel), held against the same demo run in this process
+    the block stencil kernels), held against the same demo run in this process
     on the host: L2/H10 errors equal to 1e-8 relative."""
     import io
 
@@ -1240,16 +1530,21 @@ PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
 
 
 def kernel_shapes(timing, by_shape):
-    """Each timed (kernel, shape) with its main-path launches, and per
-    kernel the launches × (device ms − bound ms) summed over the shapes."""
+    """Each timed (kernel, shape[, form]) with its main-path launches (for
+    a ``smooth_call`` row: calls), and per kernel the launches × (device ms
+    − bound ms) summed over the shapes. A ``smooth_call`` row books a whole
+    smoothing call; where it is routed to one launch per pass, those
+    launches also stand under ``jacobi_smooth`` and ``stencil_mv_block``."""
+    def key(r):
+        form = f":{r['form']}" if "form" in r else ""
+        return f"{r['kernel']}@{'x'.join(map(str, r['shape']))}{form}"
+
     rows, excess = [], Counter()
     for r in timing:
-        n = by_shape.get(f"{r['kernel']}@{'x'.join(map(str, r['shape']))}",
-                         0)
+        n = by_shape.get(key(r), 0)
         rows.append({**r, "launches": n})
         excess[r["kernel"]] += n * (r["device_ms"] - r["bound_ms"])
-    timed = {f"{r['kernel']}@{'x'.join(map(str, r['shape']))}"
-             for r in timing}
+    timed = {key(r) for r in timing}
     phase("kernel_shapes", rows=rows, excess_ms=dict(excess),
           untimed={k: v for k, v in by_shape.items() if k not in timed})
     return rows
@@ -1296,7 +1591,10 @@ def main() -> None:
         fail(f"only phases {sorted(run)} ran: no result")
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        t = next(r for r in timing if r["kernel"] == name and "plain_ms" in r)
+        # a fused smoothing call is one launch of "smooth"
+        timed_as = "smooth_call" if name == "smooth" else name
+        t = next(r for r in timing
+                 if r["kernel"] == timed_as and "plain_ms" in r)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": worst[name], "ms": t["device_ms"],

@@ -10,13 +10,14 @@
   strided convolution over the coefficient planes ((2r+1)^dim input and
   output channels, 3^dim window);
 * smoothing, 2D: weighted Jacobi with fixed sweep counts (a linear,
-  symmetric preconditioner, valid inside CG) on the fused ``jacobi_smooth``
-  kernel; 3D: Chebyshev on the l1-Jacobi scaling over the fixed interval
-  [1.05/8, 1.05], one fused ``cheb_step3`` kernel per sweep; block: ω = 1
-  point-block Jacobi on the l1-regularised nodal (nF×nF) blocks, the block
-  residual on the ``stencil_mv`` kernel (nF² launches) and the 2×2 update
-  as torch ops; the V-cycle residuals use the ``stencil_mv``/``stencil_mv3``
-  kernels;
+  symmetric preconditioner, valid inside CG); block: ω = 1 point-block
+  Jacobi on the l1-regularised nodal (nF×nF) blocks. Both through the
+  ``smooth`` kernel entry: per level, the pre-smoothing from zero and the
+  residual handed to the coarser level are one call, the post-smoothing
+  one call, each one launch on the small lattices and one launch per sweep
+  on the large ones. 3D: Chebyshev on the l1-Jacobi scaling over the fixed
+  interval [1.05/8, 1.05], one fused ``cheb_step3`` kernel per sweep, the
+  residual on the ``stencil_mv3`` kernel;
 * coarsest level: a dense Newton–Schulz pseudo-inverse (a warning when it
   is too large to form, since Jacobi sweeps leave the V-cycle weak on low
   frequencies).
@@ -286,22 +287,20 @@ class StencilMultigrid:
         _warn_weak_coarse(shapes[-1], dense_ok)
         self.coarse_inv = _dense_inverse(self.levels[-1]) if dense_ok else None
 
-    def _smooth(self, lvl: int, x, b, sweeps: int):
-        S = self.levels[lvl]
-        invd = self.inv_diags[lvl]
-        for _ in range(sweeps):
-            x = S.jacobi_smooth(invd, b, x, self.omega)
-        return x
+    def _smooth(self, lvl: int, x, b, sweeps: int,
+                with_residual: bool = False):
+        """``sweeps`` sweeps on level ``lvl`` from x (None: from zero) in
+        one smoothing call; with ``with_residual`` also b − A x_ν."""
+        return self.levels[lvl].smooth(self.inv_diags[lvl], b, x, self.omega,
+                                       sweeps, with_residual)
 
     def _vcycle(self, lvl: int, b):
         S = self.levels[lvl]
         if lvl == len(self.levels) - 1:
             if self.coarse_inv is not None:
                 return self.coarse_inv @ b
-            return self._smooth(lvl, torch.zeros_like(b), b,
-                                self.coarse_sweeps)
-        x = self._smooth(lvl, torch.zeros_like(b), b, self.nu_pre)
-        r = b - S.mv(x)
+            return self._smooth(lvl, None, b, self.coarse_sweeps)
+        x, r = self._smooth(lvl, None, b, self.nu_pre, with_residual=True)
         rc = _restrict(r.reshape(S.shape)).reshape(-1)
         xc = self._vcycle(lvl + 1, rc)
         x = x + _prolong(xc.reshape(self.levels[lvl + 1].shape)).reshape(-1)
@@ -490,14 +489,13 @@ class StencilMultigridBlock:
         self.coarse_inv = (_dense_inverse_block(self.levels[-1]) if dense_ok
                            else None)
 
-    def _smooth(self, lvl: int, x, b, sweeps: int):
-        S = self.levels[lvl]
-        Binv = self.binvs[lvl]
-        nF = S.n_fields
-        for _ in range(sweeps):
-            r = (b - S.mv(x)).reshape(1, nF, -1)
-            x = x + self.omega * (Binv * r).sum(dim=1).reshape(-1)
-        return x
+    def _smooth(self, lvl: int, x, b, sweeps: int,
+                with_residual: bool = False):
+        """``sweeps`` point-block sweeps on level ``lvl`` from x (None: from
+        zero) in one smoothing call; with ``with_residual`` also
+        b − A x_ν."""
+        return self.levels[lvl].smooth(self.binvs[lvl], b, x, self.omega,
+                                       sweeps, with_residual)
 
     def _vcycle(self, lvl: int, b):
         S = self.levels[lvl]
@@ -505,10 +503,9 @@ class StencilMultigridBlock:
         if lvl == len(self.levels) - 1:
             if self.coarse_inv is not None:
                 return self.coarse_inv @ b
-            return self._smooth(lvl, torch.zeros_like(b), b,
-                                self.coarse_sweeps)
-        x = self._smooth(lvl, torch.zeros_like(b), b, self.nu_pre)
-        r = (b - S.mv(x)).reshape(nF, *S.shape)
+            return self._smooth(lvl, None, b, self.coarse_sweeps)
+        x, r = self._smooth(lvl, None, b, self.nu_pre, with_residual=True)
+        r = r.reshape(nF, *S.shape)
         xc = self._vcycle(lvl + 1, _restrict(r).reshape(-1))
         xc = xc.reshape(nF, *self.levels[lvl + 1].shape)
         x = x + _prolong(xc).reshape(-1)

@@ -13,8 +13,9 @@ in 3D k = ((oi+r)·m + (oj+r))·m + (ok+r) with node id (i·ny1 + j)·nz1 + k
 reference has no counterpart here.
 
 f32 applies and sweeps go through the hand-written kernels of
-``ops/stencil_kernels.py``; other dtypes (the f64 checks) use the plain
-shifted-slice form ``mv_ref``.
+``ops/stencil_kernels.py`` (a block apply is one launch, a level's
+smoothing call one launch on the small lattices); other dtypes (the f64
+checks) use the plain shifted-slice form ``mv_ref``.
 
 ``probe_multi`` extracts the planes from any operator given only its
 stacked application (k, n) -> (k, n), by coloured probing: the (2r+1)^dim
@@ -114,15 +115,18 @@ class StencilOperator2D:
         """Plain shifted-slice apply; x may be batched (..., n)."""
         return sk.stencil_mv_plain(self.coeffs, x, self.shape, self.radius)
 
-    def jacobi_smooth(self, invd: torch.Tensor, b: torch.Tensor,
-                      x: torch.Tensor, omega: float) -> torch.Tensor:
-        """One weighted-Jacobi sweep x + ω·invd·(b − A x); fused kernel for
-        f32. ``invd`` and ``b`` are flat (n,) vectors."""
-        if self.coeffs.dtype == torch.float32:
-            return sk.jacobi_smooth(self.coeffs, invd, b, x, omega,
-                                    self.shape, self.radius)
-        return sk.jacobi_smooth_plain(self.coeffs, invd, b, x, omega,
-                                      self.shape, self.radius)
+    def smooth(self, invd: torch.Tensor, b: torch.Tensor,
+               x: torch.Tensor | None, omega: float, sweeps: int,
+               with_residual: bool = False):
+        """``sweeps`` weighted-Jacobi sweeps x ← x + ω·invd·(b − A x) from x
+        (None: from zero), and with ``with_residual`` also b − A x_ν
+        (returns the pair): the ``smooth`` kernel entry for f32, one launch
+        per call on the small lattices. ``invd`` and ``b`` are flat (n,)
+        vectors."""
+        fn = (sk.smooth if self.coeffs.dtype == torch.float32
+              else sk.smooth_plain)
+        return fn(self.coeffs, invd, b, x, omega, sweeps, self.shape,
+                  self.radius, with_residual)
 
     def diag(self) -> torch.Tensor:
         m = 2 * self.radius + 1
@@ -243,9 +247,9 @@ class StencilOperatorBlock2D:
 
         y[f1] = Σ_f2 Σ_|o|≤r C[f1, f2, k(o)] ⊙ shift_o(x[f2]),
 
-    coefficients (nF, nF, (2r+1)², nx1, ny1). Each C[f1, f2] is a scalar
-    operator's planes, so an f32 apply is nF² launches of the stencil_mv
-    kernel (``stencil_kernels.stencil_mv_block``)."""
+    coefficients (nF, nF, (2r+1)², nx1, ny1). On a card an apply is one
+    launch of the block kernel (``stencil_kernels.stencil_mv_block``), which
+    stages the x tiles of all fields once."""
 
     def __init__(self, coeffs: torch.Tensor, shape, radius: int):
         self.shape = tuple(int(s) for s in shape)
@@ -299,13 +303,24 @@ class StencilOperatorBlock2D:
         return StencilOperatorBlock2D(C, shape, radius)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x: on a card the stencil_mv kernel (nF² launches; a
+        """y = A x: on a card one launch of the stencil_mv_block kernel (a
         non-f32 operator raises, the kernels are f32 only), on the CPU the
         plain ``mv_ref``."""
         if self.device.type == "cuda":
             return sk.stencil_mv_block(self.coeffs, x, self.shape,
                                        self.radius)
         return self.mv_ref(x)
+
+    def smooth(self, binv: torch.Tensor, b: torch.Tensor,
+               x: torch.Tensor | None, omega: float, sweeps: int,
+               with_residual: bool = False):
+        """``sweeps`` point-block Jacobi sweeps x ← x + ω·Binv·(b − A x)
+        from x (None: from zero) on the (nF, nF, nn) nodal blocks ``binv``,
+        and with ``with_residual`` also b − A x_ν (returns the pair): on a
+        card the ``smooth`` kernel entry, on the CPU its plain version."""
+        fn = sk.smooth if self.device.type == "cuda" else sk.smooth_plain
+        return fn(self.coeffs, binv, b, x, omega, sweeps, self.shape,
+                  self.radius, with_residual)
 
     def mv_ref(self, x: torch.Tensor) -> torch.Tensor:
         """Plain shifted-slice apply; x may be batched (..., n)."""

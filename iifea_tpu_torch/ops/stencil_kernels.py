@@ -2,9 +2,11 @@
 smoothing sweeps.
 
 Port of the Pallas TPU kernels of ``iifea_tpu/ops/pallas_stencil.py`` to
-Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cu``; the apply
-can also accumulate, y += A x, which carries the block operators'
-``stencil_mv_block``) and
+Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cu``, which also
+holds the two entries built on them for block operators and small lattices:
+``stencil_mv_block``, a block (multi-field) apply or residual b − A x in
+one launch, and ``smooth``, a multigrid level's ν sweeps and trailing
+residual in one launch) and
 ``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``, which also holds
 the fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother). Every
 ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` at first use
@@ -15,13 +17,17 @@ fresh checkout builds everything it runs.
 
 Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version
 in this module; a CUDA tensor always launches the kernel (or raises). Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches``; a smoothing
+call that takes one launch per pass counts its sweeps under
+``jacobi_smooth`` and its residual under ``stencil_mv_block``.
 
 Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous f32 planes
 with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
 ``((2r+1)³, nx1, ny1, nz1)`` with k = ((oi+r)·m + (oj+r))·m + (ok+r) and
 node id (i·ny1 + j)·nz1 + k. Vectors are flat. x is zero outside the
-lattice.
+lattice. A 2D block operator's coefficients are (nF, nF, (2r+1)², nx1, ny1)
+on field-blocked vectors (nF·n,), its nodal smoother blocks (nF, nF, n);
+scalar planes are the nF = 1 case (smoother "block": the flat 1/diag).
 """
 from __future__ import annotations
 
@@ -81,6 +87,40 @@ def stencil_mv_block_plain(C, x, shape, radius):
 def jacobi_smooth_plain(C, invd, b, x, omega, shape, radius):
     """One weighted-Jacobi sweep x + ω·invd·(b − A x)."""
     return x + omega * invd * (b - stencil_mv_plain(C, x, shape, radius))
+
+
+def apply_plain(C, x, shape, radius):
+    """A x for scalar planes (C 3-D) or a block operator (C 5-D)."""
+    mv = stencil_mv_plain if C.dim() == 3 else stencil_mv_block_plain
+    return mv(C, x, shape, radius)
+
+
+def residual_plain(C, b, x, shape, radius):
+    """b − A x for scalar planes or a block operator."""
+    return b - apply_plain(C, x, shape, radius)
+
+
+def sweep_plain(C, binv, b, x, omega, shape, radius):
+    """One sweep x + ω·Binv·(b − A x): weighted Jacobi on scalar planes
+    (``binv`` the flat 1/diag) or point-block Jacobi on a block operator
+    (``binv`` the (nF, nF, n) nodal blocks)."""
+    if C.dim() == 3:
+        return jacobi_smooth_plain(C, binv, b, x, omega, shape, radius)
+    r = residual_plain(C, b, x, shape, radius).reshape(1, C.shape[0], -1)
+    return x + omega * (binv * r).sum(dim=1).reshape(-1)
+
+
+def smooth_plain(C, binv, b, x, omega, sweeps, shape, radius,
+                 with_residual=False):
+    """``sweeps`` sweeps of ``sweep_plain`` from x (None: from zero);
+    returns x_ν, or (x_ν, b − A x_ν) when ``with_residual``."""
+    if x is None:
+        x = torch.zeros_like(b)
+    for _ in range(sweeps):
+        x = sweep_plain(C, binv, b, x, omega, shape, radius)
+    if with_residual:
+        return x, residual_plain(C, b, x, shape, radius)
+    return x
 
 
 def stencil_mv3_plain(C, x, shape, radius):
@@ -180,14 +220,16 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stencil2d_mv.argtypes = [p, p, p, i, i, i, p]
-    lib.stencil2d_mv_acc.argtypes = [p, p, p, i, i, i, p]
-    lib.stencil2d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, p]
+    lib.stencil2d_block.argtypes = [p, p, p, p, f, p, i, i, i, i, i, p]
+    lib.stencil2d_smooth.argtypes = [p, p, p, p, f, i, p, p, p, i, i, i, i,
+                                     p]
+    lib.stencil2d_smooth_plan.argtypes = [i, i, i, i]
     lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, p]
     lib.stencil3d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, i, p]
     lib.stencil3d_cheb.argtypes = [p, p, p, p, p, f, f, p, i, i, i, i, p]
-    for fn in (lib.stencil2d_mv, lib.stencil2d_mv_acc, lib.stencil2d_jacobi,
-               lib.stencil3d_mv,
-               lib.stencil3d_jacobi, lib.stencil3d_cheb):
+    for fn in (lib.stencil2d_mv, lib.stencil2d_block,
+               lib.stencil2d_smooth, lib.stencil2d_smooth_plan,
+               lib.stencil3d_mv, lib.stencil3d_jacobi, lib.stencil3d_cheb):
         fn.restype = i
     return lib
 
@@ -230,66 +272,206 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def _launch_mv(C, x, y, shape, radius, accumulate):
-    """One stencil2d_mv launch writing A x to y (stencil2d_mv_acc when
-    ``accumulate``: y += A x). Checked CUDA operands only."""
-    entry = _lib().stencil2d_mv_acc if accumulate else _lib().stencil2d_mv
-    with torch.cuda.device(x.device):
-        rc = entry(
-            C.data_ptr(), x.data_ptr(), y.data_ptr(), shape[0], shape[1],
-            radius, torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(rc, "stencil2d_mv")
-    stencil_mv.launches += 1
-
-
 def stencil_mv(C, x, shape, radius):
     """y = A x (f32). CPU: plain version; CUDA: the stencil2d_mv kernel."""
     if _check(C, x, shape, radius) == "cpu":
         return stencil_mv_plain(C, x, shape, radius)
     y = torch.empty_like(x)
-    _launch_mv(C, x, y, shape, radius, accumulate=False)
+    with torch.cuda.device(x.device):
+        rc = _lib().stencil2d_mv(
+            C.data_ptr(), x.data_ptr(), y.data_ptr(), shape[0], shape[1],
+            radius, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil2d_mv")
+    stencil_mv.launches += 1
     return y
 
 
-def stencil_mv_block(C, x, shape, radius):
-    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32) on field-blocked
-    vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous. CPU: plain
-    version; CUDA: nF² stencil_mv launches, the first per output field
-    writing y[f1] and the others adding to it (stencil2d_mv_acc)."""
-    nF = C.shape[0]
-    if C.dim() != 5 or C.shape[1] != nF:
-        raise ValueError(f"block coefficients {tuple(C.shape)} are not "
-                         "(nF, nF, m², nx1, ny1)")
-    if not C.is_contiguous():
-        raise ValueError("stencil kernels take contiguous tensors")
-    xs = x.view(nF, -1)
-    if _check(C[0, 0], xs[0], shape, radius) == "cpu":
-        return stencil_mv_block_plain(C, x, shape, radius)
-    y = torch.empty_like(x)
-    ys = y.view(nF, -1)
-    for f1 in range(nF):
-        for f2 in range(nF):
-            _launch_mv(C[f1, f2], xs[f2], ys[f1], shape, radius,
-                       accumulate=f2 > 0)
+# passes of the stencil2d_block entry
+_APPLY, _RESIDUAL, _SWEEP, _SWEEP_FROM_ZERO = range(4)
+# routes of a level's smoothing call: one launch per pass, or all passes in
+# one launch of a cooperative grid
+PER_PASS, GRID = range(2)
+
+
+def _check_block(C, shape, radius, vectors, binv=None):
+    """Validate the operands of the 2D block entries: coefficients
+    (nF, nF, m², nx1, ny1), or scalar planes (m², nx1, ny1) as nF = 1;
+    ``vectors`` (nF·n,); ``binv`` (nF, nF, n), scalar (n,). Returns (device
+    type, nF)."""
+    if radius not in (1, 2):
+        raise ValueError(f"radius must be 1 or 2, got {radius}")
+    shape = tuple(shape)
+    if len(shape) != 2:
+        raise ValueError(f"a 2D kernel got the lattice shape {shape}")
+    m2 = (2 * radius + 1) ** 2
+    block = C.dim() == 5
+    nF = C.shape[0] if block else 1
+    if nF not in (1, 2, 3):
+        raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
+    if tuple(C.shape) != ((nF, nF, m2, *shape) if block else (m2, *shape)):
+        raise ValueError(
+            f"coefficients {tuple(C.shape)} are neither (nF, nF, {m2}, "
+            f"*{shape}) nor ({m2}, *{shape})")
+    nn = shape[0] * shape[1]
+    for v in vectors:
+        if tuple(v.shape) != (nF * nn,):
+            raise ValueError(f"vector {tuple(v.shape)} != {(nF * nn,)}")
+    tensors = [C, *vectors]
+    if binv is not None:
+        want = (nF, nF, nn) if block else (nn,)
+        if tuple(binv.shape) != want:
+            raise ValueError(f"smoother blocks {tuple(binv.shape)} != {want}")
+        tensors.append(binv)
+    device = vectors[0].device
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"stencil kernels take float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"operands on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError("stencil kernels take contiguous tensors")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type, nF
+
+
+def _launch_block(mode, C, x, b, binv, omega, shape, radius, nF):
+    """One stencil2d_block launch of pass ``mode`` into a new vector, which
+    it returns. Checked CUDA operands only; an operand the pass does not
+    read is None."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    y = torch.empty_like(x if b is None else b)
+    with torch.cuda.device(y.device):
+        rc = _lib().stencil2d_block(
+            ptr(C), ptr(x), ptr(b), ptr(binv), float(omega), y.data_ptr(),
+            shape[0], shape[1], radius, nF, mode,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil2d_block")
+    return y
+
+
+def _sweep_cuda(C, binv, b, x, omega, shape, radius, nF, mode=_SWEEP):
+    """The ``jacobi_smooth`` launch on checked CUDA operands: one sweep
+    x + ω·Binv·(b − A x); with x None the same sweep applied to ω·Binv·b
+    (two sweeps from zero), or with ``mode`` _SWEEP_FROM_ZERO ω·Binv·b
+    alone."""
+    y = _launch_block(mode, C, x, b, binv, omega, shape, radius, nF)
+    jacobi_smooth.launches += 1
+    return y
+
+
+def _apply_cuda(C, x, b, shape, radius, nF):
+    """The ``stencil_mv_block`` launch on checked CUDA operands: A x, or
+    b − A x where b is given."""
+    y = _launch_block(_APPLY if b is None else _RESIDUAL, C, x, b, None, 0.0,
+                      shape, radius, nF)
+    stencil_mv_block.launches += 1
     return y
 
 
 def jacobi_smooth(C, invd, b, x, omega, shape, radius):
-    """y = x + ω·invd·(b − A x) in one pass (f32). CPU: plain version;
-    CUDA: the stencil2d_jacobi kernel."""
+    """y = x + ω·invd·(b − A x) in one pass (f32), on scalar planes. CPU:
+    plain version; CUDA: the sweep pass of the stencil2d_block kernel."""
     if _check(C, x, shape, radius, invd, b) == "cpu":
         return jacobi_smooth_plain(C, invd, b, x, omega, shape, radius)
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _lib().stencil2d_jacobi(
-            C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-            float(omega), y.data_ptr(), shape[0], shape[1], radius,
-            torch.cuda.current_stream().cuda_stream,
+    return _sweep_cuda(C, invd, b, x, omega, shape, radius, 1)
+
+
+def stencil_mv_block(C, x, shape, radius, b=None):
+    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32) on field-blocked
+    vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous (or scalar
+    planes, nF = 1); with ``b`` the residual b − A x. CPU: plain version;
+    CUDA: ONE launch of the stencil2d_block kernel, which stages the x
+    tiles of all fields once and keeps nF accumulators per point."""
+    kind, nF = _check_block(C, shape, radius, (x,) if b is None else (x, b))
+    if kind == "cpu":
+        if b is None:
+            return apply_plain(C, x, shape, radius)
+        return residual_plain(C, b, x, shape, radius)
+    return _apply_cuda(C, x, b, shape, radius, nF)
+
+
+@functools.cache
+def _smooth_route(shape, radius, nF, device_index) -> int:
+    """GRID where a level's smoothing call fits one fused launch, else
+    PER_PASS; asked of the library once per (lattice, radius, fields,
+    device): it decides from the tile count and an occupancy query."""
+    with torch.cuda.device(device_index):
+        route = _lib().stencil2d_smooth_plan(shape[0], shape[1], radius, nF)
+    if route not in (PER_PASS, GRID):
+        raise RuntimeError(f"stencil2d_smooth_plan failed: {route}")
+    return route
+
+
+def _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius, nF,
+                 with_residual):
+    """``smooth`` on checked CUDA operands by ``route``: PER_PASS is one
+    ``jacobi_smooth`` launch per sweep (two sweeps from zero are one
+    launch) and a ``stencil_mv_block`` launch for the residual; GRID is one
+    stencil2d_smooth launch (counted as ``smooth``), which needs
+    sweeps ≥ 1 and a level whose tiles are all co-resident (else the launch
+    is refused and this raises)."""
+    if route == PER_PASS:
+        if x is None and sweeps == 0:
+            x = torch.zeros_like(b)
+        elif x is None and sweeps == 1:
+            x = _sweep_cuda(C, binv, b, None, omega, shape, radius, nF,
+                            _SWEEP_FROM_ZERO)
+        else:
+            # from zero, the first sweep (ω·Binv·b, no coefficient read) is
+            # computed by the second sweep's launch while it stages its x
+            for _ in range(sweeps - (x is None)):
+                x = _sweep_cuda(C, binv, b, x, omega, shape, radius, nF)
+        if not with_residual:
+            return x
+        return x, _apply_cuda(C, x, b, shape, radius, nF)
+    out = torch.empty_like(b)
+    res = torch.empty_like(b) if with_residual else None
+    # the sweep from zero is folded into the next pass and needs no buffer
+    tmp = torch.empty_like(b) if sweeps - (x is None) >= 2 else None
+    with torch.cuda.device(b.device):
+        rc = _lib().stencil2d_smooth(
+            C.data_ptr(), binv.data_ptr(), b.data_ptr(),
+            None if x is None else x.data_ptr(), float(omega), sweeps,
+            out.data_ptr(), None if tmp is None else tmp.data_ptr(),
+            None if res is None else res.data_ptr(), shape[0], shape[1],
+            radius, nF, torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(rc, "stencil2d_jacobi")
-    jacobi_smooth.launches += 1
-    return y
+    _raise_on(rc, "stencil2d_smooth")
+    smooth.launches += 1
+    return (out, res) if with_residual else out
+
+
+def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
+    """A multigrid level's smoothing call (f32): ``sweeps`` sweeps
+    x ← x + ω·Binv·(b − A x) from x, or from zero when ``x`` is None (the
+    first sweep is then ω·Binv·b and reads no coefficient), and with
+    ``with_residual`` also r = b − A x_ν; returns x_ν or (x_ν, r). Scalar
+    planes take ``binv`` = the flat 1/diag, block coefficients the
+    (nF, nF, n) nodal blocks.
+
+    CPU: plain version. CUDA: where the level's tiles are all co-resident,
+    all passes in ONE launch of the stencil2d_smooth kernel (a cooperative
+    grid, a barrier between the passes, each point's coefficients read once
+    per call; the library decides from the tile count and the card's
+    occupancy), else one launch per pass; either way the same arithmetic,
+    bitwise."""
+    if sweeps < 0:
+        raise ValueError(f"sweeps must be >= 0, got {sweeps}")
+    kind, nF = _check_block(C, shape, radius, (b,) if x is None else (b, x),
+                            binv)
+    if kind == "cpu":
+        return smooth_plain(C, binv, b, x, omega, sweeps, shape, radius,
+                            with_residual)
+    route = PER_PASS
+    if sweeps >= 1 and sweeps + bool(with_residual) >= 2:
+        route = _smooth_route(tuple(shape), radius, nF, b.device.index or 0)
+    return _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius,
+                        nF, with_residual)
 
 
 def stencil_mv3(C, x, shape, radius):
@@ -352,8 +534,8 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
     return y, d
 
 
-WRAPPERS = (stencil_mv, jacobi_smooth, stencil_mv3, jacobi_smooth3,
-            cheb_step3)
+WRAPPERS = (stencil_mv, jacobi_smooth, stencil_mv_block, smooth, stencil_mv3,
+            jacobi_smooth3, cheb_step3)
 
 
 def reset_launches() -> None:

@@ -47,13 +47,15 @@ class _Bf16Block(mg.StencilMultigridBlock):
     """StencilMultigridBlock with the smoother's contraction and the coarse
     apply on bf16-rounded operands (the convolutions: ``_bf16_products``)."""
 
-    def _smooth(self, lvl, x, b, sweeps):
+    def _smooth(self, lvl, x, b, sweeps, with_residual=False):
         S = self.levels[lvl]
         Binv = _bf16(self.binvs[lvl])
+        if x is None:
+            x = torch.zeros_like(b)
         for _ in range(sweeps):
             r = _bf16((b - S.mv(x)).reshape(1, S.n_fields, -1))
             x = x + self.omega * (Binv * r).sum(dim=1).reshape(-1)
-        return x
+        return (x, b - S.mv(x)) if with_residual else x
 
     def _vcycle(self, lvl, b):
         if lvl == len(self.levels) - 1 and self.coarse_inv is not None:
