@@ -27,12 +27,20 @@ line; the first failure exits non-zero:
      plain versions at small shapes and at 105³; a soak of thousands of
      interleaved radius-2 launches over 105³, 53³, 27³ and 14³ (the 3D
      V-cycle's levels), synchronised and compared; times as in phase 2 at
-     105³, 53³ and 27³.
+     105³, 53³ and 27³. Then stencil3d_block (the 3D block apply,
+     residual, point-block sweep and sweep from zero, one launch each)
+     against its plain versions for 1 to 3 fields, r = 1, 2, at small
+     shapes and at every level shape of the 3D block V-cycle (97³ … 13³),
+     scalar planes also against stencil_mv3 / jacobi_smooth3, a soak of
+     interleaved launches, and times at 3 and 2 fields.
   4. small reference: the card's n_bg=64 2D solution checked with a host
-     f64 residual, and the n_bg=24 card and host solutions compared.
+     f64 residual, and the n_bg=24 card and host solutions compared; the
+     Chebyshev smoother option inside the n_bg=64 solve.
   5. small reference 3D: the card's n_bg=16 solution checked with a host
      f64 residual; the n_bg=8 card and host solutions' error norms
-     compared.
+     compared, and the card's iteration count there (one 9³ level: the
+     dense coarse inverse is the whole preconditioner) held to 2x the
+     host's 32; the Jacobi smoother option inside the n_bg=16 solve.
   6. main path 2D: BinnedLatticeSolver.solve at n_bg=1024 (1,050,625
      background dofs) once with the kernel launch counters reset (and
      counted per lattice shape), then per-stage times, a profiled warm
@@ -65,6 +73,19 @@ line; the first failure exits non-zero:
   10. demo_elasticity: ``python3 -m iifea_tpu_torch.demos.linear_elasticity
      --mesh-root synthetic --k 1 --ref 3`` on the card (block-MG CG),
      held against the same demo on the host (norms to 1e-8 relative).
+  11. elasticity3 (the 3D block path): 3D immersed elasticity at n_bg=8
+     and 16 against host SuperLU, then ``solve_ksp(cg, pc='mg',
+     n_fields=3)`` at n_bg=96 (3 × 97³ = 2,738,019 background dofs),
+     counted per lattice shape (5 stencil3d_block launches per smoothed
+     level per V-cycle, one per Krylov matvec), staged, profiled; error
+     norms below an n_bg=48 solve's with an L2 rate above 1.5.
+  12. newton: ``solve_nonlinear(linear_pc='mg')`` on the nonlinear
+     diffusion form at n_bg=1024 (every Newton step assembled and solved
+     on the card, stencil launches in every step), held at n_bg=64
+     against the host's iteration count and the Jacobi run's iterate; the
+     line-search case and ``solve_newtons_linear`` with pinned dofs.
+  13. asm: ``solve_ksp(gmres, pc='asm')`` on immersed Poisson n_bg=256
+     against pc='jacobi'.
 
 Then ``kernel_shapes``: every timed (kernel, shape) with its launches in the
 main-path solves (2D, 3D and elasticity, added) and launches × (device ms
@@ -105,6 +126,9 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     # jacobi_smooth for a whole level: ν sweeps and the residual in one
     # launch (a cooperative grid)
     "smooth": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:136"),
+    # stencil_mv3 / jacobi_smooth3 for 3D block operators: apply, residual
+    # or point-block sweep of all nF fields in one launch
+    "stencil3d_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
 GRAPH_LAUNCHES = 50           # captured calls per timed CUDA graph
@@ -121,6 +145,19 @@ NU = 2                        # sweeps per smoothing call (nu_pre = nu_post)
 MAX_STENCIL_LAUNCHES_EL = 1056   # a quarter of the 4,224 of nF² launches
 MAX_LAUNCHES_EL = 8500        # all kernels of the profiled elasticity solve
 LEVELS3 = [(s_,) * 3 for s_ in (105, 53, 27)]
+N_BG_EL3 = 96                 # 97 → 49 → 25 → 13 smoothed, 3 × 7³ dense
+N_FIELDS_EL3 = 3
+BLOCK3_SMOOTHED = [(s_,) * 3 for s_ in (97, 49, 25, 13)]
+# the 3D block cycle (ω = 1 point-block Jacobi on l1-regularised blocks, as
+# the reference's) is not mesh-independent: on the host the port takes 88 /
+# 108 / 128 CG iterations at n_bg = 16 / 24 / 32
+# (tests/compare_block_mg_iters.py --dim 3); the bound leaves that growth
+# room up to n_bg = 96 and catches a cycle that stops contracting
+MAX_CG_ITERS_EL3 = 400
+MAX_CG_ITERS_EL3_SINGLE = 60     # the reference's bound at one dense level
+# stencil3d_block launches per smoothed level per V-cycle: the sweep from
+# zero, a sweep, the residual, two post-sweeps (nu_pre = nu_post = NU)
+LAUNCHES_PER_LEVEL3 = 2 * NU + 1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 # f32 vectors each kernel reads or writes once besides its coefficient
@@ -193,7 +230,8 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def time_kernel(name, shape, fn, plain=None, bound_=None, **kv) -> dict:
+def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
+                **kv) -> dict:
     """One ``kernel_time`` line: device ms, call ms and bound at ``shape``
     (and the plain version's device ms where ``plain`` is given).
     ``bound_`` is (ms, by) where the row is not one launch of ``name``."""
@@ -202,7 +240,7 @@ def time_kernel(name, shape, fn, plain=None, bound_=None, **kv) -> dict:
            "device_ms": device_ms(fn), "call_ms": call_ms(fn),
            "bound_ms": b_ms, "bound_by": by}
     if plain is not None:
-        row["plain_ms"] = device_ms(plain, launches=10, reps=3)
+        row["plain_ms"] = device_ms(plain, launches=plain_launches, reps=3)
     row["share_of_bound"] = b_ms / row["device_ms"]
     phase("kernel_time", **row)
     return row
@@ -230,13 +268,17 @@ def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
 
 
 def bound_passes(shape, n_fields: int, passes, radius: int = 2):
-    """The bound of a sequence of passes on an nF-field 2D operator, the
+    """The bound of a sequence of passes on an nF-field 2D or 3D (by
+    ``shape``'s rank) operator, the
     same work whatever launches carry it: per pass every value it needs
     moved once. "apply": nF² plane sets, x read, y written; "residual":
     also b read; "sweep": also the nF² Binv planes; "zero" (the sweep from
     x = 0): Binv and b read, x written, no plane. nF = 1 gives ``bound``'s
     stencil_mv and jacobi_smooth."""
-    nF, taps = n_fields, (2 * radius + 1) ** 2
+    nF, taps = n_fields, (2 * radius + 1) ** len(shape)
+    n = 1
+    for s_ in shape:
+        n *= s_
     words = {"apply": nF * nF * taps + 2 * nF,
              "residual": nF * nF * taps + 3 * nF,
              "sweep": nF * nF * (taps + 1) + 3 * nF,
@@ -246,7 +288,7 @@ def bound_passes(shape, n_fields: int, passes, radius: int = 2):
              "sweep": 2.0 * nF * nF * (taps + 1) + 3.0 * nF,
              "zero": 3.0 * nF * nF}
     return _bound_ms(sum(words[p] for p in passes),
-                     sum(flops[p] for p in passes), shape[0] * shape[1])
+                     sum(flops[p] for p in passes), n)
 
 
 def bound_call(shape, n_fields: int, sweeps: int, from_zero: bool,
@@ -724,7 +766,147 @@ def phase_kernels3():
             rows.append(time_kernel(name, sh, fn,
                                     partial(fn, f=plain) if main else None))
         del C, x, b, invd, d
+    torch.cuda.empty_cache()
+    rows += kernels3_block(worst, dev)
     return worst, rows
+
+
+BLOCK3_MODES = ("apply", "residual", "sweep", "zero")
+BLOCK3_SOAK_ROUNDS = 50          # x 4 shapes x 4 modes = 800 launches
+
+
+def block3_operands(gen, shape, radius, n_fields, dev):
+    """A diagonally dominant nF-field 3D operator made on the card
+    (n_fields = 0: scalar planes and the flat 1/diag), its smoother
+    blocks, b and x."""
+    import torch
+
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops.stencil import StencilOperatorBlock3D
+
+    nF, m3 = max(n_fields, 1), (2 * radius + 1) ** 3
+    C = torch.rand((nF, nF, m3, *shape), generator=gen, device=dev,
+                   dtype=torch.float32).sub_(0.5).mul_(0.2)
+    for f in range(nF):
+        C[f, f, m3 // 2] += 4.0
+    n = nF * shape[0] * shape[1] * shape[2]
+    b, x = (torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+            for _ in range(2))
+    if n_fields == 0:
+        C = C[0, 0].contiguous()
+        return C, (1.0 / C[m3 // 2]).reshape(-1).contiguous(), b, x
+    return C, multigrid._point_binv(StencilOperatorBlock3D(C, shape,
+                                                           radius)), b, x
+
+
+def block3_calls(C, binv, b, x, shape, radius, omega=0.8, plain=False):
+    """The four passes of stencil3d_block (or of its plain versions) as
+    functions, keyed by mode."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    a = (shape, radius)
+    if plain:
+        return {
+            "apply": partial(sk.apply3_block_plain, C, x, *a),
+            "residual": partial(sk.residual3_block_plain, C, b, x, *a),
+            "sweep": partial(sk.sweep3_block_plain, C, binv, b, x, omega, *a),
+            "zero": partial(sk.sweep3_block_plain, C, binv, b, None, omega,
+                            *a)}
+    return {
+        "apply": partial(sk.stencil3d_block, C, x, *a),
+        "residual": partial(sk.stencil3d_block, C, x, *a, b=b),
+        "sweep": partial(sk.stencil3d_block, C, x, *a, b=b, binv=binv,
+                         omega=omega),
+        "zero": partial(sk.stencil3d_block, C, None, *a, b=b, binv=binv,
+                        omega=omega)}
+
+
+def check_block3(worst, gen, shape, radius, n_fields, dev):
+    """stencil3d_block's four passes at ``shape`` against the plain
+    versions: one launch each; scalar planes also against stencil_mv3 and
+    jacobi_smooth3. Prints one summary line."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    C, binv, b, x = block3_operands(gen, shape, radius, n_fields, dev)
+    calls = block3_calls(C, binv, b, x, shape, radius)
+    before = sk.launches()
+    got = {mode: fn() for mode, fn in calls.items()}
+    if sk.launches() != {**before, "stencil3d_block":
+                         before["stencil3d_block"] + len(calls)}:
+        fail(f"stencil3d_block at {shape} was not one launch a pass: "
+             f"{before} -> {sk.launches()}")
+    refs = block3_calls(C, binv, b, x, shape, radius, plain=True)
+    errs = [_check(worst, "stencil3d_block", got[mode], refs[mode](), shape,
+                   radius, quiet=True, n_fields=n_fields, what=mode)
+            for mode in calls]
+    if n_fields == 0:
+        errs.append(_check(worst, "stencil3d_block", got["apply"],
+                           sk.stencil_mv3(C, x, shape, radius), shape,
+                           radius, quiet=True, what="apply vs stencil_mv3"))
+        errs.append(_check(worst, "stencil3d_block", got["sweep"],
+                           sk.jacobi_smooth3(C, binv, b, x, 0.8, shape,
+                                             radius), shape, radius,
+                           quiet=True, what="sweep vs jacobi_smooth3"))
+    phase("kernel_check", kernel="stencil3d_block", shape=list(shape),
+          radius=radius, n_fields=n_fields, checks=len(errs),
+          max_abs_err=max(errs))
+
+
+def kernels3_block(worst, dev):
+    """The 3D block entry: checks, a soak, and ``kernel_time`` rows per
+    pass (``form``) at every level shape of the 3D block V-cycle for 3 and
+    2 fields."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for shape in [(9, 9, 9), (13, 10, 17), (11, 9, 14)]:
+        for radius in (1, 2):
+            for n_fields in (0, 1, 2, 3):
+                check_block3(worst, gen, shape, radius, n_fields, dev)
+    for shape in BLOCK3_SMOOTHED:
+        for n_fields in (0, N_FIELDS_EL3):
+            check_block3(worst, gen, shape, 2, n_fields, dev)
+        torch.cuda.empty_cache()
+
+    # soak: the block V-cycle's level shapes and the four passes,
+    # interleaved, never synchronised until the end; every repeat must
+    # reproduce its first result bitwise
+    ops = [block3_calls(*block3_operands(gen, sh, 2, N_FIELDS_EL3, dev), sh,
+                        2) for sh in BLOCK3_SMOOTHED]
+    first = [{mode: fn() for mode, fn in calls.items()} for calls in ops]
+    mismatches = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(BLOCK3_SOAK_ROUNDS):
+        for calls, ref in zip(ops, first):
+            for mode, fn in calls.items():
+                mismatches += (fn() != ref[mode]).sum()
+    torch.cuda.synchronize()
+    phase("soak", kernel="stencil3d_block",
+          launches=BLOCK3_SOAK_ROUNDS * len(ops) * len(BLOCK3_MODES),
+          shapes=[[N_FIELDS_EL3, *sh] for sh in BLOCK3_SMOOTHED], radius=2,
+          seconds=time.perf_counter() - t0, mismatches=int(mismatches))
+    if int(mismatches) != 0:
+        fail(f"stencil3d_block soak: {int(mismatches)} values differ "
+             "between repeats")
+    del ops, first
+    torch.cuda.empty_cache()
+
+    rows = []
+    for n_fields in (N_FIELDS_EL3, 2):
+        for sh in BLOCK3_SMOOTHED:
+            C, binv, b, x = block3_operands(gen, sh, 2, n_fields, dev)
+            calls = block3_calls(C, binv, b, x, sh, 2, omega=1.0)
+            plain = block3_calls(C, binv, b, x, sh, 2, omega=1.0, plain=True)
+            main = (n_fields, sh) == (N_FIELDS_EL3, BLOCK3_SMOOTHED[0])
+            for mode in BLOCK3_MODES:
+                rows.append(time_kernel(
+                    "stencil3d_block", [n_fields, *sh], calls[mode],
+                    plain[mode] if main and mode == "apply" else None,
+                    bound_=bound_passes(sh, n_fields, [mode]),
+                    plain_launches=2, form=mode))
+            del C, binv, b, x, calls, plain
+            torch.cuda.empty_cache()
+    return rows
 
 
 N_BG = 1024                      # 1,050,625 background dofs (headline size)
@@ -807,6 +989,36 @@ def phase_small_reference():
           gpu=info_gpu, cpu=info_cpu)
     if not err <= lim:
         fail(f"card and host solves differ by {err}")
+    *_, s_gpu, _ = build_solver(64, gpu)
+    smoother_option(s_gpu, "small_reference", 64, smoother="chebyshev")
+
+
+def smoother_option(solver, tag, n_bg, **option):
+    """The solver's refinement loop to a 1e-8 f64 residual on the card with
+    the default multigrid and with ``option`` (the other smoother of the
+    lattice's multigrid class): both converge, the option within twice the
+    default's iterations."""
+    from iifea_tpu_torch.ops import multigrid
+
+    cls = (multigrid.StencilMultigrid if solver.dim == 2
+           else multigrid.StencilMultigrid3D)
+    b64, Kc, Kf = solver.assemble()
+    bound_ = solver.bind(Kc, Kf)
+    S32 = solver.probe(bound_)
+    out = {}
+    for name, kw in (("default", {}), ("option", option)):
+        _, relres, iters = solver.refine(S32, cls(S32, **kw), bound_, b64,
+                                         1e-8)
+        out[name] = {"cg_iters": iters, "rel_residual": relres}
+    phase(tag, n_bg=n_bg, smoother_option=option, **out)
+    if not all(v["rel_residual"] < 1e-8 for v in out.values()):
+        fail(f"{tag}: smoother option {option} did not converge: {out}")
+    if not out["option"]["cg_iters"] <= 2 * out["default"]["cg_iters"]:
+        fail(f"{tag}: smoother option {option} takes more than twice the "
+             f"default's iterations: {out}")
+
+
+MAX_SINGLE_LEVEL_ITERS = 64      # 2x the host's 32 at 3D n_bg=8 (one level)
 
 
 def phase_small_reference3():
@@ -839,6 +1051,12 @@ def phase_small_reference3():
           rel_diff=rel, gpu=info_gpu, cpu=info_cpu)
     if not (info_gpu["rel_residual"] < 1e-10 and max(rel.values()) < 1e-8):
         fail(f"3D card and host solves differ: {rel}, {info_gpu}")
+    # one 9³ level: the dense coarse inverse is the whole preconditioner
+    if not info_gpu["cg_iters"] <= MAX_SINGLE_LEVEL_ITERS:
+        fail(f"3D n_bg=8 on the card: {info_gpu['cg_iters']} CG iterations "
+             f"> {MAX_SINGLE_LEVEL_ITERS} (host: {info_cpu['cg_iters']})")
+    *_, s_gpu, _ = build_solver(16, gpu, dim=3)
+    smoother_option(s_gpu, "small_reference3", 16, smoother="jacobi")
 
 
 def on_cuda(solver, u, S32, mg) -> bool:
@@ -928,19 +1146,31 @@ def stage_times(solver, tag: str):
 @contextlib.contextmanager
 def count_by_shape(by_shape: Counter):
     """Count the stencil kernels' launches per lattice shape while the
-    block runs. Every launch goes through a StencilOperator2D/3D/Block2D
-    method (``mv``, ``smooth``, ``jacobi_smooth``, ``cheb_sweep``); each is called through a shim that reads the wrappers'
+    block runs. Every launch goes through a
+    StencilOperator2D/3D/Block2D/Block3D method (``mv``, ``smooth``, ``jacobi_smooth``, ``cheb_sweep``); each is called through a shim that reads the wrappers'
     own counters before and after the call and books the difference under
     the operator's shape (a block operator's led by its field count). A
     ``smooth`` call is also booked itself, by its form, as
     ``smooth_call@shape:pre`` (from zero, with the residual), ``:post``
-    (from x, without) or ``:other``."""
+    (from x, without) or ``:other``. The 3D block operator's launches are
+    booked by pass: ``stencil3d_block@shape:apply`` / ``:zero`` /
+    ``:sweep`` / ``:residual``."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
     from iifea_tpu_torch.ops.stencil import (
         StencilOperator2D,
         StencilOperator3D,
         StencilOperatorBlock2D,
+        StencilOperatorBlock3D,
     )
+
+    def block3_passes(name, a, out):
+        """stencil3d_block launches of one method call, by pass."""
+        if name == "mv":
+            return {"apply": 1}
+        x, sweeps = a[2], a[4]
+        zero = int(x is None and sweeps > 0)
+        return {"zero": zero, "sweep": sweeps - zero,
+                "residual": int(isinstance(out, tuple))}
 
     def shim(name, method):
         def counted(self, *a, **kw):
@@ -950,8 +1180,17 @@ def count_by_shape(by_shape: Counter):
                 *([self.n_fields] if hasattr(self, "n_fields") else []),
                 *self.shape)))
             for k, n in sk.launches().items():
-                if n != before[k]:
+                if n == before[k]:
+                    continue
+                if k != "stencil3d_block":
                     by_shape[f"{k}@{shape}"] += n - before[k]
+                    continue
+                passes = block3_passes(name, a, out)
+                if sum(passes.values()) != n - before[k]:
+                    fail(f"{name} at {shape} made {n - before[k]} "
+                         f"stencil3d_block launches, not {passes}")
+                for form, m in passes.items():
+                    by_shape[f"{k}@{shape}:{form}"] += m
             if name == "smooth":
                 form = (a[2] is None, isinstance(out, tuple))
                 by_shape[f"smooth_call@{shape}:" + next(
@@ -961,7 +1200,7 @@ def count_by_shape(by_shape: Counter):
 
     saved = [(cls, name, cls.__dict__[name])
              for cls in (StencilOperator2D, StencilOperator3D,
-                         StencilOperatorBlock2D)
+                         StencilOperatorBlock2D, StencilOperatorBlock3D)
              for name in ("mv", "smooth", "jacobi_smooth", "cheb_sweep")
              if name in cls.__dict__]
     for cls, name, method in saved:
@@ -1279,20 +1518,25 @@ N_BG_EL = 512                    # bench.py --workload elasticity's default
 MAX_CG_ITERS_EL = 136            # 2x the reference's 68 iterations at 512
 
 
-def build_elasticity(n_bg: int, device):
+def build_elasticity(n_bg: int, device, dim: int = 2):
     """bench.py's elasticity workload at ``n_bg``: the immersed square with
-    n_fg = 2·n_bg, two fields, ImmersedElasticityProblem(k=1, sym=True),
-    assembled by the generic front-end at u = 0. Returns (prob, M, A, b,
-    seconds per stage)."""
+    n_fg = 2·n_bg and two fields, or (dim = 3) the immersed cube with the 3D
+    workloads' fg/bg ratio 1.26 and three fields;
+    ImmersedElasticityProblem(k=1, sym=True), assembled by the generic
+    front-end at u = 0. Returns (prob, M, A, b, seconds per stage)."""
     import torch
 
-    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.mesh import generators
     from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
     from iifea_tpu_torch.ops.projection import assemble_background_system
 
     t0 = time.perf_counter()
-    mesh, M = immersed_square_problem(n_fg=2 * n_bg, n_bg=n_bg, n_fields=2,
-                                      device=device)
+    if dim == 2:
+        mesh, M = generators.immersed_square_problem(
+            n_fg=2 * n_bg, n_bg=n_bg, n_fields=2, device=device)
+    else:
+        mesh, M = generators.immersed_cube_problem(
+            n_fg=fg_of(n_bg, 3), n_bg=n_bg, n_fields=3, device=device)
     mesh.facet_data
     t1 = time.perf_counter()
     prob = ImmersedElasticityProblem(mesh, k=1, sym=True, device=device)
@@ -1304,13 +1548,13 @@ def build_elasticity(n_bg: int, device):
                            t2 - t1, "assemble": t_asm}
 
 
-def el_solve(A, b, n_bg, **kw):
+def el_solve(A, b, n_bg, dim: int = 2, **kw):
     from iifea_tpu_torch.solvers import ksp
 
     kw = {"method": "cg", "pc": "mg", "rtol": 1e-10, **kw}
     if kw["pc"] == "mg":
-        kw["lattice_shape"] = (n_bg + 1, n_bg + 1)
-    return ksp.solve_ksp(A, b, n_fields=2, monitor=False, **kw)
+        kw["lattice_shape"] = (n_bg + 1,) * dim
+    return ksp.solve_ksp(A, b, n_fields=dim, monitor=False, **kw)
 
 
 def rel_residual(A, b, x) -> float:
@@ -1344,21 +1588,25 @@ def timed_calls(targets, acc: Counter):
 
 @contextlib.contextmanager
 def plain_on_card(counts: Counter):
-    """Count the plain stencil applies (``stencil_mv_plain``, through which
-    every plain 2D apply goes) on card tensors while the block runs, split
-    into those inside the coarsest block level's dense inverse (set-up:
-    the identity's columns through ``mv_ref``, as the reference does) and
-    all others."""
+    """Count the plain stencil applies (``stencil_mv_plain`` and
+    ``stencil_mv3_plain``, through which every plain 2D and 3D apply goes)
+    on card tensors while the block runs, split into those inside the
+    coarsest block level's dense inverse (set-up: the identity's columns
+    through ``mv_ref``, as the reference does) and all others."""
     from iifea_tpu_torch.ops import multigrid
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    plain, dense = sk.stencil_mv_plain, multigrid._dense_inverse_block
+    plains = {"stencil_mv_plain": sk.stencil_mv_plain,
+              "stencil_mv3_plain": sk.stencil_mv3_plain}
+    dense = multigrid._dense_inverse_block
     where = ["elsewhere"]
 
-    def counted_plain(C, x, *a, **kw):
-        if x.is_cuda:
-            counts[where[0]] += 1
-        return plain(C, x, *a, **kw)
+    def counting(plain):
+        def counted_plain(C, x, *a, **kw):
+            if x.is_cuda:
+                counts[where[0]] += 1
+            return plain(C, x, *a, **kw)
+        return counted_plain
 
     def counted_dense(S):
         where[0] = "dense_inverse"
@@ -1367,12 +1615,14 @@ def plain_on_card(counts: Counter):
         finally:
             where[0] = "elsewhere"
 
-    sk.stencil_mv_plain = counted_plain
+    for name, plain in plains.items():
+        setattr(sk, name, counting(plain))
     multigrid._dense_inverse_block = counted_dense
     try:
         yield
     finally:
-        sk.stencil_mv_plain = plain
+        for name, plain in plains.items():
+            setattr(sk, name, plain)
         multigrid._dense_inverse_block = dense
 
 
@@ -1524,9 +1774,428 @@ def phase_demo_elasticity():
              f"{host['norms']}")
 
 
+def phase_elasticity3():
+    """The 3D block path: small references against host SuperLU, then the
+    n_bg = N_BG_EL3 solve counted per lattice shape and pass, staged,
+    profiled, and its error norms against an n_bg=48 solve's. Returns its
+    launch counts."""
+    import math
+
+    import torch
+
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.solvers import ksp
+
+    dev = torch.device("cuda", 0)
+    nF = N_FIELDS_EL3
+
+    # -- n_bg = 8 (one dense 9³ level) and 16 against host LU ------------------
+    for n_bg in (8, 16):
+        prob, M, A, b, _ = build_elasticity(n_bg, dev, dim=3)
+        u_lu, _ = el_solve(A, b, n_bg, dim=3, method="direct")
+        n_lu = prob.error_norms(M.mv(u_lu))
+        (u, info), dt = sync_time(lambda: el_solve(A, b, n_bg, dim=3))
+        norms = prob.error_norms(M.mv(u))
+        rel = {k: abs(norms[k] - n_lu[k]) / n_lu[k] for k in n_lu}
+        phase("elasticity3_small", n_bg=n_bg, iters=info.iters,
+              rel_residual=rel_residual(A, b, u), seconds=dt,
+              error_norms=norms, error_norms_lu=n_lu, norms_rel_diff=rel)
+        most = MAX_CG_ITERS_EL3_SINGLE if n_bg == 8 else MAX_CG_ITERS_EL3
+        if not (u.is_cuda and info.iters < most
+                and max(rel.values()) <= 1e-8):
+            fail(f"3D elasticity n_bg={n_bg}: {info.iters} iterations, norms "
+                 f"{norms} differ from host LU's {n_lu} by {rel}")
+        del prob, M, A, b, u_lu, u
+
+    # -- the main path at n_bg = N_BG_EL3 --------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob, M, A, b, setup = build_elasticity(N_BG_EL3, dev, dim=3)
+    phase("elasticity3_setup", n_bg=N_BG_EL3, n_fg=fg_of(N_BG_EL3, 3),
+          n_bg_dofs=M.n_bg_dofs, n_cells=prob.mesh.n_cells,
+          n_block_cells=prob.cell_dom.n_elem,
+          n_facets=prob.facet_dom.n_elem, seconds=setup,
+          probe_columns=nF * 125, probe_chunk=ksp._probe_chunk(
+              A, torch.float64),
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    names = ("stencil3d_block",)
+    plain = Counter()
+    with plain_on_card(plain):
+        (u, info), t_first, launches, by_shape = counted_run(
+            lambda: el_solve(A, b, N_BG_EL3, dim=3), names, "elasticity3")
+    relres = rel_residual(A, b, u)
+    norms = prob.error_norms(M.mv(u))
+    passes = len(info.history) - 1
+    phase("elasticity3", first_seconds=t_first, iters=info.iters,
+          passes=passes, history=info.history, rel_residual=relres,
+          error_norms=norms, launches=launches, launches_by_shape=by_shape,
+          plain_applies_on_card=dict(plain),
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not relres < 1e-10:
+        fail(f"elasticity3: f64 relative residual {relres} >= 1e-10")
+    if not info.iters <= MAX_CG_ITERS_EL3:
+        fail(f"elasticity3: {info.iters} CG iterations > {MAX_CG_ITERS_EL3}")
+    if not (u.shape == (M.n_bg_dofs,) and u.is_cuda
+            and bool(torch.isfinite(u).all())):
+        fail("elasticity3: the solution is not a finite card vector of the "
+             "background size")
+    # what the V-cycle's structure predicts: one V-cycle per CG iteration
+    # and one per pass (the initial z = M r); per V-cycle and smoothed level
+    # the sweep from zero, 2·NU − 1 sweeps and one residual; one apply per
+    # Krylov matvec (iterations + one initial residual per pass) and one per
+    # field in the deflation-space test, at the finest shape only
+    cycles = info.iters + passes
+    want = {}
+    for sh in BLOCK3_SMOOTHED:
+        key = "stencil3d_block@" + "x".join(map(str, (nF, *sh)))
+        want.update({f"{key}:zero": cycles, f"{key}:residual": cycles,
+                     f"{key}:sweep": (2 * NU - 1) * cycles})
+    want["stencil3d_block@" + "x".join(map(str, (nF, *BLOCK3_SMOOTHED[0])))
+         + ":apply"] = cycles + nF
+    got = {k: v for k, v in by_shape.items()
+           if k.startswith("stencil3d_block@")}
+    if got != want:
+        fail(f"elasticity3: stencil3d_block launches {got} are not what "
+             f"{cycles} V-cycles predict: {want}")
+    if plain["elsewhere"]:
+        fail(f"elasticity3: {plain['elsewhere']} plain stencil applies on "
+             "the card outside the coarse dense inverse")
+
+    stages = Counter()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls([(ksp, "_probe_block"),
+                      (multigrid, "StencilMultigridBlock3D"),
+                      (ksp, "_deflation_space")], stages):
+        (u2, info2), t_warm = sync_time(
+            lambda: el_solve(A, b, N_BG_EL3, dim=3))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("elasticity3_stages", assemble=setup["assemble"],
+          probe=stages["_probe_block"],
+          hierarchy=stages["StencilMultigridBlock3D"],
+          deflation=stages["_deflation_space"],
+          solve=t_warm - sum(stages.values()), solve_ksp=t_warm,
+          iters=info2.iters, rel_residual=rel_residual(A, b, u2),
+          peak_gib=peak)
+    if not peak < 80 * 1e9 / 2**30:
+        fail(f"elasticity3: peak device memory {peak} GiB")
+    del u2
+    profile_solve(lambda: el_solve(A, b, N_BG_EL3, dim=3),
+                  "elasticity3_profile")
+    del A, b
+    torch.cuda.empty_cache()
+
+    # -- convergence: below the n_bg=48 solve's errors, L2 rate > 1.5 --------
+    p48, M48, A48, b48, _ = build_elasticity(N_BG_EL3 // 2, dev, dim=3)
+    u48, info48 = el_solve(A48, b48, N_BG_EL3 // 2, dim=3)
+    n48 = p48.error_norms(M48.mv(u48))
+    rate = math.log2(n48["L2"] / norms["L2"])
+    phase("elasticity3_convergence", error_norms=norms,
+          error_norms_n_bg48=n48, l2_rate=rate, iters_n_bg48=info48.iters,
+          rel_residual_n_bg48=rel_residual(A48, b48, u48))
+    if not all(v == v and 0 < v < n48[k] for k, v in norms.items()):
+        fail(f"elasticity3: error norms {norms} not below n_bg=48's {n48}")
+    if not rate > 1.5:
+        fail(f"elasticity3: L2 rate {rate} <= 1.5")
+    return launches, by_shape
+
+
+N_BG_NEWTON = 1024
+
+
+def scalar_form(mesh, device, kind: str):
+    """A nonlinear scalar form on the cut square's block, no boundary term:
+    'diffusion' −∇·((1 + u²)∇u) + u = 1, or 'atan' −Δu + atan(u − 2) = 0
+    (near-flat far field: full Newton steps overshoot)."""
+    import torch
+
+    from iifea_tpu_torch.mesh.core import FunctionSpace
+    from iifea_tpu_torch.ops.assembly import Form, Term, build_cell_domain
+
+    V = FunctionSpace(mesh, degree=1, n_fields=1)
+
+    def kern(u_loc, aux_loc, ctx, params):
+        uq = torch.einsum("qb,b->q", ctx.phi, u_loc[:, 0])
+        gu = torch.einsum("qbd,b->qd", ctx.gphi, u_loc[:, 0])
+        if kind == "diffusion":
+            r = torch.einsum("q,q,qd,qbd->b", ctx.w, 1 + uq ** 2, gu,
+                             ctx.gphi)
+            react = uq - 1.0
+        else:
+            r = torch.einsum("q,qd,qbd->b", ctx.w, gu, ctx.gphi)
+            react = torch.arctan(uq - 2.0)
+        return (r + torch.einsum("q,q,qb->b", ctx.w, react, ctx.phi))[:, None]
+
+    cells = (mesh.material == 2).nonzero()[0]
+    return Form(V, [Term(build_cell_domain(V, cells, 3, device=device),
+                         kern)])
+
+
+def newton_run(n_bg, device, kind="diffusion", start=0.0, **kw):
+    """``solve_nonlinear`` on the cut square at ``n_bg`` on ``device``, with
+    every Newton step's assembly and linear-solve seconds, linear
+    iterations and stencil launches recorded. Returns a dict; ``error`` is
+    the NonlinearSolveError where one was raised."""
+    import torch
+
+    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+    from iifea_tpu_torch.solvers import newton
+
+    def timed(fn):
+        if device.type == "cuda":
+            return sync_time(fn)
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    mesh, M = immersed_square_problem(n_fg=fg_of(n_bg), n_bg=n_bg,
+                                      device=device)
+    form = scalar_form(mesh, device, kind)
+    steps = []
+    assemble, solve_ksp = form.jacobian_and_residual, newton.solve_ksp
+
+    def timed_assemble(*a, **k):
+        out, dt = timed(lambda: assemble(*a, **k))
+        steps.append({"assemble_seconds": dt})
+        return out
+
+    def timed_solve(*a, **k):
+        before = sum(sk.launches().values())
+        (x, info), dt = timed(lambda: solve_ksp(*a, **k))
+        steps[-1].update(
+            residual_norm=float(torch.linalg.vector_norm(a[1])),
+            solve_seconds=dt, launches=sum(sk.launches().values()) - before,
+            linear_iters=None if info is None else info.iters)
+        return x, info
+
+    form.jacobian_and_residual = timed_assemble
+    newton.solve_ksp = timed_solve
+    u0 = torch.full((M.n_bg_dofs,), float(start), dtype=torch.float64,
+                    device=device)
+    out = {"M": M, "form": form, "steps": steps, "error": None}
+    try:
+        out["u_p"], out["u_f"] = newton.solve_nonlinear(
+            form, M.mv(u0), M, u0, monitor_newton=False,
+            **{"max_iters": 30, "relative_tolerance": 1e-8, **kw})
+    except newton.NonlinearSolveError as e:
+        out["error"] = e
+    finally:
+        newton.solve_ksp = solve_ksp
+        del form.jacobian_and_residual
+    r0 = M.rmv(assemble(M.mv(u0))[1])
+    out["r0"] = float(torch.linalg.vector_norm(r0))
+    if out["error"] is None:
+        out["r"] = float(torch.linalg.vector_norm(
+            M.rmv(form.residual(out["u_f"]))))
+    return out
+
+
+def phase_newton():
+    """The Newton solvers on the card. ``solve_nonlinear(linear_method='cg',
+    linear_pc='mg')`` on the nonlinear diffusion form at n_bg = N_BG_NEWTON:
+    every step re-assembles (jacfwd) and re-solves on the hand kernels;
+    gates: converged, the projected residual down to 1e-8 of the first,
+    stencil launches in every step whose linear solve iterates. At n_bg=64: the host's Newton
+    iteration count, and the ``linear_pc='jacobi'`` run's solution: the
+    foreground field over the block in L2 to 1e-5 relative, and the
+    iterate to 1e-5·max|u| on dofs with a diagonal of at least a tenth of
+    the largest (this form has no boundary term, so background dofs that
+    reach the block through the same few foreground nodes are determined
+    only in combination, whatever their diagonal); the atan-reaction case (plain Newton
+    raises NonlinearSolveError, ``line_search=True`` converges);
+    ``solve_newtons_linear`` on Poisson with two supported dofs pinned to
+    zero against the direct solve of the trimmed system (its residual, and
+    the foreground field's error norms: the system is near-singular, so
+    background values are not compared)."""
+    import torch
+
+    from iifea_tpu_torch.api import l2_norm
+    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.models.poisson import PoissonProblem
+    from iifea_tpu_torch.ops.projection import (
+        BackgroundOperator,
+        assemble_background_system,
+    )
+    from iifea_tpu_torch.solvers import ksp, newton, trim
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda", 0)
+    mg = dict(linear_method="cg", linear_pc="mg")
+
+    # -- n_bg = 64: the host's iteration count, the Jacobi run's iterate -------
+    shape = (65, 65)
+    runs = {"card_mg": newton_run(64, dev, lattice_shape=shape, **mg),
+            "host_mg": newton_run(64, cpu, lattice_shape=shape, **mg),
+            "card_jacobi": newton_run(64, dev, linear_method="cg",
+                                      linear_pc="jacobi")}
+    if any(r["error"] for r in runs.values()):
+        fail(f"newton n_bg=64 did not converge: "
+             f"{ {k: str(r['error']) for k, r in runs.items()} }")
+    r = runs["card_mg"]
+    blocks, _ = r["form"].jacobian_and_residual(r["u_f"])
+    d = BackgroundOperator(r["form"], blocks, r["M"]).diag().abs()
+    d = d >= 0.1 * d.max()
+    u_j = runs["card_jacobi"]["u_p"]
+    diff = float((r["u_p"] - u_j)[d].abs().max())
+    lim = 1e-5 * max(float(u_j[d].abs().max()), 1.0)
+    dom = r["form"].terms[0][0]
+    field = (l2_norm(r["u_f"] - runs["card_jacobi"]["u_f"], dom)
+             / l2_norm(runs["card_jacobi"]["u_f"], dom))
+    phase("newton_small", n_bg=64,
+          newton_iters={k: len(v["steps"]) for k, v in runs.items()},
+          linear_iters={k: [s_["linear_iters"] for s_ in v["steps"]]
+                        for k, v in runs.items()},
+          residual={k: v["r"] / v["r0"] for k, v in runs.items()},
+          max_abs_diff_mg_jacobi=diff, bound=lim,
+          field_rel_diff_mg_jacobi=field)
+    if len(r["steps"]) != len(runs["host_mg"]["steps"]):
+        fail("newton n_bg=64: the card and the host take different numbers "
+             "of Newton iterations")
+    if not (r["u_p"].is_cuda and diff <= lim and field <= 1e-5):
+        fail(f"newton n_bg=64: the mg and jacobi iterates differ by {diff} "
+             f"(field: {field})")
+
+    # -- the line-search case ---------------------------------------------------
+    # n_bg = 16 (the reference test's size) with host direct solves: the
+    # far-field Jacobian is near-singular (atan' ≈ 1/325, no boundary
+    # term), which an f32 MG-CG pass cannot resolve
+    plain = newton_run(16, dev, kind="atan", start=20.0, max_iters=3,
+                       linear_method="direct")
+    ls = newton_run(16, dev, kind="atan", start=20.0, max_iters=20,
+                    line_search=True, linear_method="direct")
+    phase("newton_line_search", n_bg=16,
+          plain_newton="raised" if plain["error"] else "converged",
+          plain_residuals=[s_["residual_norm"] for s_ in plain["steps"]],
+          line_search_residuals=[s_["residual_norm"] for s_ in ls["steps"]],
+          line_search="raised" if ls["error"] else "converged",
+          line_search_steps=len(ls["steps"]),
+          residual=None if ls["error"] else ls["r"])
+    stuck = (plain["steps"][-1]["residual_norm"]
+             >= 0.9 * plain["steps"][0]["residual_norm"])
+    if not (plain["error"] and stuck and ls["error"] is None
+            and ls["r"] < 1e-6):
+        fail("newton: the atan case needs plain Newton to make no progress "
+             "in 3 steps and the line search to converge")
+    del plain, ls, runs, r
+
+    # -- solve_newtons_linear with pinned dofs ---------------------------------
+    mesh, M = immersed_square_problem(n_fg=fg_of(64), n_bg=64, device=dev)
+    prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10, device=dev)
+    u_f0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=dev)
+    A, b = assemble_background_system(prob.form, u_f0, M)
+    diag = A.diag()
+    pin = torch.argsort(diag)[-2:].cpu().numpy()
+    warm = torch.ones(M.n_bg_dofs, dtype=torch.float64, device=dev)
+    (u, u_f), dt = sync_time(lambda: newton.solve_newtons_linear(
+        prob.form, u_f0, M, warm, zero_ids=pin, monitor_newton=False,
+        linear_method="cg", linear_pc="jacobi"))
+    mask = trim.mask_from_ids(pin, M.n_bg_dofs, device=dev)
+    A_t, b_t = A.with_trim(mask), trim.apply_trim_rhs(b, mask)
+    u_d, _ = ksp.solve_ksp(A_t, b_t, method="direct")
+    relres = rel_residual(A_t, b_t, u)
+    norms, norms_d = prob.error_norms(u_f), prob.error_norms(M.mv(u_d))
+    rel = {k: abs(norms[k] - norms_d[k]) / norms_d[k] for k in norms}
+    phase("newtons_linear", n_bg=64, pinned=pin.tolist(), seconds=dt,
+          pinned_values=u[mask].tolist(), rel_residual=relres,
+          error_norms=norms, error_norms_direct=norms_d, norms_rel_diff=rel)
+    if not (u.is_cuda and bool((u[mask] == 0).all()) and relres < 1e-6
+            and max(rel.values()) < 1e-5):
+        fail(f"solve_newtons_linear: pinned {u[mask].tolist()}, residual "
+             f"{relres}, norms differ from the direct solve's by {rel}")
+    del mesh, M, prob, A, b
+
+    # -- the main run at n_bg = N_BG_NEWTON ------------------------------------
+    torch.cuda.empty_cache()
+    names = ("stencil_mv", "jacobi_smooth", "stencil_mv_block", "smooth")
+    r, seconds, launches, by_shape = counted_run(
+        lambda: newton_run(N_BG_NEWTON, dev,
+                           lattice_shape=(N_BG_NEWTON + 1,) * 2, **mg),
+        names, "newton")
+    if r["error"]:
+        fail(f"newton n_bg={N_BG_NEWTON}: {r['error']}")
+    phase("newton", n_bg=N_BG_NEWTON, n_bg_dofs=r["M"].n_bg_dofs,
+          n_block_cells=r["form"].terms[0][0].n_elem, seconds=seconds,
+          newton_iters=len(r["steps"]),
+          linear_iters=sum(s_["linear_iters"] for s_ in r["steps"]),
+          steps=r["steps"], residual_first=r["r0"], residual_final=r["r"],
+          launches=launches, launches_by_shape=by_shape,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not (r["u_p"].is_cuda and bool(torch.isfinite(r["u_p"]).all())):
+        fail("newton: the iterate is not a finite card vector")
+    if not r["r"] <= 1e-8 * r["r0"]:
+        fail(f"newton: projected residual {r['r']} > 1e-8 x {r['r0']}")
+    # a converged step's rhs is below the linear solve's atol: no iteration
+    iterated = [s_ for s_ in r["steps"] if s_["linear_iters"]]
+    if not (iterated and all(s_["launches"] > 0 for s_ in iterated)):
+        fail(f"newton: a step's linear solve iterated without a stencil "
+             f"launch: {r['steps']}")
+
+
+N_BG_ASM = 256
+
+
+def phase_asm():
+    """``solve_ksp(gmres, pc='asm')`` on immersed Poisson at n_bg = N_BG_ASM
+    (n_fg = 2·n_bg, the fg/bg ratio of the reference's asm test; 66,049
+    dofs: the patch setup is host loops over dofs, a demo-size
+    preconditioner) against pc='jacobi', both to rtol 1e-12: the residual
+    (≤ 1.5e-10), fewer iterations, the same solution to 1e-7·max|u| on
+    dofs with a nonzero diagonal (at rtol 1e-10 the two solutions are
+    2.3e-7 apart at this size, on well-supported dofs: the system's
+    conditioning times the residual)."""
+    import torch
+
+    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.models.poisson import PoissonProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+    from iifea_tpu_torch.solvers import ksp, precond
+
+    dev = torch.device("cuda", 0)
+    mesh, M = immersed_square_problem(n_fg=2 * N_BG_ASM, n_bg=N_BG_ASM,
+                                      device=dev)
+    prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10, device=dev)
+    A, b = assemble_background_system(
+        prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
+                               device=dev), M)
+    made, out = [], {}
+    schwarz = precond.AdditiveSchwarz
+
+    def recorded(*a, **kw):
+        made.append(sync_time(lambda: schwarz(*a, **kw)))
+        return made[-1][0]
+
+    precond.AdditiveSchwarz = recorded
+    try:
+        for pc in ("asm", "jacobi"):
+            (x, info), dt = sync_time(lambda: ksp.solve_ksp(
+                A, b, method="gmres", pc=pc, rtol=1e-12, atol=1e-14,
+                monitor=False))
+            out[pc] = (x, info, dt)
+    finally:
+        precond.AdditiveSchwarz = schwarz
+    x_a, info_a, t_a = out["asm"]
+    x_j, info_j, t_j = out["jacobi"]
+    relres = rel_residual(A, b, x_a)
+    d = A.diag().abs() > 0
+    diff = float((x_a - x_j)[d].abs().max())
+    lim = 1e-7 * max(float(x_j.abs().max()), 1.0)
+    asm, t_setup = made[0]
+    phase("asm", n_bg=N_BG_ASM, n_bg_dofs=M.n_bg_dofs,
+          patches=asm.n_patches, width=asm.width, setup_seconds=t_setup,
+          solve_seconds=t_a - t_setup, iters=info_a.iters,
+          rel_residual=relres, jacobi_iters=info_j.iters,
+          jacobi_seconds=t_j, max_abs_diff=diff, bound=lim,
+          tables_on_card=bool(asm.inv.is_cuda and asm.idx.is_cuda))
+    if not (x_a.is_cuda and asm.inv.is_cuda and relres <= 1.5e-10):
+        fail(f"asm: residual {relres}, or a tensor off the card")
+    if not info_a.iters < info_j.iters:
+        fail(f"asm: {info_a.iters} iterations, jacobi {info_j.iters}")
+    if not diff <= lim:
+        fail(f"asm: differs from the jacobi solution by {diff} > {lim}")
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
-          "elasticity", "demo_elasticity")
+          "elasticity", "demo_elasticity", "elasticity3", "newton", "asm")
 
 
 def kernel_shapes(timing, by_shape):
@@ -1577,7 +2246,10 @@ def main() -> None:
                      ("main_path3", phase_main_path3),
                      ("demo", phase_demo),
                      ("elasticity", phase_elasticity),
-                     ("demo_elasticity", phase_demo_elasticity)):
+                     ("demo_elasticity", phase_demo_elasticity),
+                     ("elasticity3", phase_elasticity3),
+                     ("newton", phase_newton),
+                     ("asm", phase_asm)):
         if name in run:
             counts = fn()
             if counts is not None:

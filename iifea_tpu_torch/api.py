@@ -1,4 +1,4 @@
-"""Reference-API parity surface, linear part (port of
+"""Reference-API parity surface (port of
 ``iifea_tpu/api.py``): one function per public call of the reference's
 ``common``/``la_utils``.
 
@@ -8,6 +8,8 @@
   assembleLinearSystemBackground -> assemble_background_system
   AT_x / A_x_b / AT_R_A          -> M.rmv / operator.mv / BackgroundOperator
   solveKSP                       -> solve_ksp
+  solveNonlinear                 -> solve_nonlinear
+  solveNewtonsLinear             -> solve_newtons_linear
   trimNodes / removeZeroDiagonal -> solvers.trim utilities
   estimateConditionNumber        -> estimate_condition_number
   L2Project / L2Norm             -> l2_project / l2_norm
@@ -16,8 +18,7 @@
   averageCellDiagonal            -> average_cell_diagonal
   cellMetric                     -> cell_metric
 
-``solve_nonlinear`` and ``solve_newtons_linear`` come with the Newton
-solver (ROADMAP.md), ``readExOp`` with the mesh files.
+``readExOp`` comes with the mesh files (ROADMAP.md item 12e).
 """
 from __future__ import annotations
 
@@ -39,6 +40,11 @@ from iifea_tpu_torch.solvers.condition import (  # noqa: F401
     estimate_condition_number,
 )
 from iifea_tpu_torch.solvers.ksp import solve_ksp
+from iifea_tpu_torch.solvers.newton import (  # noqa: F401
+    NonlinearSolveError,
+    solve_newtons_linear,
+    solve_nonlinear,
+)
 
 
 def zero_dof_background(M: ExtractionOperator,

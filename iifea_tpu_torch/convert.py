@@ -12,9 +12,10 @@ both packages can start from identical state:
     ...     radius=S.radius, device="cpu")
 
 ``coeffs`` must be the logical (m², nx1, ny1) or (m³, nx1, ny1, nz1)
-planes (``S.coeffs``), never the TPU tile-padded storage, or a 2D block
-operator's (nF, nF, m², nx1, ny1) planes; their rank picks
-``StencilOperator2D``, ``StencilOperator3D`` or ``StencilOperatorBlock2D``.
+planes (``S.coeffs``), never the TPU tile-padded storage, or a block
+operator's (nF, nF, m², nx1, ny1) or (nF, nF, m³, nx1, ny1, nz1) planes;
+their rank picks ``StencilOperator2D``, ``StencilOperator3D``,
+``StencilOperatorBlock2D`` or ``StencilOperatorBlock3D``.
 A tetrahedron mesh (3D coords, 4 vertices per cell) is carried like a
 triangle mesh.
 """
@@ -31,13 +32,15 @@ from iifea_tpu_torch.ops.stencil import (
     StencilOperator2D,
     StencilOperator3D,
     StencilOperatorBlock2D,
+    StencilOperatorBlock3D,
 )
 
 
 class State(NamedTuple):
     mesh: Mesh | None
     M: ExtractionOperator | None
-    S: StencilOperator2D | StencilOperator3D | StencilOperatorBlock2D | None
+    S: (StencilOperator2D | StencilOperator3D | StencilOperatorBlock2D
+        | StencilOperatorBlock3D | None)
 
 
 def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
@@ -64,6 +67,6 @@ def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
                 "(pass the logical S.coeffs, not the padded S.cp)"
             )
         cls = {3: StencilOperator2D, 4: StencilOperator3D,
-               5: StencilOperatorBlock2D}[C.ndim]
+               5: StencilOperatorBlock2D, 6: StencilOperatorBlock3D}[C.ndim]
         S = cls(torch.as_tensor(C, device=device), shape, radius)
     return State(mesh, M, S)

@@ -1,5 +1,7 @@
 // Variable-coefficient 3D stencil apply, fused weighted-Jacobi sweep and
-// fused Chebyshev smoothing step for Hopper (sm_90a), f32.
+// fused Chebyshev smoothing step for Hopper (sm_90a), f32; and the block
+// (multi-field) apply, residual and point-block sweep `stencil3d_block`
+// (second half of this file).
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
@@ -140,6 +142,181 @@ int launch(const float* C, const float* x, const float* invd, const float* b,
   return (int)cudaGetLastError();
 }
 
+
+// -- block (multi-field) operators -------------------------------------------
+//
+// `stencil3d_block`: for NF = 1..3 fields on field-blocked vectors (NF*n,),
+// coefficients C[f1][f2][q] as NF*NF*m^3 contiguous (nx, ny, nz) volumes and
+// nodal smoother blocks Binv[f1][f2] as NF*NF volumes (NF = 1: the flat
+// 1/diag), in ONE launch
+//
+//   apply:    y[f1] = sum_f2 sum_q C[f1,f2,q] * shift_q(x[f2])
+//   residual: y = b - A x
+//   sweep:    y[f1] = x[f1] + omega * sum_f2 Binv[f1,f2] * (b - A x)[f2]
+//   zero:     y[f1] = omega * sum_f2 Binv[f1,f2] * b[f2]   (the sweep from
+//             x = 0: no coefficient is read)
+//
+// The reference computes the apply as a scan of NF^2 * m^3 slice
+// multiply-adds (iifea_tpu/ops/stencil.py StencilOperatorBlock3D.mv) and
+// the sweep as an einsum over b - A x
+// (iifea_tpu/ops/multigrid.py StencilMultigridBlock3D._smooth).
+//
+// What bounds it: the coefficient planes. At 3 x 97^3, r = 2 the 9 * 125
+// volumes are 4.1 GB against 11 MB of x: ~1.23 ms at 3.35 TB/s. So: the x
+// tiles of all NF fields, with halo, are staged once in shared memory
+// (NF * 6*8*36 floats = 20.7 KB for r = 2, NF = 3); a thread keeps NF
+// accumulators and reads each of its NF*NF*m^3 coefficients once, coalesced
+// along k; volume offsets are 64-bit. Registers: the loop over (f2, oi) is
+// kept rolled, so at most NF * m^2 coefficient loads are in flight per
+// thread (75 for NF = 3, r = 2) instead of all NF*NF*m^3 = 1,125, which the
+// compiler would otherwise hoist and spill.
+
+enum BlockMode { kApply = 0, kResidual = 1, kSweep = 2, kZero = 3 };
+
+template <int R, int NF, int MODE>
+__global__ void __launch_bounds__(kThreads)
+stencil3d_block_kernel(const float* __restrict__ C,
+                       const float* __restrict__ x,
+                       const float* __restrict__ b,
+                       const float* __restrict__ binv, float omega,
+                       float* __restrict__ y, int nx, int ny, int nz) {
+  constexpr int M = 2 * R + 1;
+  constexpr int M3 = M * M * M;
+  constexpr int SX = kTX + 2 * R;
+  constexpr int SY = kTY + 2 * R;
+  constexpr int SZ = kTZ + 2 * R;
+  __shared__ float xs[MODE == kZero ? 1 : NF][SX][SY][SZ];
+
+  const int i0 = blockIdx.z * kTX;
+  const int j0 = blockIdx.y * kTY;
+  const int k0 = blockIdx.x * kTZ;
+  const int64_t plane = (int64_t)nx * ny * nz;
+
+  if (MODE != kZero) {
+    const int tid = (threadIdx.z * kTY + threadIdx.y) * kTZ + threadIdx.x;
+    // x tiles of every field plus halo; zero outside the lattice
+    for (int t = tid; t < NF * SX * SY * SZ; t += kThreads) {
+      const int f = t / (SX * SY * SZ);
+      int rem = t - f * (SX * SY * SZ);
+      const int li = rem / (SY * SZ);
+      rem -= li * (SY * SZ);
+      const int lj = rem / SZ;
+      const int lk = rem - lj * SZ;
+      const int gi = i0 + li - R;
+      const int gj = j0 + lj - R;
+      const int gk = k0 + lk - R;
+      float v = 0.0f;
+      if (gi >= 0 && gi < nx && gj >= 0 && gj < ny && gk >= 0 && gk < nz) {
+        v = x[f * plane + ((int64_t)gi * ny + gj) * nz + gk];
+      }
+      xs[f][li][lj][lk] = v;
+    }
+    __syncthreads();
+  }
+
+  const int i = i0 + threadIdx.z;
+  const int j = j0 + threadIdx.y;
+  const int k = k0 + threadIdx.x;
+  if (i >= nx || j >= ny || k >= nz) return;
+  const int64_t p = ((int64_t)i * ny + j) * nz + k;
+
+  float acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = 0.0f;
+
+  if (MODE != kZero) {
+    // rolled over (f2, oi): NF * M * M coefficient loads per trip
+#pragma unroll 1
+    for (int t = 0; t < NF * M; ++t) {
+      const int f2 = t / M;
+      const int oi = t - f2 * M;
+      const float* Cp = C + ((int64_t)f2 * M3 + oi * M * M) * plane + p;
+#pragma unroll
+      for (int f1 = 0; f1 < NF; ++f1) {
+#pragma unroll
+        for (int oj = 0; oj < M; ++oj) {
+#pragma unroll
+          for (int ok = 0; ok < M; ++ok) {
+            const int64_t q = (int64_t)f1 * NF * M3 + oj * M + ok;
+            acc[f1] = fmaf(
+                __ldg(Cp + q * plane),
+                xs[f2][threadIdx.z + oi][threadIdx.y + oj][threadIdx.x + ok],
+                acc[f1]);
+          }
+        }
+      }
+    }
+  }
+
+  if (MODE == kApply) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
+    return;
+  }
+  float res[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) res[f] = b[f * plane + p] - acc[f];
+  if (MODE == kResidual) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) y[f * plane + p] = res[f];
+    return;
+  }
+#pragma unroll
+  for (int f1 = 0; f1 < NF; ++f1) {
+    float s = 0.0f;
+#pragma unroll
+    for (int f2 = 0; f2 < NF; ++f2) {
+      s = fmaf(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], s);
+    }
+    const float xc =
+        MODE == kZero
+            ? 0.0f
+            : xs[f1][threadIdx.z + R][threadIdx.y + R][threadIdx.x + R];
+    y[f1 * plane + p] = xc + omega * s;
+  }
+}
+
+template <int R, int NF>
+void launch_block_mode(int mode, dim3 grid, dim3 block, cudaStream_t stream,
+                       const float* C, const float* x, const float* b,
+                       const float* binv, float omega, float* y, int nx,
+                       int ny, int nz) {
+#define IIFEA_LAUNCH(MODE)                                             \
+  stencil3d_block_kernel<R, NF, MODE><<<grid, block, 0, stream>>>(     \
+      C, x, b, binv, omega, y, nx, ny, nz)
+  switch (mode) {
+    case kApply: IIFEA_LAUNCH(kApply); break;
+    case kResidual: IIFEA_LAUNCH(kResidual); break;
+    case kSweep: IIFEA_LAUNCH(kSweep); break;
+    default: IIFEA_LAUNCH(kZero); break;
+  }
+#undef IIFEA_LAUNCH
+}
+
+template <int R>
+int launch_block_fields(int n_fields, int mode, dim3 grid, dim3 block,
+                        cudaStream_t stream, const float* C, const float* x,
+                        const float* b, const float* binv, float omega,
+                        float* y, int nx, int ny, int nz) {
+  switch (n_fields) {
+    case 1:
+      launch_block_mode<R, 1>(mode, grid, block, stream, C, x, b, binv,
+                              omega, y, nx, ny, nz);
+      break;
+    case 2:
+      launch_block_mode<R, 2>(mode, grid, block, stream, C, x, b, binv,
+                              omega, y, nx, ny, nz);
+      break;
+    case 3:
+      launch_block_mode<R, 3>(mode, grid, block, stream, C, x, b, binv,
+                              omega, y, nx, ny, nz);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -166,6 +343,34 @@ int stencil3d_cheb(const float* C, const float* invd, const float* b,
                    void* stream) {
   return launch<kCheb>(C, x, invd, b, d, alpha, beta, y, nx, ny, nz, radius,
                        (cudaStream_t)stream);
+}
+
+// Block apply (mode 0), residual b - A x (1), point-block sweep
+// x + omega * Binv * (b - A x) (2) or the sweep from zero omega * Binv * b
+// (3) on n_fields = 1..3 fields in one launch; operands a mode does not read
+// may be null. y must not alias x.
+int stencil3d_block(const float* C, const float* x, const float* b,
+                    const float* binv, float omega, float* y, int nx, int ny,
+                    int nz, int radius, int n_fields, int mode,
+                    void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || mode < kApply || mode > kZero) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kTZ, kTY, kTX);
+  const dim3 grid((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY,
+                  (nx + kTX - 1) / kTX);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  if (radius == 1) {
+    return launch_block_fields<1>(n_fields, mode, grid, block,
+                                  (cudaStream_t)stream, C, x, b, binv, omega,
+                                  y, nx, ny, nz);
+  }
+  if (radius == 2) {
+    return launch_block_fields<2>(n_fields, mode, grid, block,
+                                  (cudaStream_t)stream, C, x, b, binv, omega,
+                                  y, nx, ny, nz);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -16,7 +16,8 @@ def _perm3(a: float, b: float) -> np.ndarray:
 
 
 def triangle_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
-    """Symmetric Gauss rules on the unit triangle, degree ≤ 2."""
+    """Symmetric Gauss rules on the unit triangle (Dunavant family),
+    degree ≤ 4."""
     d = max(int(degree), 1)
     if d == 1:
         pts = np.array([[1 / 3, 1 / 3]])
@@ -24,8 +25,16 @@ def triangle_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
     elif d == 2:
         pts = _perm3(1 / 6, 2 / 3)
         wts = np.full(3, 1 / 6)
+    elif d == 3:
+        pts = np.vstack([[[1 / 3, 1 / 3]], _perm3(0.2, 0.6)])
+        wts = 0.5 * np.array([-27 / 48, 25 / 48, 25 / 48, 25 / 48])
+    elif d == 4:
+        a1, w1 = 0.445948490915965, 0.223381589678011
+        a2, w2 = 0.091576213509771, 0.109951743655322
+        pts = np.vstack([_perm3(a1, 1 - 2 * a1), _perm3(a2, 1 - 2 * a2)])
+        wts = 0.5 * np.array([w1] * 3 + [w2] * 3)
     else:
-        raise ValueError(f"triangle rules up to degree 2, got {degree}")
+        raise ValueError(f"triangle rules up to degree 4, got {degree}")
     return pts, wts
 
 
@@ -36,7 +45,7 @@ def _tet_perm4(a: float) -> np.ndarray:
 
 
 def tet_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
-    """Keast rules on the unit tetrahedron, degree ≤ 2."""
+    """Keast rules on the unit tetrahedron, degree ≤ 3."""
     d = max(int(degree), 1)
     if d == 1:
         pts = np.array([[0.25, 0.25, 0.25]])
@@ -44,8 +53,11 @@ def tet_rule(degree: int) -> tuple[np.ndarray, np.ndarray]:
     elif d == 2:
         pts = _tet_perm4(0.138196601125011)     # (5 - sqrt(5)) / 20
         wts = np.full(4, 1 / 24)
+    elif d == 3:
+        pts = np.vstack([[[0.25, 0.25, 0.25]], _tet_perm4(1 / 6)])
+        wts = np.array([-2 / 15] + [3 / 40] * 4)
     else:
-        raise ValueError(f"tetrahedron rules up to degree 2, got {degree}")
+        raise ValueError(f"tetrahedron rules up to degree 3, got {degree}")
     return pts, wts
 
 

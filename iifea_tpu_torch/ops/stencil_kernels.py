@@ -8,7 +8,9 @@ holds the two entries built on them for block operators and small lattices:
 one launch, and ``smooth``, a multigrid level's ν sweeps and trailing
 residual in one launch) and
 ``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``, which also holds
-the fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother). Every
+the fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother and
+``stencil3d_block``, the 3D block apply, residual and point-block sweep in
+one launch). Every
 ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (one nvcc per source, run together, then one link) into one shared library
 in ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
@@ -27,7 +29,8 @@ with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
 node id (i·ny1 + j)·nz1 + k. Vectors are flat. x is zero outside the
 lattice. A 2D block operator's coefficients are (nF, nF, (2r+1)², nx1, ny1)
 on field-blocked vectors (nF·n,), its nodal smoother blocks (nF, nF, n);
-scalar planes are the nF = 1 case (smoother "block": the flat 1/diag).
+scalar planes are the nF = 1 case (smoother "block": the flat 1/diag). A 3D
+block operator's are (nF, nF, (2r+1)³, nx1, ny1, nz1) likewise.
 """
 from __future__ import annotations
 
@@ -156,6 +159,39 @@ def cheb_step3_plain(C, invd, b, x, d, alpha, beta, shape, radius):
     return x + dn, dn
 
 
+def apply3_block_plain(C, x, shape, radius):
+    """3D A x for scalar planes (C 4-D) or a block operator (C 6-D,
+    (nF, nF, (2r+1)³, nx1, ny1, nz1)) on field-blocked vectors (nF·n,); x
+    may carry leading batch dims."""
+    if C.dim() == 4:
+        return stencil_mv3_plain(C, x, shape, radius)
+    nF = C.shape[0]
+    xs = x.reshape(*x.shape[:-1], nF, -1)
+    y = torch.stack([
+        sum(stencil_mv3_plain(C[f1, f2], xs[..., f2, :], shape, radius)
+            for f2 in range(nF))
+        for f1 in range(nF)
+    ], dim=-2)
+    return y.reshape(x.shape)
+
+
+def residual3_block_plain(C, b, x, shape, radius):
+    """3D b − A x for scalar planes or a block operator."""
+    return b - apply3_block_plain(C, x, shape, radius)
+
+
+def sweep3_block_plain(C, binv, b, x, omega, shape, radius):
+    """One 3D sweep x + ω·Binv·(b − A x) from x (None: from zero, ω·Binv·b):
+    weighted Jacobi on scalar planes (``binv`` the flat 1/diag) or
+    point-block Jacobi on a block operator (``binv`` (nF, nF, n))."""
+    r = b if x is None else residual3_block_plain(C, b, x, shape, radius)
+    if C.dim() == 4:
+        d = omega * binv * r
+    else:
+        d = omega * (binv * r.reshape(1, C.shape[0], -1)).sum(dim=1).reshape(-1)
+    return d if x is None else x + d
+
+
 # -- build and load -------------------------------------------------------------
 
 
@@ -227,9 +263,11 @@ def _lib() -> ctypes.CDLL:
     lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, p]
     lib.stencil3d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, i, p]
     lib.stencil3d_cheb.argtypes = [p, p, p, p, p, f, f, p, i, i, i, i, p]
+    lib.stencil3d_block.argtypes = [p, p, p, p, f, p, i, i, i, i, i, i, p]
     for fn in (lib.stencil2d_mv, lib.stencil2d_block,
                lib.stencil2d_smooth, lib.stencil2d_smooth_plan,
-               lib.stencil3d_mv, lib.stencil3d_jacobi, lib.stencil3d_cheb):
+               lib.stencil3d_mv, lib.stencil3d_jacobi, lib.stencil3d_cheb,
+               lib.stencil3d_block):
         fn.restype = i
     return lib
 
@@ -287,25 +325,25 @@ def stencil_mv(C, x, shape, radius):
     return y
 
 
-# passes of the stencil2d_block entry
+# passes of the stencil2d_block and stencil3d_block entries
 _APPLY, _RESIDUAL, _SWEEP, _SWEEP_FROM_ZERO = range(4)
 # routes of a level's smoothing call: one launch per pass, or all passes in
 # one launch of a cooperative grid
 PER_PASS, GRID = range(2)
 
 
-def _check_block(C, shape, radius, vectors, binv=None):
-    """Validate the operands of the 2D block entries: coefficients
-    (nF, nF, m², nx1, ny1), or scalar planes (m², nx1, ny1) as nF = 1;
+def _check_block(C, shape, radius, vectors, binv=None, dim: int = 2):
+    """Validate the operands of the ``dim``-D block entries: coefficients
+    (nF, nF, m^dim, *shape), or scalar planes (m^dim, *shape) as nF = 1;
     ``vectors`` (nF·n,); ``binv`` (nF, nF, n), scalar (n,). Returns (device
     type, nF)."""
     if radius not in (1, 2):
         raise ValueError(f"radius must be 1 or 2, got {radius}")
     shape = tuple(shape)
-    if len(shape) != 2:
-        raise ValueError(f"a 2D kernel got the lattice shape {shape}")
-    m2 = (2 * radius + 1) ** 2
-    block = C.dim() == 5
+    if len(shape) != dim:
+        raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
+    m2 = (2 * radius + 1) ** dim
+    block = C.dim() == dim + 3
     nF = C.shape[0] if block else 1
     if nF not in (1, 2, 3):
         raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
@@ -313,7 +351,9 @@ def _check_block(C, shape, radius, vectors, binv=None):
         raise ValueError(
             f"coefficients {tuple(C.shape)} are neither (nF, nF, {m2}, "
             f"*{shape}) nor ({m2}, *{shape})")
-    nn = shape[0] * shape[1]
+    nn = 1
+    for s_ in shape:
+        nn *= s_
     for v in vectors:
         if tuple(v.shape) != (nF * nn,):
             raise ValueError(f"vector {tuple(v.shape)} != {(nF * nn,)}")
@@ -534,8 +574,51 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
     return y, d
 
 
+def stencil3d_block(C, x, shape, radius, b=None, binv=None, omega=1.0):
+    """The 3D block entry (f32) on field-blocked vectors (nF·n,), C
+    (nF, nF, (2r+1)³, nx1, ny1, nz1) contiguous (or scalar planes, nF = 1):
+
+    * ``b`` None: the apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2];
+    * ``b`` given: the residual b − A x;
+    * ``b`` and ``binv`` given: one sweep x + ω·Binv·(b − A x) on the
+      (nF, nF, n) nodal blocks (scalar planes: the flat 1/diag); with ``x``
+      None the sweep from zero, ω·Binv·b, which reads no coefficient.
+
+    CPU: the plain versions; CUDA: ONE launch of the stencil3d_block
+    kernel, which stages the x tiles of all fields once and keeps nF
+    accumulators per point."""
+    if binv is not None and b is None:
+        raise ValueError("a sweep needs b")
+    if x is None and binv is None:
+        raise ValueError("only a sweep can start from zero (x=None)")
+    vectors = [v for v in (x, b) if v is not None]
+    kind, nF = _check_block(C, shape, radius, vectors, binv, dim=3)
+    if kind == "cpu":
+        if binv is not None:
+            return sweep3_block_plain(C, binv, b, x, omega, shape, radius)
+        if b is not None:
+            return residual3_block_plain(C, b, x, shape, radius)
+        return apply3_block_plain(C, x, shape, radius)
+    mode = (_APPLY if b is None else _RESIDUAL if binv is None
+            else _SWEEP_FROM_ZERO if x is None else _SWEEP)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    y = torch.empty_like(vectors[0])
+    with torch.cuda.device(y.device):
+        rc = _lib().stencil3d_block(
+            C.data_ptr(), ptr(x), ptr(b), ptr(binv), float(omega),
+            y.data_ptr(), *shape, radius, nF, mode,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil3d_block")
+    stencil3d_block.launches += 1
+    return y
+
+
 WRAPPERS = (stencil_mv, jacobi_smooth, stencil_mv_block, smooth, stencil_mv3,
-            jacobi_smooth3, cheb_step3)
+            jacobi_smooth3, cheb_step3, stencil3d_block)
 
 
 def reset_launches() -> None:

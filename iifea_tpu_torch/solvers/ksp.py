@@ -13,14 +13,17 @@
                   unshifted, single-field, binnable: the direct assembly
                   from the lattice-binned (2D) or cell-window (3D) tables;
                   otherwise the coloured general probe of ``A.mv_multi``
-                  (``StencilOperator2D/3D.probe_multi``); n_fields > 1 (2D):
-                  the block probe, preconditioned by ``StencilMultigridBlock``
-                  with field-constant null-mode deflation
+                  (``StencilOperator2D/3D.probe_multi``); n_fields > 1: the
+                  block probe, preconditioned by ``StencilMultigridBlock``
+                  (2D) or ``StencilMultigridBlock3D`` with field-constant
+                  null-mode deflation
+         'asm'    restricted additive Schwarz (``precond.AdditiveSchwarz``):
+                  host patch setup from the explicit CSR, batched dense
+                  patch solves on the device; ``asm_core``, ``asm_overlap``
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
-Not ported yet, and raising ``NotImplementedError``: pc='asm' (ROADMAP.md
-item 13b), pc='mg' on a 3D multi-field system (item 13a), and on CUDA a
-stencil radius the kernels do not take (3: item 14).
+Not ported yet, and raising ``NotImplementedError``: on CUDA a stencil
+radius the kernels do not take (3: ROADMAP.md item 14).
 
 The MG route (``_mg_solve``) differs from the JAX package in these ways,
 by design:
@@ -61,7 +64,8 @@ _NO_GPU_PC = {"ICC", "ILU", "ILUT"}
 # elasticity probe (754,974 block cells, 6 dofs each, 50 f64 columns,
 # ~326 MB per column) runs unchunked; the trimmed 3D n_bg=104 Poisson probe
 # (2,847,276 cells, 125 columns, ~638 MB per column) in chunks of 26, its
-# solve peaking at 19.2 GiB (chip_smoke.py, H100 80GB HBM3 at 700 W).
+# solve peaking at 19.2 GiB (chip_smoke.py, H100 80GB HBM3 at 700 W); the
+# n_bg=96 3D elasticity probe (375 columns) in chunks of a few.
 PROBE_BUDGET_BYTES = 16 * 2 ** 30
 
 # the lattice tables are a host pass over every element plus device
@@ -116,11 +120,16 @@ def _probe_general(A, shape, radius, dtype):
 
 
 def _probe_block(A, shape, n_fields, radius, dtype):
-    """Block stencil operator of A by the nF·(2r+1)² colour probe."""
-    from iifea_tpu_torch.ops.stencil import StencilOperatorBlock2D
+    """Block stencil operator of A (2D or 3D by the lattice's rank) by the
+    nF·(2r+1)^dim colour probe."""
+    from iifea_tpu_torch.ops.stencil import (
+        StencilOperatorBlock2D,
+        StencilOperatorBlock3D,
+    )
 
     adt = A.blocks[0].dtype
-    S = StencilOperatorBlock2D.probe_multi(
+    op = StencilOperatorBlock2D if len(shape) == 2 else StencilOperatorBlock3D
+    S = op.probe_multi(
         A.mv_multi, shape, n_fields=n_fields, radius=radius, dtype=adt,
         chunk=_probe_chunk(A, adt), device=A.M.device)
     return S.to(dtype)
@@ -190,14 +199,11 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
         StencilMultigrid,
         StencilMultigrid3D,
         StencilMultigridBlock,
+        StencilMultigridBlock3D,
         full_f32,
     )
 
     shape = tuple(int(s) for s in lattice_shape)
-    if n_fields > 1 and len(shape) != 2:
-        raise NotImplementedError(
-            "pc='mg' on a 3D multi-field system needs the 3D block stencil "
-            "operators (ROADMAP.md item 13a)")
     if mixed is None:
         mixed = b.dtype == torch.float64 and b.device.type == "cuda"
     sdt = torch.float32 if mixed else b.dtype
@@ -213,7 +219,8 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
     Q = None
     if n_fields > 1:
         S = _probe_block(A, shape, n_fields, stencil_radius, sdt)
-        mg = StencilMultigridBlock(S)
+        mg = (StencilMultigridBlock(S) if len(shape) == 2
+              else StencilMultigridBlock3D(S))
         Q = _deflation_space(S, n_fields, sdt)
     else:
         reducers = None
@@ -261,11 +268,14 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
               bfr_tol: float | None = None, bfr_b: bool = True,
               monitor: bool = True, lattice_shape: tuple | None = None,
               n_fields: int = 1, stencil_radius: int = 2,
-              mixed: bool | None = None):
+              mixed: bool | None = None, asm_core: int = 64,
+              asm_overlap: int = 1):
     """Solve A u = b on the background space; returns (u, info), info None
     for the direct solve. Everything runs on b's device (the direct solve's
-    factorization on the host). ``mixed`` applies to pc='mg' only: None =
-    auto (on for f64 systems on CUDA), True/False forces it."""
+    factorization and pc='asm''s patch setup on the host). ``mixed``
+    applies to pc='mg' only: None = auto (on for f64 systems on CUDA),
+    True/False forces it. ``asm_core``/``asm_overlap``: dofs per patch core
+    and adjacency layers of overlap of pc='asm'."""
     method = method or "gmres"
     pc = pc or "jacobi"
     if pc in _NO_GPU_PC:
@@ -285,10 +295,6 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
         return torch.as_tensor(u, dtype=b.dtype, device=b.device), None
 
     x0 = torch.zeros_like(b) if x0 is None else x0
-    if pc in ("asm", "ASM"):
-        raise NotImplementedError(
-            "pc='asm' (restricted additive Schwarz) is not ported yet "
-            "(ROADMAP.md item 13b)")
     if pc == "mg":
         if lattice_shape is None:
             raise ValueError(
@@ -303,7 +309,11 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
                 "pc='bjacobi' with a single field is pointwise jacobi; "
                 "pass n_fields>1 for field-coupled blocks", stacklevel=2)
             pc = "jacobi"
-        if pc == "bjacobi":
+        if pc in ("asm", "ASM"):
+            minv = precond.AdditiveSchwarz(
+                A.to_scipy(), core_size=asm_core, overlap=asm_overlap,
+                dtype=b.dtype, device=b.device).minv
+        elif pc == "bjacobi":
             minv = precond.block_jacobi(A.block_diag(n_fields))
         elif pc == "jacobi":
             minv = precond.jacobi(A.diag())

@@ -1,6 +1,7 @@
 """Block-MG CG iteration counts of the elasticity workload (``bench.py
---workload elasticity``: the immersed square, n_fg = 2·n_bg, two fields)
-at several n_bg, through ``solve_ksp(method='cg', pc='mg', n_fields=2,
+--workload elasticity``: the immersed square, n_fg = 2·n_bg, two fields;
+with ``--dim 3`` the immersed cube, n_fg = 1.26·n_bg, three fields) at
+several n_bg, through ``solve_ksp(method='cg', pc='mg', n_fields=dim,
 rtol=1e-10)``:
 
 * ``jax_f64`` / ``jax_mixed``: the JAX package on this host, the whole
@@ -13,9 +14,11 @@ rtol=1e-10)``:
   at XLA's default precision (one bf16 pass, f32 accumulation) where the
   JAX package passes no ``precision``: the restriction and Galerkin RAP
   convolutions, the point-block smoother's contraction and the coarse
-  pseudo-inverse's apply (JAX's ``_pinv`` itself asks for HIGHEST).
+  pseudo-inverse's apply (JAX's ``_pinv`` itself asks for HIGHEST); 2D
+  only.
 
     python3 tests/compare_block_mg_iters.py --n-bg 32,64,128
+    python3 tests/compare_block_mg_iters.py --dim 3 --n-bg 8,16
     python3 tests/compare_block_mg_iters.py --n-bg 256,512 --device cuda \\
         --no-jax
 
@@ -77,15 +80,23 @@ def _bf16_products():
         F.conv2d, mg.StencilMultigridBlock = conv2d, block
 
 
-def _port_system(n_bg, device, state=None):
+def _sizes(n_bg, dim):
+    """(generator name, n_fg) of the workload."""
+    if dim == 2:
+        return "immersed_square_problem", 2 * n_bg
+    return "immersed_cube_problem", int(n_bg * 1.26) // 2 * 2
+
+
+def _port_system(n_bg, device, state=None, dim=2):
     from iifea_tpu_torch.convert import from_numpy_state
-    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.mesh import generators
     from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
     from iifea_tpu_torch.ops.projection import assemble_background_system
 
     if state is None:
-        mesh, M = immersed_square_problem(n_fg=2 * n_bg, n_bg=n_bg,
-                                          n_fields=2, device=device)
+        gen, n_fg = _sizes(n_bg, dim)
+        mesh, M = getattr(generators, gen)(n_fg=n_fg, n_bg=n_bg,
+                                           n_fields=dim, device=device)
     else:
         st = from_numpy_state(**state, device=device)
         mesh, M = st.mesh, st.M
@@ -95,18 +106,19 @@ def _port_system(n_bg, device, state=None):
     return A, b
 
 
-def _jax_system(n_bg):
+def _jax_system(n_bg, dim=2):
     import jax
     import jax.numpy as jnp
 
-    from iifea_tpu.mesh.generators import immersed_square_problem
+    from iifea_tpu.mesh import generators
     from iifea_tpu.models.elasticity import ImmersedElasticityProblem
     from iifea_tpu.ops.projection import (
         BackgroundOperator,
         assemble_background_system,
     )
 
-    mesh, M = immersed_square_problem(n_fg=2 * n_bg, n_bg=n_bg, n_fields=2)
+    gen, n_fg = _sizes(n_bg, dim)
+    mesh, M = getattr(generators, gen)(n_fg=n_fg, n_bg=n_bg, n_fields=dim)
     prob = ImmersedElasticityProblem(mesh, k=1, sym=True)
     A, b = jax.jit(lambda u: assemble_background_system(prob.form, u, M))(
         jnp.zeros(prob.form.n_dofs))
@@ -127,6 +139,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-bg", default="32,64,128")
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--dim", type=int, default=2, choices=(2, 3))
     ap.add_argument("--no-jax", action="store_true")
     args = ap.parse_args(argv)
     if not args.no_jax:
@@ -140,22 +153,24 @@ def main(argv=None):
 
     mg.full_f32()
     for n_bg in (int(s) for s in args.n_bg.split(",")):
-        kw = dict(method="cg", pc="mg", rtol=1e-10, n_fields=2,
-                  lattice_shape=(n_bg + 1, n_bg + 1))
-        row = {"n_bg": n_bg, "n_bg_dofs": 2 * (n_bg + 1) ** 2,
-               "device": args.device}
+        dim = args.dim
+        kw = dict(method="cg", pc="mg", rtol=1e-10, n_fields=dim,
+                  lattice_shape=(n_bg + 1,) * dim)
+        row = {"n_bg": n_bg, "dim": dim,
+               "n_bg_dofs": dim * (n_bg + 1) ** dim, "device": args.device}
         state = None
         if not args.no_jax:
-            A_j, b_j, state = _jax_system(n_bg)
+            A_j, b_j, state = _jax_system(n_bg, dim)
             row["jax_f64"] = _run(j_solve_ksp, A_j, b_j, kw, False)
             row["jax_mixed"] = _run(j_solve_ksp, A_j, b_j, kw, True)
             del A_j, b_j
-        A, b = _port_system(n_bg, args.device, state)
+        A, b = _port_system(n_bg, args.device, state, dim)
         if args.device == "cpu":
             row["port_f64"] = _run(solve_ksp, A, b, kw, False)
         row["port_mixed"] = _run(solve_ksp, A, b, kw, True)
-        with _bf16_products():
-            row["port_mixed_bf16"] = _run(solve_ksp, A, b, kw, True)
+        if dim == 2:
+            with _bf16_products():
+                row["port_mixed_bf16"] = _run(solve_ksp, A, b, kw, True)
         print(json.dumps(row), flush=True)
         del A, b
     if args.device == "cuda":

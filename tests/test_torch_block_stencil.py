@@ -194,28 +194,3 @@ def test_torch_convert_block_planes(systems):
     assert isinstance(st.S, StencilOperatorBlock2D)
     assert st.S.n_fields == 2 and torch.equal(st.S.coeffs, s.S.coeffs.new_tensor(
         np.asarray(s.S_j.coeffs)))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(17, 17), (33, 129), (65, 65)])
-def test_torch_block_apply_on_card(shape):
-    """The block apply on the card is one launch of the block kernel and
-    equals the plain block apply; a non-f32 block operator raises there."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
-    rng = np.random.default_rng(9)
-    dev = torch.device("cuda")
-    n = shape[0] * shape[1]
-    C = torch.tensor(rng.standard_normal((2, 2, 25, *shape)),
-                     dtype=torch.float32, device=dev)
-    x = torch.tensor(rng.standard_normal(2 * n), dtype=torch.float32,
-                     device=dev)
-    before = sk.launches()
-    y = StencilOperatorBlock2D(C, shape, 2).mv(x)
-    y_ref = sk.stencil_mv_block_plain(C, x, shape, 2)
-    torch.cuda.synchronize()
-    assert sk.launches() == {**before, "stencil_mv_block":
-                             before["stencil_mv_block"] + 1}
-    assert float((y - y_ref).abs().max()) <= 1e-4 * float(y_ref.abs().max())
-    with pytest.raises(TypeError):
-        StencilOperatorBlock2D(C.double(), shape, 2).mv(x.double())

@@ -113,35 +113,3 @@ def test_torch_demo_elasticity_matches_jax(systems, capsys):
 def test_torch_demo_elasticity_refuses_unported(argv, msg):
     with pytest.raises(SystemExit, match=msg):
         demo.main(argv + ["--device", "cpu"])
-
-
-@pytest.mark.gpu
-def test_torch_elasticity_mg_on_card(systems):
-    """On a CUDA operator the block MG route runs the mixed f32 passes with
-    every block apply on the stencil_mv kernel, and reproduces host LU's
-    error norms."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
-    from iifea_tpu_torch.mesh.generators import immersed_square_problem
-    from iifea_tpu_torch.ops import stencil_kernels as sk
-
-    s = systems(16)
-    mesh, M = immersed_square_problem(n_fg=32, n_bg=16, n_fields=2,
-                                      device="cuda")
-    prob = ImmersedElasticityProblem(mesh, k=1, device="cuda")
-    A, b = assemble_background_system(
-        prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
-                               device="cuda"), M)
-    sk.reset_launches()
-    x, info = solve_ksp(A, b, method="cg", pc="mg", rtol=1e-11,
-                        lattice_shape=s.shape, n_fields=2, monitor=False)
-    torch.cuda.synchronize()
-    assert x.is_cuda and info.converged
-    assert sk.stencil_mv_block.launches > 0 and sk.smooth.launches > 0
-    n = prob.error_norms(M.mv(x))
-    n_lu = s.norms(solve_ksp(s.A, s.b, method="direct")[0])
-    for k in ("L2", "H10"):
-        assert abs(n[k] - n_lu[k]) < 1e-8 * n_lu[k]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        solve_ksp(A, b, method="cg", pc="mg", lattice_shape=s.shape,
-                  n_fields=2, stencil_radius=3, monitor=False)

@@ -150,7 +150,7 @@ def test_torch_solve_ksp_nonsymmetric_bicgstab():
 
 def test_torch_solve_ksp_options(square):
     """bfr trimming, the ICC fallback, pc='mg' on a trimmed operator (the
-    coloured general probe) and the case not ported yet."""
+    coloured general probe) and pc='asm' (the solve, with JAX's count)."""
     A, b = square.A, square.b
     x_ref, _ = square.ref(method="gmres", pc="jacobi", rtol=1e-10,
                           bfr_tol=1e-9)
@@ -165,8 +165,11 @@ def test_torch_solve_ksp_options(square):
         x_jac, _ = solve_ksp(A, b, method="cg", pc="jacobi", rtol=1e-10,
                              monitor=False)
     assert torch.equal(x_icc, x_jac)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        solve_ksp(A, b, pc="asm", monitor=False)
+    x_ref, it_ref = square.ref(method="gmres", pc="asm", rtol=1e-10)
+    x, info = solve_ksp(A, b, method="gmres", pc="asm", rtol=1e-10,
+                        monitor=False)
+    assert info.converged and square.agree(x, x_ref)
+    assert abs(info.iters - it_ref) < max(CHECK["gmres"], 2)
     mask = A.diag() <= 0
     x_ref, it_ref = square.ref(method="cg", pc="mg", rtol=1e-10,
                                lattice_shape=square.shape, bfr_tol=0.0)
@@ -176,33 +179,3 @@ def test_torch_solve_ksp_options(square):
     assert square.agree(x, x_ref)
     with pytest.raises(ValueError, match="lattice_shape"):
         solve_ksp(A, b, pc="mg", monitor=False)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("method", ["cg", "gmres"])
-def test_torch_solve_ksp_mg_on_card(square, method):
-    """On a CUDA operator pc='mg' runs the mixed route with the Krylov
-    matvec on the stencil_mv kernel and reproduces JAX's f64 MG solution
-    (the 33² lattice is the dense coarsest level: no smoothing sweeps)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
-    from iifea_tpu_torch.mesh.generators import immersed_square_problem
-    from iifea_tpu_torch.ops import stencil_kernels as sk
-
-    mesh, M = immersed_square_problem(n_fg=48, n_bg=32, device="cuda")
-    prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10, device="cuda")
-    A, b = assemble_background_system(
-        prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
-                               device="cuda"), M)
-    x_ref, _ = square.ref(method=method, pc="mg", rtol=1e-10,
-                          lattice_shape=square.shape)
-    sk.reset_launches()
-    x, info = solve_ksp(A, b, method=method, pc="mg", rtol=1e-10,
-                        lattice_shape=square.shape, monitor=False)
-    torch.cuda.synchronize()
-    assert x.is_cuda and info.converged
-    assert sk.stencil_mv.launches > 0
-    assert square.agree(x.cpu(), x_ref)
-    with pytest.raises(ValueError, match="f32 stencil kernels"):
-        solve_ksp(A, b, method=method, pc="mg", lattice_shape=square.shape,
-                  mixed=False, monitor=False)

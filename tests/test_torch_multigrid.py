@@ -121,3 +121,67 @@ def test_torch_cg_matches(operator):
     assert info_t.converged and bool(info_j.converged)
     assert abs(info_t.iters - int(info_j.iters)) <= 4
     assert _rel(x_t, x_j) < 1e-5
+
+
+def test_torch_lmax_and_cheb_smoother_match(operator):
+    """The Chebyshev option of the 2D cycle: the per-level power-iteration
+    λmax, ``_smooth_cheb`` from x and from zero, and the whole V-cycle
+    against JAX's (given the same coarse inverse), f64 at 1e-10."""
+    S_j, S_t, b = operator
+    mg_j = jmg.StencilMultigrid(S_j, smoother="chebyshev")
+    mg_t = tmg.StencilMultigrid(S_t, smoother="chebyshev")
+    assert mg_t.smoother == "chebyshev" and len(mg_t.lmaxs) == 2
+    for lt, lj, lv, lv_j, d, d_j in zip(mg_t.lmaxs, mg_j.lmaxs, mg_t.levels,
+                                        mg_j.levels, mg_t.inv_diags,
+                                        mg_j.inv_diags):
+        assert abs(lt - float(lj)) < 1e-10 * float(lj)
+        assert abs(tmg._lmax_jacobi(lv, d, iters=5)
+                   - float(jmg._lmax_jacobi(lv_j, d_j, iters=5))) < 1e-10 * lt
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(S_t.n)
+    for sweeps in (0, 1, 3):
+        got = mg_t._smooth_cheb(0, torch.from_numpy(x), torch.from_numpy(b),
+                                sweeps)
+        assert _rel(got, mg_j._smooth_cheb(0, jnp.asarray(x), jnp.asarray(b),
+                                           sweeps)) < 1e-10
+    xz, res = mg_t._smooth(0, None, torch.from_numpy(b), 2,
+                           with_residual=True)
+    xz_j = mg_j._smooth(0, jnp.zeros(S_t.n), jnp.asarray(b), 2)
+    assert _rel(xz, xz_j) < 1e-10
+    assert _rel(res, jnp.asarray(b) - S_j.mv_ref(xz_j)) < 1e-10
+    mg_t.coarse_inv = torch.from_numpy(np.array(mg_j.coarse_inv))
+    r = rng.standard_normal(S_t.n)
+    assert _rel(mg_t.minv(torch.from_numpy(r)),
+                mg_j.minv(jnp.asarray(r))) < 1e-10
+
+
+def test_torch_chebyshev_smoother_option(operator):
+    """smoother='chebyshev' inside CG (the reference's
+    test_chebyshev_smoother_option): converges like the default, within
+    twice its iterations, with JAX's iteration count and JAX's solution
+    for the same option (supported dofs: a diagonal above 1e-3 of the
+    largest; the singular system's null components follow the
+    preconditioner, so the two smoothers' own solutions are not compared);
+    an unknown smoother is refused; the default builds no λmax."""
+    S_j, S_t, b = operator
+    bt = torch.from_numpy(b)
+    its = {}
+    for smoother in ("jacobi", "chebyshev"):
+        mg_t = tmg.StencilMultigrid(S_t, smoother=smoother)
+        x_t, info = krylov.cg(S_t.mv, bt, minv=mg_t.minv, rtol=1e-10,
+                              check_every=2)
+        assert info.converged
+        its[smoother] = info.iters
+    assert its["chebyshev"] <= 2 * its["jacobi"]
+    mg_j = jmg.StencilMultigrid(S_j, smoother="chebyshev")
+    x_j, info_j = jkrylov.cg(S_j.mv_ref, jnp.asarray(b), minv=mg_j.minv,
+                             rtol=1e-10, check_every=2)
+    assert abs(its["chebyshev"] - int(info_j.iters)) <= 2
+    d = S_t.diag().abs()
+    mask = (d > 1e-3 * d.max()).numpy()
+    x_j = np.asarray(x_j)
+    assert np.abs(x_t.numpy() - x_j)[mask].max() <= 1e-6 * max(
+        np.abs(x_j[mask]).max(), 1.0)
+    assert tmg.StencilMultigrid(S_t).lmaxs is None
+    with pytest.raises(ValueError, match="smoother"):
+        tmg.StencilMultigrid(S_t, smoother="gauss-seidel")

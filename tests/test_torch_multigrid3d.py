@@ -134,3 +134,41 @@ def test_torch_cg3_matches(operator):
                             max_it=500, check_every=4)
     assert info_t.converged and bool(info_j.converged)
     assert abs(info_t.iters - int(info_j.iters)) <= 4
+
+
+@pytest.mark.parametrize("kw", [
+    dict(smoother="jacobi"), dict(smoother="jacobi", omega=0.8),
+    dict(cheb_alpha=4.0), dict(smoother="chebyshev", cheb_alpha=8.0),
+])
+def test_torch_multigrid3d_smoother_options(operator, kw):
+    """StencilMultigrid3D's smoother, omega and cheb_alpha options: the
+    smoothing steps (from x and from zero) and the V-cycle against JAX's
+    with the same arguments, given JAX's coarse inverse; f64 at 1e-10. The
+    defaults are the Chebyshev cycle with α = 8."""
+    S_j, S_t, b = operator
+    mg_j = jmg.StencilMultigrid3D(S_j, **kw)
+    mg_t = tmg.StencilMultigrid3D(S_t, **kw)
+    assert (mg_t.smoother, mg_t.omega, mg_t.cheb_alpha) == (
+        mg_j.smoother, mg_j.omega, mg_j.cheb_alpha)
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal(S_t.n)
+    bt, bj = torch.from_numpy(b), jnp.asarray(b)
+    for sweeps in (1, 3):
+        assert _rel(mg_t._smooth(0, torch.from_numpy(x), bt, sweeps),
+                    mg_j._smooth(0, jnp.asarray(x), bj, sweeps)) < 1e-10
+        assert _rel(mg_t._smooth(0, torch.zeros_like(bt), bt, sweeps,
+                                 x_zero=True),
+                    mg_j._smooth(0, jnp.zeros(S_t.n), bj, sweeps)) < 1e-10
+    mg_t.coarse_inv = torch.from_numpy(np.array(mg_j.coarse_inv))
+    r = rng.standard_normal(S_t.n)
+    assert _rel(mg_t.minv(torch.from_numpy(r)),
+                mg_j.minv(jnp.asarray(r))) < 1e-10
+
+
+def test_torch_multigrid3d_defaults_and_refusal(operator):
+    _, S_t, _ = operator
+    mg_t = tmg.StencilMultigrid3D(S_t)
+    assert (mg_t.smoother, mg_t.omega, mg_t.cheb_alpha) == ("chebyshev", 1.0,
+                                                            8.0)
+    with pytest.raises(ValueError, match="smoother"):
+        tmg.StencilMultigrid3D(S_t, smoother="sor")

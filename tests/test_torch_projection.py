@@ -213,14 +213,20 @@ def test_torch_generate_unfitted_mesh(dim, rot):
 
 
 def test_torch_port_front_end_imports_no_jax():
-    """No module of the port imports jax or the JAX package."""
+    """No module of the port imports jax or the JAX package, nor do the
+    card tests and the card-side comparison script, which run on a machine
+    without JAX."""
     import ast
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "iifea_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
-    assert any(f.name == "ksp.py" for f in files)
+    files += sorted((root / "tests").glob("test_torch_*_card.py"))
+    files.append(root / "tests" / "compare_coarse_pinv.py")
+    for name in ("ksp.py", "newton.py", "precond.py", "logging.py",
+                 "test_torch_kernels_card.py", "test_torch_solves_card.py"):
+        assert any(f.name == name for f in files), name
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
