@@ -86,14 +86,35 @@ line; the first failure exits non-zero:
      line-search case and ``solve_newtons_linear`` with pinned dofs.
   13. asm: ``solve_ksp(gmres, pc='asm')`` on immersed Poisson n_bg=256
      against pc='jacobi'.
+  14. small_reference_biharmonic: the biharmonic (P2 foreground, quadratic
+     B-spline net, radius-3 stencils) at n_bg = 15 and 63 against host
+     SuperLU on the same system (L2_rel to 2e-2), the card's iteration count
+     at 63 against the port's host f64 run (±2), and at 127 bench.py's
+     ``vs_lu_rel_diff`` against its bound.
+  15. demo_biharmonic: ``python3 -m iifea_tpu_torch.demos.biharmonic --ref
+     2`` on the card against the same demo on the host.
+  16. demo_p2: the Poisson demo with ``--k 2`` (P2 spaces) on the card
+     against the host.
+  17. biharmonic: bench.py --workload biharmonic at n_bg = 511 (513² =
+     263,169 background dofs): host set-up and assembly per stage,
+     ``solve_ksp(gmres, pc='mg', stencil_radius=3)`` counted per kernel
+     and shape (the radius-3 f64 instances by default), three warm solves
+     staged, a profiled one, peak memory, error norms below n_bg = 127's;
+     then the other route (f32 mixed), counted and capped.
+
+Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
+the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
+and at every level of the 513² hierarchy, and times the radius-3 ones there.
 
 Then ``kernel_shapes``: every timed (kernel, shape) with its launches in the
 main-path solves (2D, 3D and elasticity, added) and launches × (device ms
 − bound ms) per kernel; a block operator's shape carries its field count
 first (2x513x513), and a smoothing call is booked by its form
 (``smooth_call@…:pre`` from zero with the residual, ``:post`` from x).
-The line before the last is the kernel summary JSON, the last line the
-device JSON. Imports nothing of JAX.
+The line before the last is the kernel summary JSON (the radius-3
+instances as rows of their kernel's name with an ``instance`` key, their
+launches from the biharmonic's two routes), the last line the device JSON.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -131,6 +152,7 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "stencil3d_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
+TOL64 = 1e-12       # the same for the f64 instances (fma against mul + add)
 GRAPH_LAUNCHES = 50           # captured calls per timed CUDA graph
 # the V-cycle's smoothed levels (the coarsest, 33² and 14³, is dense)
 LEVELS2 = [(s_, s_) for s_ in (1025, 513, 257, 129, 65)]
@@ -139,6 +161,12 @@ LEVELS2 = [(s_, s_) for s_ in (1025, 513, 257, 129, 65)]
 BLOCK_SMOOTHED = [(s_, s_) for s_ in (513, 257, 129, 65, 33, 17)]
 BLOCK_EXTRA = [s_ for s_ in BLOCK_SMOOTHED if s_ not in LEVELS2]
 N_FIELDS_EL = 2               # fields of the elasticity block operator
+# the biharmonic (bench.py --workload biharmonic): a 513² quadratic B-spline
+# net, radius-3 stencils; the V-cycle smooths 513² … 65², 33² is dense
+N_BG_BH = 511
+LEVELS_BH = [(s_, s_) for s_ in (513, 257, 129, 65)]
+DENSE_BH = (33, 33)
+ODD_SHAPES = [(17, 17), (33, 129), (40, 200)]
 # the V-cycle's two smoothing calls per level: (from zero, with residual)
 FORMS = {"pre": (True, True), "post": (False, False)}
 NU = 2                        # sweeps per smoothing call (nu_pre = nu_post)
@@ -160,6 +188,7 @@ MAX_CG_ITERS_EL3_SINGLE = 60     # the reference's bound at one dense level
 LAUNCHES_PER_LEVEL3 = 2 * NU + 1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
+F64_FLOPS = 34e12             # H100 SXM f64 rate outside the tensor cores
 # f32 vectors each kernel reads or writes once besides its coefficient
 # planes: x, y; + invd, b; + d read and written
 VECTORS = {"stencil_mv": 2, "jacobi_smooth": 4, "stencil_mv3": 2,
@@ -230,13 +259,21 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def instance_tag(radius: int = 2, f64: bool = False) -> str:
+    """The tag of a 2D kernel instance in launch keys and summary rows:
+    empty for the f32 instances at radius 1 and 2 (the earlier main
+    paths'), "/r3", "/f64", "/r3/f64" otherwise."""
+    return ("/r3" if radius == 3 else "") + ("/f64" if f64 else "")
+
+
 def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
-                **kv) -> dict:
+                radius: int = 2, f64: bool = False, **kv) -> dict:
     """One ``kernel_time`` line: device ms, call ms and bound at ``shape``
     (and the plain version's device ms where ``plain`` is given).
     ``bound_`` is (ms, by) where the row is not one launch of ``name``."""
-    b_ms, by = bound_ or bound(name, shape)
-    row = {"kernel": name, "shape": list(shape), "radius": 2, **kv,
+    b_ms, by = bound_ or bound(name, shape, radius, f64)
+    row = {"kernel": name, "shape": list(shape), "radius": radius,
+           "dtype": "f64" if f64 else "f32", **kv,
            "device_ms": device_ms(fn), "call_ms": call_ms(fn),
            "bound_ms": b_ms, "bound_by": by}
     if plain is not None:
@@ -246,16 +283,19 @@ def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
     return row
 
 
-def _bound_ms(words: float, flops: float, n: int) -> tuple[float, str]:
-    """The larger of ``words`` f32 values per point over the memory rate and
-    ``flops`` per point over the f32 rate, on n points, in ms."""
-    t_bytes = 4.0 * n * words / HBM_BYTES_PER_S
-    t_ops = flops * n / F32_FLOPS
+def _bound_ms(words: float, flops: float, n: int,
+              f64: bool = False) -> tuple[float, str]:
+    """The larger of ``words`` values per point (f32, or f64) over the
+    memory rate and ``flops`` per point over the rate of their type, on n
+    points, in ms."""
+    t_bytes = (8.0 if f64 else 4.0) * n * words / HBM_BYTES_PER_S
+    t_ops = flops * n / (F64_FLOPS if f64 else F32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
+def bound(name: str, shape, radius: int = 2,
+          f64: bool = False) -> tuple[float, str]:
     """Least milliseconds the card needs for one call at ``shape``: the
     larger of the compulsory bytes (each coefficient plane and vector read
     or written once) over the memory rate and the f32 multiply-adds over
@@ -264,10 +304,11 @@ def bound(name: str, shape, radius: int = 2) -> tuple[float, str]:
     for s_ in shape:
         n *= s_
     taps = (2 * radius + 1) ** len(shape)
-    return _bound_ms(taps + VECTORS[name], 2.0 * taps + 4.0, n)
+    return _bound_ms(taps + VECTORS[name], 2.0 * taps + 4.0, n, f64)
 
 
-def bound_passes(shape, n_fields: int, passes, radius: int = 2):
+def bound_passes(shape, n_fields: int, passes, radius: int = 2,
+                 f64: bool = False):
     """The bound of a sequence of passes on an nF-field 2D or 3D (by
     ``shape``'s rank) operator, the
     same work whatever launches carry it: per pass every value it needs
@@ -288,11 +329,11 @@ def bound_passes(shape, n_fields: int, passes, radius: int = 2):
              "sweep": 2.0 * nF * nF * (taps + 1) + 3.0 * nF,
              "zero": 3.0 * nF * nF}
     return _bound_ms(sum(words[p] for p in passes),
-                     sum(flops[p] for p in passes), n)
+                     sum(flops[p] for p in passes), n, f64)
 
 
 def bound_call(shape, n_fields: int, sweeps: int, from_zero: bool,
-               with_residual: bool, radius: int = 2):
+               with_residual: bool, radius: int = 2, f64: bool = False):
     """The bound of one smoothing call as a function of its operands: every
     input read once (the nF² plane sets, the nF² Binv planes, b, and x
     unless from zero) and every output written once (x_ν, and r with the
@@ -305,7 +346,7 @@ def bound_call(shape, n_fields: int, sweeps: int, from_zero: bool,
     first = zero if from_zero and sweeps > 0 else 0.0
     flops = (first + sweep * (sweeps - bool(first))
              + (2.0 * nF * nF * taps + nF) * with_residual)
-    return _bound_ms(words, flops, shape[0] * shape[1])
+    return _bound_ms(words, flops, shape[0] * shape[1], f64)
 
 
 def passes_of(sweeps: int, from_zero: bool, with_residual: bool):
@@ -376,41 +417,46 @@ def ptxas_report(log: str) -> list:
 
 
 def _check(worst, name, y, y_ref, shape, radius, quiet=False, **kv):
-    """Hold y against y_ref at TOL·max|y_ref|; fails above it. ``quiet``
-    prints nothing (the caller prints a summary line). Returns the error."""
+    """Hold y against y_ref at TOL·max|y_ref| (f64: TOL64); fails above
+    it. ``quiet`` prints nothing (the caller prints a summary line). The
+    worst error is booked under the kernel's name and instance tag.
+    Returns the error."""
     import torch
 
     torch.cuda.synchronize()
+    f64 = y.dtype == torch.float64
     err = float((y - y_ref).abs().max())
-    lim = TOL * float(y_ref.abs().max())
+    lim = (TOL64 if f64 else TOL) * float(y_ref.abs().max())
     if not quiet:
         phase("kernel_check", kernel=name, shape=list(shape), radius=radius,
               max_abs_err=err, bound=lim, **kv)
     if not err <= lim:
-        fail(f"{name} {shape} r={radius} {kv}: {err} > {lim}")
-    worst[name] = max(worst.get(name, 0.0), err)
+        fail(f"{name} {shape} r={radius} {y.dtype} {kv}: {err} > {lim}")
+    key = name + instance_tag(radius, f64)
+    worst[key] = max(worst.get(key, 0.0), err)
     return err
 
 
 ROUTES = ("per_pass", "grid")                 # sk.PER_PASS, sk.GRID
 
 
-def level_operands(rng, shape, radius, n_fields, dev):
+def level_operands(rng, shape, radius, n_fields, dev, dtype=None):
     """A diagonally dominant nF-field operator (n_fields = 0: scalar
     planes and the flat 1/diag), its smoother blocks, b and x on the
-    card."""
+    card, in ``dtype`` (default f32)."""
     import torch
 
     from iifea_tpu_torch.ops import multigrid
     from iifea_tpu_torch.ops.stencil import StencilOperatorBlock2D
 
+    dtype = dtype or torch.float32
     nF, m2 = max(n_fields, 1), (2 * radius + 1) ** 2
     C = torch.tensor(rng.uniform(-0.1, 0.1, (nF, nF, m2, *shape)),
-                     dtype=torch.float32, device=dev)
+                     dtype=dtype, device=dev)
     for f in range(nF):
         C[f, f, m2 // 2] += 4.0
     n = nF * shape[0] * shape[1]
-    b, x = (torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+    b, x = (torch.tensor(rng.standard_normal(n), dtype=dtype,
                          device=dev) for _ in range(2))
     if n_fields == 0:
         C = C[0, 0].contiguous()
@@ -430,7 +476,10 @@ def fitting_routes(C, binv, b, x, shape, radius, nF):
     raises there fails the run), one that does not fit must be refused."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    routed = sk._smooth_route(tuple(shape), radius, nF, b.device.index or 0)
+    import torch
+
+    routed = sk._smooth_route(tuple(shape), radius, nF, b.device.index or 0,
+                              b.dtype == torch.float64)
     tiles = -(-shape[0] // TILE[0]) * -(-shape[1] // TILE[1])
     try:
         sk._smooth_cuda(sk.GRID, C, binv, b, x, 0.8, 1, shape, radius, nF,
@@ -446,7 +495,7 @@ def fitting_routes(C, binv, b, x, shape, radius, nF):
 
 
 def check_level_entries(worst, rng, shape, radius, n_fields, dev, sweeps,
-                        forms):
+                        forms, dtype=None):
     """stencil_mv_block (apply, residual: one launch each) and smooth by
     every route against their plain versions at ``shape``; the fused
     route must be one launch a call. Prints one summary line; returns
@@ -455,7 +504,7 @@ def check_level_entries(worst, rng, shape, radius, n_fields, dev, sweeps,
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    C, binv, b, x = level_operands(rng, shape, radius, n_fields, dev)
+    C, binv, b, x = level_operands(rng, shape, radius, n_fields, dev, dtype)
     nF = max(n_fields, 1)
     y_ref = sk.apply_plain(C, x, shape, radius)
     before = sk.launches()
@@ -505,13 +554,17 @@ def check_level_entries(worst, rng, shape, radius, n_fields, dev, sweeps,
           sweeps=list(sweeps), forms=[list(f) for f in forms],
           routes=[*(ROUTES[d] for d in fits), "routed"], checks=checks,
           max_abs_err=max(errs), fused_bitwise_equal_per_pass=bitwise,
+          dtype=str(C.dtype).replace("torch.", ""),
           routed=ROUTES[sk._smooth_route(tuple(shape), radius, nF,
-                                         dev.index or 0)])
+                                         dev.index or 0,
+                                         C.dtype == torch.float64)])
     return bitwise
 
 
-def time_level(rng, shape, n_fields, dev, main_block, main_smooth):
-    """``kernel_time`` rows of the block entries at one level shape, r=2:
+def time_level(rng, shape, n_fields, dev, main_block, main_smooth,
+               radius: int = 2, dtype=None):
+    """``kernel_time`` rows of the block entries at one level shape (r=2,
+    f32 unless ``radius``/``dtype`` say otherwise):
     stencil_mv_block (apply), and each form of the V-cycle's smoothing call
     (NU sweeps; "pre" from zero with the residual, "post" from x) by every
     route that takes the level, the routed one as kernel "smooth_call".
@@ -521,30 +574,37 @@ def time_level(rng, shape, n_fields, dev, main_block, main_smooth):
     (the rows of the kernel summary)."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    C, binv, b, x = level_operands(rng, shape, 2, n_fields, dev)
+    import torch
+
+    r = radius
+    C, binv, b, x = level_operands(rng, shape, r, n_fields, dev, dtype)
+    f64 = C.dtype == torch.float64
     nF = max(n_fields, 1)
     key = list(shape) if n_fields == 0 else [nF, *shape]
     rows = [time_kernel(
-        "stencil_mv_block", key, partial(sk.stencil_mv_block, C, x, shape, 2),
-        partial(sk.apply_plain, C, x, shape, 2) if main_block else None,
-        bound_=bound_passes(shape, nF, ["apply"]))]
-    routed = sk._smooth_route(tuple(shape), 2, nF, dev.index or 0)
-    fits = fitting_routes(C, binv, b, x, shape, 2, nF)
+        "stencil_mv_block", key, partial(sk.stencil_mv_block, C, x, shape, r),
+        partial(sk.apply_plain, C, x, shape, r) if main_block else None,
+        bound_=bound_passes(shape, nF, ["apply"], r, f64), radius=r,
+        f64=f64)]
+    routed = sk._smooth_route(tuple(shape), r, nF, dev.index or 0, f64)
+    fits = fitting_routes(C, binv, b, x, shape, r, nF)
     for form, (from_zero, with_residual) in FORMS.items():
         start = None if from_zero else x
-        bnd = bound_call(shape, nF, NU, from_zero, with_residual)
+        bnd = bound_call(shape, nF, NU, from_zero, with_residual, r, f64)
         per_pass = bound_passes(shape, nF, passes_of(NU, from_zero,
-                                                     with_residual))[0]
+                                                     with_residual), r,
+                                f64)[0]
         for route in fits:
             fn = partial(sk._smooth_cuda, route, C, binv, b, start, 0.67,
-                         NU, shape, 2, nF, with_residual)
+                         NU, shape, r, nF, with_residual)
             is_main = main_smooth and route == routed and form == "pre"
             rows.append(time_kernel(
                 "smooth_call" if route == routed else "smooth_other_route",
                 key, fn,
                 partial(sk.smooth_plain, C, binv, b, start, 0.67, NU,
-                        shape, 2, with_residual) if is_main else None,
-                bound_=bnd, per_pass_bound_ms=per_pass, form=form,
+                        shape, r, with_residual) if is_main else None,
+                bound_=bnd, radius=r, f64=f64, per_pass_bound_ms=per_pass,
+                form=form,
                 route=ROUTES[route],
                 launches_per_call=(
                     1 if route != sk.PER_PASS
@@ -651,7 +711,69 @@ def phase_kernels():
                 main_block=(n_fields, shape) == (N_FIELDS_EL,
                                                  BLOCK_SMOOTHED[0]),
                 main_smooth=n_fields == 0 and shape == fused[0])
-    return worst, rows
+    return worst, rows + kernels_r3(worst, rng, dev)
+
+
+def kernels_r3(worst, rng, dev):
+    """The biharmonic's instances: radius 3 (49 taps) in f32 and f64, and
+    the f64 instances at r = 1, 2. stencil_mv, jacobi_smooth,
+    stencil_mv_block and smooth by every route against their plain
+    versions (f32 TOL, f64 TOL64) at odd shapes (ν = 1–3, every form) and,
+    r = 3, at every level shape of the n_bg = 511 hierarchy (ν = NU in the
+    V-cycle's two forms); then device, call and bound times of the r = 3
+    instances at the smoothed levels. Returns the ``kernel_time`` rows."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    all_forms = [(z, w) for z in (False, True) for w in (False, True)]
+    bitwise = True
+    for dt in (torch.float32, torch.float64):
+        radii = (1, 2, 3) if dt == torch.float64 else (3,)
+        cases = [(sh, r, (1, 2, 3), all_forms) for sh in ODD_SHAPES
+                 for r in radii]
+        cases += [(sh, 3, (NU,), list(FORMS.values()))
+                  for sh in LEVELS_BH + [DENSE_BH]]
+        for shape, radius, sweeps, forms in cases:
+            bitwise &= check_level_entries(worst, rng, shape, radius, 0, dev,
+                                           sweeps, forms, dt)
+            C, binv, b, x = level_operands(rng, shape, radius, 0, dev, dt)
+            _check(worst, "stencil_mv", sk.stencil_mv(C, x, shape, radius),
+                   sk.stencil_mv_plain(C, x, shape, radius), shape, radius,
+                   quiet=True)
+            _check(worst, "jacobi_smooth",
+                   sk.jacobi_smooth(C, binv, b, x, 0.67, shape, radius),
+                   sk.jacobi_smooth_plain(C, binv, b, x, 0.67, shape,
+                                          radius), shape, radius, quiet=True)
+    phase("kernel_check", kernel="radius 3 and f64 instances",
+          worst={k: v for k, v in worst.items() if "/" in k},
+          fused_bitwise_equal_per_pass=bitwise)
+
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        f64 = dt == torch.float64
+        fused = [sh for sh in LEVELS_BH
+                 if sk._smooth_route(sh, 3, 1, 0, f64) != sk.PER_PASS]
+        if not fused:
+            fail(f"no radius-3 {dt} level's smoothing call is routed to one "
+                 "launch")
+        for shape in LEVELS_BH:
+            C, binv, b, x = level_operands(rng, shape, 3, 0, dev, dt)
+            main = shape == LEVELS_BH[0]
+            rows.append(time_kernel(
+                "stencil_mv", shape, partial(sk.stencil_mv, C, x, shape, 3),
+                partial(sk.stencil_mv_plain, C, x, shape, 3) if main
+                else None, radius=3, f64=f64))
+            rows.append(time_kernel(
+                "jacobi_smooth", shape,
+                partial(sk.jacobi_smooth, C, binv, b, x, 0.67, shape, 3),
+                partial(sk.jacobi_smooth_plain, C, binv, b, x, 0.67, shape,
+                        3) if main else None, radius=3, f64=f64))
+            del C, binv, b, x
+            rows += time_level(rng, shape, 0, dev, main_block=main,
+                               main_smooth=shape == fused[0], radius=3,
+                               dtype=dt)
+    return rows
 
 
 N_BG3 = 104                      # 105³ = 1,157,625 background dofs
@@ -1155,6 +1277,8 @@ def count_by_shape(by_shape: Counter):
     (from x, without) or ``:other``. The 3D block operator's launches are
     booked by pass: ``stencil3d_block@shape:apply`` / ``:zero`` /
     ``:sweep`` / ``:residual``."""
+    import torch
+
     from iifea_tpu_torch.ops import stencil_kernels as sk
     from iifea_tpu_torch.ops.stencil import (
         StencilOperator2D,
@@ -1179,6 +1303,7 @@ def count_by_shape(by_shape: Counter):
             shape = "x".join(map(str, (
                 *([self.n_fields] if hasattr(self, "n_fields") else []),
                 *self.shape)))
+            shape += instance_tag(self.radius, self.dtype == torch.float64)
             for k, n in sk.launches().items():
                 if n == before[k]:
                     continue
@@ -1478,18 +1603,32 @@ def phase_demo():
     held against the same demo run in this process on the host: the card's
     GMRES must reach the host run's tolerance, and the L2/H10/H1 errors
     agree to 1e-6 relative."""
+    poisson_demo(["--ref", "4", "--solv", "gmres", "--pc", "jacobi"],
+                 "demo")
+
+
+def phase_demo_p2():
+    """The Poisson demo with P2 spaces (``--k 2 --ref 2``, n_fg = 32 on a
+    P2 background of n_bg = 16; GMRES + Jacobi, no stencil kernel) on the
+    card against the same demo on the host, as ``phase_demo``."""
+    poisson_demo(["--k", "2", "--ref", "2", "--solv", "gmres", "--pc",
+                  "jacobi"], "demo_p2")
+
+
+def poisson_demo(argv, tag):
+    """``python3 -m iifea_tpu_torch.demos.poisson`` with ``argv`` on the
+    card against the same demo run in this process on the host."""
     import io
 
     from iifea_tpu_torch.demos import poisson as demo
 
-    argv = ["--ref", "4", "--solv", "gmres", "--pc", "jacobi"]
     wall = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "iifea_tpu_torch.demos.poisson", *argv],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - wall
     if res.returncode != 0:
-        fail(f"demo exited {res.returncode}: {res.stderr[-2000:]}")
+        fail(f"{tag} exited {res.returncode}: {res.stderr[-2000:]}")
     out = res.stdout
     conv = re.search(r"Converged in (\d+) iterations\. \(residual norm "
                      r"(\S+)\)", out)
@@ -1504,13 +1643,13 @@ def phase_demo():
            for k in norms}
     iters, resnorm = ((int(conv.group(1)), float(conv.group(2))) if conv
                       else (None, float("nan")))
-    phase("demo", argv=argv, seconds=wall, iters=iters, resnorm=resnorm,
+    phase(tag, argv=argv, seconds=wall, iters=iters, resnorm=resnorm,
           tol=tol, error_norms=norms, host_iters=host["info"].iters,
           host_error_norms=host["norms"], norms_rel_diff=rel)
     if not resnorm <= tol:
-        fail(f"demo: GMRES residual {resnorm} above {tol}")
+        fail(f"{tag}: GMRES residual {resnorm} above {tol}")
     if not max(rel.values()) <= 1e-6:
-        fail(f"demo: card norms {norms} differ from the host's "
+        fail(f"{tag}: card norms {norms} differ from the host's "
              f"{host['norms']}")
 
 
@@ -1591,14 +1730,16 @@ def plain_on_card(counts: Counter):
     """Count the plain stencil applies (``stencil_mv_plain`` and
     ``stencil_mv3_plain``, through which every plain 2D and 3D apply goes)
     on card tensors while the block runs, split into those inside the
-    coarsest block level's dense inverse (set-up: the identity's columns
-    through ``mv_ref``, as the reference does) and all others."""
+    coarsest level's dense inverse (scalar or block; set-up: the
+    identity's columns through ``mv_ref``, as the reference does) and all
+    others."""
     from iifea_tpu_torch.ops import multigrid
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
     plains = {"stencil_mv_plain": sk.stencil_mv_plain,
               "stencil_mv3_plain": sk.stencil_mv3_plain}
-    dense = multigrid._dense_inverse_block
+    denses = {name: getattr(multigrid, name)
+              for name in ("_dense_inverse", "_dense_inverse_block")}
     where = ["elsewhere"]
 
     def counting(plain):
@@ -1608,22 +1749,26 @@ def plain_on_card(counts: Counter):
             return plain(C, x, *a, **kw)
         return counted_plain
 
-    def counted_dense(S):
-        where[0] = "dense_inverse"
-        try:
-            return dense(S)
-        finally:
-            where[0] = "elsewhere"
+    def counted_dense(dense):
+        def counted(S):
+            where[0] = "dense_inverse"
+            try:
+                return dense(S)
+            finally:
+                where[0] = "elsewhere"
+        return counted
 
     for name, plain in plains.items():
         setattr(sk, name, counting(plain))
-    multigrid._dense_inverse_block = counted_dense
+    for name, dense in denses.items():
+        setattr(multigrid, name, counted_dense(dense))
     try:
         yield
     finally:
         for name, plain in plains.items():
             setattr(sk, name, plain)
-        multigrid._dense_inverse_block = dense
+        for name, dense in denses.items():
+            setattr(multigrid, name, dense)
 
 
 def phase_elasticity():
@@ -2193,9 +2338,270 @@ def phase_asm():
         fail(f"asm: differs from the jacobi solution by {diff} > {lim}")
 
 
+# -- the biharmonic (radius-3 stencils, f64 and f32 routes) ---------------------
+
+MAX_GMRES_ITERS_BH = 100         # the host's f64 cycle: 16 / 20 / 24 at
+                                 # n_bg = 63 / 127 / 255; catches a cycle
+                                 # that stops contracting
+VS_LU_BOUND_BH = 1e-8            # n_bg=127 vs host SuperLU, L2 over the
+                                 # cell domain (host f64 route 6.9e-10)
+OTHER_ROUTE_MAX_IT = 3000        # the route not taken: an iteration cap
+# card and host demo runs (both f64, the same 16 iterations at n_bg=63)
+# agree on the error norms to ~1e-7: an L2_rel of 9.4e-6 turns a solution
+# difference of 1e-12 (what a 1e-10 residual leaves at κ ~ h⁻⁴) into 1e-7 of
+# the norm; host LU and MG-GMRES differ by 2.6e-5 there
+DEMO_NORMS_BH = 1e-6
+
+
+def build_biharmonic(n_bg: int, device):
+    """bench.py's biharmonic workload at ``n_bg``: the immersed square on
+    nested grids (n_fg = 2·n_bg, P2) over the quadratic B-spline net
+    (n_bg + 2)², BiharmonicProblem(sym=False, β = α = 5, filter 1e-5),
+    assembled by the front-end at u = 0. Returns (prob, M, lattice shape,
+    A, b, seconds per stage: the foreground mesh, its P2 numbering, the
+    B-spline extraction, the problem, the assembly)."""
+    import torch
+
+    from iifea_tpu_torch.mesh import bspline, generators
+    from iifea_tpu_torch.models.biharmonic import BiharmonicProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+
+    host = Counter()
+    t0 = time.perf_counter()
+    with timed_calls([(generators, "FunctionSpace"),
+                      (bspline.BSplineSpace2D, "transfer_matrix")], host):
+        mesh, M, shape = generators.immersed_square_bspline_problem(
+            n_fg=2 * n_bg, n_bg=n_bg, device=device)
+    t1 = time.perf_counter()
+    prob = BiharmonicProblem(mesh, sym=False, beta_value=5.0,
+                             alpha_value=5.0, filter_tol=1e-5, device=device)
+    t2 = time.perf_counter()
+    u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
+    (A, b), t_asm = sync_time(
+        lambda: assemble_background_system(prob.form, u0, M))
+    p2, ext = host["FunctionSpace"], host["transfer_matrix"]
+    return prob, M, tuple(shape), A, b, {
+        "mesh": t1 - t0 - p2 - ext, "p2_numbering": p2,
+        "bspline_extraction": ext, "BiharmonicProblem": t2 - t1,
+        "assemble": t_asm}
+
+
+def bh_solve(A, b, shape, **kw):
+    """bench.py's biharmonic solve: MG-GMRES on the radius-3 stencil to a
+    1e-10 relative residual (``kw`` overrides, e.g. ``mixed``)."""
+    from iifea_tpu_torch.solvers import ksp
+
+    kw = {"method": "gmres", "pc": "mg", "rtol": 1e-10, **kw}
+    if kw["pc"] == "mg":
+        kw.update(lattice_shape=shape, stencil_radius=3)
+    return ksp.solve_ksp(A, b, monitor=False, **kw)
+
+
+def vs_lu(prob, M, u, u_lu) -> float:
+    """bench.py's ``vs_lu_rel_diff``: the two solutions' difference in L2
+    over the physical cell domain, relative to the LU solution's norm."""
+    from iifea_tpu_torch.api import l2_norm
+
+    u_lu_f = M.mv(u_lu)
+    return (l2_norm(M.mv(u) - u_lu_f, prob.cell_dom)
+            / max(l2_norm(u_lu_f, prob.cell_dom), 1e-300))
+
+
+def default_route_bh() -> str:
+    """The route ``solve_ksp`` takes for an f64 radius-3 system on CUDA."""
+    from iifea_tpu_torch.solvers import ksp
+
+    return "mixed" if 3 <= ksp.MIXED_DEFAULT_MAX_RADIUS else "f64"
+
+
+def phase_small_reference_biharmonic():
+    """The biharmonic against host references: at ncp 17 and 65 (n_bg =
+    15, 63) the card's MG-GMRES and host SuperLU on the same assembled
+    system give L2_rel within 2e-2 of each other (the JAX test's
+    yardstick); at n_bg = 63 the card's iteration count is within 2 of the
+    port's host f64 run; at n_bg = 127 the solutions agree with LU within
+    VS_LU_BOUND_BH in L2 over the cell domain (bench.py's
+    ``vs_lu_rel_diff``)."""
+    import torch
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", 0)
+    for n_bg in (15, 63, 127):
+        prob, M, shape, A, b, _ = build_biharmonic(n_bg, gpu)
+        u_lu, _ = bh_solve(A, b, shape, method="direct")
+        n_lu = prob.error_norms(M.mv(u_lu))
+        (u, info), dt = sync_time(lambda: bh_solve(A, b, shape))
+        norms = prob.error_norms(M.mv(u))
+        row = {"n_bg": n_bg, "ncp": list(shape), "route": default_route_bh(),
+               "iters": info.iters, "rel_residual": rel_residual(A, b, u),
+               "seconds": dt, "error_norms": norms, "error_norms_lu": n_lu,
+               "l2_rel_diff": abs(norms["L2_rel"] - n_lu["L2_rel"])
+               / n_lu["L2_rel"], "vs_lu_rel_diff": vs_lu(prob, M, u, u_lu)}
+        if n_bg == 63:
+            p_h, M_h, _, A_h, b_h, _ = build_biharmonic(n_bg, cpu)
+            u_h, info_h = bh_solve(A_h, b_h, shape)
+            row.update(host_iters=info_h.iters,
+                       host_error_norms=p_h.error_norms(M_h.mv(u_h)))
+        phase("small_reference_biharmonic", **row)
+        if not (u.is_cuda and row["rel_residual"] < 1e-10):
+            fail(f"biharmonic n_bg={n_bg}: residual {row['rel_residual']}")
+        if not row["l2_rel_diff"] <= 2e-2:
+            fail(f"biharmonic n_bg={n_bg}: L2_rel {norms['L2_rel']} against "
+                 f"host LU's {n_lu['L2_rel']}")
+        if n_bg == 63 and not abs(info.iters - row["host_iters"]) <= 2:
+            fail(f"biharmonic n_bg=63: {info.iters} iterations on the card, "
+                 f"{row['host_iters']} on the host")
+        if n_bg == 127 and not row["vs_lu_rel_diff"] <= VS_LU_BOUND_BH:
+            fail(f"biharmonic n_bg=127: vs_lu_rel_diff "
+                 f"{row['vs_lu_rel_diff']} > {VS_LU_BOUND_BH}")
+
+
+def phase_biharmonic():
+    """bench.py --workload biharmonic at n_bg = 511 (513² = 263,169
+    background dofs, 2,089,968 P2 triangles): host set-up and assembly per
+    stage, ``solve_ksp(gmres, pc='mg', stencil_radius=3)`` once counted per
+    kernel and lattice shape (no plain stencil apply on the card outside
+    the coarse dense inverse), three warm solves staged (probe, hierarchy,
+    Krylov), a profiled one, peak memory; f64 residual < 1e-10 and error
+    norms below n_bg = 127's. Then the route not taken (f32 mixed or f64),
+    counted, with its iterations, passes and residual, converged or not.
+    Returns {instance tag: (launches by kernel, launches by shape)}."""
+    import torch
+
+    from iifea_tpu_torch.api import l2_norm
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.solvers import ksp
+
+    gpu = torch.device("cuda", 0)
+    p127, M127, s127, A127, b127, _ = build_biharmonic(127, gpu)
+    n127 = p127.error_norms(M127.mv(bh_solve(A127, b127, s127)[0]))
+    del p127, M127, A127, b127
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob, M, shape, A, b, setup = build_biharmonic(N_BG_BH, gpu)
+    phase("biharmonic_setup", n_bg=N_BG_BH, n_fg=2 * N_BG_BH,
+          lattice=list(shape), n_bg_dofs=M.n_bg_dofs,
+          n_fg_nodes=prob.space.n_nodes, n_cells=prob.mesh.n_cells,
+          n_block_cells=prob.cell_dom.n_elem, n_facets=prob.facet_dom.n_elem,
+          eliminated=prob.elim_counts, seconds=setup,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    route = default_route_bh()
+    names = ("stencil_mv", "jacobi_smooth", "stencil_mv_block", "smooth")
+    plain = Counter()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_on_card(plain):
+        (u, info), t_first, launches, by_shape = counted_run(
+            lambda: bh_solve(A, b, shape), names, "biharmonic")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    relres = rel_residual(A, b, u)
+    norms = prob.error_norms(M.mv(u))
+    tag = instance_tag(3, route == "f64")
+    phase("biharmonic", route=route, first_seconds=t_first,
+          iters=info.iters,
+          passes=len(info.history) - 1 if route == "mixed" else 1,
+          rel_residual=relres, error_norms=norms, error_norms_n_bg127=n127,
+          launches=launches, launches_by_shape=by_shape,
+          plain_applies_on_card=dict(plain), peak_gib=peak)
+    if not relres < 1e-10:
+        fail(f"biharmonic: f64 relative residual {relres} >= 1e-10")
+    if not info.iters <= MAX_GMRES_ITERS_BH:
+        fail(f"biharmonic: {info.iters} GMRES iterations > "
+             f"{MAX_GMRES_ITERS_BH}")
+    if not (u.shape == (M.n_bg_dofs,) and u.is_cuda
+            and bool(torch.isfinite(u).all())):
+        fail("biharmonic: the solution is not a finite card vector of the "
+             "background size")
+    missing = [s_ for s_ in LEVELS_BH if not any(
+        by_shape.get(f"{k}@{s_[0]}x{s_[1]}{tag}", 0) > 0 for k in names)]
+    if missing:
+        fail(f"biharmonic: no stencil launch at the smoothed shapes "
+             f"{missing}: {by_shape}")
+    if plain["elsewhere"]:
+        fail(f"biharmonic: {plain['elsewhere']} plain stencil applies on the "
+             "card outside the coarse dense inverse")
+    if not all(norms[k] < n127[k] for k in ("L2_rel", "H2_rel")):
+        fail(f"biharmonic: error norms {norms} not below n_bg=127's {n127}")
+
+    # three warm solves, staged: probe, hierarchy, Krylov (the rest)
+    runs = []
+    for _ in range(3):
+        stages = Counter()
+        with timed_calls([(ksp, "_probe_general"),
+                          (multigrid, "StencilMultigrid")], stages):
+            (_, info_w), t_w = sync_time(lambda: bh_solve(A, b, shape))
+        runs.append({"solve_ksp": t_w, "probe": stages["_probe_general"],
+                     "hierarchy": stages["StencilMultigrid"],
+                     "krylov": t_w - sum(stages.values()),
+                     "iters": info_w.iters})
+    runs.sort(key=lambda r: r["solve_ksp"])
+    phase("biharmonic_stages", setup=setup, median=runs[1], runs=runs)
+    profile_solve(lambda: bh_solve(A, b, shape), "biharmonic_profile")
+
+    # the route not taken, counted, capped
+    other = "mixed" if route == "f64" else "f64"
+    (u_o, info_o), t_o, launches_o, by_shape_o = counted_run(
+        lambda: bh_solve(A, b, shape, mixed=other == "mixed",
+                         max_it=OTHER_ROUTE_MAX_IT), names,
+        "biharmonic_other_route")
+    relres_o = rel_residual(A, b, u_o)
+    u_f = M.mv(u)
+    phase("biharmonic_other_route", route=other, seconds=t_o,
+          iters=info_o.iters,
+          passes=len(info_o.history) - 1 if other == "mixed" else 1,
+          history=info_o.history if other == "mixed" else None,
+          rel_residual=relres_o, converged=relres_o < 1e-10,
+          error_norms=prob.error_norms(M.mv(u_o)),
+          l2_diff_from_route=l2_norm(M.mv(u_o) - u_f, prob.cell_dom)
+          / l2_norm(u_f, prob.cell_dom),
+          launches=launches_o, launches_by_shape=by_shape_o)
+    return {tag: (launches, by_shape),
+            instance_tag(3, other == "f64"): (launches_o, by_shape_o)}
+
+
+def phase_demo_biharmonic():
+    """The biharmonic demo as a user runs it, on the card (``python3 -m
+    iifea_tpu_torch.demos.biharmonic --ref 2``: n_bg = 63, MG-GMRES on the
+    radius-3 kernels), held against the same demo run in this process on
+    the host: the same iteration count, relative L2/H1/H2 errors equal to
+    DEMO_NORMS_BH relative."""
+    import io
+
+    from iifea_tpu_torch.demos import biharmonic as demo
+
+    argv = ["--ref", "2"]
+    wall = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "iifea_tpu_torch.demos.biharmonic", *argv],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - wall
+    if res.returncode != 0:
+        fail(f"biharmonic demo exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    out = res.stdout
+    conv = re.search(r"Converged in (\d+) iterations", out)
+    norms = {}
+    for k in ("L2", "H1", "H2"):
+        m = re.search(rf"^relative {k} norm: (\S+)$", out, re.M)
+        norms[f"{k}_rel"] = float(m.group(1)) if m else float("nan")
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = demo.main(argv + ["--device", "cpu"])
+    rel = {k: abs(v - host["norms"][k]) / host["norms"][k]
+           for k, v in norms.items()}
+    phase("demo_biharmonic", argv=argv, seconds=wall,
+          iters=int(conv.group(1)) if conv else None, error_norms=norms,
+          host_iters=host["info"].iters,
+          host_error_norms={k: host["norms"][k] for k in norms},
+          norms_rel_diff=rel)
+    if not (conv and int(conv.group(1)) == host["info"].iters
+            and max(rel.values()) <= DEMO_NORMS_BH):
+        fail(f"biharmonic demo: card norms {norms} differ from the host's "
+             f"{host['norms']}")
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
-          "elasticity", "demo_elasticity", "elasticity3", "newton", "asm")
+          "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
+          "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
+          "demo_p2")
 
 
 def kernel_shapes(timing, by_shape):
@@ -2206,13 +2612,16 @@ def kernel_shapes(timing, by_shape):
     launches also stand under ``jacobi_smooth`` and ``stencil_mv_block``."""
     def key(r):
         form = f":{r['form']}" if "form" in r else ""
-        return f"{r['kernel']}@{'x'.join(map(str, r['shape']))}{form}"
+        tag = instance_tag(r["radius"], r["dtype"] == "f64")
+        return (f"{r['kernel']}@{'x'.join(map(str, r['shape']))}{tag}"
+                f"{form}")
 
     rows, excess = [], Counter()
     for r in timing:
         n = by_shape.get(key(r), 0)
         rows.append({**r, "launches": n})
-        excess[r["kernel"]] += n * (r["device_ms"] - r["bound_ms"])
+        excess[r["kernel"] + instance_tag(r["radius"], r["dtype"] == "f64")] \
+            += n * (r["device_ms"] - r["bound_ms"])
     timed = {key(r) for r in timing}
     phase("kernel_shapes", rows=rows, excess_ms=dict(excess),
           untimed={k: v for k, v in by_shape.items() if k not in timed})
@@ -2255,6 +2664,16 @@ def main() -> None:
             if counts is not None:
                 launches.update(counts[0])
                 by_shape.update(counts[1])
+    # the biharmonic's instances (radius 3, f64 or f32) are booked apart
+    for name, fn in (("small_reference_biharmonic",
+                      phase_small_reference_biharmonic),
+                     ("demo_biharmonic", phase_demo_biharmonic),
+                     ("demo_p2", phase_demo_p2)):
+        if name in run:
+            fn()
+    bh = phase_biharmonic() if "biharmonic" in run else {}
+    for _, shapes in bh.values():
+        by_shape.update(shapes)
     import torch
 
     kernel_shapes(timing, by_shape)
@@ -2262,16 +2681,27 @@ def main() -> None:
     if run != set(PHASES):
         fail(f"only phases {sorted(run)} ran: no result")
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        # a fused smoothing call is one launch of "smooth"
-        timed_as = "smooth_call" if name == "smooth" else name
-        t = next(r for r in timing
-                 if r["kernel"] == timed_as and "plain_ms" in r)
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": worst[name], "ms": t["device_ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None})
+    # the r = 3 instances' launches come from the biharmonic's solves (the
+    # route taken, and the other one)
+    instances = [("", launches)] + [(tag, bh[tag][0]) for tag in sorted(bh)]
+    for tag, counts in instances:
+        for name, (source, replaces) in KERNELS.items():
+            if tag and name not in counts:
+                continue
+            # a fused smoothing call is one launch of "smooth"
+            timed_as = "smooth_call" if name == "smooth" else name
+            t = next(r for r in timing
+                     if r["kernel"] == timed_as and "plain_ms" in r
+                     and instance_tag(r["radius"], r["dtype"] == "f64")
+                     == tag)
+            row = {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces, "launches": counts[name],
+                   "max_abs_err": worst[name + tag], "ms": t["device_ms"],
+                   "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"], "library_ms": None}
+            if tag:
+                row["instance"] = tag.strip("/").replace("/", " ")
+            rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Variable-coefficient 2D stencil apply, residual and weighted-Jacobi sweeps
-// for Hopper (sm_90a), f32, on scalar and block (multi-field) operators.
+// for Hopper (sm_90a), on scalar and block (multi-field) operators, in f32
+// and (scalar operators) f64.
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv` (body `_mv_kernel`/`_taps`) and `jacobi_smooth` (body
@@ -15,6 +16,11 @@
 //   sweep from x = 0:  y = omega * Binv b         (no coefficient is read)
 //
 // with x zero outside the (nx, ny) lattice; node id = i*ny + j, no padding.
+//
+// Instances (scalar type, radius, fields): f32 at r = 1, 2 for 1 to 3
+// fields and at r = 3 (the quadratic B-spline biharmonic's 49-tap stencil)
+// for one field; f64 at r = 1, 2, 3 for one field. Every instance is the
+// same body; only its register plan differs (see pass_blocks).
 //
 // What bounds it: memory traffic on the large lattices (nF*nF*m*m
 // coefficients per point against 2 flops each), and on the small ones the
@@ -68,27 +74,49 @@ constexpr int kThreads = kTileX * kTileY;
 
 enum Mode { kApply = 0, kResidual = 1, kSweep = 2, kSweepFromZero = 3 };
 
-// Resident blocks per SM asked of the compiler. One pass: the block
-// operators unroll nF*nF*m*m coefficient loads and may take up to 128
-// registers a thread. A level's launch keeps a point's coefficients in
-// registers across its passes where they fit (nF <= 2: up to 106 values;
-// nF = 3 rereads them, and at r = 2 ptxas still front-loads its 225
-// coefficients and spills about 1 KB a thread at the 255-register cap),
-// and its grid must be co-resident: 3 blocks per SM hold the 297 tiles of a
-// scalar 257 x 257 level, 1 block per SM the 85 tiles of a block 129 x 129.
-__host__ __device__ constexpr int pass_blocks(int nf) {
-  return nf == 1 ? 4 : 2;
+// Resident blocks per SM asked of the compiler, per instance, from the
+// 32-bit words of a point's coefficients (f64 counts two). One pass: its
+// coefficient loads are unrolled and ptxas front-loads them, so the cap
+// (65536 / 256 threads / blocks registers) must hold them: 4 blocks (64
+// registers) up to 25 words, 3 (85) up to 50, else 2 (128); block
+// operators 2. A level's launch keeps a point's coefficients in registers
+// across its passes where they fit (nF <= 2: up to 106 words; nF = 3
+// rereads them, and at r = 2 ptxas still front-loads its 225 coefficients
+// and spills about 1 KB a thread at the 255-register cap), and its grid
+// must be co-resident: 3 blocks per SM up to 25 words (the 297 tiles of a
+// scalar f32 r = 2 257 x 257 level), 2 up to 50, else 1 (an f64 r = 3
+// point's 98 words: 255 registers, 132 co-resident tiles); block
+// operators 1 (the 85 tiles of a 2-field 129 x 129).
+template <class T, int R, int NF>
+__host__ __device__ constexpr int coef_words() {
+  return NF * NF * (2 * R + 1) * (2 * R + 1) * (int)(sizeof(T) / 4);
 }
-__host__ __device__ constexpr int level_blocks(int nf) {
-  return nf == 1 ? 3 : 1;
+template <class T, int R, int NF>
+__host__ __device__ constexpr int pass_blocks() {
+  return NF > 1 ? 2
+                : coef_words<T, R, NF>() <= 25 ? 4
+                : coef_words<T, R, NF>() <= 50 ? 3 : 2;
+}
+template <class T, int R, int NF>
+__host__ __device__ constexpr int level_blocks() {
+  return NF > 1 ? 1
+                : coef_words<T, R, NF>() <= 25 ? 3
+                : coef_words<T, R, NF>() <= 50 ? 2 : 1;
 }
 __host__ __device__ constexpr bool resident(int nf) { return nf <= 2; }
 
-template <int R, int NF>
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <class T, int R, int NF>
 struct Tile {
   static constexpr int SX = kTileX + 2 * R;
   static constexpr int SY = kTileY + 2 * R;
-  float xs[NF][SX][SY];
+  T xs[NF][SX][SY];
 };
 
 __host__ __device__ inline int tiles_of(int nx, int ny) {
@@ -99,33 +127,31 @@ __host__ __device__ inline int tiles_of(int nx, int ny) {
 // smoother block idx = f1*NF + f2, right-hand side f. FromMemory reads them
 // where they are used (every coefficient once per pass); InRegisters loads
 // them once and serves every pass of a level's launch.
-template <int R, int NF>
+template <class T, int R, int NF>
 struct FromMemory {
-  const float *C, *b, *binv;
+  const T *C, *b, *binv;
   int64_t plane, p;
-  __device__ __forceinline__ void load(const float* C_, const float* b_,
-                                       const float* binv_, int64_t plane_,
+  __device__ __forceinline__ void load(const T* C_, const T* b_,
+                                       const T* binv_, int64_t plane_,
                                        int64_t p_) {
     C = C_; b = b_; binv = binv_; plane = plane_; p = p_;
   }
-  __device__ __forceinline__ float coef(int idx) const {
+  __device__ __forceinline__ T coef(int idx) const {
     return C[idx * plane + p];
   }
-  __device__ __forceinline__ float rhs(int f) const {
-    return b[f * plane + p];
-  }
-  __device__ __forceinline__ float blk(int idx) const {
+  __device__ __forceinline__ T rhs(int f) const { return b[f * plane + p]; }
+  __device__ __forceinline__ T blk(int idx) const {
     return binv[idx * plane + p];
   }
 };
 
-template <int R, int NF>
+template <class T, int R, int NF>
 struct InRegisters {
   static constexpr int N = NF * NF * (2 * R + 1) * (2 * R + 1);
-  float c[N], rb[NF], bi[NF * NF];
-  __device__ __forceinline__ void load(const float* __restrict__ C,
-                                       const float* __restrict__ b,
-                                       const float* __restrict__ binv,
+  T c[N], rb[NF], bi[NF * NF];
+  __device__ __forceinline__ void load(const T* __restrict__ C,
+                                       const T* __restrict__ b,
+                                       const T* __restrict__ binv,
                                        int64_t plane, int64_t p) {
 #pragma unroll
     for (int idx = 0; idx < N; ++idx) c[idx] = C[idx * plane + p];
@@ -134,19 +160,18 @@ struct InRegisters {
 #pragma unroll
     for (int idx = 0; idx < NF * NF; ++idx) bi[idx] = binv[idx * plane + p];
   }
-  __device__ __forceinline__ float coef(int idx) const { return c[idx]; }
-  __device__ __forceinline__ float rhs(int f) const { return rb[f]; }
-  __device__ __forceinline__ float blk(int idx) const { return bi[idx]; }
+  __device__ __forceinline__ T coef(int idx) const { return c[idx]; }
+  __device__ __forceinline__ T rhs(int f) const { return rb[f]; }
+  __device__ __forceinline__ T blk(int idx) const { return bi[idx]; }
 };
 
 // x after one sweep from zero at a point: omega * Binv b (field f1).
-template <int NF, class Ops>
-__device__ __forceinline__ float from_zero(const Ops& op, float omega,
-                                           int f1) {
-  float v = 0.0f;
+template <class T, int NF, class Ops>
+__device__ __forceinline__ T from_zero(const Ops& op, T omega, int f1) {
+  T v = T(0);
 #pragma unroll
   for (int f2 = 0; f2 < NF; ++f2) {
-    v = fmaf(omega * op.blk(f1 * NF + f2), op.rhs(f2), v);
+    v = fma_t(omega * op.blk(f1 * NF + f2), op.rhs(f2), v);
   }
   return v;
 }
@@ -157,13 +182,12 @@ __device__ __forceinline__ float from_zero(const Ops& op, float omega,
 // one sweep from zero, computed where it is needed from Binv and b (the
 // same values a sweep from zero writes), so that sweep costs no pass of its
 // own and no barrier. All threads of the block must call it.
-template <int R, int NF>
+template <class T, int R, int NF>
 __device__ __forceinline__ void stage_tile(
-    const float* x, const float* __restrict__ b,
-    const float* __restrict__ binv, float omega, int nx, int ny, int i0,
-    int j0, Tile<R, NF>& sm) {
-  constexpr int SX = Tile<R, NF>::SX;
-  constexpr int SY = Tile<R, NF>::SY;
+    const T* x, const T* __restrict__ b, const T* __restrict__ binv,
+    T omega, int nx, int ny, int i0, int j0, Tile<T, R, NF>& sm) {
+  constexpr int SX = Tile<T, R, NF>::SX;
+  constexpr int SY = Tile<T, R, NF>::SY;
   const int tid = threadIdx.y * kTileY + threadIdx.x;
   const int64_t plane = (int64_t)nx * ny;
   if (x != nullptr) {
@@ -174,7 +198,7 @@ __device__ __forceinline__ void stage_tile(
       const int lj = rem - li * SY;
       const int gi = i0 + li - R;
       const int gj = j0 + lj - R;
-      float v = 0.0f;
+      T v = T(0);
       if (gi >= 0 && gi < nx && gj >= 0 && gj < ny) {
         v = __ldcg(x + f * plane + (int64_t)gi * ny + gj);
       }
@@ -187,11 +211,11 @@ __device__ __forceinline__ void stage_tile(
       const int gi = i0 + li - R;
       const int gj = j0 + lj - R;
       const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
-      FromMemory<R, NF> op;
+      FromMemory<T, R, NF> op;
       op.load(nullptr, b, binv, plane, (int64_t)gi * ny + gj);
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
-        sm.xs[f][li][lj] = in ? from_zero<NF>(op, omega, f) : 0.0f;
+        sm.xs[f][li][lj] = in ? from_zero<T, NF>(op, omega, f) : T(0);
       }
     }
   }
@@ -200,22 +224,22 @@ __device__ __forceinline__ void stage_tile(
 
 // One pass of MODE at the thread's point p of the staged tile: accumulate
 // A x per output field, write the epilogue to y.
-template <int R, int NF, int MODE, class Ops>
-__device__ __forceinline__ void point_pass(const Ops& op, float omega,
-                                           float* y, int64_t plane, int64_t p,
-                                           const Tile<R, NF>& sm) {
+template <class T, int R, int NF, int MODE, class Ops>
+__device__ __forceinline__ void point_pass(const Ops& op, T omega, T* y,
+                                           int64_t plane, int64_t p,
+                                           const Tile<T, R, NF>& sm) {
   constexpr int M = 2 * R + 1;
-  float acc[NF];
+  T acc[NF];
 #pragma unroll
   for (int f1 = 0; f1 < NF; ++f1) {
-    acc[f1] = 0.0f;
+    acc[f1] = T(0);
 #pragma unroll
     for (int f2 = 0; f2 < NF; ++f2) {
 #pragma unroll
       for (int k = 0; k < M * M; ++k) {
-        acc[f1] = fmaf(op.coef((f1 * NF + f2) * M * M + k),
-                       sm.xs[f2][threadIdx.y + k / M][threadIdx.x + k % M],
-                       acc[f1]);
+        acc[f1] = fma_t(op.coef((f1 * NF + f2) * M * M + k),
+                        sm.xs[f2][threadIdx.y + k / M][threadIdx.x + k % M],
+                        acc[f1]);
       }
     }
   }
@@ -227,12 +251,12 @@ __device__ __forceinline__ void point_pass(const Ops& op, float omega,
     for (int f = 0; f < NF; ++f) acc[f] = op.rhs(f) - acc[f];
 #pragma unroll
     for (int f1 = 0; f1 < NF; ++f1) {
-      float v = acc[f1];
+      T v = acc[f1];
       if (MODE == kSweep) {
         v = sm.xs[f1][threadIdx.y + R][threadIdx.x + R];
 #pragma unroll
         for (int f2 = 0; f2 < NF; ++f2) {
-          v = fmaf(omega * op.blk(f1 * NF + f2), acc[f2], v);
+          v = fma_t(omega * op.blk(f1 * NF + f2), acc[f2], v);
         }
       }
       y[f1 * plane + p] = v;
@@ -241,13 +265,12 @@ __device__ __forceinline__ void point_pass(const Ops& op, float omega,
 }
 
 // One pass, one block per tile (kSweepFromZero: one thread per point).
-template <int R, int NF, int MODE>
-__global__ void __launch_bounds__(kThreads, pass_blocks(NF))
-pass_kernel(const float* __restrict__ C, const float* x,
-            const float* __restrict__ b, const float* __restrict__ binv,
-            float omega, float* y, int nx, int ny) {
+template <class T, int R, int NF, int MODE>
+__global__ void __launch_bounds__(kThreads, pass_blocks<T, R, NF>())
+pass_kernel(const T* __restrict__ C, const T* x, const T* __restrict__ b,
+            const T* __restrict__ binv, T omega, T* y, int nx, int ny) {
   const int64_t plane = (int64_t)nx * ny;
-  FromMemory<R, NF> op;
+  FromMemory<T, R, NF> op;
   if constexpr (MODE == kSweepFromZero) {
     const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.y * kTileY +
                       threadIdx.x;
@@ -255,21 +278,21 @@ pass_kernel(const float* __restrict__ C, const float* x,
       op.load(nullptr, b, binv, plane, p);
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
-        y[f * plane + p] = from_zero<NF>(op, omega, f);
+        y[f * plane + p] = from_zero<T, NF>(op, omega, f);
       }
     }
   } else {
-    __shared__ Tile<R, NF> sm;
+    __shared__ Tile<T, R, NF> sm;
     const int tiles_y = (ny + kTileY - 1) / kTileY;
     const int i0 = (blockIdx.x / tiles_y) * kTileX;
     const int j0 = (blockIdx.x % tiles_y) * kTileY;
-    stage_tile<R, NF>(x, b, binv, omega, nx, ny, i0, j0, sm);
+    stage_tile<T, R, NF>(x, b, binv, omega, nx, ny, i0, j0, sm);
     const int i = i0 + threadIdx.y;
     const int j = j0 + threadIdx.x;
     if (i < nx && j < ny) {
       const int64_t p = (int64_t)i * ny + j;
       op.load(C, b, binv, plane, p);
-      point_pass<R, NF, MODE>(op, omega, y, plane, p, sm);
+      point_pass<T, R, NF, MODE>(op, omega, y, plane, p, sm);
     }
   }
 }
@@ -283,12 +306,12 @@ pass_kernel(const float* __restrict__ C, const float* x,
 // launch), which also orders the x written before it. The sweep from zero
 // needs neither a pass nor a barrier: the next pass stages its result from
 // Binv and b.
-template <int R, int NF>
-__global__ void __launch_bounds__(kThreads, level_blocks(NF))
-level_kernel(const float* __restrict__ C, const float* __restrict__ binv,
-             const float* __restrict__ b, const float* x, float omega,
-             int sweeps, float* out, float* tmp, float* res, int nx, int ny) {
-  __shared__ Tile<R, NF> sm;
+template <class T, int R, int NF>
+__global__ void __launch_bounds__(kThreads, level_blocks<T, R, NF>())
+level_kernel(const T* __restrict__ C, const T* __restrict__ binv,
+             const T* __restrict__ b, const T* x, T omega, int sweeps,
+             T* out, T* tmp, T* res, int nx, int ny) {
+  __shared__ Tile<T, R, NF> sm;
   const int tiles_y = (ny + kTileY - 1) / kTileY;
   const int i0 = (blockIdx.x / tiles_y) * kTileX;
   const int j0 = (blockIdx.x % tiles_y) * kTileY;
@@ -297,70 +320,73 @@ level_kernel(const float* __restrict__ C, const float* __restrict__ binv,
   const bool in = i < nx && j < ny;
   const int64_t plane = (int64_t)nx * ny;
   const int64_t p = (int64_t)i * ny + j;
-  typename std::conditional<resident(NF), InRegisters<R, NF>,
-                            FromMemory<R, NF>>::type op;
+  typename std::conditional<resident(NF), InRegisters<T, R, NF>,
+                            FromMemory<T, R, NF>>::type op;
   if (in) op.load(C, b, binv, plane, p);
 
-  const float* cur = x;
+  const T* cur = x;
   int s = 0;
   if (x == nullptr) {  // the sweep from zero
     if (sweeps == 1 && in) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
-        out[f * plane + p] = from_zero<NF>(op, omega, f);
+        out[f * plane + p] = from_zero<T, NF>(op, omega, f);
       }
     }
     s = 1;
   }
   for (; s < sweeps; ++s) {
-    float* dst = ((sweeps - 1 - s) & 1) ? tmp : out;
-    stage_tile<R, NF>(cur, b, binv, omega, nx, ny, i0, j0, sm);
-    if (in) point_pass<R, NF, kSweep>(op, omega, dst, plane, p, sm);
+    T* dst = ((sweeps - 1 - s) & 1) ? tmp : out;
+    stage_tile<T, R, NF>(cur, b, binv, omega, nx, ny, i0, j0, sm);
+    if (in) point_pass<T, R, NF, kSweep>(op, omega, dst, plane, p, sm);
     cur = dst;
     if (s + 1 < sweeps || res != nullptr) cg::this_grid().sync();
   }
   if (res != nullptr) {
-    stage_tile<R, NF>(cur, b, binv, omega, nx, ny, i0, j0, sm);
-    if (in) point_pass<R, NF, kResidual>(op, omega, res, plane, p, sm);
+    stage_tile<T, R, NF>(cur, b, binv, omega, nx, ny, i0, j0, sm);
+    if (in) point_pass<T, R, NF, kResidual>(op, omega, res, plane, p, sm);
   }
 }
 
-template <int R, int NF, int MODE>
-cudaError_t launch_pass(const float* C, const float* x, const float* b,
-                        const float* binv, float omega, float* y, int nx,
-                        int ny, cudaStream_t stream) {
+template <class T, int R, int NF, int MODE>
+cudaError_t launch_pass(const T* C, const T* x, const T* b, const T* binv,
+                        T omega, T* y, int nx, int ny, cudaStream_t stream) {
   const int blocks = MODE == kSweepFromZero
                          ? (int)(((int64_t)nx * ny + kThreads - 1) / kThreads)
                          : tiles_of(nx, ny);
-  pass_kernel<R, NF, MODE><<<blocks, dim3(kTileY, kTileX), 0, stream>>>(
+  pass_kernel<T, R, NF, MODE><<<blocks, dim3(kTileY, kTileX), 0, stream>>>(
       C, x, b, binv, omega, y, nx, ny);
   return cudaGetLastError();
 }
 
-template <int R, int NF>
-cudaError_t launch_pass_mode(int mode, const float* C, const float* x,
-                             const float* b, const float* binv, float omega,
-                             float* y, int nx, int ny, cudaStream_t stream) {
+template <class T, int R, int NF>
+cudaError_t launch_pass_mode(int mode, const void* C, const void* x,
+                             const void* b, const void* binv, double omega,
+                             void* y, int nx, int ny, cudaStream_t stream) {
+  const T *Ct = (const T*)C, *xt = (const T*)x, *bt = (const T*)b,
+          *bi = (const T*)binv;
+  T* yt = (T*)y;
+  const T w = (T)omega;
   switch (mode) {
     case kApply:
-      return launch_pass<R, NF, kApply>(C, x, b, binv, omega, y, nx, ny,
-                                        stream);
-    case kResidual:
-      return launch_pass<R, NF, kResidual>(C, x, b, binv, omega, y, nx, ny,
+      return launch_pass<T, R, NF, kApply>(Ct, xt, bt, bi, w, yt, nx, ny,
                                            stream);
+    case kResidual:
+      return launch_pass<T, R, NF, kResidual>(Ct, xt, bt, bi, w, yt, nx, ny,
+                                              stream);
     case kSweep:
-      return launch_pass<R, NF, kSweep>(C, x, b, binv, omega, y, nx, ny,
-                                        stream);
+      return launch_pass<T, R, NF, kSweep>(Ct, xt, bt, bi, w, yt, nx, ny,
+                                           stream);
     case kSweepFromZero:
-      return launch_pass<R, NF, kSweepFromZero>(C, x, b, binv, omega, y, nx,
-                                                ny, stream);
+      return launch_pass<T, R, NF, kSweepFromZero>(Ct, xt, bt, bi, w, yt, nx,
+                                                   ny, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-// Blocks of level_kernel<R, NF> the current device holds at once.
+// Blocks of level_kernel<T, R, NF> the current device holds at once.
 // Cached per instance: the devices of one process are taken to be alike.
-template <int R, int NF>
+template <class T, int R, int NF>
 cudaError_t grid_capacity(int* capacity) {
   static int cached = 0;
   if (cached == 0) {
@@ -371,7 +397,7 @@ cudaError_t grid_capacity(int* capacity) {
     }
     if (e == cudaSuccess) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, level_kernel<R, NF>, kThreads, 0);
+          &per_sm, level_kernel<T, R, NF>, kThreads, 0);
     }
     if (e != cudaSuccess) return e;
     cached = sms * per_sm;
@@ -380,14 +406,14 @@ cudaError_t grid_capacity(int* capacity) {
   return cudaSuccess;
 }
 
-template <int R, int NF>
-cudaError_t launch_level(const float* C, const float* binv, const float* b,
-                         const float* x, float omega, int sweeps, float* out,
-                         float* tmp, float* res, int nx, int ny,
+template <class T, int R, int NF>
+cudaError_t launch_level(const void* C, const void* binv, const void* b,
+                         const void* x, double omega, int sweeps, void* out,
+                         void* tmp, void* res, int nx, int ny,
                          cudaStream_t stream) {
   const int tiles = tiles_of(nx, ny);
   int capacity = 0;
-  cudaError_t e = grid_capacity<R, NF>(&capacity);
+  cudaError_t e = grid_capacity<T, R, NF>(&capacity);
   if (e != cudaSuccess) return e;
   if (tiles > capacity) return cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
@@ -400,64 +426,74 @@ cudaError_t launch_level(const float* C, const float* binv, const float* b,
   cfg.numAttrs = 1;
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
-  return cudaLaunchKernelEx(&cfg, level_kernel<R, NF>, C, binv, b, x, omega,
-                            sweeps, out, tmp, res, nx, ny);
+  return cudaLaunchKernelEx(&cfg, level_kernel<T, R, NF>, (const T*)C,
+                            (const T*)binv, (const T*)b, (const T*)x,
+                            (T)omega, sweeps, (T*)out, (T*)tmp, (T*)res, nx,
+                            ny);
 }
 
 // Whether a level's fused launch fits, from what the code can observe: the
 // tile count and how many blocks the card holds at once. 1: fits; 0: no;
 // negative: the occupancy query failed.
-template <int R, int NF>
+template <class T, int R, int NF>
 int plan_level(int nx, int ny) {
   int capacity = 0;
-  if (grid_capacity<R, NF>(&capacity) != cudaSuccess) return -1;
+  if (grid_capacity<T, R, NF>(&capacity) != cudaSuccess) return -1;
   return tiles_of(nx, ny) <= capacity ? 1 : 0;
 }
 
 }  // namespace
 
-#define DISPATCH_R_NF(radius, nf, CALL)        \
-  switch ((radius) * 10 + (nf)) {              \
-    case 11: return (int)(CALL(1, 1));         \
-    case 12: return (int)(CALL(1, 2));         \
-    case 13: return (int)(CALL(1, 3));         \
-    case 21: return (int)(CALL(2, 1));         \
-    case 22: return (int)(CALL(2, 2));         \
-    case 23: return (int)(CALL(2, 3));         \
-    default: return (int)cudaErrorInvalidValue; \
+// The instances, by (f64, radius, fields): CALL(T, R, NF) for each.
+#define DISPATCH(f64, radius, nf, CALL)                          \
+  switch ((f64) * 100 + (radius) * 10 + (nf)) {                  \
+    case 11: return (int)(CALL(float, 1, 1));                    \
+    case 12: return (int)(CALL(float, 1, 2));                    \
+    case 13: return (int)(CALL(float, 1, 3));                    \
+    case 21: return (int)(CALL(float, 2, 1));                    \
+    case 22: return (int)(CALL(float, 2, 2));                    \
+    case 23: return (int)(CALL(float, 2, 3));                    \
+    case 31: return (int)(CALL(float, 3, 1));                    \
+    case 111: return (int)(CALL(double, 1, 1));                  \
+    case 121: return (int)(CALL(double, 2, 1));                  \
+    case 131: return (int)(CALL(double, 3, 1));                  \
+    default: return (int)cudaErrorInvalidValue;                  \
   }
 
 extern "C" {
 
-// One pass on an nF-field operator. mode 0: y = A x; 1: y = b - A x;
-// 2: y = x + omega Binv (b - A x), and with x null the same sweep applied to
-// omega Binv b, i.e. two sweeps from zero in one pass; 3: y = omega Binv b,
-// one sweep from zero (C, x unread). y must not alias x.
-int stencil2d_block(const float* C, const float* x, const float* b,
-                    const float* binv, float omega, float* y, int nx, int ny,
-                    int radius, int nf, int mode, void* stream) {
-  if (nx <= 0 || ny <= 0) return (int)cudaErrorInvalidValue;
-#define CALL(R, NF)                                                        \
-  launch_pass_mode<R, NF>(mode, C, x, b, binv, omega, y, nx, ny,           \
-                          (cudaStream_t)stream)
-  DISPATCH_R_NF(radius, nf, CALL)
+// One pass on an nF-field operator of scalar type f64 ? double : float.
+// mode 0: y = A x; 1: y = b - A x; 2: y = x + omega Binv (b - A x), and
+// with x null the same sweep applied to omega Binv b, i.e. two sweeps from
+// zero in one pass; 3: y = omega Binv b, one sweep from zero (C, x
+// unread). y must not alias x.
+int stencil2d_block(const void* C, const void* x, const void* b,
+                    const void* binv, double omega, void* y, int nx, int ny,
+                    int radius, int nf, int mode, int f64, void* stream) {
+  if (nx <= 0 || ny <= 0 || (f64 != 0 && f64 != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define CALL(T, R, NF)                                                     \
+  launch_pass_mode<T, R, NF>(mode, C, x, b, binv, omega, y, nx, ny,        \
+                             (cudaStream_t)stream)
+  DISPATCH(f64, radius, nf, CALL)
 #undef CALL
 }
 
 // y = A x, scalar operator
-int stencil2d_mv(const float* C, const float* x, float* y, int nx, int ny,
-                 int radius, void* stream) {
-  return stencil2d_block(C, x, nullptr, nullptr, 0.0f, y, nx, ny, radius, 1,
-                         kApply, stream);
+int stencil2d_mv(const void* C, const void* x, void* y, int nx, int ny,
+                 int radius, int f64, void* stream) {
+  return stencil2d_block(C, x, nullptr, nullptr, 0.0, y, nx, ny, radius, 1,
+                         kApply, f64, stream);
 }
 
 // 1: the level's smoothing call fits one cooperative launch
 // (stencil2d_smooth); 0: it takes one launch per pass (stencil2d_block);
 // negative: the occupancy query failed.
-int stencil2d_smooth_plan(int nx, int ny, int radius, int nf) {
-  if (nx <= 0 || ny <= 0) return -1;
-#define CALL(R, NF) plan_level<R, NF>(nx, ny)
-  DISPATCH_R_NF(radius, nf, CALL)
+int stencil2d_smooth_plan(int nx, int ny, int radius, int nf, int f64) {
+  if (nx <= 0 || ny <= 0 || (f64 != 0 && f64 != 1)) return -1;
+#define CALL(T, R, NF) plan_level<T, R, NF>(nx, ny)
+  DISPATCH(f64, radius, nf, CALL)
 #undef CALL
 }
 
@@ -466,15 +502,17 @@ int stencil2d_smooth_plan(int nx, int ny, int radius, int nf) {
 // the ping-pong buffer (read and written when sweeps >= 2); none of out,
 // tmp, res may alias x or each other. The level's tiles of 8 x 32 must all
 // be co-resident, else the launch is refused.
-int stencil2d_smooth(const float* C, const float* binv, const float* b,
-                     const float* x, float omega, int sweeps, float* out,
-                     float* tmp, float* res, int nx, int ny, int radius,
-                     int nf, void* stream) {
-  if (nx <= 0 || ny <= 0 || sweeps < 1) return (int)cudaErrorInvalidValue;
-#define CALL(R, NF)                                                        \
-  launch_level<R, NF>(C, binv, b, x, omega, sweeps, out, tmp, res, nx, ny, \
-                      (cudaStream_t)stream)
-  DISPATCH_R_NF(radius, nf, CALL)
+int stencil2d_smooth(const void* C, const void* binv, const void* b,
+                     const void* x, double omega, int sweeps, void* out,
+                     void* tmp, void* res, int nx, int ny, int radius,
+                     int nf, int f64, void* stream) {
+  if (nx <= 0 || ny <= 0 || sweeps < 1 || (f64 != 0 && f64 != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define CALL(T, R, NF)                                                     \
+  launch_level<T, R, NF>(C, binv, b, x, omega, sweeps, out, tmp, res, nx,  \
+                         ny, (cudaStream_t)stream)
+  DISPATCH(f64, radius, nf, CALL)
 #undef CALL
 }
 

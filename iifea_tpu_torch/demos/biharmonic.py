@@ -1,0 +1,130 @@
+"""2D biharmonic with Nitsche BCs on a quadratic B-spline background (port
+of the synthetic mode of ``demos/biharmonic.py``: the same flags, the same
+printed report and CSV line).
+
+    python3 -m iifea_tpu_torch.demos.biharmonic --ref 2
+
+The synthetic mode generates the rotated immersed square in a P2 triangle
+foreground on nested grids (n_bg = 2^(ref+4) − 1 spans a side, n_fg =
+2·n_bg) and extracts it to the C1 quadratic B-spline lattice (n_bg + 2)²;
+the fourth-order system is solved by MG-preconditioned GMRES on the
+radius-3 stencil (``solve_ksp(pc='mg', stencil_radius=3)``: on a card the
+hand kernels' f64 radius-3 instances). ``--solv direct`` or ``mumps`` means
+GMRES there, as in the reference. Runs on the GPU unless ``--device cpu``
+is given. Not ported yet, and refused with a message: ``--dim 3`` (the 3D
+biharmonic, ROADMAP.md item 14b) and the reference's mesh files (any other
+``--mesh-root``, item 12e).
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+
+import torch
+
+
+def str2bool(v):
+    return str(v) not in ("False", "false", "0")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument('--dim', dest='dimension', default=2,
+                   help='Problem dimension (2; 3 is not ported yet).')
+    p.add_argument('--ref', dest='ref', default='3',
+                   help='Refinement level, (0,6) 2D')
+    p.add_argument('--sym', dest='symmetric', default=False,
+                   help='True for symmetric Nitsche; False for nonsymmetric')
+    p.add_argument('--solv', dest='solv', default='gmres',
+                   help='Linear solver')
+    p.add_argument('--pc', dest='pc', default='jacobi',
+                   help='Preconditioner for linear solver (the synthetic '
+                        'mode always runs mg)')
+    p.add_argument('--wf', dest='wf', default=False,
+                   help='write output data to file')
+    p.add_argument('--of', dest='of', default='biharmonic_error.csv',
+                   help='output data file')
+    p.add_argument('--b', dest='beta_val', default=5, help='Beta penalty')
+    p.add_argument('--a', dest='alpha_val', default=5, help='alpha penalty')
+    p.add_argument('--ft', dest='ft', default=1e-5,
+                   help='cell volume filtering tolerance')
+    p.add_argument('--snap', dest='snap', default=False,
+                   help='snap the staircase cut onto the exact rotated '
+                        'square')
+    p.add_argument('--mms', dest='mms', default='reference',
+                   choices=('reference', 'steep'),
+                   help="manufactured solution: 'reference' is "
+                        "cos(0.05 pi x + 0.1) cos(0.05 pi y + 0.1); 'steep' "
+                        "the wavelength-2 cosines cos(pi x + 0.5) "
+                        "cos(pi y + 0.5)")
+    p.add_argument('--mesh-root', dest='mesh_root', default='synthetic',
+                   help='"synthetic" for the generated immersed square (the '
+                        'reference mesh files are not in the repository)')
+    p.add_argument('--device', dest='device', default='cuda',
+                   help='torch device: cuda (default) or cpu')
+    return p.parse_args(argv)
+
+
+def steep_u_exact(x: torch.Tensor) -> torch.Tensor:
+    return torch.cos(math.pi * x[0] + 0.5) * torch.cos(math.pi * x[1] + 0.5)
+
+
+def main(argv=None) -> dict:
+    """Run the demo; returns the error norms, the solve's info and the
+    background solution."""
+    from iifea_tpu_torch.mesh.generators import (
+        immersed_square_bspline_problem,
+    )
+    from iifea_tpu_torch.models.biharmonic import BiharmonicProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+    from iifea_tpu_torch.solvers.ksp import solve_ksp
+
+    args = parse_args(argv)
+    if args.mesh_root != "synthetic":
+        sys.exit("the reference mesh files are not in the repository; use "
+                 "--mesh-root synthetic (mesh I/O: ROADMAP.md item 12e)")
+    if int(args.dimension) != 2:
+        sys.exit(f"--dim {args.dimension}: the 3D biharmonic is not ported "
+                 "yet (ROADMAP.md item 14b)")
+    ref = args.ref
+    device = torch.device(args.device)
+
+    n_bg = 2 ** (int(ref) + 4) - 1
+    mesh_f, M, lattice_shape = immersed_square_bspline_problem(
+        n_fg=2 * n_bg, n_bg=n_bg, snap_boundary=str2bool(args.snap),
+        device=device)
+    prob = BiharmonicProblem(
+        mesh_f, sym=str2bool(args.symmetric),
+        beta_value=float(args.beta_val), alpha_value=float(args.alpha_val),
+        filter_tol=float(args.ft),
+        u_exact=steep_u_exact if args.mms == 'steep' else None,
+        device=device)
+
+    u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
+    dR_b, R_b = assemble_background_system(prob.form, u0, M)
+    solv = 'gmres' if args.solv in ('gmres', 'direct', 'mumps') else args.solv
+    u_p, info = solve_ksp(dR_b, R_b, method=solv, pc='mg', rtol=1e-10,
+                          lattice_shape=lattice_shape, stencil_radius=3,
+                          monitor=True)
+    norms = prob.error_norms(M.mv(u_p))
+
+    if str2bool(args.wf):
+        with open(args.of, 'a') as f:
+            f.write("\n")
+            f.write(f"{ref},{norms['L2_rel']},{norms['H1_rel']},"
+                    f"{norms['H2_rel']},{args.alpha_val},{args.beta_val}")
+    for line in ('-' * 40,
+                 f"L2 norm: {norms['L2']}",
+                 f"H1 norm: {norms['H1']}",
+                 f"H2 norm: {norms['H2']}",
+                 f"relative L2 norm: {norms['L2_rel']}",
+                 f"relative H1 norm: {norms['H1_rel']}",
+                 f"relative H2 norm: {norms['H2_rel']}",
+                 '-' * 40):
+        print(line, flush=True)
+    return {"norms": norms, "info": info, "u_p": u_p}
+
+
+if __name__ == "__main__":
+    main()

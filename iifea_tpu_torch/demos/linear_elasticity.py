@@ -8,10 +8,12 @@ The synthetic mode solves ``ImmersedElasticityProblem`` on the generated
 immersed square (n_fg = 8·2^ref, n_bg = n_fg/2) with a known lattice
 background, by block-multigrid CG (``--solv cg --pc mg``, the default; the
 stencil applies run on the ``stencil_mv`` kernel on a card) or by
-``--pc bjacobi``/``jacobi`` on the general operator. Runs on the GPU unless
+``--pc bjacobi``/``jacobi`` on the general operator. ``--k 2`` puts P2
+spaces on both meshes; a P2 simplex background is no lattice, so its
+default is ``--pc bjacobi`` and ``--pc mg`` is refused (the reference's
+demo fails there on the lattice's size). Runs on the GPU unless
 ``--device cpu`` is given. Not ported yet, and refused with a message: the
-Kirsch plate on the reference's mesh files (any other ``--mesh-root``) and
-``--k 2`` (P2 spaces).
+Kirsch plate on the reference's mesh files (any other ``--mesh-root``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ def str2bool(v):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument('--k', dest='k', default=1,
-                   help='Polynomial degree (1; 2 is not ported yet).')
+                   help='Polynomial degree (1 or 2).')
     p.add_argument('--ref', dest='ref', default='0',
                    help='Refinement level, integers in (0,6)')
     p.add_argument('--lref', dest='lref', default='0',
@@ -40,7 +42,8 @@ def parse_args(argv=None):
                    help="Linear solver ('mumps' means cg in the synthetic "
                         "mode)")
     p.add_argument('--pc', dest='pc', default=None,
-                   help='Preconditioner for linear solver (default mg)')
+                   help='Preconditioner for linear solver (default mg; '
+                        'bjacobi for --k 2)')
     p.add_argument('--wf', dest='wf', default=False,
                    help='write output data to file')
     p.add_argument('--E', dest='E', default=200e9,
@@ -72,8 +75,11 @@ def main(argv=None) -> dict:
         sys.exit("the Kirsch plate reads the reference mesh files, which are "
                  "not in the repository; use --mesh-root synthetic (mesh "
                  "I/O: ROADMAP.md item 12e)")
-    if k != 1:
-        sys.exit("--k 2: P2 spaces are not ported yet (ROADMAP.md item 12d)")
+    if k not in (1, 2):
+        sys.exit(f"--k {k}: the polynomial degree is 1 or 2")
+    if k == 2 and args.pc == 'mg':
+        sys.exit("--k 2 --pc mg: a P2 simplex background is no lattice; use "
+                 "--pc bjacobi or jacobi")
     device = torch.device(args.device)
 
     n = 8 * 2 ** int(ref)
@@ -83,7 +89,7 @@ def main(argv=None) -> dict:
     prob = ImmersedElasticityProblem(mesh_f, k=k, sym=symmetric,
                                      device=device)
     solv = 'cg' if args.solv == 'mumps' else args.solv
-    pc = 'mg' if args.pc is None else args.pc
+    pc = ('mg' if k == 1 else 'bjacobi') if args.pc is None else args.pc
 
     u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
     dR_b, R_b = assemble_background_system(prob.form, u0, M)

@@ -6,8 +6,9 @@
 Runs on the GPU unless ``--device cpu`` is given. Meshes are synthetic
 (``--mesh-root synthetic``, the default): the reference's mesh files are
 not in the repository. In 3D the solve is direct, as in the reference.
-Not ported yet, and refused with a message: ``--k 2`` (P2 spaces),
-``--devices`` > 1 (multi-GPU) and ``--wv`` (VTU output).
+``--k 2`` runs P2 foreground and background spaces (2D; the synthetic 3D
+meshes are linear, as in the reference). Not ported yet, and refused with
+a message: ``--devices`` > 1 (multi-GPU) and ``--wv`` (VTU output).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ def str2bool(v):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument('--k', dest='k', default=1,
-                   help='Polynomial degree (1; 2 is not ported yet).')
+                   help='Polynomial degree (1 or 2).')
     p.add_argument('--dim', dest='dimension', default=2,
                    help='Problem dimension (2 or 3).')
     p.add_argument('--ref', dest='ref', default='0',
@@ -83,8 +84,10 @@ def main(argv=None) -> dict:
     if args.mesh_root != "synthetic":
         sys.exit("the reference mesh files are not in the repository; use "
                  "--mesh-root synthetic (mesh I/O: ROADMAP.md item 12e)")
-    if k != 1:
-        sys.exit("--k 2: P2 spaces are not ported yet (ROADMAP.md item 12d)")
+    if k not in (1, 2):
+        sys.exit(f"--k {k}: the polynomial degree is 1 or 2")
+    if dim == 3 and k != 1:
+        sys.exit("synthetic 3D meshes are linear (k=1)")
     if args.devices > 1:
         sys.exit(f"--devices {args.devices}: the multi-GPU solve is not "
                  "ported yet (ROADMAP.md item 16)")
@@ -99,7 +102,7 @@ def main(argv=None) -> dict:
     else:
         n = 8 * 2 ** int(ref)
         mesh_f, M_synth = immersed_square_problem(n_fg=n, n_bg=max(n // 2, 4),
-                                                  device=device)
+                                                  degree=k, device=device)
 
     beta_auto = str(args.beta).lower() == 'auto'
     beta_val = 10.0 if beta_auto else float(args.beta)

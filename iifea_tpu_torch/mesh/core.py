@@ -1,10 +1,12 @@
 """Mesh and function-space core (numpy copy of ``iifea_tpu/mesh/core.py``
-for P1 triangle and tetrahedron meshes).
+for triangle and tetrahedron meshes with P1 and P2 spaces).
 
-Host-side frozen numpy arrays: node ids are dof ids. The unique-facet
-extraction is numpy only (no native library), done with one stable sort of
-the sorted facet vertex tuples, so it stays fast at tens of millions of
-(cell, facet) incidences.
+Host-side frozen numpy arrays: node ids are dof ids. The unique facets and
+the P2 edge nodes are numbered in numpy (no native library), each with one
+stable sort of the sorted vertex tuples, so it stays fast at tens of
+millions of incidences; both keep the reference native library's order,
+first appearance in the (cell, local entity) scan, so dof vectors of the
+two packages compare entry by entry.
 """
 from __future__ import annotations
 
@@ -90,24 +92,15 @@ class Mesh:
         lf = local_facets(self.dim)
         nlf, nfv = lf.shape
         tup = np.sort(self.cells[:, lf].reshape(-1, nfv), axis=1)
-        order = _stable_row_order(tup, self.n_verts)
-        ts = tup[order]
-        first = np.ones(order.size, dtype=bool)
-        first[1:] = (ts[1:] != ts[:-1]).any(axis=1)
-        del ts
-        n_facets = int(first.sum())
-        # renumber the sorted facets by their first incidence
-        first_pos = order[first]
-        rank = np.empty(n_facets, dtype=np.int64)
-        rank[np.argsort(first_pos)] = np.arange(n_facets)
-        fid = rank[np.cumsum(first) - 1]
+        fid, order, first, rank = _first_appearance(tup, self.n_verts)
+        n_facets = rank.size
         facet_cells = np.full((n_facets, 2), -1, dtype=np.int32)
         facet_local = np.full((n_facets, 2), -1, dtype=np.int32)
         slot = np.where(first, 0, 1)
-        facet_cells[fid, slot] = (order // nlf).astype(np.int32)
-        facet_local[fid, slot] = (order % nlf).astype(np.int32)
+        facet_cells[fid[order], slot] = (order // nlf).astype(np.int32)
+        facet_local[fid[order], slot] = (order % nlf).astype(np.int32)
         facets = np.empty((n_facets, nfv), dtype=np.int32)
-        facets[rank] = tup[first_pos]
+        facets[rank] = tup[order[first]]
         return FacetData(facets, facet_cells, facet_local)
 
     @cached_property
@@ -130,6 +123,27 @@ class Mesh:
         out[marker == 3] = 3
         return out
 
+    def filter_small_cells(self, tol: float, block_id: int = 2,
+                           facet_class: np.ndarray | None = None,
+                           surf_id: int = 3):
+        """Small-cut-cell volume filter: block cells (material
+        ``block_id``) of volume < tol·hmax^dim leave the block (material 0)
+        and their facets of class ``surf_id`` leave the surface (class 0).
+        Returns (material, facet classes, cells removed, facets removed)."""
+        vol_limit = self.hmax() ** self.dim * tol
+        material = self.material.copy()
+        small = (self.cell_volumes < vol_limit) & (material == block_id)
+        material[small] = 0
+        n_facet_elim = 0
+        if facet_class is not None:
+            facet_class = facet_class.copy()
+            fc = self.facet_data.facet_cells
+            adj = small[fc[:, 0]] | ((fc[:, 1] >= 0) & small[fc[:, 1]])
+            kill = adj & (facet_class == surf_id)
+            n_facet_elim = int(kill.sum())
+            facet_class[kill] = 0
+        return material, facet_class, int(small.sum()), n_facet_elim
+
 
 def _stable_row_order(tup: np.ndarray, n: int) -> np.ndarray:
     """Stable lexicographic order of the rows of ``tup`` (values < n).
@@ -146,21 +160,47 @@ def _stable_row_order(tup: np.ndarray, n: int) -> np.ndarray:
     return np.lexsort(tup.T[::-1])
 
 
+def _first_appearance(tup: np.ndarray, n: int):
+    """Number the distinct rows of ``tup`` (values < n) by their first
+    appearance. Returns (id of every row, the rows' stable sort order,
+    whether each sorted row is its group's first, rank: id of each group in
+    sorted order)."""
+    order = _stable_row_order(tup, n)
+    ts = tup[order]
+    first = np.ones(order.size, dtype=bool)
+    first[1:] = (ts[1:] != ts[:-1]).any(axis=1)
+    del ts
+    first_pos = order[first]
+    rank = np.empty(first_pos.size, dtype=np.int64)
+    rank[np.argsort(first_pos)] = np.arange(first_pos.size)
+    ids = np.empty(order.size, dtype=np.int64)
+    ids[order] = rank[np.cumsum(first) - 1]
+    return ids, order, first, rank
+
+
 class FunctionSpace:
-    """P1 Lagrange space with ``n_fields`` components: cell dofs are the
-    mesh's vertex ids (node ids); the per-field dof id is
+    """Lagrange space of degree 1 or 2 with ``n_fields`` components. Cell
+    dofs are node ids, (n_cells, n_local_nodes): the mesh's vertex ids for
+    P1; for P2 the vertices keep their ids and the edge nodes follow,
+    numbered by first appearance. The per-field dof id is
     node·n_fields + field."""
 
     def __init__(self, mesh: Mesh, degree: int = 1, n_fields: int = 1):
-        if degree != 1:
-            raise ValueError(f"the port covers P1 spaces, got degree={degree}")
+        if degree not in (1, 2):
+            raise ValueError(
+                f"the port covers P1 and P2 spaces, got degree={degree}")
         self.mesh = mesh
-        self.degree = 1
+        self.degree = int(degree)
         self.n_fields = int(n_fields)
-        self.element = ReferenceElement(mesh.dim, 1)
-        self.cell_dofs = mesh.cells
-        self.n_nodes = mesh.n_verts
-        self.node_coords = mesh.coords
+        self.element = ReferenceElement(mesh.dim, self.degree)
+        if self.degree == 1:
+            self.cell_dofs = mesh.cells
+            self.n_nodes = mesh.n_verts
+            self.node_coords = mesh.coords
+        else:
+            self.cell_dofs, self.n_nodes = _number_p2(mesh)
+            self.node_coords = _p2_node_coords(mesh, self.cell_dofs,
+                                               self.n_nodes)
         self.n_dofs = self.n_nodes * self.n_fields
 
 
@@ -171,3 +211,29 @@ def flat_dofs(node_ids: np.ndarray, n_fields: int) -> np.ndarray:
     base = node_ids[..., :, None] * n_fields + np.arange(n_fields)
     out_shape = node_ids.shape[:-1] + (node_ids.shape[-1] * n_fields,)
     return base.reshape(out_shape).astype(np.int32)
+
+
+def _number_p2(mesh: Mesh) -> tuple[np.ndarray, int]:
+    """P2 node ids: the vertices keep theirs, each unique edge gets
+    n_verts + its number in order of first appearance in the (cell, local
+    edge) scan (the reference's native ``mesh_number_edges``)."""
+    edges = ReferenceElement(mesh.dim, 2).edges
+    tup = np.sort(mesh.cells[:, edges].reshape(-1, 2), axis=1)
+    ids, _, _, rank = _first_appearance(tup, mesh.n_verts)
+    edge_ids = (mesh.n_verts + ids).reshape(mesh.n_cells, -1)
+    cell_dofs = np.hstack([mesh.cells, edge_ids]).astype(np.int32)
+    return cell_dofs, mesh.n_verts + rank.size
+
+
+def _p2_node_coords(mesh: Mesh, cell_dofs: np.ndarray,
+                    n_nodes: int) -> np.ndarray:
+    """P2 node coordinates (straight-sided): vertices, then edge
+    midpoints."""
+    edges = ReferenceElement(mesh.dim, 2).edges
+    nv = mesh.dim + 1
+    coords = np.zeros((n_nodes, mesh.dim))
+    coords[cell_dofs[:, :nv].ravel()] = mesh.coords[mesh.cells.ravel()]
+    mids = 0.5 * (mesh.coords[mesh.cells[:, edges[:, 0]]]
+                  + mesh.coords[mesh.cells[:, edges[:, 1]]])
+    coords[cell_dofs[:, nv:].ravel()] = mids.reshape(-1, mesh.dim)
+    return coords

@@ -4,8 +4,11 @@ parts of ``iifea_tpu/mesh/generators.py`` the lattice paths use).
 ``immersed_square_problem`` is the synthetic cut-square workload: a
 structured foreground triangle mesh with the cells inside a rotated square
 marked as the block (material 2), and a coarser structured background
-triangle grid; M interpolates the background P1 space at the foreground
-nodes. ``immersed_cube_problem`` is its 3D analog on Kuhn tetrahedra.
+triangle grid; M interpolates the background P1 (or P2) space at the
+foreground nodes. ``immersed_cube_problem`` is its 3D analog on Kuhn
+tetrahedra. ``immersed_square_bspline_problem`` and
+``immersed_cube_bspline_problem`` put a P2 foreground on a quadratic
+B-spline background lattice (the biharmonic workload).
 """
 from __future__ import annotations
 
@@ -185,8 +188,8 @@ def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
                             degree: int = 1, n_fields: int = 1,
                             tol: float = 1e-10, dtype=np.float64, *,
                             device="cuda") -> ExtractionOperator:
-    """P1 interpolation matrix from a structured background triangle or
-    tetrahedron grid to points: row i holds the basis values of the
+    """P1 or P2 interpolation matrix from a structured background triangle
+    or tetrahedron grid to points: row i holds the basis values of the
     background cell that contains point i, replicated over ``n_fields``
     fields (ExtractionOperator's multi-field layout). Points outside the
     grid get zero rows."""
@@ -214,6 +217,67 @@ def transfer_matrix_simplex(mesh_b: Mesh, points: np.ndarray,
     )
 
 
+def _snap_cut_boundary(mesh_f, angle: float, half_width: float):
+    """Snap the staircase material interface onto the exact rotated square.
+
+    The centroid classification of the synthetic generators leaves the
+    immersed boundary as a staircase of mesh facets with O(h) re-entrant
+    steps. For 2nd-order problems the Nitsche formulation is consistent on
+    that polygon and rates are unaffected, but for the biharmonic the
+    staircase corners destroy the H4 dual regularity the Aubin-Nitsche
+    argument needs, capping the observed L2 rate at the energy rate (~1).
+    Here every interface
+    vertex is projected onto the nearest point of the exact rotated-square
+    boundary, and material-2 cells that collapse (all three vertices on one
+    side line, or folded over it) are demoted to material 1 — they are
+    zero-area boundary slivers. The resulting interface facets lie ON the
+    exact square sides (up to O(h) chamfers at the four convex corners),
+    which restores the duality gain (a foreground cut to conform to the
+    geometry has it by construction).
+    """
+    coords = np.array(mesh_f.coords, dtype=np.float64, copy=True)
+    cells = np.asarray(mesh_f.cells)
+    material = np.array(mesh_f.material, copy=True)
+    in2 = material == 2
+    c2 = cells[in2]
+    # interface edges: edges of material-2 cells not shared by two of them
+    e = np.concatenate([c2[:, [0, 1]], c2[:, [1, 2]], c2[:, [2, 0]]])
+    e = np.sort(e, axis=1)
+    _, inv, counts = np.unique(
+        e, axis=0, return_inverse=True, return_counts=True
+    )
+    bverts = np.unique(e[counts[inv] == 1])
+
+    a = np.deg2rad(angle)
+    ca, sa = np.cos(a), np.sin(a)
+    R = np.array([[ca, sa], [-sa, ca]])
+    uv = coords[bverts] @ R.T
+    # nearest point on the square |u|_inf = half_width: push the larger
+    # coordinate to the side, clamp the other into the side segment
+    au, av = np.abs(uv[:, 0]), np.abs(uv[:, 1])
+    major_u = au >= av
+    snapped = uv.copy()
+    snapped[major_u, 0] = np.sign(uv[major_u, 0]) * half_width
+    snapped[major_u, 1] = np.clip(uv[major_u, 1], -half_width, half_width)
+    snapped[~major_u, 1] = np.sign(uv[~major_u, 1]) * half_width
+    snapped[~major_u, 0] = np.clip(uv[~major_u, 0], -half_width, half_width)
+    coords[bverts] = snapped @ R
+
+    # demote collapsed/folded material-2 slivers (their area is (near) zero:
+    # they lie on the boundary line, so removing them leaves the domain
+    # unchanged). Threshold: a small fraction of the median cell area.
+    p = coords[cells[in2]]
+    area2 = 0.5 * (
+        (p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+        - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1])
+    )
+    tol = 0.02 * np.median(np.abs(area2))
+    drop = np.flatnonzero(in2)[area2 <= tol]
+    material[drop] = 1
+    out = type(mesh_f)(coords, cells, material)
+    return out
+
+
 def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
                             angle: float = 30.0, half_width: float = 0.6,
                             degree: int = 1, n_fields: int = 1,
@@ -223,16 +287,7 @@ def immersed_square_problem(n_fg: int, n_bg: int, L: float = 2.0,
     foreground cells whose centroid lies inside are the block (material 2),
     the rest material 1. M carries ``n_fields`` fields per node (2 for
     2D elasticity). Returns (mesh_f, M)."""
-    mesh_f = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_fg, n_fg)
-    cent = mesh_f.cell_coords.mean(1)
-    a = np.deg2rad(angle)
-    ca, sa = np.cos(a), np.sin(a)
-    u = ca * cent[:, 0] + sa * cent[:, 1]
-    v = -sa * cent[:, 0] + ca * cent[:, 1]
-    material = np.where(
-        (np.abs(u) <= half_width) & (np.abs(v) <= half_width), 2, 1
-    ).astype(np.int32)
-    mesh_f = Mesh(mesh_f.coords, mesh_f.cells, material)
+    mesh_f = _cut_square(n_fg, L, angle, half_width)
     mesh_b = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_bg, n_bg)
     Vf = FunctionSpace(mesh_f, degree=degree)
     M = transfer_matrix_simplex(mesh_b, np.asarray(Vf.node_coords),
@@ -251,6 +306,35 @@ def immersed_cube_problem(n_fg: int, n_bg: int, L: float = 2.0,
     structured tetrahedron block over [-L/2, L/2]³. Background node ids
     follow box_mesh (id = (i·(n_bg+1) + j)·(n_bg+1) + k), the layout of
     StencilOperator3D. Returns (mesh_f, M)."""
+    mesh_f = _cut_cube(n_fg, L, angle, half_width)
+    mesh_b = box_mesh((-L / 2,) * 3, (L / 2,) * 3, n_bg, n_bg, n_bg)
+    Vf = FunctionSpace(mesh_f, degree=degree)
+    M = transfer_matrix_simplex(mesh_b, np.asarray(Vf.node_coords),
+                                degree=degree, n_fields=n_fields,
+                                dtype=dtype, device=device)
+    return mesh_f, M
+
+
+def _cut_square(n_fg: int, L: float, angle: float,
+                half_width: float) -> Mesh:
+    """The structured foreground over [-L/2, L/2]² with the cells whose
+    centroid lies in the rotated square as the block (material 2)."""
+    mesh_f = rectangle_mesh((-L / 2, -L / 2), (L / 2, L / 2), n_fg, n_fg)
+    cent = mesh_f.cell_coords.mean(1)
+    a = np.deg2rad(angle)
+    ca, sa = np.cos(a), np.sin(a)
+    u = ca * cent[:, 0] + sa * cent[:, 1]
+    v = -sa * cent[:, 0] + ca * cent[:, 1]
+    material = np.where(
+        (np.abs(u) <= half_width) & (np.abs(v) <= half_width), 2, 1
+    ).astype(np.int32)
+    return Mesh(mesh_f.coords, mesh_f.cells, material)
+
+
+def _cut_cube(n_fg: int, L: float, angle: float, half_width: float) -> Mesh:
+    """The structured tetrahedron foreground over [-L/2, L/2]³ with the
+    cells whose centroid lies in the cube rotated about z then y as the
+    block (material 2)."""
     mesh_f = box_mesh((-L / 2,) * 3, (L / 2,) * 3, n_fg, n_fg, n_fg)
     cent = np.zeros((mesh_f.n_cells, 3))
     for v in range(4):
@@ -267,10 +351,56 @@ def immersed_cube_problem(n_fg: int, n_bg: int, L: float = 2.0,
         (np.abs(u2) <= half_width) & (np.abs(v) <= half_width)
         & (np.abs(w2) <= half_width), 2, 1
     ).astype(np.int32)
-    mesh_f = Mesh(mesh_f.coords, mesh_f.cells, material)
-    mesh_b = box_mesh((-L / 2,) * 3, (L / 2,) * 3, n_bg, n_bg, n_bg)
-    Vf = FunctionSpace(mesh_f, degree=degree)
-    M = transfer_matrix_simplex(mesh_b, np.asarray(Vf.node_coords),
-                                degree=degree, n_fields=n_fields,
-                                dtype=dtype, device=device)
-    return mesh_f, M
+    return Mesh(mesh_f.coords, mesh_f.cells, material)
+
+
+def immersed_square_bspline_problem(n_fg: int, n_bg: int, L: float = 2.0,
+                                    angle: float = 30.0,
+                                    half_width: float = 0.6,
+                                    fg_degree: int = 2, bg_degree: int = 2,
+                                    n_fields: int = 1, dtype=np.float64,
+                                    snap_boundary: bool = False, *,
+                                    device="cuda"):
+    """A rotated immersed square in a P2 (``fg_degree``) triangle
+    foreground, extracted to a C1 tensor-product B-spline background of
+    degree ``bg_degree`` with n_bg spans a side: the lattice the
+    biharmonic's radius-3 stencil and multigrid run on.
+
+    Returns (mesh_f, M, lattice_shape), lattice_shape = the control net
+    (ncp_x, ncp_y), ncp = n_bg + bg_degree; n_bg = 2^m − bg_degree + 1
+    gives a 2^m + 1 net that coarsens all the way. Pick ``n_fg`` a multiple
+    of ``n_bg`` (nested grids): then each foreground cell lies in one knot
+    span, and the P2 interpolation reproduces the spline exactly.
+    ``snap_boundary`` moves the staircase interface onto the exact square
+    (``_snap_cut_boundary``)."""
+    from iifea_tpu_torch.mesh.bspline import BSplineSpace2D
+
+    mesh_f = _cut_square(n_fg, L, angle, half_width)
+    if snap_boundary:
+        mesh_f = _snap_cut_boundary(mesh_f, angle, half_width)
+    space = BSplineSpace2D(bg_degree, (n_bg, n_bg), (-L / 2, -L / 2),
+                           (L / 2, L / 2))
+    Vf = FunctionSpace(mesh_f, degree=fg_degree)
+    M = space.transfer_matrix(np.asarray(Vf.node_coords), n_fields=n_fields,
+                              dtype=dtype, device=device)
+    return mesh_f, M, space.ncp
+
+
+def immersed_cube_bspline_problem(n_fg: int, n_bg: int, L: float = 2.0,
+                                  angle: float = 30.0,
+                                  half_width: float = 0.6,
+                                  fg_degree: int = 2, bg_degree: int = 2,
+                                  n_fields: int = 1, dtype=np.float64, *,
+                                  device="cuda"):
+    """3D analog of ``immersed_square_bspline_problem``: a rotated cube in a
+    P2 tetrahedron foreground on a quadratic B-spline box background.
+    Returns (mesh_f, M, lattice_shape = ncp)."""
+    from iifea_tpu_torch.mesh.bspline import BSplineSpace3D
+
+    mesh_f = _cut_cube(n_fg, L, angle, half_width)
+    space = BSplineSpace3D(bg_degree, (n_bg,) * 3, (-L / 2,) * 3,
+                           (L / 2,) * 3)
+    Vf = FunctionSpace(mesh_f, degree=fg_degree)
+    M = space.transfer_matrix(np.asarray(Vf.node_coords), n_fields=n_fields,
+                              dtype=dtype, device=device)
+    return mesh_f, M, space.ncp

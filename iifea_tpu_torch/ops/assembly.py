@@ -1,5 +1,5 @@
 """Batched element assembly engine (port of ``iifea_tpu/ops/assembly.py``
-for P1 simplices).
+for P1 and P2 simplices).
 
 Domains are built in numpy on the host and hold their data as tensors on
 ``device`` with the element axis last ("struct of planes", as in the
@@ -43,6 +43,8 @@ class CellCtx(NamedTuple):
     w: torch.Tensor       # (nq,) = wq·|detJ|
     x: torch.Tensor       # (nq, dim) physical quadrature points
     h: torch.Tensor       # () cell diameter
+    hess: torch.Tensor | None = None   # (nq, nb, dim, dim) physical
+    lap: torch.Tensor | None = None    # (nq, nb) basis Laplacians
 
 
 class FacetCtx(NamedTuple):
@@ -52,6 +54,30 @@ class FacetCtx(NamedTuple):
     x: torch.Tensor
     h: torch.Tensor       # () '+' cell diameter
     n: torch.Tensor       # (dim,) outward unit normal of the '+' cell
+    hess: torch.Tensor | None = None
+    lap: torch.Tensor | None = None
+
+
+def lap_phi(ctx) -> torch.Tensor:
+    """Basis Laplacian (nq, nb): the precomputed plane when the domain has
+    one, else the trace of the full physical Hessian."""
+    if ctx.lap is not None:
+        return ctx.lap
+    return torch.einsum("qbdd->qb", ctx.hess)
+
+
+def _ctx_dims(ctx):
+    """vmap's in_dims for a context: the trailing element axis of each
+    tensor, None for an absent (None) field."""
+    return type(ctx)(*(None if v is None else -1 for v in ctx))
+
+
+def _hess_mode(with_hessian) -> str | None:
+    if with_hessian not in (False, True, "lap"):
+        raise ValueError(f"with_hessian must be False, True or 'lap', got "
+                         f"{with_hessian!r}")
+    return None if with_hessian is False else (
+        "lap" if with_hessian == "lap" else "full")
 
 
 @dataclasses.dataclass
@@ -66,6 +92,8 @@ class CellDomain:
     phi: torch.Tensor         # (nq, nb)
     gphi_ref: torch.Tensor    # (nq, nb, dim)
     flat_eldofs_np: np.ndarray  # (nE, ne) host copy of the dof ids
+    hess_ref: torch.Tensor | None = None   # (nq, nb, dim, dim)
+    hess_mode: str | None = None           # None, "full" or "lap"
 
     @property
     def n_elem(self) -> int:
@@ -77,7 +105,16 @@ class CellDomain:
         wdetT = self.wdetT[..., sl]
         gphi = torch.einsum("qbd,deE->qbeE", self.gphi_ref, JinvT)
         phi = self.phi[..., None].expand(*self.phi.shape, wdetT.shape[-1])
-        return CellCtx(phi, gphi, wdetT, self.xqT[..., sl], self.h[sl])
+        hess = lap = None
+        if self.hess_mode == "lap":
+            # tr(Jinvᵀ Href Jinv) = Href : (Jinv Jinvᵀ) on an affine cell
+            G = torch.einsum("dcE,ecE->deE", JinvT, JinvT)
+            lap = torch.einsum("qbde,deE->qbE", self.hess_ref, G)
+        elif self.hess_mode == "full":
+            hess = torch.einsum("dcE,qbde,efE->qbcfE", JinvT, self.hess_ref,
+                                JinvT)
+        return CellCtx(phi, gphi, wdetT, self.xqT[..., sl], self.h[sl],
+                       hess, lap)
 
 
 @dataclasses.dataclass
@@ -92,15 +129,22 @@ class FacetDomain:
     h: torch.Tensor           # (nF,) '+' cell diameter
     normalT: torch.Tensor     # (dim, nF)
     flat_eldofs_np: np.ndarray
+    # (nq, nb, dim, dim, nF) physical Hessians ("full"), (nq, nb, nF)
+    # Laplacians ("lap"), or None
+    hessT: torch.Tensor | None = None
+    hess_mode: str | None = None
 
     @property
     def n_elem(self) -> int:
         return self.wT.shape[-1]
 
     def ctx(self, sl: slice = slice(None)) -> FacetCtx:
+        second = None if self.hessT is None else self.hessT[..., sl]
         return FacetCtx(self.phiT[..., sl], self.gphiT[..., sl],
                         self.wT[..., sl], self.xqT[..., sl], self.h[sl],
-                        self.normalT[..., sl])
+                        self.normalT[..., sl],
+                        second if self.hess_mode == "full" else None,
+                        second if self.hess_mode == "lap" else None)
 
 
 def _soa(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -112,8 +156,9 @@ def _soa(a: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 def build_cell_domain(space: FunctionSpace, cell_ids: np.ndarray,
-                      quad_degree: int, dtype=np.float64, *,
-                      device) -> CellDomain:
+                      quad_degree: int, dtype=np.float64, *, device,
+                      with_hessian: bool | str = False) -> CellDomain:
+    mode = _hess_mode(with_hessian)
     mesh = space.mesh
     cell_ids = np.asarray(cell_ids, dtype=np.int64)
     qp, wq = quadrature.cell_rule(mesh.dim, quad_degree)
@@ -138,15 +183,19 @@ def build_cell_domain(space: FunctionSpace, cell_ids: np.ndarray,
         gphi_ref=torch.as_tensor(el.tabulate_grad(qp).astype(dtype),
                                  device=device),
         flat_eldofs_np=fl,
+        hess_ref=(None if mode is None else torch.as_tensor(
+            el.tabulate_hess(qp).astype(dtype), device=device)),
+        hess_mode=mode,
     )
 
 
 def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
-                       quad_degree: int, dtype=np.float64, *,
-                       device) -> FacetDomain:
+                       quad_degree: int, dtype=np.float64, *, device,
+                       with_hessian: bool | str = False) -> FacetDomain:
     """'+'-restricted facet domain: the '+' cell is the adjacent cell with
     the larger material marker (ties: slot order); a boundary facet uses its
     only cell."""
+    mode = _hess_mode(with_hessian)
     mesh = space.mesh
     fd = mesh.facet_data
     facet_ids = np.asarray(facet_ids, dtype=np.int64)
@@ -195,6 +244,15 @@ def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
     gphi = np.einsum("Fqbd,Fde->Fqbe", gphi_tab[plus_local], Jinv)
     w = fwq[None, :] * meas[:, None]
     fl = flat_dofs(np.asarray(space.cell_dofs)[plus_cell], space.n_fields)
+    second = None
+    if mode is not None:
+        href = np.stack([el.tabulate_hess(p) for p in ref_pts])[plus_local]
+        if mode == "lap":
+            G = np.einsum("Fdc,Fec->Fde", Jinv, Jinv)
+            second = np.einsum("Fqbde,Fde->Fqb", href, G)
+        else:
+            second = np.einsum("Fdc,Fqbde,Fef->Fqbcf", Jinv, href, Jinv)
+        second = _soa(second, dtype, device)
     return FacetDomain(
         eldofsT=torch.as_tensor(np.ascontiguousarray(fl.T),
                                 dtype=torch.int64, device=device),
@@ -206,6 +264,8 @@ def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
                           device=device),
         normalT=_soa(nrm, dtype, device),
         flat_eldofs_np=fl,
+        hessT=second,
+        hess_mode=mode,
     )
 
 
@@ -229,10 +289,11 @@ class Form:
         self.n_dofs = space.n_dofs
         self.n_fields = space.n_fields
 
-    def _local(self, kern, nb, params, with_jac):
+    def _local(self, kern, nb, params, with_jac, ctx_dims):
         """vmapped per-element (jacobian, residual) of a term's kernel; the
         residual is the primal of the jacfwd evaluation. Without the
-        jacobian the first slot repeats the residual (vmap maps tensors)."""
+        jacobian the first slot repeats the residual (vmap maps tensors).
+        ``ctx_dims``: the context's ``_ctx_dims``."""
         nf = self.n_fields
 
         def flat_res(uf, al, c):
@@ -245,7 +306,7 @@ class Form:
                 return jacfwd(flat_res, has_aux=True)(uf, al, c)
             return flat_res(uf, al, c)
 
-        return vmap(local, in_dims=(-1, -1, -1), out_dims=-1)
+        return vmap(local, in_dims=(-1, -1, ctx_dims), out_dims=-1)
 
     def _gather(self, dom, vec, sl=slice(None)):
         """(nb, n_fields, nE) local values of a dof vector."""
@@ -264,7 +325,8 @@ class Form:
             ne, nE = dom.eldofsT.shape
             K = (torch.zeros((ne, ne, nE), dtype=u.dtype, device=u.device)
                  if with_jac else None)
-            vloc = self._local(kern, ne // nf, params, with_jac)
+            vloc = self._local(kern, ne // nf, params, with_jac,
+                               _ctx_dims(dom.ctx(slice(0, 0))))
             for s in range(0, nE, JAC_CHUNK):
                 sl = slice(s, min(s + JAC_CHUNK, nE))
                 al = {k: self._gather(dom, v, sl) for k, v in aux.items()}
@@ -331,7 +393,8 @@ def integrate(domain, kernel, u: torch.Tensor, aux=None, params=None,
         return vec[domain.eldofsT].reshape(ne // n_fields, n_fields, nE)
 
     al = {k: gather(v) for k, v in (aux or {}).items()}
-    vals = vmap(kernel, in_dims=(-1, -1, -1, None), out_dims=0)(
-        gather(u), al, domain.ctx(), params
+    ctx = domain.ctx()
+    vals = vmap(kernel, in_dims=(-1, -1, _ctx_dims(ctx), None), out_dims=0)(
+        gather(u), al, ctx, params
     )
     return vals.sum()

@@ -303,8 +303,9 @@ def _pinv(A: torch.Tensor, iters: int | None = None,
 
 def _residual2(S: StencilOperator2D, b, x):
     """b − A x on scalar 2D planes: one launch of the block kernel's
-    residual pass for f32, the plain version otherwise."""
-    if S.dtype == torch.float32:
+    residual pass on a card (f32 or f64) and its plain version for f32 on
+    the CPU, the plain version otherwise."""
+    if S.device.type == "cuda" or S.dtype == torch.float32:
         return sk.stencil_mv_block(S.coeffs, x, S.shape, S.radius, b=b)
     return sk.residual_plain(S.coeffs, b, x, S.shape, S.radius)
 

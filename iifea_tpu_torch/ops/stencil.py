@@ -12,11 +12,12 @@ in 3D k = ((oi+r)·m + (oj+r))·m + (ok+r) with node id (i·ny1 + j)·nz1 + k
 ``(m^dim, *shape)`` contiguous tensors; the TPU tile padding of the
 reference has no counterpart here.
 
-f32 applies and sweeps go through the hand-written kernels of
+Applies and sweeps on a card go through the hand-written kernels of
 ``ops/stencil_kernels.py`` (a block apply is one launch, a level's
 smoothing call one launch on the small 2D lattices, a 3D block sweep one
-launch); other dtypes (the f64
-checks) use the plain shifted-slice form ``mv_ref``.
+launch): f32, and f64 for scalar 2D operators; another dtype raises there.
+On the CPU the f32 operators go through the same wrappers (their plain
+versions) and the others use the plain shifted-slice form ``mv_ref``.
 
 ``probe_multi`` extracts the planes from any operator given only its
 stacked application (k, n) -> (k, n), by coloured probing: the (2r+1)^dim
@@ -118,8 +119,9 @@ class StencilOperator2D:
                                  self.radius)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A_b x: the stencil_mv kernel for f32, ``mv_ref`` otherwise."""
-        if self.coeffs.dtype == torch.float32:
+        """y = A_b x: the stencil_mv kernel on a card (f32 or f64) and for
+        f32 on the CPU (its plain version), ``mv_ref`` otherwise."""
+        if self.device.type == "cuda" or self.dtype == torch.float32:
             return sk.stencil_mv(self.coeffs, x, self.shape, self.radius)
         return self.mv_ref(x)
 
@@ -132,10 +134,11 @@ class StencilOperator2D:
                with_residual: bool = False):
         """``sweeps`` weighted-Jacobi sweeps x ← x + ω·invd·(b − A x) from x
         (None: from zero), and with ``with_residual`` also b − A x_ν
-        (returns the pair): the ``smooth`` kernel entry for f32, one launch
-        per call on the small lattices. ``invd`` and ``b`` are flat (n,)
-        vectors."""
-        fn = (sk.smooth if self.coeffs.dtype == torch.float32
+        (returns the pair): the ``smooth`` kernel entry on a card (f32 or
+        f64), one launch per call on the small lattices, and its plain
+        version on the CPU. ``invd`` and ``b`` are flat (n,) vectors."""
+        fn = (sk.smooth
+              if self.device.type == "cuda" or self.dtype == torch.float32
               else sk.smooth_plain)
         return fn(self.coeffs, invd, b, x, omega, sweeps, self.shape,
                   self.radius, with_residual)

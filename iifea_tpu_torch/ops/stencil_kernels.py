@@ -23,7 +23,12 @@ wrapper counts its kernel launches in ``<wrapper>.launches``; a smoothing
 call that takes one launch per pass counts its sweeps under
 ``jacobi_smooth`` and its residual under ``stencil_mv_block``.
 
-Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous f32 planes
+Instances: the 2D kernels take f32 at r = 1, 2 for 1 to 3 fields and at
+r = 3 (the biharmonic's 49 taps) for one field, and f64 at r = 1, 2, 3 for
+one field (``INSTANCES_2D``); the 3D kernels f32 at r = 1, 2. The operands
+of one call share one dtype; omega is passed in double.
+
+Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous planes
 with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
 ``((2r+1)³, nx1, ny1, nz1)`` with k = ((oi+r)·m + (oj+r))·m + (ok+r) and
 node id (i·ny1 + j)·nz1 + k. Vectors are flat. x is zero outside the
@@ -255,11 +260,12 @@ def build() -> Path:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.stencil2d_mv.argtypes = [p, p, p, i, i, i, p]
-    lib.stencil2d_block.argtypes = [p, p, p, p, f, p, i, i, i, i, i, p]
-    lib.stencil2d_smooth.argtypes = [p, p, p, p, f, i, p, p, p, i, i, i, i,
-                                     p]
-    lib.stencil2d_smooth_plan.argtypes = [i, i, i, i]
+    d = ctypes.c_double
+    lib.stencil2d_mv.argtypes = [p, p, p, i, i, i, i, p]
+    lib.stencil2d_block.argtypes = [p, p, p, p, d, p, i, i, i, i, i, i, p]
+    lib.stencil2d_smooth.argtypes = [p, p, p, p, d, i, p, p, p, i, i, i, i,
+                                     i, p]
+    lib.stencil2d_smooth_plan.argtypes = [i, i, i, i, i]
     lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, p]
     lib.stencil3d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, i, p]
     lib.stencil3d_cheb.argtypes = [p, p, p, p, p, f, f, p, i, i, i, i, p]
@@ -274,12 +280,40 @@ def _lib() -> ctypes.CDLL:
 
 # -- wrappers -------------------------------------------------------------------
 
+# (dtype, radius, fields) of the 2D kernels' instances (csrc/stencil2d.cu)
+INSTANCES_2D = frozenset(
+    [(torch.float32, r, nf) for r in (1, 2) for nf in (1, 2, 3)]
+    + [(torch.float32, 3, 1)]
+    + [(torch.float64, r, 1) for r in (1, 2, 3)])
+
+
+def _check_instance(dtype, radius, nF, dim):
+    """Refuse operands no kernel instance takes: ValueError for a radius,
+    TypeError for a dtype (the plain versions follow the same rule, so the
+    host runs what the card runs)."""
+    if dim == 3:
+        if radius not in (1, 2):
+            raise ValueError(f"the 3D kernels take radius 1 or 2, got "
+                             f"{radius}")
+        if dtype != torch.float32:
+            raise TypeError(f"the 3D kernels take float32, got {dtype}")
+        return
+    if radius not in (1, 2, 3):
+        raise ValueError(f"radius must be 1, 2 or 3, got {radius}")
+    if (dtype, radius, nF) not in INSTANCES_2D:
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"stencil kernels take float32 or float64, got "
+                            f"{dtype}")
+        if dtype == torch.float64:
+            raise TypeError(f"the float64 kernels take one field, got {nF}")
+        raise ValueError(f"the radius-{radius} kernels take one field, got "
+                         f"{nF}")
+
 
 def _check(C, x, shape, radius, *planes, dim: int = 2) -> str:
     """Validate the operands of a ``dim``-D kernel; returns the device type
     ('cpu' or 'cuda')."""
-    if radius not in (1, 2):
-        raise ValueError(f"radius must be 1 or 2, got {radius}")
+    _check_instance(C.dtype, radius, 1, dim)
     shape = tuple(shape)
     if len(shape) != dim:
         raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
@@ -294,8 +328,8 @@ def _check(C, x, shape, radius, *planes, dim: int = 2) -> str:
         if tuple(v.shape) != (n,):
             raise ValueError(f"vector {tuple(v.shape)} != {(n,)}")
     for t in (C, x, *planes):
-        if t.dtype != torch.float32:
-            raise TypeError(f"stencil kernels take float32, got {t.dtype}")
+        if t.dtype != C.dtype:
+            raise TypeError(f"operands in {t.dtype} and {C.dtype}")
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
         if not t.is_contiguous():
@@ -305,20 +339,26 @@ def _check(C, x, shape, radius, *planes, dim: int = 2) -> str:
     return x.device.type
 
 
+def _f64(t) -> int:
+    """The kernels' scalar-type flag of a checked operand."""
+    return int(t.dtype == torch.float64)
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def stencil_mv(C, x, shape, radius):
-    """y = A x (f32). CPU: plain version; CUDA: the stencil2d_mv kernel."""
+    """y = A x (f32, or f64). CPU: plain version; CUDA: the stencil2d_mv
+    kernel."""
     if _check(C, x, shape, radius) == "cpu":
         return stencil_mv_plain(C, x, shape, radius)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = _lib().stencil2d_mv(
             C.data_ptr(), x.data_ptr(), y.data_ptr(), shape[0], shape[1],
-            radius, torch.cuda.current_stream().cuda_stream,
+            radius, _f64(x), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil2d_mv")
     stencil_mv.launches += 1
@@ -337,16 +377,15 @@ def _check_block(C, shape, radius, vectors, binv=None, dim: int = 2):
     (nF, nF, m^dim, *shape), or scalar planes (m^dim, *shape) as nF = 1;
     ``vectors`` (nF·n,); ``binv`` (nF, nF, n), scalar (n,). Returns (device
     type, nF)."""
-    if radius not in (1, 2):
-        raise ValueError(f"radius must be 1 or 2, got {radius}")
-    shape = tuple(shape)
-    if len(shape) != dim:
-        raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
-    m2 = (2 * radius + 1) ** dim
     block = C.dim() == dim + 3
     nF = C.shape[0] if block else 1
     if nF not in (1, 2, 3):
         raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
+    _check_instance(C.dtype, radius, nF, dim)
+    shape = tuple(shape)
+    if len(shape) != dim:
+        raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
+    m2 = (2 * radius + 1) ** dim
     if tuple(C.shape) != ((nF, nF, m2, *shape) if block else (m2, *shape)):
         raise ValueError(
             f"coefficients {tuple(C.shape)} are neither (nF, nF, {m2}, "
@@ -365,8 +404,8 @@ def _check_block(C, shape, radius, vectors, binv=None, dim: int = 2):
         tensors.append(binv)
     device = vectors[0].device
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"stencil kernels take float32, got {t.dtype}")
+        if t.dtype != C.dtype:
+            raise TypeError(f"operands in {t.dtype} and {C.dtype}")
         if t.device != device:
             raise ValueError(f"operands on {t.device} and {device}")
         if not t.is_contiguous():
@@ -387,7 +426,7 @@ def _launch_block(mode, C, x, b, binv, omega, shape, radius, nF):
     with torch.cuda.device(y.device):
         rc = _lib().stencil2d_block(
             ptr(C), ptr(x), ptr(b), ptr(binv), float(omega), y.data_ptr(),
-            shape[0], shape[1], radius, nF, mode,
+            shape[0], shape[1], radius, nF, mode, _f64(y),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil2d_block")
@@ -414,7 +453,8 @@ def _apply_cuda(C, x, b, shape, radius, nF):
 
 
 def jacobi_smooth(C, invd, b, x, omega, shape, radius):
-    """y = x + ω·invd·(b − A x) in one pass (f32), on scalar planes. CPU:
+    """y = x + ω·invd·(b − A x) in one pass (f32, or f64), on scalar
+    planes. CPU:
     plain version; CUDA: the sweep pass of the stencil2d_block kernel."""
     if _check(C, x, shape, radius, invd, b) == "cpu":
         return jacobi_smooth_plain(C, invd, b, x, omega, shape, radius)
@@ -422,7 +462,8 @@ def jacobi_smooth(C, invd, b, x, omega, shape, radius):
 
 
 def stencil_mv_block(C, x, shape, radius, b=None):
-    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32) on field-blocked
+    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32; scalar planes also
+    f64) on field-blocked
     vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous (or scalar
     planes, nF = 1); with ``b`` the residual b − A x. CPU: plain version;
     CUDA: ONE launch of the stencil2d_block kernel, which stages the x
@@ -436,12 +477,14 @@ def stencil_mv_block(C, x, shape, radius, b=None):
 
 
 @functools.cache
-def _smooth_route(shape, radius, nF, device_index) -> int:
+def _smooth_route(shape, radius, nF, device_index, f64: bool = False) -> int:
     """GRID where a level's smoothing call fits one fused launch, else
     PER_PASS; asked of the library once per (lattice, radius, fields,
-    device): it decides from the tile count and an occupancy query."""
+    device, scalar type): it decides from the tile count and an occupancy
+    query of that instance."""
     with torch.cuda.device(device_index):
-        route = _lib().stencil2d_smooth_plan(shape[0], shape[1], radius, nF)
+        route = _lib().stencil2d_smooth_plan(shape[0], shape[1], radius, nF,
+                                             int(f64))
     if route not in (PER_PASS, GRID):
         raise RuntimeError(f"stencil2d_smooth_plan failed: {route}")
     return route
@@ -479,7 +522,7 @@ def _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius, nF,
             None if x is None else x.data_ptr(), float(omega), sweeps,
             out.data_ptr(), None if tmp is None else tmp.data_ptr(),
             None if res is None else res.data_ptr(), shape[0], shape[1],
-            radius, nF, torch.cuda.current_stream().cuda_stream,
+            radius, nF, _f64(b), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil2d_smooth")
     smooth.launches += 1
@@ -487,7 +530,8 @@ def _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius, nF,
 
 
 def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
-    """A multigrid level's smoothing call (f32): ``sweeps`` sweeps
+    """A multigrid level's smoothing call (f32; scalar planes also f64):
+    ``sweeps`` sweeps
     x ← x + ω·Binv·(b − A x) from x, or from zero when ``x`` is None (the
     first sweep is then ω·Binv·b and reads no coefficient), and with
     ``with_residual`` also r = b − A x_ν; returns x_ν or (x_ν, r). Scalar
@@ -509,7 +553,8 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
                             with_residual)
     route = PER_PASS
     if sweeps >= 1 and sweeps + bool(with_residual) >= 2:
-        route = _smooth_route(tuple(shape), radius, nF, b.device.index or 0)
+        route = _smooth_route(tuple(shape), radius, nF, b.device.index or 0,
+                              b.dtype == torch.float64)
     return _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius,
                         nF, with_residual)
 

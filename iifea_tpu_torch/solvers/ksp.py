@@ -23,18 +23,21 @@
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
 Not ported yet, and raising ``NotImplementedError``: on CUDA a stencil
-radius the kernels do not take (3: ROADMAP.md item 14).
+radius the kernels do not take (3 in 3D or with several fields:
+ROADMAP.md item 14b).
 
 The MG route (``_mg_solve``) differs from the JAX package in these ways,
 by design:
 
 * ``mixed`` (f32 probe, MG and Krylov, refined against the exact f64
   operator until the f64 relative residual meets rtol) turns on by default
-  for f64 systems on CUDA, where the hand-written stencil kernels are f32
-  and an f64 stencil apply would run the plain ``mv_ref``; JAX turns it on
-  for f64 systems on a TPU. On the CPU it stays off, so an f64 system runs
-  the whole MG-Krylov solve in f64, as JAX does on the CPU. On CUDA a
-  non-f32 stencil (``mixed=False`` with an f64 system) is refused.
+  for f64 systems on CUDA at radius 1 and 2; JAX turns it on for f64
+  systems on a TPU. At radius 3 (the biharmonic, κ ~ h⁻⁴) it stays off on
+  CUDA too: the f64 route runs the f64 instances of the hand kernels, the
+  JAX package's own arithmetic off a TPU (``MIXED_DEFAULT_MAX_RADIUS``).
+  On the CPU it stays off, so an f64 system runs the whole MG-Krylov solve
+  in f64, as JAX does on the CPU. On CUDA an f64 stencil is taken by the
+  2D scalar kernels only; 3D and block operators refuse it.
 * The Krylov matvec is ``S.mv``, the hand kernel for f32 stencils, as in
   ``BinnedLatticeSolver``; JAX applies ``S.mv_ref`` because of a TPU
   layout clash between a Pallas call and the V-cycle's convolutions.
@@ -190,6 +193,39 @@ def _run_stencil_krylov(S, mg, Q, b, x0, rtol, atol, method, max_it,
     return krylov.gmres(S.mv, b, x0, restart=restart, **kw)
 
 
+# the largest stencil radius at which pc='mg' on CUDA runs mixed (f32
+# passes refined in f64) by default; above it, the f64 route
+MIXED_DEFAULT_MAX_RADIUS = 2
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _cuda_mg_refusal(shape, n_fields, radius, dtype) -> Exception | None:
+    """Why the card's stencil kernels cannot take this MG solve, or None:
+    2D scalar operators at radius 1–3 in f32 or f64, 2D block operators at
+    radius 1, 2 in f32, 3D ones (scalar and block) at radius 1, 2 in f32."""
+    if radius not in (1, 2, 3):
+        return NotImplementedError(
+            f"stencil_radius={radius}: the CUDA stencil kernels take radius "
+            "1 to 3")
+    if radius == 3 and (len(shape) == 3 or n_fields > 1):
+        return NotImplementedError(
+            f"stencil_radius=3 {'in 3D' if len(shape) == 3 else 'with '}"
+            f"{'' if len(shape) == 3 else f'{n_fields} fields'}: the CUDA "
+            "kernels take radius 3 for 2D scalar operators only (ROADMAP.md "
+            "item 14b)")
+    if dtype == torch.float64 and (len(shape) == 3 or n_fields > 1):
+        return ValueError(
+            "on CUDA pc='mg' runs f64 stencils on 2D scalar operators only: "
+            "pass mixed=True (f32 kernels, f64 refinement)")
+    if dtype not in (torch.float32, torch.float64):
+        return ValueError(
+            f"on CUDA pc='mg' runs f32 or f64 stencil kernels, got {dtype}")
+    return None
+
+
 def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
               n_fields=1, stencil_radius=2, restart=300, mixed=None):
     """Assemble the projected operator into stencil form and solve with an
@@ -204,17 +240,15 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
     )
 
     shape = tuple(int(s) for s in lattice_shape)
+    on_card = _on_card(b)
     if mixed is None:
-        mixed = b.dtype == torch.float64 and b.device.type == "cuda"
+        mixed = (b.dtype == torch.float64 and on_card
+                 and stencil_radius <= MIXED_DEFAULT_MAX_RADIUS)
     sdt = torch.float32 if mixed else b.dtype
-    if b.device.type == "cuda" and sdt != torch.float32:
-        raise ValueError(
-            "on CUDA pc='mg' runs the f32 stencil kernels: pass an f32 "
-            "system or mixed=True (the default for f64 systems)")
-    if b.device.type == "cuda" and stencil_radius not in (1, 2):
-        raise NotImplementedError(
-            f"stencil_radius={stencil_radius}: the CUDA stencil kernels take "
-            "radius 1 or 2 (radius 3, the biharmonic: ROADMAP.md item 14)")
+    if on_card:
+        err = _cuda_mg_refusal(shape, n_fields, stencil_radius, sdt)
+        if err is not None:
+            raise err
     full_f32()
     Q = None
     if n_fields > 1:

@@ -43,7 +43,8 @@ def test_torch_demo_poisson_matches_jax(capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--k", "2"], "item 12d"),
+    (["--k", "3"], "degree is 1 or 2"),
+    (["--dim", "3", "--k", "2"], "linear"),
     (["--devices", "2"], "item 16"),
     (["--mesh-root", "meshes"], "item 12e"),
 ])

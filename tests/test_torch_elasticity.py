@@ -107,7 +107,8 @@ def test_torch_demo_elasticity_matches_jax(systems, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--k", "2"], "item 12d"),
+    (["--k", "2", "--pc", "mg"], "no lattice"),
+    (["--k", "3"], "degree is 1 or 2"),
     (["--mesh-root", "meshes"], "item 12e"),
 ])
 def test_torch_demo_elasticity_refuses_unported(argv, msg):

@@ -1,6 +1,7 @@
 """The port's single-launch CUDA entries against their plain PyTorch
-versions, on a card: ``stencil_mv``, ``jacobi_smooth`` (2D), the 2D block
-apply through ``StencilOperatorBlock2D.mv``, ``stencil_mv3``,
+versions, on a card: ``stencil_mv``, ``jacobi_smooth`` (2D; also their
+radius-3 and f64 instances with ``stencil_mv_block`` and ``smooth``), the
+2D block apply through ``StencilOperatorBlock2D.mv``, ``stencil_mv3``,
 ``jacobi_smooth3``, ``cheb_step3`` and the 3D block entry
 ``stencil3d_block`` (apply, residual, sweep, sweep from zero; 1 to 3
 fields). Every case skips without a CUDA device.
@@ -60,6 +61,54 @@ def test_torch_stencil_kernels_on_card(shape, radius):
     assert _close(y, sk.stencil_mv_plain(C, x, shape, radius))
     assert _close(s, sk.jacobi_smooth_plain(C, invd, b, x, 0.67, shape,
                                             radius))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17, 17), (40, 200), (129, 129)])
+@pytest.mark.parametrize("dtype,radius", [(torch.float32, 3),
+                                          (torch.float64, 1),
+                                          (torch.float64, 2),
+                                          (torch.float64, 3)])
+def test_torch_stencil_instances_on_card(dtype, radius, shape):
+    """The radius-3 and f64 instances of the 2D scalar entries (the
+    biharmonic's): stencil_mv, jacobi_smooth, the residual of
+    stencil_mv_block and smooth (two sweeps from zero with the residual,
+    two from x) against their plain versions, 1e-4 in f32 and 1e-12 in
+    f64, in the operands' dtype."""
+    dev = _card()
+    rng = np.random.default_rng(radius)
+    n, m2 = shape[0] * shape[1], (2 * radius + 1) ** 2
+    C = torch.tensor(rng.uniform(-0.1, 0.1, (m2, *shape)), dtype=dtype,
+                     device=dev)
+    C[m2 // 2] += 4.0
+    x, b = (torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+            for _ in range(2))
+    invd = (1.0 / C[m2 // 2]).reshape(-1).contiguous()
+    tol = 1e-12 if dtype == torch.float64 else TOL
+
+    def close(got, ref):
+        assert got.dtype == dtype
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+    n0 = sk.launches()
+    close(sk.stencil_mv(C, x, shape, radius),
+          sk.stencil_mv_plain(C, x, shape, radius))
+    close(sk.jacobi_smooth(C, invd, b, x, 0.67, shape, radius),
+          sk.jacobi_smooth_plain(C, invd, b, x, 0.67, shape, radius))
+    close(sk.stencil_mv_block(C, x, shape, radius, b=b),
+          sk.residual_plain(C, b, x, shape, radius))
+    for start in (None, x):
+        got = sk.smooth(C, invd, b, start, 0.67, 2, shape, radius,
+                        with_residual=start is None)
+        ref = sk.smooth_plain(C, invd, b, start, 0.67, 2, shape, radius,
+                              with_residual=start is None)
+        for g, r_ in zip(*((got, ref) if start is None else ((got,),
+                                                             (ref,)))):
+            close(g, r_)
+    torch.cuda.synchronize()
+    n1 = sk.launches()
+    assert n1["stencil_mv"] == n0["stencil_mv"] + 1
+    assert n1["stencil_mv_block"] > n0["stencil_mv_block"]
 
 
 @pytest.mark.gpu

@@ -85,7 +85,9 @@ def test_torch_port_imports_no_jax():
             ", iifea_tpu_torch.ops.stencil_kernels"
             ", iifea_tpu_torch.mesh.generators, iifea_tpu_torch.solvers"
             ", iifea_tpu_torch.solvers.newton, iifea_tpu_torch.solvers.precond"
-            ", iifea_tpu_torch.utils.logging, iifea_tpu_torch.api; "
+            ", iifea_tpu_torch.utils.logging, iifea_tpu_torch.api"
+            ", iifea_tpu_torch.models.biharmonic, iifea_tpu_torch.mesh.bspline"
+            ", iifea_tpu_torch.demos.biharmonic; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'iifea_tpu' not in sys.modules, 'iifea_tpu imported'")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,8 +1,9 @@
 """The port's solves on a card against its own host runs: ``solve_ksp(pc=
-'mg')`` for scalar 2D (CG, GMRES), 2D and 3D elasticity (the block
-kernels), the single-level 3D case whose coarse inverse is the whole
-preconditioner, ``pc='asm'`` and ``solve_nonlinear(linear_pc='mg')``. Every
-case skips without a CUDA device.
+'mg')`` for scalar 2D (CG, GMRES; mixed and f64), 2D and 3D elasticity
+(the block kernels), the single-level 3D case whose coarse inverse is the
+whole preconditioner, the biharmonic (radius 3, f64 and mixed),
+``pc='asm'`` and ``solve_nonlinear(linear_pc='mg')``. Every case skips
+without a CUDA device.
 
 The file imports nothing of JAX, so it also runs on a machine that has a
 card and no JAX, without the package's conftest:
@@ -17,8 +18,10 @@ from iifea_tpu_torch.api import l2_norm
 from iifea_tpu_torch.mesh.core import FunctionSpace
 from iifea_tpu_torch.mesh.generators import (
     immersed_cube_problem,
+    immersed_square_bspline_problem,
     immersed_square_problem,
 )
+from iifea_tpu_torch.models.biharmonic import BiharmonicProblem
 from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
 from iifea_tpu_torch.models.poisson import PoissonProblem
 from iifea_tpu_torch.ops import stencil_kernels as sk
@@ -71,8 +74,12 @@ def test_torch_solve_ksp_mg_on_card(method):
     assert x.is_cuda and info.converged
     assert sk.stencil_mv.launches > 0
     assert _supported_agree(x, x_ref, A_h)
-    with pytest.raises(ValueError, match="f32 stencil kernels"):
-        solve_ksp(A, b, mixed=False, **{**solve, "rtol": 1e-8})
+    # mixed=False runs the f64 instances of the same kernels
+    sk.reset_launches()
+    x64, info64 = solve_ksp(A, b, mixed=False, **solve)
+    torch.cuda.synchronize()
+    assert x64.is_cuda and info64.converged and sk.stencil_mv.launches > 0
+    assert _supported_agree(x64, x_ref, A_h)
 
 
 @pytest.mark.gpu
@@ -197,3 +204,45 @@ def test_torch_newton_mg_on_card():
     dom = form.terms[0][0]
     diff = l2_norm(out[dev][3].cpu() - u_f, dom) / l2_norm(u_f, dom)
     assert diff <= 1e-5
+
+
+def _biharmonic(device, n_bg):
+    mesh, M, shape = immersed_square_bspline_problem(n_fg=2 * n_bg,
+                                                     n_bg=n_bg, device=device)
+    prob = BiharmonicProblem(mesh, device=device)
+    A, b = assemble_background_system(
+        prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
+                               device=device), M)
+    return prob, M, shape, A, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bg", [15, 63])
+def test_torch_biharmonic_mg_on_card(n_bg):
+    """solve_ksp(gmres, mg, stencil_radius=3) on the card: the f64 route by
+    default (the radius-3 f64 kernel instances) with the host's iteration
+    count within 2 and its solution to 1e-8 in L2 over the cell domain;
+    the f32-mixed route converges too; 3D radius 3 is refused."""
+    dev = _card()
+    prob, M, shape, A, b = _biharmonic(dev, n_bg)
+    prob_h, M_h, _, A_h, b_h = _biharmonic("cpu", n_bg)
+    solve = dict(method="gmres", pc="mg", rtol=1e-10, lattice_shape=shape,
+                 stencil_radius=3, monitor=False)
+    x_h, info_h = solve_ksp(A_h, b_h, **solve)
+    sk.reset_launches()
+    x, info = solve_ksp(A, b, **solve)
+    torch.cuda.synchronize()
+    assert x.is_cuda and info.converged and abs(info.iters - info_h.iters) <= 2
+    assert sk.stencil_mv.launches > 0
+    # a 17² net is one level (its dense inverse); 65² smooths 65² and 33²
+    assert (sk.jacobi_smooth.launches + sk.smooth.launches > 0) == (n_bg > 15)
+    u_h = M_h.mv(x_h)
+    diff = l2_norm(M.mv(x).cpu() - u_h, prob_h.cell_dom)
+    assert diff <= 1e-8 * l2_norm(u_h, prob_h.cell_dom)
+    x32, info32 = solve_ksp(A, b, mixed=True, **solve)
+    r = b - A.mv(x32)
+    assert info32.converged and float(torch.linalg.vector_norm(r)) < 1e-10 * \
+        float(torch.linalg.vector_norm(b))
+    with pytest.raises(NotImplementedError, match="14b"):
+        solve_ksp(None, torch.zeros(9 ** 3, dtype=torch.float64, device=dev),
+                  **{**solve, "lattice_shape": (9, 9, 9)})

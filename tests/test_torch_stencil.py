@@ -81,8 +81,14 @@ def test_torch_jacobi_smooth_matches_pallas():
 def test_torch_stencil_wrappers_reject_bad_operands():
     C = torch.zeros(25, 5, 6)
     x = torch.zeros(30)
+    # f32 and f64 operators are taken (the f64 instances), mixed or other
+    # dtypes are not
+    assert sk.stencil_mv(C.double(), x.double(), (5, 6), 2).dtype == \
+        torch.float64
     with pytest.raises(TypeError):
-        sk.stencil_mv(C.double(), x.double(), (5, 6), 2)
+        sk.stencil_mv(C.double(), x, (5, 6), 2)
+    with pytest.raises(TypeError):
+        sk.stencil_mv(C.half(), x.half(), (5, 6), 2)
     with pytest.raises(ValueError):
         sk.stencil_mv(C, torch.zeros(31), (5, 6), 2)
     with pytest.raises(ValueError):
