@@ -32,7 +32,13 @@ line; the first failure exits non-zero:
      against its plain versions for 1 to 3 fields, r = 1, 2, at small
      shapes and at every level shape of the 3D block V-cycle (97³ … 13³),
      scalar planes also against stencil_mv3 / jacobi_smooth3, a soak of
-     interleaved launches, and times at 3 and 2 fields.
+     interleaved launches, and times at 3 and 2 fields. Then the radius-3
+     instances of the three scalar kernels (the 3D biharmonic's, f32 and
+     f64; the Chebyshev step with β = 0 and β ≠ 0) against their plain
+     versions (f64 to 1e-12) at odd shapes and at 65³, 33³ and 17³, one
+     launch a call, a 402-launch soak at 65³, every scalar 3D instance's
+     registers and spill from the compiler (no spill allowed), and their
+     times at those three shapes.
   4. small reference: the card's n_bg=64 2D solution checked with a host
      f64 residual, and the n_bg=24 card and host solutions compared; the
      Chebyshev smoother option inside the n_bg=64 solve.
@@ -101,6 +107,21 @@ line; the first failure exits non-zero:
      and shape (the radius-3 f64 instances by default), three warm solves
      staged, a profiled one, peak memory, error norms below n_bg = 127's;
      then the other route (f32 mixed), counted and capped.
+  18. small_reference_biharmonic3: the 3D biharmonic (P2 tetrahedra,
+     quadratic B-spline box, radius-3 3D stencils) at n_bg = 7 and 15
+     against host SuperLU (L2_rel to 2e-2) and the port's host f64 run
+     (iterations ±2), and at 7, 15 and 31 against the JAX package's
+     recorded norms (1e-5 relative).
+  19. biharmonic3: ``demos/biharmonic.py --dim 3 --ref 3``'s problem, n_bg
+     = 63 (65³ = 274,625 background dofs): host set-up per stage with the
+     peak resident set, the assembly, ``solve_ksp(gmres, pc='mg',
+     stencil_radius=3)`` counted per kernel, instance and shape (no plain
+     apply on the card outside the dense coarse inverse), three warm
+     solves staged, a profiled one, peak memory, the f64 residual and the
+     L2/H1/H2 norms against the JAX package's ref-3 row (1e-5 relative);
+     then the f32-mixed route, counted and capped.
+  20. demo_biharmonic3: ``python3 -m iifea_tpu_torch.demos.biharmonic --dim
+     3 --ref 0`` on the card against the same demo on the host.
 
 Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
 the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
@@ -112,8 +133,9 @@ main-path solves (2D, 3D and elasticity, added) and launches × (device ms
 first (2x513x513), and a smoothing call is booked by its form
 (``smooth_call@…:pre`` from zero with the residual, ``:post`` from x).
 The line before the last is the kernel summary JSON (the radius-3
-instances as rows of their kernel's name with an ``instance`` key, their
-launches from the biharmonic's two routes), the last line the device JSON.
+instances, 2D and 3D, as rows of their kernel's name with an ``instance``
+key, their launches from the biharmonics' two routes), the last line the
+device JSON.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -890,6 +912,7 @@ def phase_kernels3():
         del C, x, b, invd, d
     torch.cuda.empty_cache()
     rows += kernels3_block(worst, dev)
+    rows += kernels3_r3(worst, dev)
     return worst, rows
 
 
@@ -1739,7 +1762,8 @@ def plain_on_card(counts: Counter):
     plains = {"stencil_mv_plain": sk.stencil_mv_plain,
               "stencil_mv3_plain": sk.stencil_mv3_plain}
     denses = {name: getattr(multigrid, name)
-              for name in ("_dense_inverse", "_dense_inverse_block")}
+              for name in ("_dense_inverse", "_dense_inverse3",
+                           "_dense_inverse_block")}
     where = ["elsewhere"]
 
     def counting(plain):
@@ -2563,19 +2587,23 @@ def phase_demo_biharmonic():
     radius-3 kernels), held against the same demo run in this process on
     the host: the same iteration count, relative L2/H1/H2 errors equal to
     DEMO_NORMS_BH relative."""
+    biharmonic_demo(["--ref", "2"], "demo_biharmonic")
+
+
+def biharmonic_demo(argv, tag):
+    """``python3 -m iifea_tpu_torch.demos.biharmonic`` with ``argv`` on the
+    card against the same demo run in this process on the host."""
     import io
 
     from iifea_tpu_torch.demos import biharmonic as demo
 
-    argv = ["--ref", "2"]
     wall = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "iifea_tpu_torch.demos.biharmonic", *argv],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - wall
     if res.returncode != 0:
-        fail(f"biharmonic demo exited {res.returncode}: "
-             f"{res.stderr[-2000:]}")
+        fail(f"{tag} exited {res.returncode}: {res.stderr[-2000:]}")
     out = res.stdout
     conv = re.search(r"Converged in (\d+) iterations", out)
     norms = {}
@@ -2586,22 +2614,494 @@ def phase_demo_biharmonic():
         host = demo.main(argv + ["--device", "cpu"])
     rel = {k: abs(v - host["norms"][k]) / host["norms"][k]
            for k, v in norms.items()}
-    phase("demo_biharmonic", argv=argv, seconds=wall,
+    phase(tag, argv=argv, seconds=wall,
           iters=int(conv.group(1)) if conv else None, error_norms=norms,
           host_iters=host["info"].iters,
           host_error_norms={k: host["norms"][k] for k in norms},
           norms_rel_diff=rel)
     if not (conv and int(conv.group(1)) == host["info"].iters
             and max(rel.values()) <= DEMO_NORMS_BH):
-        fail(f"biharmonic demo: card norms {norms} differ from the host's "
-             f"{host['norms']}")
+        fail(f"{tag}: card norms {norms} (iterations "
+             f"{conv and conv.group(1)}) differ from the host's "
+             f"{host['norms']} ({host['info'].iters})")
+
+
+# -- the 3D biharmonic (radius-3 3D stencils, f64 and f32 routes) ----------------
+
+N_BG_BH3 = 63                    # demos/biharmonic.py --dim 3 --ref 3
+# its V-cycle smooths 65³, 33³ and 17³ (9³ is dense)
+LEVELS_BH3 = [(s_,) * 3 for s_ in (65, 33, 17)]
+ODD_SHAPES3 = [(9, 11, 13), (13, 10, 17)]
+SOAK3_R3_ROUNDS = 67             # x 3 kernels x 2 dtypes = 402 launches
+NAMES3 = ("stencil_mv3", "jacobi_smooth3", "cheb_step3")
+# The JAX package's rows of demos/biharmonic.py --mesh-root synthetic --dim 3
+# --ref 0..3 (f64 gmres+mg on a CPU; studies/biharmonic_synthetic.jsonl, the
+# nested-grid rows, whose "L2", "H1", "H2" columns hold the demo's relative
+# norms): n_bg -> (L2_rel, H1_rel, H2_rel)
+JAX_ROWS_BH3 = {
+    7: (0.1428220610425672, 0.12418013668221375, 0.2746447425956136),
+    15: (0.02017422759514977, 0.023812133154838353, 0.15326933943776525),
+    31: (0.005758727846594967, 0.006268661317644784, 0.08687087530315084),
+    63: (0.0033229229058757723, 0.0022137878170189924, 0.05196277158289589),
+}
+JAX_ROW_REL = 1e-5               # the card's norms against those rows
+# ... at n_bg = 63, where a 1e-10 residual leaves the norms uncertain by
+# ~1e-5 (κ ~ h⁻⁴): on an H100 the converged solution (rtol 1e-12, the
+# biharmonic3_tight line) lies 1.1–1.3e-5 from the JAX row (that row's own
+# 1e-10 solve), the 1e-10 one 1.5–2.4e-5; two 1e-10 solves may differ by
+# the sum of their distances from the converged one, and the bound leaves
+# twice that
+JAX_ROW_REL_63 = 5e-5
+TIGHT_RTOL = 1e-12               # the converged yardstick at n_bg = 63
+# the host's f64 cycle takes 12 / 684 / 432 iterations at n_bg = 7 / 15 /
+# 31 (GMRES(300)); the bound catches a cycle that stops contracting
+MAX_GMRES_ITERS_BH3 = 3000
+PEAK_GIB = 80.0                  # the card's memory
+
+
+def kernels3_r3(worst, dev):
+    """The 3D biharmonic's instances: stencil_mv3, jacobi_smooth3 and
+    cheb_step3 (β = 0 and β ≠ 0) at radius 3 in f32 and f64 against their
+    plain versions (TOL, TOL64) at odd shapes and at every level of the
+    65³ hierarchy, one launch a call; a soak of SOAK3_R3_ROUNDS rounds of
+    the three at 65³ in both types, bitwise against each first result;
+    each instance's registers and spill from the compiler's report (no
+    spill allowed); device, call and bound times at 65³, 33³ and 17³
+    (the plain versions' at 65³). Returns the ``kernel_time`` rows."""
+    import numpy as np
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    rng = np.random.default_rng(3)
+
+    def operands(shape, dt):
+        n = shape[0] * shape[1] * shape[2]
+
+        def t(a):
+            return torch.tensor(a, dtype=dt, device=dev)
+
+        return (t(rng.standard_normal((343, *shape))),
+                t(rng.standard_normal(n)), t(rng.standard_normal(n)),
+                t(rng.uniform(0.5, 2.0, n)), t(rng.standard_normal(n)))
+
+    for dt in (torch.float32, torch.float64):
+        for shape in ODD_SHAPES3 + LEVELS_BH3:
+            C, x, b, invd, d = operands(shape, dt)
+            before = sk.launches()
+            y = sk.stencil_mv3(C, x, shape, 3)
+            j = sk.jacobi_smooth3(C, invd, b, x, 0.67, shape, 3)
+            c0, d0 = sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, shape, 3)
+            c1, d1 = sk.cheb_step3(C, invd, b, x, d.clone(), 1.3, 0.45,
+                                   shape, 3)
+            after = sk.launches()
+            made = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            if made != {"stencil_mv3": 1, "jacobi_smooth3": 1,
+                        "cheb_step3": 2}:
+                fail(f"radius-3 3D calls at {shape} made launches {made}")
+            _check(worst, "stencil_mv3", y,
+                   sk.stencil_mv3_plain(C, x, shape, 3), shape, 3,
+                   quiet=True)
+            _check(worst, "jacobi_smooth3", j,
+                   sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape, 3),
+                   shape, 3, quiet=True)
+            for (cx, cd), d_in, alpha, beta in (((c0, d0), None, 1.7, 0.0),
+                                                ((c1, d1), d, 1.3, 0.45)):
+                rx, rd = sk.cheb_step3_plain(C, invd, b, x, d_in, alpha,
+                                             beta, shape, 3)
+                _check(worst, "cheb_step3", cx, rx, shape, 3, quiet=True)
+                _check(worst, "cheb_step3", cd, rd, shape, 3, quiet=True)
+            del C, x, b, invd, d
+    torch.cuda.empty_cache()
+
+    # soak at 65³: interleaved, never synchronised until the end
+    sh = LEVELS_BH3[0]
+    soak = []
+    for dt in (torch.float32, torch.float64):
+        C, x, b, invd, _ = operands(sh, dt)
+        soak.append(((C, x, b, invd),
+                     (sk.stencil_mv3(C, x, sh, 3),
+                      sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 3),
+                      sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, sh,
+                                    3)[0])))
+    mismatches = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(SOAK3_R3_ROUNDS):
+        for (C, x, b, invd), (y0, j0, c0) in soak:
+            mismatches += (sk.stencil_mv3(C, x, sh, 3) != y0).sum()
+            mismatches += (sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 3)
+                           != j0).sum()
+            mismatches += (sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, sh,
+                                         3)[0] != c0).sum()
+    torch.cuda.synchronize()
+    soak_s = time.perf_counter() - t0
+    for (C, x, b, invd), (y0, j0, c0) in soak:
+        _check(worst, "stencil_mv3", y0, sk.stencil_mv3_plain(C, x, sh, 3),
+               sh, 3, quiet=True)
+    phase("soak", launches=SOAK3_R3_ROUNDS * 6, shapes=[list(sh)], radius=3,
+          dtypes=["f32", "f64"], seconds=soak_s, mismatches=int(mismatches))
+    if int(mismatches) != 0:
+        fail(f"radius-3 soak: {int(mismatches)} values differ between "
+             "repeats")
+    del soak
+    torch.cuda.empty_cache()
+
+    instances = []
+    for row in ptxas_report(sk.library_path().with_suffix(
+            ".log").read_text()):
+        # stencil3d_kernel<R, MODE> (f32, r = 1, 2) and
+        # stencil3d_r3_kernel<T, MODE>
+        m = (re.fullmatch(r"stencil3d_kernelI()Li(\d)ELi(\d)EE",
+                          row["kernel"])
+             or re.fullmatch(r"stencil3d_r3_kernelI([fd])()Li(\d)EE",
+                             row["kernel"]))
+        if m:
+            instances.append({
+                "dtype": "f64" if m.group(1) == "d" else "f32",
+                "radius": int(m.group(2) or 3),
+                "kernel": NAMES3[int(m.group(3))],
+                **{k: row.get(k) for k in ("registers", "spill_stores",
+                                           "spill_loads", "stack")}})
+    phase("kernel_check", kernel="3D radius-3 instances",
+          worst={k: v for k, v in worst.items()
+                 if k.split("/")[0] in NAMES3 and "/r3" in k},
+          ptxas=instances)
+    if len(instances) != 12 or any(
+            r["spill_stores"] or r["spill_loads"] for r in instances):
+        fail(f"the scalar 3D instances are not all built without spill: "
+             f"{instances}")
+
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        f64 = dt == torch.float64
+        for sh in LEVELS_BH3:
+            C, x, b, invd, d = operands(sh, dt)
+            main = sh == LEVELS_BH3[0]
+
+            def mv(C=C, x=x, sh=sh, f=sk.stencil_mv3):
+                return f(C, x, sh, 3)
+
+            def jac(C=C, x=x, b=b, invd=invd, sh=sh, f=sk.jacobi_smooth3):
+                return f(C, invd, b, x, 0.67, sh, 3)
+
+            def cheb(C=C, x=x, b=b, invd=invd, d=d, sh=sh,
+                     f=sk.cheb_step3):
+                return f(C, invd, b, x, d, 1.3, 0.45, sh, 3)
+
+            for name, fn, plain in (
+                    ("stencil_mv3", mv, sk.stencil_mv3_plain),
+                    ("jacobi_smooth3", jac, sk.jacobi_smooth3_plain),
+                    ("cheb_step3", cheb, sk.cheb_step3_plain)):
+                rows.append(time_kernel(
+                    name, sh, fn, partial(fn, f=plain) if main else None,
+                    radius=3, f64=f64))
+            del C, x, b, invd, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+_RSS = {"peak": 0.0, "sampler": None}
+
+
+def _rss_gib():
+    """The process's resident set now, GiB (/proc/self/statm), or None."""
+    with contextlib.suppress(OSError, ValueError, IndexError):
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+    return None
+
+
+def host_peak_reset() -> None:
+    """Start (once) a thread that samples the resident set every 20 ms,
+    and restart the peak from the resident set now."""
+    import threading
+
+    if _RSS["sampler"] is None:
+        def sample():
+            while True:
+                now = _rss_gib()
+                if now is None:
+                    return
+                _RSS["peak"] = max(_RSS["peak"], now)
+                time.sleep(0.02)
+
+        _RSS["sampler"] = threading.Thread(target=sample, daemon=True)
+        _RSS["sampler"].start()
+    _RSS["peak"] = _rss_gib() or 0.0
+
+
+def host_peak_gib():
+    """The largest resident set sampled since the last reset, GiB, or None
+    where /proc does not say."""
+    now = _rss_gib()
+    return None if now is None else max(_RSS["peak"], now)
+
+
+def build_biharmonic3(n_bg: int, device):
+    """``demos/biharmonic.py --dim 3``'s problem at ``n_bg``: the rotated
+    cube on nested grids (n_fg = 2·n_bg, P2 tetrahedra) over the quadratic
+    B-spline net (n_bg + 2)³, BiharmonicProblem(sym=False, β = α = 5,
+    filter 1e-5), assembled by the front-end at u = 0. Returns (prob, M,
+    lattice shape, A, b, seconds per stage, host peak GiB per stage: the
+    foreground mesh, its P2 numbering, the B-spline extraction, the
+    problem; and the assembly's seconds and device peak)."""
+    import torch
+
+    from iifea_tpu_torch.mesh import bspline, generators
+    from iifea_tpu_torch.models.biharmonic import BiharmonicProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+
+    secs, peaks, open_ = Counter(), {}, []
+
+    def mark():
+        """Fold the peak since the last reset into every open stage."""
+        now = host_peak_gib()
+        for name in open_:
+            if now is not None:
+                peaks[name] = max(peaks.get(name, 0.0), now)
+        host_peak_reset()
+
+    @contextlib.contextmanager
+    def peak_of(name):
+        mark()
+        open_.append(name)
+        try:
+            yield
+        finally:
+            mark()
+            open_.remove(name)
+
+    def staged(fn, name):
+        def run(*a, **kw):
+            with peak_of(name):
+                out, dt = sync_time(lambda: fn(*a, **kw))
+            secs[name] += dt
+            return out
+        return run
+
+    t0 = time.perf_counter()
+    targets = [(generators, "FunctionSpace"),
+               (bspline.BSplineSpace3D, "transfer_matrix")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+    with peak_of("generator"):
+        for owner, name, fn in saved:
+            setattr(owner, name, staged(fn, name))
+        try:
+            mesh, M, shape = generators.immersed_cube_bspline_problem(
+                n_fg=2 * n_bg, n_bg=n_bg, device=device)
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+    t1 = time.perf_counter()
+    with peak_of("problem"):
+        prob = BiharmonicProblem(mesh, sym=False, beta_value=5.0,
+                                 alpha_value=5.0, filter_tol=1e-5,
+                                 device=device)
+    t2 = time.perf_counter()
+    u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    (A, b), t_asm = sync_time(
+        lambda: assemble_background_system(prob.form, u0, M))
+    p2, ext = secs["FunctionSpace"], secs["transfer_matrix"]
+    seconds = {"mesh": t1 - t0 - p2 - ext, "p2_numbering": p2,
+               "bspline_extraction": ext, "BiharmonicProblem": t2 - t1,
+               "assemble": t_asm}
+    host_gib = {"generator": peaks.get("generator"),
+                "p2_numbering": peaks.get("FunctionSpace"),
+                "bspline_extraction": peaks.get("transfer_matrix"),
+                "BiharmonicProblem": peaks.get("problem")}
+    return prob, M, tuple(shape), A, b, seconds, {
+        "host_peak_gib": host_gib,
+        "assemble_device_peak_gib": torch.cuda.max_memory_allocated()
+        / 2**30}
+
+
+def jax_row_rel(n_bg: int, norms) -> dict:
+    """The card's relative norms against the JAX package's row at n_bg."""
+    return {k: abs(norms[k] - v) / v
+            for k, v in zip(("L2_rel", "H1_rel", "H2_rel"),
+                            JAX_ROWS_BH3[n_bg])}
+
+
+def phase_small_reference_biharmonic3():
+    """The 3D biharmonic against host references: at n_bg = 7 and 15 (9³
+    and 17³ nets) the card's MG-GMRES and host SuperLU on the same system
+    give L2_rel within 2e-2 of each other, and the card's iteration count
+    is within 2 of the port's host f64 run; at n_bg = 7, 15 and 31 the
+    card's L2_rel, H1_rel and H2_rel are within JAX_ROW_REL of the JAX
+    package's rows."""
+    import torch
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", 0)
+    for n_bg in (7, 15, 31):
+        prob, M, shape, A, b, secs, _ = build_biharmonic3(n_bg, gpu)
+        (u, info), dt = sync_time(lambda: bh_solve(A, b, shape))
+        norms = prob.error_norms(M.mv(u))
+        row = {"n_bg": n_bg, "ncp": list(shape), "route": default_route_bh(),
+               "iters": info.iters, "rel_residual": rel_residual(A, b, u),
+               "seconds": dt, "setup_seconds": secs, "error_norms": norms,
+               "jax_row_rel_diff": jax_row_rel(n_bg, norms)}
+        if n_bg < 31:
+            u_lu, _ = bh_solve(A, b, shape, method="direct")
+            n_lu = prob.error_norms(M.mv(u_lu))
+            p_h, M_h, _, A_h, b_h, _, _ = build_biharmonic3(n_bg, cpu)
+            (u_h, info_h), dt_h = sync_time(lambda: bh_solve(A_h, b_h,
+                                                             shape))
+            row.update(error_norms_lu=n_lu, l2_rel_diff=abs(
+                norms["L2_rel"] - n_lu["L2_rel"]) / n_lu["L2_rel"],
+                host_iters=info_h.iters, host_seconds=dt_h,
+                host_error_norms=p_h.error_norms(M_h.mv(u_h)))
+        phase("small_reference_biharmonic3", **row)
+        if not (u.is_cuda and row["rel_residual"] < 1e-10):
+            fail(f"3D biharmonic n_bg={n_bg}: residual {row['rel_residual']}")
+        if n_bg < 31 and not row["l2_rel_diff"] <= 2e-2:
+            fail(f"3D biharmonic n_bg={n_bg}: L2_rel {norms['L2_rel']} "
+                 f"against host LU's {row['error_norms_lu']['L2_rel']}")
+        if n_bg < 31 and not abs(info.iters - row["host_iters"]) <= 2:
+            fail(f"3D biharmonic n_bg={n_bg}: {info.iters} iterations on "
+                 f"the card, {row['host_iters']} on the host")
+        if not max(row["jax_row_rel_diff"].values()) <= JAX_ROW_REL:
+            fail(f"3D biharmonic n_bg={n_bg}: norms {norms} against the JAX "
+                 f"row {JAX_ROWS_BH3[n_bg]}")
+
+
+def phase_biharmonic3():
+    """``demos/biharmonic.py --dim 3 --ref 3``'s problem, n_bg = 63 (65³ =
+    274,625 background dofs, 12,002,256 P2 tetrahedra, 16.2 M foreground
+    nodes): host set-up per stage with its peak resident set, the assembly,
+    ``solve_ksp(gmres, pc='mg', stencil_radius=3)`` once counted per kernel,
+    instance and lattice shape (no plain stencil apply on the card outside
+    the coarse dense inverse), three warm solves staged (probe, hierarchy,
+    Krylov), a profiled one, peak device memory; f64 residual < 1e-10 and
+    L2_rel, H1_rel, H2_rel within JAX_ROW_REL of the JAX package's ref-3
+    row. Then the route not taken (f32 mixed), counted and capped at
+    OTHER_ROUTE_MAX_IT iterations, with its outcome. Returns {instance
+    tag: (launches by kernel, launches by shape)}."""
+    import torch
+
+    from iifea_tpu_torch.api import l2_norm
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.solvers import ksp
+
+    gpu = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob, M, shape, A, b, setup, mem = build_biharmonic3(N_BG_BH3, gpu)
+    phase("biharmonic3_setup", n_bg=N_BG_BH3, n_fg=2 * N_BG_BH3,
+          lattice=list(shape), n_bg_dofs=M.n_bg_dofs,
+          n_fg_nodes=prob.space.n_nodes, n_cells=prob.mesh.n_cells,
+          n_block_cells=prob.cell_dom.n_elem, n_facets=prob.facet_dom.n_elem,
+          extraction_entries=M.valT.numel(), eliminated=prob.elim_counts,
+          seconds=setup, **mem,
+          device_gib=torch.cuda.memory_allocated() / 2**30)
+    route = default_route_bh()
+    plain = Counter()
+    with plain_on_card(plain):
+        (u, info), t_first, launches, by_shape = counted_run(
+            lambda: bh_solve(A, b, shape), NAMES3, "biharmonic3")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    relres = rel_residual(A, b, u)
+    norms = prob.error_norms(M.mv(u))
+    rel = jax_row_rel(N_BG_BH3, norms)
+    tag = instance_tag(3, route == "f64")
+    phase("biharmonic3", route=route, first_seconds=t_first,
+          iters=info.iters,
+          passes=len(info.history) - 1 if route == "mixed" else 1,
+          rel_residual=relres, error_norms=norms,
+          jax_row=JAX_ROWS_BH3[N_BG_BH3], jax_row_rel_diff=rel,
+          launches=launches, launches_by_shape=by_shape,
+          plain_applies_on_card=dict(plain), peak_gib=peak)
+    if not relres < 1e-10:
+        fail(f"biharmonic3: f64 relative residual {relres} >= 1e-10")
+    if not info.iters <= MAX_GMRES_ITERS_BH3:
+        fail(f"biharmonic3: {info.iters} GMRES iterations > "
+             f"{MAX_GMRES_ITERS_BH3}")
+    if not (u.shape == (M.n_bg_dofs,) and u.is_cuda
+            and bool(torch.isfinite(u).all())):
+        fail("biharmonic3: the solution is not a finite card vector of the "
+             "background size")
+    missing = [s_ for s_ in LEVELS_BH3 if not all(
+        by_shape.get(f"{k}@{'x'.join(map(str, s_))}{tag}", 0) > 0
+        for k in NAMES3)]
+    if missing:
+        fail(f"biharmonic3: a kernel did not launch at the smoothed shapes "
+             f"{missing}: {by_shape}")
+    if plain["elsewhere"]:
+        fail(f"biharmonic3: {plain['elsewhere']} plain stencil applies on "
+             "the card outside the coarse dense inverse")
+    if not max(rel.values()) <= JAX_ROW_REL_63:
+        fail(f"biharmonic3: norms {norms} against the JAX row "
+             f"{JAX_ROWS_BH3[N_BG_BH3]}: {rel}")
+    if not peak < PEAK_GIB:
+        fail(f"biharmonic3: peak device memory {peak} GiB")
+
+    runs = []
+    for _ in range(3):
+        stages = Counter()
+        with timed_calls([(ksp, "_probe_general"),
+                          (multigrid, "StencilMultigrid3D")], stages):
+            (_, info_w), t_w = sync_time(lambda: bh_solve(A, b, shape))
+        runs.append({"solve_ksp": t_w, "probe": stages["_probe_general"],
+                     "hierarchy": stages["StencilMultigrid3D"],
+                     "krylov": t_w - sum(stages.values()),
+                     "iters": info_w.iters})
+    runs.sort(key=lambda r: r["solve_ksp"])
+    phase("biharmonic3_stages", setup=setup, median=runs[1], runs=runs)
+    profile_solve(lambda: bh_solve(A, b, shape), "biharmonic3_profile")
+
+    # the converged yardstick: how far a 1e-10 residual leaves the norms
+    (u_t, info_t), t_t = sync_time(lambda: bh_solve(A, b, shape,
+                                                    rtol=TIGHT_RTOL))
+    norms_t = prob.error_norms(M.mv(u_t))
+    phase("biharmonic3_tight", rtol=TIGHT_RTOL, seconds=t_t,
+          iters=info_t.iters, rel_residual=rel_residual(A, b, u_t),
+          error_norms=norms_t,
+          jax_row_rel_diff=jax_row_rel(N_BG_BH3, norms_t),
+          norms_rel_diff_from_route={k: abs(norms[k] - norms_t[k])
+                                     / norms_t[k] for k in norms})
+    del u_t
+
+    other = "mixed" if route == "f64" else "f64"
+    torch.cuda.reset_peak_memory_stats()
+    (u_o, info_o), t_o, launches_o, by_shape_o = counted_run(
+        lambda: bh_solve(A, b, shape, mixed=other == "mixed",
+                         max_it=OTHER_ROUTE_MAX_IT), NAMES3,
+        "biharmonic3_other_route")
+    relres_o = rel_residual(A, b, u_o)
+    u_f = M.mv(u)
+    norms_o = prob.error_norms(M.mv(u_o))
+    phase("biharmonic3_other_route", route=other, seconds=t_o,
+          iters=info_o.iters,
+          passes=len(info_o.history) - 1 if other == "mixed" else 1,
+          history=info_o.history if other == "mixed" else None,
+          rel_residual=relres_o, converged=relres_o < 1e-10,
+          error_norms=norms_o,
+          norms_rel_diff_from_route={k: abs(norms_o[k] - norms[k]) / norms[k]
+                                     for k in norms},
+          l2_diff_from_route=l2_norm(M.mv(u_o) - u_f, prob.cell_dom)
+          / l2_norm(u_f, prob.cell_dom),
+          launches=launches_o, launches_by_shape=by_shape_o,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return {tag: (launches, by_shape),
+            instance_tag(3, other == "f64"): (launches_o, by_shape_o)}
+
+
+def phase_demo_biharmonic3():
+    """The 3D biharmonic demo as a user runs it, on the card (``python3 -m
+    iifea_tpu_torch.demos.biharmonic --dim 3 --ref 0``: n_bg = 7), held
+    against the same demo on the host: the same iteration count, norms
+    equal to DEMO_NORMS_BH relative."""
+    biharmonic_demo(["--dim", "3", "--ref", "0"], "demo_biharmonic3")
 
 
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
           "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
           "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
-          "demo_p2")
+          "demo_p2", "small_reference_biharmonic3", "biharmonic3",
+          "demo_biharmonic3")
 
 
 def kernel_shapes(timing, by_shape):
@@ -2664,16 +3164,27 @@ def main() -> None:
             if counts is not None:
                 launches.update(counts[0])
                 by_shape.update(counts[1])
-    # the biharmonic's instances (radius 3, f64 or f32) are booked apart
+    # the biharmonics' instances (radius 3, f64 or f32) are booked apart
     for name, fn in (("small_reference_biharmonic",
                       phase_small_reference_biharmonic),
                      ("demo_biharmonic", phase_demo_biharmonic),
-                     ("demo_p2", phase_demo_p2)):
+                     ("demo_p2", phase_demo_p2),
+                     ("small_reference_biharmonic3",
+                      phase_small_reference_biharmonic3),
+                     ("demo_biharmonic3", phase_demo_biharmonic3)):
         if name in run:
             fn()
-    bh = phase_biharmonic() if "biharmonic" in run else {}
-    for _, shapes in bh.values():
-        by_shape.update(shapes)
+    # {instance tag: (launches by kernel, by shape)} of the 2D and the 3D
+    # biharmonic: their kernels differ, so one tag's counts merge
+    bh = {}
+    for name, fn in (("biharmonic", phase_biharmonic),
+                     ("biharmonic3", phase_biharmonic3)):
+        if name in run:
+            for tag, (counts, shapes) in fn().items():
+                merged = bh.setdefault(tag, ({}, Counter()))
+                merged[0].update(counts)
+                merged[1].update(shapes)
+                by_shape.update(shapes)
     import torch
 
     kernel_shapes(timing, by_shape)

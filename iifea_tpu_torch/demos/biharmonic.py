@@ -1,19 +1,20 @@
-"""2D biharmonic with Nitsche BCs on a quadratic B-spline background (port
-of the synthetic mode of ``demos/biharmonic.py``: the same flags, the same
-printed report and CSV line).
+"""2D/3D biharmonic with Nitsche BCs on a quadratic B-spline background
+(port of the synthetic mode of ``demos/biharmonic.py``: the same flags, the
+same printed report and CSV line).
 
     python3 -m iifea_tpu_torch.demos.biharmonic --ref 2
+    python3 -m iifea_tpu_torch.demos.biharmonic --dim 3 --ref 0
 
-The synthetic mode generates the rotated immersed square in a P2 triangle
-foreground on nested grids (n_bg = 2^(ref+4) − 1 spans a side, n_fg =
-2·n_bg) and extracts it to the C1 quadratic B-spline lattice (n_bg + 2)²;
-the fourth-order system is solved by MG-preconditioned GMRES on the
-radius-3 stencil (``solve_ksp(pc='mg', stencil_radius=3)``: on a card the
-hand kernels' f64 radius-3 instances). ``--solv direct`` or ``mumps`` means
-GMRES there, as in the reference. Runs on the GPU unless ``--device cpu``
-is given. Not ported yet, and refused with a message: ``--dim 3`` (the 3D
-biharmonic, ROADMAP.md item 14b) and the reference's mesh files (any other
-``--mesh-root``, item 12e).
+The synthetic mode generates the rotated immersed square (cube) in a P2
+triangle (tetrahedron) foreground on nested grids (n_bg = 2^(ref+4) − 1
+spans a side in 2D, 2^(ref+3) − 1 in 3D; n_fg = 2·n_bg) and extracts it to
+the C1 quadratic B-spline lattice (n_bg + 2)^dim; the fourth-order system
+is solved by MG-preconditioned GMRES on the radius-3 stencil
+(``solve_ksp(pc='mg', stencil_radius=3)``: on a card the hand kernels' f64
+radius-3 instances, 2D or 3D). ``--solv direct`` or ``mumps`` means GMRES
+there, as in the reference. Runs on the GPU unless ``--device cpu`` is
+given. Not ported yet, and refused with a message: the reference's mesh
+files (any other ``--mesh-root``, ROADMAP.md item 12e).
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ def str2bool(v):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument('--dim', dest='dimension', default=2,
-                   help='Problem dimension (2; 3 is not ported yet).')
+                   help='Problem dimension (2 or 3).')
     p.add_argument('--ref', dest='ref', default='3',
-                   help='Refinement level, (0,6) 2D')
+                   help='Refinement level, (0,6) 2D, (0,4) 3D')
     p.add_argument('--sym', dest='symmetric', default=False,
                    help='True for symmetric Nitsche; False for nonsymmetric')
     p.add_argument('--solv', dest='solv', default='gmres',
@@ -54,10 +55,11 @@ def parse_args(argv=None):
                         'square')
     p.add_argument('--mms', dest='mms', default='reference',
                    choices=('reference', 'steep'),
-                   help="manufactured solution: 'reference' is "
-                        "cos(0.05 pi x + 0.1) cos(0.05 pi y + 0.1); 'steep' "
-                        "the wavelength-2 cosines cos(pi x + 0.5) "
-                        "cos(pi y + 0.5)")
+                   help="manufactured solution: 'reference' is the "
+                        "reference's own (2D cos(0.05 pi x + 0.1) "
+                        "cos(0.05 pi y + 0.1), 3D the wavelength-2 "
+                        "cosines); 'steep' the wavelength-2 cosines "
+                        "cos(pi x_d + 0.5) in any dimension")
     p.add_argument('--mesh-root', dest='mesh_root', default='synthetic',
                    help='"synthetic" for the generated immersed square (the '
                         'reference mesh files are not in the repository)')
@@ -67,13 +69,18 @@ def parse_args(argv=None):
 
 
 def steep_u_exact(x: torch.Tensor) -> torch.Tensor:
-    return torch.cos(math.pi * x[0] + 0.5) * torch.cos(math.pi * x[1] + 0.5)
+    """The wavelength-2 cosines Π_d cos(π x_d + 0.5), in x's dimension."""
+    out = torch.cos(math.pi * x[0] + 0.5)
+    for d in range(1, x.shape[0]):
+        out = out * torch.cos(math.pi * x[d] + 0.5)
+    return out
 
 
 def main(argv=None) -> dict:
     """Run the demo; returns the error norms, the solve's info and the
     background solution."""
     from iifea_tpu_torch.mesh.generators import (
+        immersed_cube_bspline_problem,
         immersed_square_bspline_problem,
     )
     from iifea_tpu_torch.models.biharmonic import BiharmonicProblem
@@ -84,16 +91,23 @@ def main(argv=None) -> dict:
     if args.mesh_root != "synthetic":
         sys.exit("the reference mesh files are not in the repository; use "
                  "--mesh-root synthetic (mesh I/O: ROADMAP.md item 12e)")
-    if int(args.dimension) != 2:
-        sys.exit(f"--dim {args.dimension}: the 3D biharmonic is not ported "
-                 "yet (ROADMAP.md item 14b)")
+    dim = int(args.dimension)
+    if dim not in (2, 3):
+        sys.exit(f"--dim {args.dimension}: the problem dimension is 2 or 3")
     ref = args.ref
     device = torch.device(args.device)
 
-    n_bg = 2 ** (int(ref) + 4) - 1
-    mesh_f, M, lattice_shape = immersed_square_bspline_problem(
-        n_fg=2 * n_bg, n_bg=n_bg, snap_boundary=str2bool(args.snap),
-        device=device)
+    # nested grids (n_fg = 2·n_bg): every foreground cell sees one
+    # polynomial piece of the spline, as in the reference demo
+    if dim == 3:
+        n_bg = 2 ** (int(ref) + 3) - 1
+        mesh_f, M, lattice_shape = immersed_cube_bspline_problem(
+            n_fg=2 * n_bg, n_bg=n_bg, device=device)
+    else:
+        n_bg = 2 ** (int(ref) + 4) - 1
+        mesh_f, M, lattice_shape = immersed_square_bspline_problem(
+            n_fg=2 * n_bg, n_bg=n_bg, snap_boundary=str2bool(args.snap),
+            device=device)
     prob = BiharmonicProblem(
         mesh_f, sym=str2bool(args.symmetric),
         beta_value=float(args.beta_val), alpha_value=float(args.alpha_val),

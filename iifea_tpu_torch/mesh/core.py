@@ -75,11 +75,19 @@ class Mesh:
         return float(self.cell_diameters.max())
 
     def diameters_of(self, cell_ids: np.ndarray) -> np.ndarray:
-        """``cell_diameters[cell_ids]`` without the whole-mesh temporaries
-        (a (n_cells, 4, 4, 3) f64 array is 5 GB at 13M tetrahedra)."""
-        x = self.coords[self.cells[np.asarray(cell_ids, dtype=np.int64)]]
-        d = x[:, :, None, :] - x[:, None, :, :]
-        return np.sqrt((d * d).sum(-1)).max(axis=(1, 2))
+        """``cell_diameters[cell_ids]``: the largest vertex-pair distance,
+        over the distinct pairs (a pair and its reverse have the same
+        squared length), 2^20 cells at a time (all pairs of all cells
+        at once are a (n_cells, 4, 4, 3) f64 array, 5 GB at 13 M
+        tetrahedra)."""
+        cell_ids = np.asarray(cell_ids, dtype=np.int64)
+        a, b = np.triu_indices(self.dim + 1, k=1)
+        out = np.empty(len(cell_ids))
+        for s in range(0, len(cell_ids), 2 ** 20):
+            x = self.coords[self.cells[cell_ids[s:s + 2 ** 20]]]
+            d = x[:, a, :] - x[:, b, :]
+            out[s:s + 2 ** 20] = np.sqrt((d * d).sum(-1).max(axis=1))
+        return out
 
     # -- topology -----------------------------------------------------------
 
@@ -102,6 +110,15 @@ class Mesh:
         facets = np.empty((n_facets, nfv), dtype=np.int32)
         facets[rank] = tup[order[first]]
         return FacetData(facets, facet_cells, facet_local)
+
+    @cached_property
+    def p2_nodes(self) -> tuple[np.ndarray, int, np.ndarray]:
+        """P2 node numbering of the mesh: (cell dofs (n_cells, n_local),
+        node count, node coordinates), computed once per mesh (a generator
+        and the problem on its mesh both build the P2 space: 72 M edge
+        incidences at 12 M tetrahedra)."""
+        cell_dofs, n_nodes, edge_first = _number_p2(self)
+        return cell_dofs, n_nodes, _p2_node_coords(self, edge_first)
 
     @cached_property
     def num_facets(self) -> int:
@@ -198,9 +215,7 @@ class FunctionSpace:
             self.n_nodes = mesh.n_verts
             self.node_coords = mesh.coords
         else:
-            self.cell_dofs, self.n_nodes = _number_p2(mesh)
-            self.node_coords = _p2_node_coords(mesh, self.cell_dofs,
-                                               self.n_nodes)
+            self.cell_dofs, self.n_nodes, self.node_coords = mesh.p2_nodes
         self.n_dofs = self.n_nodes * self.n_fields
 
 
@@ -213,27 +228,31 @@ def flat_dofs(node_ids: np.ndarray, n_fields: int) -> np.ndarray:
     return base.reshape(out_shape).astype(np.int32)
 
 
-def _number_p2(mesh: Mesh) -> tuple[np.ndarray, int]:
+def _number_p2(mesh: Mesh) -> tuple[np.ndarray, int, np.ndarray]:
     """P2 node ids: the vertices keep theirs, each unique edge gets
     n_verts + its number in order of first appearance in the (cell, local
-    edge) scan (the reference's native ``mesh_number_edges``)."""
+    edge) scan (the reference's native ``mesh_number_edges``). Returns
+    (cell dofs, node count, the scan position of each edge's first
+    appearance)."""
     edges = ReferenceElement(mesh.dim, 2).edges
     tup = np.sort(mesh.cells[:, edges].reshape(-1, 2), axis=1)
-    ids, _, _, rank = _first_appearance(tup, mesh.n_verts)
+    ids, order, first, rank = _first_appearance(tup, mesh.n_verts)
     edge_ids = (mesh.n_verts + ids).reshape(mesh.n_cells, -1)
     cell_dofs = np.hstack([mesh.cells, edge_ids]).astype(np.int32)
-    return cell_dofs, mesh.n_verts + rank.size
+    edge_first = np.empty(rank.size, dtype=np.int64)
+    edge_first[rank] = order[first]
+    return cell_dofs, mesh.n_verts + rank.size, edge_first
 
 
-def _p2_node_coords(mesh: Mesh, cell_dofs: np.ndarray,
-                    n_nodes: int) -> np.ndarray:
-    """P2 node coordinates (straight-sided): vertices, then edge
-    midpoints."""
+def _p2_node_coords(mesh: Mesh, edge_first: np.ndarray) -> np.ndarray:
+    """P2 node coordinates (straight-sided): the vertices (zero where no
+    cell uses one), then each edge's midpoint, from its first (cell, local
+    edge) incidence (every incidence gives the same value: a + b = b +
+    a)."""
     edges = ReferenceElement(mesh.dim, 2).edges
-    nv = mesh.dim + 1
-    coords = np.zeros((n_nodes, mesh.dim))
-    coords[cell_dofs[:, :nv].ravel()] = mesh.coords[mesh.cells.ravel()]
-    mids = 0.5 * (mesh.coords[mesh.cells[:, edges[:, 0]]]
-                  + mesh.coords[mesh.cells[:, edges[:, 1]]])
-    coords[cell_dofs[:, nv:].ravel()] = mids.reshape(-1, mesh.dim)
-    return coords
+    cell, local = np.divmod(edge_first, len(edges))
+    verts = mesh.cells[cell[:, None], edges[local]]          # (n_edges, 2)
+    mids = 0.5 * (mesh.coords[verts[:, 0]] + mesh.coords[verts[:, 1]])
+    used = np.zeros(mesh.n_verts, dtype=bool)
+    used[mesh.cells.ravel()] = True
+    return np.concatenate([np.where(used[:, None], mesh.coords, 0.0), mids])

@@ -386,15 +386,21 @@ class Form:
 def integrate(domain, kernel, u: torch.Tensor, aux=None, params=None,
               n_fields: int = 1) -> torch.Tensor:
     """∫ kernel over a cell/facet domain; ``kernel(u_loc, aux_loc, ctx,
-    params) -> scalar`` per element, u_loc (nb, n_fields)."""
+    params) -> scalar`` per element, u_loc (nb, n_fields). Elements go in
+    chunks of JAC_CHUNK, so a context's tabulations (the 3D biharmonic's
+    gradients and Laplacians of 2.6 M P2 cells) are never held whole."""
     ne, nE = domain.eldofsT.shape
+    dims = _ctx_dims(domain.ctx(slice(0, 0)))
+    vmapped = vmap(kernel, in_dims=(-1, -1, dims, None), out_dims=0)
+    total = None
+    for s in range(0, max(nE, 1), JAC_CHUNK):
+        sl = slice(s, min(s + JAC_CHUNK, nE))
+        idx = domain.eldofsT[:, sl]
 
-    def gather(vec):
-        return vec[domain.eldofsT].reshape(ne // n_fields, n_fields, nE)
+        def gather(vec):
+            return vec[idx].reshape(ne // n_fields, n_fields, -1)
 
-    al = {k: gather(v) for k, v in (aux or {}).items()}
-    ctx = domain.ctx()
-    vals = vmap(kernel, in_dims=(-1, -1, _ctx_dims(ctx), None), out_dims=0)(
-        gather(u), al, ctx, params
-    )
-    return vals.sum()
+        al = {k: gather(v) for k, v in (aux or {}).items()}
+        part = vmapped(gather(u), al, domain.ctx(sl), params).sum()
+        total = part if total is None else total + part
+    return total

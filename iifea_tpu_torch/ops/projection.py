@@ -44,6 +44,21 @@ class BackgroundOperator:
         self.n = M.n_bg_dofs
         self.trim_mask = trim_mask
         self.shift = shift
+        self._support = None
+
+    def support(self):
+        """(rows, idx, val): the foreground dofs the form's terms touch, in
+        ascending order, and M's ELL planes on them ((kmax, len(rows))
+        each); built once per operator. A stacked application needs M on
+        those rows only: a foreground larger than the block (the 3D
+        biharmonic's 16.2 M P2 nodes against the 3.6 M of its block
+        cells) would otherwise gather and scatter every row."""
+        if self._support is None:
+            rows = torch.unique(torch.cat([
+                dom.eldofsT.reshape(-1) for dom, _ in self.form.terms]))
+            self._support = (rows, self.M.idxT[:, rows].contiguous(),
+                             self.M.valT[:, rows].contiguous())
+        return self._support
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         y = self.M.rmv(self.form.matvec(self.blocks, self.M.mv(x)))
@@ -56,9 +71,21 @@ class BackgroundOperator:
     def mv_multi(self, X: torch.Tensor) -> torch.Tensor:
         """Stacked application to k vectors, (k, n_bg) -> (k, n_bg): one
         gather, element product and scatter for all of them (the stencil
-        probe's path)."""
-        Y = self.M.rmv_multi(
-            self.form.matvec_multi(self.blocks, self.M.mv_multi(X)))
+        probe's path). M and Mᵀ run on the rows of ``support`` only: the
+        form reads and writes no other foreground dof, so the result is
+        that of ``M.rmv_multi(form.matvec_multi(blocks, M.mv_multi(X)))``
+        up to rounding (the scatter skips exact zeros; the slot sums of the
+        gather may group differently)."""
+        rows, idx, val = self.support()
+        k = X.shape[0]
+        U_rows = (val[None] * X[:, idx]).sum(dim=1)
+        U = torch.zeros((k, self.form.n_dofs), dtype=U_rows.dtype,
+                        device=U_rows.device)
+        U[:, rows] = U_rows
+        R = self.form.matvec_multi(self.blocks, U)[:, rows]
+        data = (val[None] * R[:, None, :]).reshape(k, -1)
+        Y = torch.zeros((k, self.n), dtype=data.dtype, device=data.device)
+        Y.index_add_(1, idx.reshape(-1), data)
         if self.shift is not None:
             Y = Y + self.shift[None, :] * X
         if self.trim_mask is not None:
@@ -79,13 +106,19 @@ class BackgroundOperator:
         return y
 
     def with_trim(self, mask) -> "BackgroundOperator":
-        return BackgroundOperator(self.form, self.blocks, self.M, mask,
-                                  self.shift)
+        return self._like(mask, self.shift)
 
     def with_shift(self, shift) -> "BackgroundOperator":
         """A + diag(shift) (pseudo-transient continuation)."""
-        return BackgroundOperator(self.form, self.blocks, self.M,
-                                  self.trim_mask, shift)
+        return self._like(self.trim_mask, shift)
+
+    def _like(self, trim_mask, shift) -> "BackgroundOperator":
+        """This operator with another trim mask and shift; the support is
+        shared."""
+        out = BackgroundOperator(self.form, self.blocks, self.M, trim_mask,
+                                 shift)
+        out._support = self._support
+        return out
 
     # -- exact diagonal -------------------------------------------------------
 

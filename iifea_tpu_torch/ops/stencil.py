@@ -15,9 +15,10 @@ reference has no counterpart here.
 Applies and sweeps on a card go through the hand-written kernels of
 ``ops/stencil_kernels.py`` (a block apply is one launch, a level's
 smoothing call one launch on the small 2D lattices, a 3D block sweep one
-launch): f32, and f64 for scalar 2D operators; another dtype raises there.
-On the CPU the f32 operators go through the same wrappers (their plain
-versions) and the others use the plain shifted-slice form ``mv_ref``.
+launch): f32, and f64 for scalar 2D operators and for radius-3 scalar 3D
+ones; another dtype or radius raises there. On the CPU the f32 operators
+go through the same wrappers (their plain versions) and the others use the
+plain shifted-slice form ``mv_ref``.
 
 ``probe_multi`` extracts the planes from any operator given only its
 stacked application (k, n) -> (k, n), by coloured probing: the (2r+1)^dim
@@ -201,9 +202,17 @@ class StencilOperator3D:
         return StencilOperator3D(self.coeffs.to(dtype), self.shape,
                                  self.radius)
 
+    def _kernels(self) -> bool:
+        """Whether applies and sweeps go through the kernel wrappers: always
+        on a card (the instance of the operator's dtype and radius, or the
+        wrapper raises), and for f32 on the CPU (their plain versions)."""
+        return self.device.type == "cuda" or self.dtype == torch.float32
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A_b x: the stencil_mv3 kernel for f32, ``mv_ref`` otherwise."""
-        if self.coeffs.dtype == torch.float32:
+        """y = A_b x: the stencil_mv3 kernel on a card (f32 at radius 1–3,
+        f64 at radius 3) and for f32 on the CPU (its plain version),
+        ``mv_ref`` otherwise."""
+        if self._kernels():
             return sk.stencil_mv3(self.coeffs, x, self.shape, self.radius)
         return self.mv_ref(x)
 
@@ -213,9 +222,10 @@ class StencilOperator3D:
 
     def jacobi_smooth(self, invd: torch.Tensor, b: torch.Tensor,
                       x: torch.Tensor, omega: float) -> torch.Tensor:
-        """One weighted-Jacobi sweep x + ω·invd·(b − A x); fused kernel for
-        f32."""
-        if self.coeffs.dtype == torch.float32:
+        """One weighted-Jacobi sweep x + ω·invd·(b − A x): the fused
+        jacobi_smooth3 kernel where ``mv`` takes the kernels, the plain
+        version otherwise."""
+        if self._kernels():
             return sk.jacobi_smooth3(self.coeffs, invd, b, x, omega,
                                      self.shape, self.radius)
         return sk.jacobi_smooth3_plain(self.coeffs, invd, b, x, omega,
@@ -225,9 +235,10 @@ class StencilOperator3D:
                    x: torch.Tensor, d: torch.Tensor | None, alpha: float,
                    beta: float):
         """One Chebyshev step r = invd·(b − A x), d' = α·r + β·d,
-        x' = x + d' (d None on the first step); fused kernel for f32.
+        x' = x + d' (d None on the first step): the fused cheb_step3 kernel
+        where ``mv`` takes the kernels, the plain version otherwise.
         Returns (x', d')."""
-        if self.coeffs.dtype == torch.float32:
+        if self._kernels():
             return sk.cheb_step3(self.coeffs, invd, b, x, d, alpha, beta,
                                  self.shape, self.radius)
         return sk.cheb_step3_plain(self.coeffs, invd, b, x, d, alpha, beta,

@@ -25,8 +25,11 @@ call that takes one launch per pass counts its sweeps under
 
 Instances: the 2D kernels take f32 at r = 1, 2 for 1 to 3 fields and at
 r = 3 (the biharmonic's 49 taps) for one field, and f64 at r = 1, 2, 3 for
-one field (``INSTANCES_2D``); the 3D kernels f32 at r = 1, 2. The operands
-of one call share one dtype; omega is passed in double.
+one field (``INSTANCES_2D``); the scalar 3D kernels f32 at r = 1, 2, 3
+and f64 at r = 3 (``INSTANCES_3D``: r = 3 is the 3D biharmonic's 343
+taps), the 3D block kernel f32 at r = 1, 2. The operands of one call
+share one dtype; their scalars (omega, alpha, beta) are passed in
+double.
 
 Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous planes
 with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
@@ -266,9 +269,10 @@ def _lib() -> ctypes.CDLL:
     lib.stencil2d_smooth.argtypes = [p, p, p, p, d, i, p, p, p, i, i, i, i,
                                      i, p]
     lib.stencil2d_smooth_plan.argtypes = [i, i, i, i, i]
-    lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, p]
-    lib.stencil3d_jacobi.argtypes = [p, p, p, p, f, p, i, i, i, i, p]
-    lib.stencil3d_cheb.argtypes = [p, p, p, p, p, f, f, p, i, i, i, i, p]
+    lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.stencil3d_jacobi.argtypes = [p, p, p, p, d, p, i, i, i, i, i, p]
+    lib.stencil3d_cheb.argtypes = [p, p, p, p, p, d, d, p, i, i, i, i, i,
+                                   p]
     lib.stencil3d_block.argtypes = [p, p, p, p, f, p, i, i, i, i, i, i, p]
     for fn in (lib.stencil2d_mv, lib.stencil2d_block,
                lib.stencil2d_smooth, lib.stencil2d_smooth_plan,
@@ -285,18 +289,36 @@ INSTANCES_2D = frozenset(
     [(torch.float32, r, nf) for r in (1, 2) for nf in (1, 2, 3)]
     + [(torch.float32, 3, 1)]
     + [(torch.float64, r, 1) for r in (1, 2, 3)])
+# (dtype, radius) of the scalar 3D kernels' instances (csrc/stencil3d.cu)
+INSTANCES_3D = frozenset(
+    [(torch.float32, r) for r in (1, 2, 3)] + [(torch.float64, 3)])
+# radii of the 3D block kernel (stencil3d_block), f32 for 1 to 3 fields
+BLOCK3_RADII = (1, 2)
 
 
-def _check_instance(dtype, radius, nF, dim):
+def _check_instance(dtype, radius, nF, dim, block3: bool = False):
     """Refuse operands no kernel instance takes: ValueError for a radius,
     TypeError for a dtype (the plain versions follow the same rule, so the
-    host runs what the card runs)."""
+    host runs what the card runs). ``block3``: the 3D block kernel's
+    instances, else the scalar 3D kernels' (``dim`` = 3)."""
     if dim == 3:
-        if radius not in (1, 2):
-            raise ValueError(f"the 3D kernels take radius 1 or 2, got "
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"stencil kernels take float32 or float64, got "
+                            f"{dtype}")
+        if block3:
+            if radius not in BLOCK3_RADII:
+                raise ValueError(f"the 3D block kernel takes radius 1 or 2, "
+                                 f"got {radius}")
+            if dtype != torch.float32:
+                raise TypeError(f"the 3D block kernel takes float32, got "
+                                f"{dtype}")
+            return
+        if radius not in (1, 2, 3):
+            raise ValueError(f"the 3D kernels take radius 1 to 3, got "
                              f"{radius}")
-        if dtype != torch.float32:
-            raise TypeError(f"the 3D kernels take float32, got {dtype}")
+        if (dtype, radius) not in INSTANCES_3D:
+            raise TypeError(f"the 3D float64 kernels take radius 3, got "
+                            f"{radius}")
         return
     if radius not in (1, 2, 3):
         raise ValueError(f"radius must be 1, 2 or 3, got {radius}")
@@ -381,7 +403,7 @@ def _check_block(C, shape, radius, vectors, binv=None, dim: int = 2):
     nF = C.shape[0] if block else 1
     if nF not in (1, 2, 3):
         raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
-    _check_instance(C.dtype, radius, nF, dim)
+    _check_instance(C.dtype, radius, nF, dim, block3=dim == 3)
     shape = tuple(shape)
     if len(shape) != dim:
         raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
@@ -560,15 +582,16 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
 
 
 def stencil_mv3(C, x, shape, radius):
-    """y = A x on a 3D lattice (f32). CPU: plain version; CUDA: the
-    stencil3d_mv kernel."""
+    """y = A x on a 3D lattice (f32 at r = 1, 2, 3; f64 at r = 3). CPU:
+    plain version; CUDA: the stencil3d_mv kernel instance of the operands'
+    (dtype, radius)."""
     if _check(C, x, shape, radius, dim=3) == "cpu":
         return stencil_mv3_plain(C, x, shape, radius)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = _lib().stencil3d_mv(
             C.data_ptr(), x.data_ptr(), y.data_ptr(), *shape, radius,
-            torch.cuda.current_stream().cuda_stream,
+            _f64(x), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil3d_mv")
     stencil_mv3.launches += 1
@@ -576,15 +599,16 @@ def stencil_mv3(C, x, shape, radius):
 
 
 def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
-    """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32). CPU:
-    plain version; CUDA: the stencil3d_jacobi kernel."""
+    """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32 at r = 1,
+    2, 3; f64 at r = 3). CPU: plain version; CUDA: the stencil3d_jacobi
+    kernel instance."""
     if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
         return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = _lib().stencil3d_jacobi(
             C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-            float(omega), y.data_ptr(), *shape, radius,
+            float(omega), y.data_ptr(), *shape, radius, _f64(x),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil3d_jacobi")
@@ -593,11 +617,12 @@ def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
 
 
 def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
-    """One Chebyshev smoothing step in one pass on a 3D lattice (f32):
-    r = invd·(b − A x), d' = α·r + β·d, x' = x + d'. ``d`` is None on the
-    first step (β must be 0). Returns (x', d'). CPU: plain version; CUDA:
-    the stencil3d_cheb kernel, which writes x' to a new tensor and d' over
-    ``d`` (each point reads only its own d)."""
+    """One Chebyshev smoothing step in one pass on a 3D lattice (f32 at r =
+    1, 2, 3; f64 at r = 3): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
+    ``d`` is None on the first step (β must be 0). Returns (x', d'). CPU:
+    plain version; CUDA: the stencil3d_cheb kernel instance, which writes
+    x' to a new tensor and d' over ``d`` (each point reads only its own
+    d)."""
     if d is None and beta != 0:
         raise ValueError("the first Chebyshev step (d=None) takes beta=0")
     if d is not None and d.data_ptr() == x.data_ptr():
@@ -612,7 +637,7 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
         rc = _lib().stencil3d_cheb(
             C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
             d.data_ptr(), float(alpha), float(beta), y.data_ptr(), *shape,
-            radius, torch.cuda.current_stream().cuda_stream,
+            radius, _f64(x), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "stencil3d_cheb")
     cheb_step3.launches += 1

@@ -23,8 +23,8 @@
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
 Not ported yet, and raising ``NotImplementedError``: on CUDA a stencil
-radius the kernels do not take (3 in 3D or with several fields:
-ROADMAP.md item 14b).
+radius the kernels do not take (3 with several fields: ROADMAP.md item
+14c; no model of the reference runs it).
 
 The MG route (``_mg_solve``) differs from the JAX package in these ways,
 by design:
@@ -37,7 +37,8 @@ by design:
   JAX package's own arithmetic off a TPU (``MIXED_DEFAULT_MAX_RADIUS``).
   On the CPU it stays off, so an f64 system runs the whole MG-Krylov solve
   in f64, as JAX does on the CPU. On CUDA an f64 stencil is taken by the
-  2D scalar kernels only; 3D and block operators refuse it.
+  2D scalar kernels and, at radius 3 (the 3D biharmonic), by the 3D scalar
+  ones; other 3D and all block operators refuse it.
 * The Krylov matvec is ``S.mv``, the hand kernel for f32 stencils, as in
   ``BinnedLatticeSolver``; JAX applies ``S.mv_ref`` because of a TPU
   layout clash between a Pallas call and the V-cycle's convolutions.
@@ -98,7 +99,10 @@ def lattice_tables(form, M, shape):
 
 def _probe_chunk(A, dtype) -> int | None:
     """Probe columns per chunk so the stacked ``A.mv_multi``'s live
-    temporaries stay under PROBE_BUDGET_BYTES."""
+    temporaries stay under PROBE_BUDGET_BYTES: those of the element
+    product, or those of the extraction's gather and scatter on the
+    operator's support (two (k, kmax, rows) planes), whichever is
+    larger."""
     per_col, n_temps = 0, 4
     for dom, _ in A.form.terms:
         ne, nE = dom.eldofsT.shape
@@ -106,8 +110,9 @@ def _probe_chunk(A, dtype) -> int | None:
             per_col, n_temps = ne * nE, ne + 3
     if per_col == 0:
         return None
+    words = max(n_temps * per_col, 2 * A.support()[2].numel())
     item = torch.empty((), dtype=dtype).element_size()
-    return max(int(PROBE_BUDGET_BYTES // (n_temps * per_col * item)), 1)
+    return max(int(PROBE_BUDGET_BYTES // (words * item)), 1)
 
 
 def _probe_general(A, shape, radius, dtype):
@@ -204,22 +209,23 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def _cuda_mg_refusal(shape, n_fields, radius, dtype) -> Exception | None:
     """Why the card's stencil kernels cannot take this MG solve, or None:
-    2D scalar operators at radius 1–3 in f32 or f64, 2D block operators at
-    radius 1, 2 in f32, 3D ones (scalar and block) at radius 1, 2 in f32."""
+    2D scalar operators at radius 1–3 in f32 or f64, 3D scalar ones at
+    radius 1, 2 in f32 and at radius 3 in f32 or f64, block operators (2D
+    and 3D) at radius 1, 2 in f32."""
     if radius not in (1, 2, 3):
         return NotImplementedError(
             f"stencil_radius={radius}: the CUDA stencil kernels take radius "
             "1 to 3")
-    if radius == 3 and (len(shape) == 3 or n_fields > 1):
+    if radius == 3 and n_fields > 1:
         return NotImplementedError(
-            f"stencil_radius=3 {'in 3D' if len(shape) == 3 else 'with '}"
-            f"{'' if len(shape) == 3 else f'{n_fields} fields'}: the CUDA "
-            "kernels take radius 3 for 2D scalar operators only (ROADMAP.md "
-            "item 14b)")
-    if dtype == torch.float64 and (len(shape) == 3 or n_fields > 1):
+            f"stencil_radius=3 with {n_fields} fields: the CUDA kernels take "
+            "radius 3 for scalar operators only (ROADMAP.md item 14c)")
+    if dtype == torch.float64 and (n_fields > 1 or (len(shape) == 3
+                                                    and radius != 3)):
         return ValueError(
-            "on CUDA pc='mg' runs f64 stencils on 2D scalar operators only: "
-            "pass mixed=True (f32 kernels, f64 refinement)")
+            "on CUDA pc='mg' runs f64 stencils on 2D scalar operators and on "
+            "radius-3 3D ones only: pass mixed=True (f32 kernels, f64 "
+            "refinement)")
     if dtype not in (torch.float32, torch.float64):
         return ValueError(
             f"on CUDA pc='mg' runs f32 or f64 stencil kernels, got {dtype}")

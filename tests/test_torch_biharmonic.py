@@ -132,38 +132,53 @@ def test_torch_biharmonic_mg_gmres(pair, mixed):
 
 def test_torch_biharmonic_demo():
     """The demo at --ref 0 (n_bg = 15, nested grids) on the host: its
-    printed norms are the problem's, and the MG-GMRES solve meets 1e-10."""
+    printed norms are the problem's, and the MG-GMRES solve meets 1e-10.
+    ``--dim 3`` runs: with ``--mms steep`` (the wavelength-2 cosines in
+    the problem's dimension, the reference's own 3D solution) at --ref 0
+    it lands on the reference run's recorded L2_rel (studies/
+    biharmonic_synthetic.jsonl, "--dim 3 --ref 0"). The reference's mesh
+    files are refused."""
     with contextlib.redirect_stdout(io.StringIO()) as out:
         res = demo.main(["--ref", "0", "--device", "cpu"])
     assert res["info"].converged
     assert f"relative L2 norm: {res['norms']['L2_rel']}" in out.getvalue()
     assert 0 < res["norms"]["L2_rel"] < 1e-4
-    for argv in (["--dim", "3"], ["--mesh-root", "/nowhere"]):
-        with pytest.raises(SystemExit):
-            demo.main(argv + ["--device", "cpu"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        res3 = demo.main(["--dim", "3", "--ref", "0", "--mms", "steep",
+                          "--device", "cpu"])
+    assert res3["info"].converged
+    assert abs(res3["norms"]["L2_rel"] - 0.1428220610425672) <= \
+        1e-8 * 0.1428220610425672
+    with pytest.raises(SystemExit):
+        demo.main(["--mesh-root", "/nowhere", "--device", "cpu"])
 
 
 def test_torch_biharmonic_card_refusals(monkeypatch):
     """What the card's kernels do not take is refused before any work, with
-    the ROADMAP item: radius 3 in 3D or with several fields (14b), f64
-    stencils on 3D or block operators, a radius above 3; solve_ksp raises
-    it for a system on a card (mocked: no operator is touched)."""
+    the ROADMAP item: radius 3 with several fields (14c), f64 stencils on
+    block operators and on 3D ones below radius 3, a radius above 3;
+    solve_ksp raises it for a system on a card (mocked: no operator is
+    touched). Scalar radius-3 operators are taken in 2D and 3D, f32 and
+    f64 (the 3D biharmonic)."""
     f32, f64 = torch.float32, torch.float64
     monkeypatch.setattr(ksp, "_on_card", lambda t: True)
     b = torch.zeros(9 ** 3, dtype=f64)
-    with pytest.raises(NotImplementedError, match="14b"):
-        solve_ksp(None, b, method="gmres", pc="mg", lattice_shape=(9, 9, 9),
-                  stencil_radius=3, monitor=False)
+    with pytest.raises(NotImplementedError, match="14c"):
+        solve_ksp(None, torch.zeros(3 * 9 ** 3, dtype=f64), method="gmres",
+                  pc="mg", lattice_shape=(9, 9, 9), stencil_radius=3,
+                  n_fields=3, monitor=False)
     with pytest.raises(ValueError, match="f64"):
         solve_ksp(None, b, method="cg", pc="mg", lattice_shape=(9, 9, 9),
                   mixed=False, monitor=False)
     assert ksp._cuda_mg_refusal((17, 17), 1, 3, f64) is None
     assert ksp._cuda_mg_refusal((17, 17), 1, 3, f32) is None
     assert ksp._cuda_mg_refusal((17, 17), 2, 2, f32) is None
-    for args, kind, word in [(((9, 9, 9), 1, 3, f32), NotImplementedError,
-                              "14b"),
+    assert ksp._cuda_mg_refusal((9, 9, 9), 1, 3, f64) is None
+    assert ksp._cuda_mg_refusal((9, 9, 9), 1, 3, f32) is None
+    for args, kind, word in [(((9, 9, 9), 3, 3, f32), NotImplementedError,
+                              "14c"),
                              (((17, 17), 2, 3, f32), NotImplementedError,
-                              "14b"),
+                              "14c"),
                              (((17, 17), 1, 4, f64), NotImplementedError,
                               "radius"),
                              (((9, 9, 9), 1, 2, f64), ValueError, "f64"),

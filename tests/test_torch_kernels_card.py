@@ -2,7 +2,8 @@
 versions, on a card: ``stencil_mv``, ``jacobi_smooth`` (2D; also their
 radius-3 and f64 instances with ``stencil_mv_block`` and ``smooth``), the
 2D block apply through ``StencilOperatorBlock2D.mv``, ``stencil_mv3``,
-``jacobi_smooth3``, ``cheb_step3`` and the 3D block entry
+``jacobi_smooth3``, ``cheb_step3`` (also their radius-3 f32 and f64
+instances, the 3D biharmonic's) and the 3D block entry
 ``stencil3d_block`` (apply, residual, sweep, sweep from zero; 1 to 3
 fields). Every case skips without a CUDA device.
 
@@ -24,6 +25,7 @@ from iifea_tpu_torch.ops.stencil import (
 )
 
 TOL = 1e-4     # max|y − y_plain| ≤ TOL·max|y_plain| (f32 sum order)
+TOL64 = 1e-12  # the same for the f64 instances (fma against mul + add)
 
 
 def _card():
@@ -37,7 +39,8 @@ def _t(a, dev):
 
 
 def _close(got, ref):
-    return float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+    tol = TOL64 if ref.dtype == torch.float64 else TOL
+    return float((got - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
 @pytest.mark.gpu
@@ -131,13 +134,16 @@ def test_torch_block_apply_on_card(shape):
         StencilOperatorBlock2D(C.double(), shape, 2).mv(x.double())
 
 
-def _operands3(shape, radius, dev, seed):
+def _operands3(shape, radius, dev, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     n = shape[0] * shape[1] * shape[2]
-    return (_t(rng.standard_normal(((2 * radius + 1) ** 3, *shape)), dev),
-            _t(rng.standard_normal(n), dev), _t(rng.standard_normal(n), dev),
-            _t(rng.uniform(0.5, 2.0, n), dev),
-            _t(rng.standard_normal(n), dev))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev, dtype)
+
+    return (t(rng.standard_normal(((2 * radius + 1) ** 3, *shape))),
+            t(rng.standard_normal(n)), t(rng.standard_normal(n)),
+            t(rng.uniform(0.5, 2.0, n)), t(rng.standard_normal(n)))
 
 
 @pytest.mark.gpu
@@ -162,6 +168,65 @@ def test_torch_stencil3d_kernels_on_card(shape, radius):
     assert _close(s, sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape,
                                              radius))
     assert _close(c, c_ref) and _close(dc, dc_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(9, 11, 13), (13, 10, 17), (17, 17, 17),
+                                   (33, 33, 33), (65, 65, 65)])
+def test_torch_stencil3d_radius3_on_card(shape, dtype):
+    """The radius-3 (343-tap) instances of stencil_mv3, jacobi_smooth3 and
+    cheb_step3 (β = 0 and β ≠ 0), f32 and f64, at odd shapes and at the
+    levels of the 3D biharmonic's 65³ hierarchy, vs their plain versions
+    (f32 1e-4, f64 1e-12 of max|y|), one launch each; StencilOperator3D on
+    the card goes through them."""
+    from iifea_tpu_torch.ops.stencil import StencilOperator3D
+
+    dev = _card()
+    C, x, b, invd, d = _operands3(shape, 3, dev, 11, dtype)
+    n0 = sk.launches()
+    y = sk.stencil_mv3(C, x, shape, 3)
+    s = sk.jacobi_smooth3(C, invd, b, x, 0.67, shape, 3)
+    c0, dc0 = sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, shape, 3)
+    c, dc = sk.cheb_step3(C, invd, b, x, d.clone(), 1.3, 0.45, shape, 3)
+    torch.cuda.synchronize()
+    n1 = sk.launches()
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        "stencil_mv3": 1, "jacobi_smooth3": 1, "cheb_step3": 2}
+    assert _close(y, sk.stencil_mv3_plain(C, x, shape, 3))
+    assert _close(s, sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape, 3))
+    for (got, dgot), beta, d_in in (((c0, dc0), 0.0, None),
+                                    ((c, dc), 0.45, d)):
+        ref, dref = sk.cheb_step3_plain(C, invd, b, x, d_in,
+                                        1.7 if d_in is None else 1.3, beta,
+                                        shape, 3)
+        assert _close(got, ref) and _close(dgot, dref)
+    S = StencilOperator3D(C, shape, 3)
+    assert _close(S.mv(x), y) and sk.launches()["stencil_mv3"] == \
+        n1["stencil_mv3"] + 1
+
+
+@pytest.mark.gpu
+def test_torch_stencil3d_refuses_other_instances_on_card():
+    """A CUDA operator no 3D instance takes raises: f64 at radius 1, 2
+    through StencilOperator3D (never the plain version), radius 3 through
+    the block entry."""
+    from iifea_tpu_torch.ops.stencil import StencilOperator3D
+
+    dev = _card()
+    for radius in (1, 2):
+        C, x, b, invd, _ = _operands3((9, 9, 9), radius, dev, 3,
+                                      torch.float64)
+        S = StencilOperator3D(C, (9, 9, 9), radius)
+        with pytest.raises(TypeError):
+            S.mv(x)
+        with pytest.raises(TypeError):
+            S.jacobi_smooth(invd, b, x, 0.67)
+        with pytest.raises(TypeError):
+            S.cheb_sweep(invd, b, x, None, 1.0, 0.0)
+    C, x, *_ = _operands3((9, 9, 9), 3, dev, 3)
+    with pytest.raises(ValueError):
+        sk.stencil3d_block(C, x, (9, 9, 9), 3)
 
 
 def _block_operands3(n_fields, radius, shape, dev, seed):

@@ -1,7 +1,8 @@
 """The port's solves on a card against its own host runs: ``solve_ksp(pc=
 'mg')`` for scalar 2D (CG, GMRES; mixed and f64), 2D and 3D elasticity
 (the block kernels), the single-level 3D case whose coarse inverse is the
-whole preconditioner, the biharmonic (radius 3, f64 and mixed),
+whole preconditioner, the biharmonic (radius 3, f64 and mixed; 2D, and
+3D at n_bg = 7, 15),
 ``pc='asm'`` and ``solve_nonlinear(linear_pc='mg')``. Every case skips
 without a CUDA device.
 
@@ -17,6 +18,7 @@ import torch
 from iifea_tpu_torch.api import l2_norm
 from iifea_tpu_torch.mesh.core import FunctionSpace
 from iifea_tpu_torch.mesh.generators import (
+    immersed_cube_bspline_problem,
     immersed_cube_problem,
     immersed_square_bspline_problem,
     immersed_square_problem,
@@ -222,7 +224,8 @@ def test_torch_biharmonic_mg_on_card(n_bg):
     """solve_ksp(gmres, mg, stencil_radius=3) on the card: the f64 route by
     default (the radius-3 f64 kernel instances) with the host's iteration
     count within 2 and its solution to 1e-8 in L2 over the cell domain;
-    the f32-mixed route converges too; 3D radius 3 is refused."""
+    the f32-mixed route converges too; radius 3 with several fields is
+    refused."""
     dev = _card()
     prob, M, shape, A, b = _biharmonic(dev, n_bg)
     prob_h, M_h, _, A_h, b_h = _biharmonic("cpu", n_bg)
@@ -243,6 +246,42 @@ def test_torch_biharmonic_mg_on_card(n_bg):
     r = b - A.mv(x32)
     assert info32.converged and float(torch.linalg.vector_norm(r)) < 1e-10 * \
         float(torch.linalg.vector_norm(b))
-    with pytest.raises(NotImplementedError, match="14b"):
-        solve_ksp(None, torch.zeros(9 ** 3, dtype=torch.float64, device=dev),
-                  **{**solve, "lattice_shape": (9, 9, 9)})
+    with pytest.raises(NotImplementedError, match="14c"):
+        solve_ksp(None, torch.zeros(2 * 17 ** 2, dtype=torch.float64,
+                                    device=dev),
+                  **{**solve, "lattice_shape": (17, 17)}, n_fields=2)
+
+
+def _biharmonic3(device, n_bg):
+    mesh, M, shape = immersed_cube_bspline_problem(n_fg=2 * n_bg, n_bg=n_bg,
+                                                   device=device)
+    prob = BiharmonicProblem(mesh, device=device)
+    A, b = assemble_background_system(
+        prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
+                               device=device), M)
+    return prob, M, shape, A, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bg", [7, 15])
+def test_torch_biharmonic3d_mg_on_card(n_bg):
+    """The 3D biharmonic (``demos/biharmonic.py --dim 3``'s problem): on the
+    card solve_ksp(gmres, mg, stencil_radius=3) runs the radius-3 f64
+    instances of the 3D kernels, with the host's iteration count within 2
+    and its error norms to 1e-6 relative; a 9³ net is one dense level, a
+    17³ net smooths 17³ on the kernels."""
+    dev = _card()
+    prob, M, shape, A, b = _biharmonic3(dev, n_bg)
+    prob_h, M_h, _, A_h, b_h = _biharmonic3("cpu", n_bg)
+    solve = dict(method="gmres", pc="mg", rtol=1e-10, lattice_shape=shape,
+                 stencil_radius=3, monitor=False)
+    x_h, info_h = solve_ksp(A_h, b_h, **solve)
+    sk.reset_launches()
+    x, info = solve_ksp(A, b, **solve)
+    torch.cuda.synchronize()
+    assert x.is_cuda and info.converged and abs(info.iters - info_h.iters) <= 2
+    assert sk.stencil_mv3.launches > 0
+    assert (sk.cheb_step3.launches > 0) == (n_bg > 7)
+    n, n_h = prob.error_norms(M.mv(x)), prob_h.error_norms(M_h.mv(x_h))
+    for k in ("L2_rel", "H1_rel", "H2_rel"):
+        assert abs(n[k] - n_h[k]) <= 1e-6 * n_h[k], k
