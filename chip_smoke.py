@@ -32,13 +32,22 @@ line; the first failure exits non-zero:
      against its plain versions for 1 to 3 fields, r = 1, 2, at small
      shapes and at every level shape of the 3D block V-cycle (97³ … 13³),
      scalar planes also against stencil_mv3 / jacobi_smooth3, a soak of
-     interleaved launches, and times at 3 and 2 fields. Then the radius-3
+     interleaved launches and smoothing calls, and times at 3 and 2 fields.
+     Then the radius-3
      instances of the three scalar kernels (the 3D biharmonic's, f32 and
      f64; the Chebyshev step with β = 0 and β ≠ 0) against their plain
      versions (f64 to 1e-12) at odd shapes and at 65³, 33³ and 17³, one
-     launch a call, a 402-launch soak at 65³, every scalar 3D instance's
+     launch a call, a 402-launch soak at 65³, every 3D instance's
      registers and spill from the compiler (no spill allowed), and their
-     times at those three shapes.
+     times at those three shapes. Then smooth3, a 3D level's smoothing call
+     (ν sweeps or Chebyshev steps and the residual), at every level shape
+     of the 3D elasticity (3 × 97³ … 3 × 13³), Poisson (105³ … 27³) and
+     biharmonic (65³ … 17³, f64 and f32) cycles, in both of the V-cycle's
+     forms, by each route (one launch a pass; one cooperative launch where
+     the plan says the level fits, which must then launch and equal the
+     passes bitwise, and be refused where it does not), against its plain
+     version, and its times by each route (``smooth3_call`` the routed,
+     ``smooth3_other_route`` the other).
   4. small reference: the card's n_bg=64 2D solution checked with a host
      f64 residual, and the n_bg=24 card and host solutions compared; the
      Chebyshev smoother option inside the n_bg=64 solve.
@@ -82,9 +91,10 @@ line; the first failure exits non-zero:
   11. elasticity3 (the 3D block path): 3D immersed elasticity at n_bg=8
      and 16 against host SuperLU, then ``solve_ksp(cg, pc='mg',
      n_fields=3)`` at n_bg=96 (3 × 97³ = 2,738,019 background dofs),
-     counted per lattice shape (5 stencil3d_block launches per smoothed
-     level per V-cycle, one per Krylov matvec), staged, profiled; error
-     norms below an n_bg=48 solve's with an L2 rate above 1.5.
+     counted per lattice shape (per smoothed level per V-cycle two smooth3
+     launches where the plan holds the level in one launch, else 5
+     stencil3d_block launches; one per Krylov matvec), staged, profiled;
+     error norms below an n_bg=48 solve's with an L2 rate above 1.5.
   12. newton: ``solve_nonlinear(linear_pc='mg')`` on the nonlinear
      diffusion form at n_bg=1024 (every Newton step assembled and solved
      on the card, stencil launches in every step), held at n_bg=64
@@ -172,6 +182,9 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     # stencil_mv3 / jacobi_smooth3 for 3D block operators: apply, residual
     # or point-block sweep of all nF fields in one launch
     "stencil3d_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
+    # jacobi_smooth3 for a whole 3D level: ν sweeps or Chebyshev steps and
+    # the residual in one launch (a cooperative grid)
+    "smooth3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
 TOL64 = 1e-12       # the same for the f64 instances (fma against mul + add)
@@ -205,9 +218,6 @@ BLOCK3_SMOOTHED = [(s_,) * 3 for s_ in (97, 49, 25, 13)]
 # room up to n_bg = 96 and catches a cycle that stops contracting
 MAX_CG_ITERS_EL3 = 400
 MAX_CG_ITERS_EL3_SINGLE = 60     # the reference's bound at one dense level
-# stencil3d_block launches per smoothed level per V-cycle: the sweep from
-# zero, a sweep, the residual, two post-sweeps (nu_pre = nu_post = NU)
-LAUNCHES_PER_LEVEL3 = 2 * NU + 1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 F64_FLOPS = 34e12             # H100 SXM f64 rate outside the tensor cores
@@ -356,19 +366,23 @@ def bound_passes(shape, n_fields: int, passes, radius: int = 2,
 
 def bound_call(shape, n_fields: int, sweeps: int, from_zero: bool,
                with_residual: bool, radius: int = 2, f64: bool = False):
-    """The bound of one smoothing call as a function of its operands: every
-    input read once (the nF² plane sets, the nF² Binv planes, b, and x
-    unless from zero) and every output written once (x_ν, and r with the
-    residual), whatever passes carry it; the operations are those of its
-    passes, which no fusion saves."""
-    nF, taps = n_fields, (2 * radius + 1) ** 2
+    """The bound of one smoothing call (2D or 3D, by ``shape``'s rank) as a
+    function of its operands: every input read once (the nF² plane sets,
+    the nF² Binv planes or 1/diag, b, and x unless from zero) and every
+    output written once (x_ν, and r with the residual), whatever passes
+    carry it (a Chebyshev direction is scratch, not an operand); the
+    operations are those of its passes, which no fusion saves."""
+    nF, taps = n_fields, (2 * radius + 1) ** len(shape)
+    n = 1
+    for s_ in shape:
+        n *= s_
     words = (nF * nF * (taps + 1) + nF + nF * (not from_zero) + nF
              + nF * with_residual)
     sweep, zero = 2.0 * nF * nF * (taps + 1) + 3.0 * nF, 3.0 * nF * nF
     first = zero if from_zero and sweeps > 0 else 0.0
     flops = (first + sweep * (sweeps - bool(first))
              + (2.0 * nF * nF * taps + nF) * with_residual)
-    return _bound_ms(words, flops, shape[0] * shape[1], f64)
+    return _bound_ms(words, flops, n, f64)
 
 
 def passes_of(sweeps: int, from_zero: bool, with_residual: bool):
@@ -422,7 +436,7 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d+((?:pass|level|stencil)\w*?)E?v?P",
+            name = re.search(r"\d+((?:pass|level|stencil|march)\w*?)E?v?P",
                              m.group(1))
             row = {"kernel": name.group(1) if name else m.group(1)}
             rows.append(row)
@@ -438,17 +452,20 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def _check(worst, name, y, y_ref, shape, radius, quiet=False, **kv):
-    """Hold y against y_ref at TOL·max|y_ref| (f64: TOL64); fails above
-    it. ``quiet`` prints nothing (the caller prints a summary line). The
-    worst error is booked under the kernel's name and instance tag.
-    Returns the error."""
+def _check(worst, name, y, y_ref, shape, radius, quiet=False, scale=None,
+           **kv):
+    """Hold y against y_ref at TOL·max|scale| (f64: TOL64; scale: y_ref
+    unless given, a smoothed residual is held to the size of its terms, b);
+    fails above it. ``quiet`` prints nothing (the caller prints a summary
+    line). The worst error is booked under the kernel's name and instance
+    tag. Returns the error."""
     import torch
 
     torch.cuda.synchronize()
     f64 = y.dtype == torch.float64
     err = float((y - y_ref).abs().max())
-    lim = (TOL64 if f64 else TOL) * float(y_ref.abs().max())
+    lim = (TOL64 if f64 else TOL) * float((y_ref if scale is None
+                                           else scale).abs().max())
     if not quiet:
         phase("kernel_check", kernel=name, shape=list(shape), radius=radius,
               max_abs_err=err, bound=lim, **kv)
@@ -913,11 +930,13 @@ def phase_kernels3():
     torch.cuda.empty_cache()
     rows += kernels3_block(worst, dev)
     rows += kernels3_r3(worst, dev)
+    rows += kernels3_smooth(worst, dev)
     return worst, rows
 
 
 BLOCK3_MODES = ("apply", "residual", "sweep", "zero")
-BLOCK3_SOAK_ROUNDS = 50          # x 4 shapes x 4 modes = 800 launches
+BLOCK3_SOAK_ROUNDS = 50          # x 4 shapes x 4 modes = 800 launches,
+                                 # and the two smoothing calls a shape
 
 
 def block3_operands(gen, shape, radius, n_fields, dev):
@@ -1003,6 +1022,8 @@ def kernels3_block(worst, dev):
     2 fields."""
     import torch
 
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
     gen = torch.Generator(device=dev).manual_seed(2)
     for shape in [(9, 9, 9), (13, 10, 17), (11, 9, 14)]:
         for radius in (1, 2):
@@ -1013,21 +1034,33 @@ def kernels3_block(worst, dev):
             check_block3(worst, gen, shape, 2, n_fields, dev)
         torch.cuda.empty_cache()
 
-    # soak: the block V-cycle's level shapes and the four passes,
-    # interleaved, never synchronised until the end; every repeat must
-    # reproduce its first result bitwise
-    ops = [block3_calls(*block3_operands(gen, sh, 2, N_FIELDS_EL3, dev), sh,
-                        2) for sh in BLOCK3_SMOOTHED]
+    # soak: the block V-cycle's level shapes, the four passes and the two
+    # smoothing calls (one launch a call on the small levels), interleaved,
+    # never synchronised until the end; every repeat must reproduce its
+    # first result bitwise
+    ops = []
+    for sh in BLOCK3_SMOOTHED:
+        C, binv, b, x = block3_operands(gen, sh, 2, N_FIELDS_EL3, dev)
+        calls = block3_calls(C, binv, b, x, sh, 2)
+        steps = [(1.0, 0.0)] * NU
+        calls["call_pre"] = partial(
+            lambda *a: torch.cat(sk.smooth3(*a, True)), C, binv, b, None,
+            steps, sh, 2)
+        calls["call_post"] = partial(sk.smooth3, C, binv, b, x, steps, sh, 2)
+        ops.append(calls)
     first = [{mode: fn() for mode, fn in calls.items()} for calls in ops]
     mismatches = torch.zeros((), dtype=torch.int64, device=dev)
+    before = sk.launches()
     t0 = time.perf_counter()
     for _ in range(BLOCK3_SOAK_ROUNDS):
         for calls, ref in zip(ops, first):
             for mode, fn in calls.items():
                 mismatches += (fn() != ref[mode]).sum()
     torch.cuda.synchronize()
-    phase("soak", kernel="stencil3d_block",
-          launches=BLOCK3_SOAK_ROUNDS * len(ops) * len(BLOCK3_MODES),
+    after = sk.launches()
+    phase("soak", kernel="stencil3d_block, smooth3",
+          launches={k: after[k] - before[k] for k in ("stencil3d_block",
+                                                      "smooth3")},
           shapes=[[N_FIELDS_EL3, *sh] for sh in BLOCK3_SMOOTHED], radius=2,
           seconds=time.perf_counter() - t0, mismatches=int(mismatches))
     if int(mismatches) != 0:
@@ -1050,6 +1083,161 @@ def kernels3_block(worst, dev):
                     bound_=bound_passes(sh, n_fields, [mode]),
                     plain_launches=2, form=mode))
             del C, binv, b, x, calls, plain
+            torch.cuda.empty_cache()
+    return rows
+
+
+def scalar3_operands(gen, shape, radius, dtype, dev):
+    """Scalar 3D planes with a dominant centre made on the card, their l1
+    inverse diagonal (the 3D cycle's smoother scaling), b and x."""
+    import torch
+
+    m3 = (2 * radius + 1) ** 3
+    C = torch.rand((m3, *shape), generator=gen, device=dev,
+                   dtype=dtype).sub_(0.5).mul_(0.2)
+    C[m3 // 2] += 4.0
+    n = shape[0] * shape[1] * shape[2]
+    invd = (1.0 / C.abs().sum(dim=0)).reshape(-1).contiguous()
+    b, x = (torch.randn(n, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    return C, invd, b, x
+
+
+def smooth3_paths():
+    """The 3D paths' smoothed levels: (tag, fields (0: scalar planes),
+    radius, dtype, Chebyshev, level shapes, the shape whose pre-smoothing
+    call also times its plain version)."""
+    import torch
+
+    return (
+        ("elasticity3", N_FIELDS_EL3, 2, torch.float32, False,
+         BLOCK3_SMOOTHED, BLOCK3_SMOOTHED[2]),
+        ("poisson3", 0, 2, torch.float32, True, LEVELS3, None),
+        ("biharmonic3", 0, 3, torch.float64, True, LEVELS_BH3,
+         LEVELS_BH3[-1]),
+        ("biharmonic3_f32", 0, 3, torch.float32, True, LEVELS_BH3,
+         LEVELS_BH3[-1]),
+    )
+
+
+def kernels3_smooth(worst, dev):
+    """smooth3, a 3D level's smoothing call, at every level shape of the
+    3D elasticity, Poisson and biharmonic cycles, in the V-cycle's two
+    forms (NU steps from zero with the residual; NU from x), against its
+    plain version: by one launch a pass, routed, and by one cooperative
+    launch, which must launch where the plan's co-resident blocks hold the
+    level and then equal the passes bitwise, and be refused where they do
+    not. Then ``kernel_time`` rows of each form by
+    each route that takes the level (``smooth3_call`` routed,
+    ``smooth3_other_route``), the scalar call's step from zero, and the
+    scalar residual pass at radius 3. Returns the rows."""
+    import torch
+
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for path, n_fields, r, dt, cheb, shapes, main in smooth3_paths():
+        f64 = dt == torch.float64
+        nF = max(n_fields, 1)
+        steps = (multigrid.chebyshev_steps(NU, 8.0) if cheb
+                 else [(1.0, 0.0)] * NU)
+        for sh in shapes:
+            C, binv, b, x = (
+                block3_operands(gen, sh, r, n_fields, dev) if n_fields
+                else scalar3_operands(gen, sh, r, dt, dev))
+            plan = sk._plan3(sh, r, nF, dev.index or 0, f64)
+            # whether a launch of the level's blocks is co-resident
+            runs = -(-sh[1] * sh[2] // (256 // plan[0]))
+            fits = runs * sh[0] <= plan[2]
+            key = list(sh) if n_fields == 0 else [nF, *sh]
+            bitwise, errs = True, []
+            for form, (from_zero, with_residual) in FORMS.items():
+                start = None if from_zero else x
+                args = (C, binv, b, start, steps, sh, r)
+                ref = sk.smooth3_plain(*args, with_residual, cheb)
+                per_pass = sk._smooth3_cuda(sk.PER_PASS, *args, nF,
+                                            with_residual, cheb)
+                routed = sk.smooth3(*args, with_residual, cheb)
+                outs = [per_pass, routed]
+                before = sk.smooth3.launches
+                try:
+                    outs.append(sk._smooth3_cuda(
+                        sk.GRID, *args, nF, with_residual, cheb,
+                        split=plan[0]))
+                    fused = True
+                except RuntimeError as e:
+                    fused, why = False, str(e)
+                if fused != fits:
+                    fail(f"smooth3 {path} at {sh}: {fits=} by the plan "
+                         f"{plan}, the fused launch "
+                         + ("ran" if fused else f"was refused: {why}"))
+                if sk.smooth3.launches - before != fused:
+                    fail(f"smooth3 {path} at {sh}: a fused call made "
+                         f"{sk.smooth3.launches - before} launches")
+                for out in outs:
+                    pairs = (zip(out, ref, (None, b)) if with_residual
+                             else ((out, ref, None),))
+                    for k, (v, v_ref, scale) in enumerate(pairs):
+                        errs.append(_check(
+                            worst, "smooth3", v, v_ref, sh, r, quiet=True,
+                            scale=scale, form=form))
+                        if k:   # the per-pass residual is a block pass
+                            _check(worst, "stencil3d_block", v, v_ref, sh, r,
+                                   quiet=True, scale=scale)
+                        first = per_pass[k] if with_residual else per_pass
+                        bitwise &= bool(torch.equal(v, first))
+            phase("kernel_check", kernel="smooth3", path=path, shape=key,
+                  radius=r, dtype="f64" if f64 else "f32", plan=list(plan),
+                  routes=["per_pass", "routed"] + ["grid"] * fits,
+                  max_abs_err=max(errs),
+                  fused_bitwise_equal_per_pass=bitwise)
+            if not bitwise:
+                fail(f"smooth3 {path} at {sh}: the routes differ")
+            routed = sk.GRID if plan[1] else sk.PER_PASS
+            for form, (from_zero, with_residual) in FORMS.items():
+                start = None if from_zero else x
+                for route in [sk.PER_PASS] + [sk.GRID] * fits:
+                    is_main = (route == routed and form == "pre"
+                               and sh == main)
+                    rows.append(time_kernel(
+                        "smooth3_call" if route == routed
+                        else "smooth3_other_route", key,
+                        partial(sk._smooth3_cuda, route, C, binv, b, start,
+                                steps, sh, r, nF, with_residual, cheb,
+                                split=plan[0]),
+                        partial(sk.smooth3_plain, C, binv, b, start, steps,
+                                sh, r, with_residual, cheb)
+                        if is_main else None,
+                        bound_=bound_call(sh, nF, NU, from_zero,
+                                          with_residual, r, f64),
+                        plain_launches=2, radius=r, f64=f64, form=form,
+                        path=path, route=ROUTES[route],
+                        per_pass_bound_ms=bound_passes(
+                            sh, nF, passes_of(NU, from_zero, with_residual),
+                            r, f64)[0],
+                        launches_per_call=(
+                            1 if route == sk.GRID
+                            else len(sk.passes3(NU, from_zero,
+                                                with_residual)))))
+            if n_fields == 0:
+                # the scalar call's step from zero, booked as jacobi_smooth3
+                rows.append(time_kernel(
+                    "jacobi_smooth3", key,
+                    partial(sk._pass3, sk._ZERO, C, None, b, binv, sh, r, 1,
+                            omega0=steps[0][0]),
+                    bound_=bound_passes(sh, 1, ["zero"], r, f64), radius=r,
+                    f64=f64, form="zero"))
+            if r == 3 and sh == shapes[0]:
+                # the scalar residual pass, booked as stencil3d_block
+                rows.append(time_kernel(
+                    "stencil3d_block", key,
+                    partial(sk._pass3, sk._RESIDUAL, C, x, b, None, sh, r, 1),
+                    partial(sk.residual3_block_plain, C, b, x, sh, r),
+                    bound_=bound_passes(sh, 1, ["residual"], r, f64),
+                    plain_launches=2, radius=r, f64=f64, form="residual"))
+            del C, binv, b, x
             torch.cuda.empty_cache()
     return rows
 
@@ -1297,9 +1485,11 @@ def count_by_shape(by_shape: Counter):
     the operator's shape (a block operator's led by its field count). A
     ``smooth`` call is also booked itself, by its form, as
     ``smooth_call@shape:pre`` (from zero, with the residual), ``:post``
-    (from x, without) or ``:other``. The 3D block operator's launches are
-    booked by pass: ``stencil3d_block@shape:apply`` / ``:zero`` /
-    ``:sweep`` / ``:residual``."""
+    (from x, without) or ``:other`` (3D: ``smooth3_call@…``). The
+    stencil3d_block launches are booked by pass:
+    ``stencil3d_block@shape:apply`` / ``:zero`` / ``:sweep`` /
+    ``:residual``; a scalar 3D call's step from zero as
+    ``jacobi_smooth3@shape:zero``."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
@@ -1310,14 +1500,19 @@ def count_by_shape(by_shape: Counter):
         StencilOperatorBlock3D,
     )
 
-    def block3_passes(name, a, out):
-        """stencil3d_block launches of one method call, by pass."""
+    def block3_passes(self, name, a, out):
+        """stencil3d_block launches of one per-pass method call, by pass:
+        a block apply; a block smoothing call's zero, sweep and residual
+        passes; a scalar 3D smoothing call's residual."""
         if name == "mv":
             return {"apply": 1}
-        x, sweeps = a[2], a[4]
-        zero = int(x is None and sweeps > 0)
-        return {"zero": zero, "sweep": sweeps - zero,
-                "residual": int(isinstance(out, tuple))}
+        passes = sk.passes3(len(a[3]) if isinstance(self, StencilOperator3D)
+                            else a[4], a[2] is None, isinstance(out, tuple))
+        if isinstance(self, StencilOperator3D):
+            return {"residual": passes.count("residual")}
+        return {"zero": passes.count("zero"),
+                "sweep": sum(isinstance(p, tuple) for p in passes),
+                "residual": passes.count("residual")}
 
     def shim(name, method):
         def counted(self, *a, **kw):
@@ -1330,18 +1525,28 @@ def count_by_shape(by_shape: Counter):
             for k, n in sk.launches().items():
                 if n == before[k]:
                     continue
+                if (k == "jacobi_smooth3" and name == "smooth"
+                        and a[2] is None):
+                    # a scalar 3D call's step from zero, one launch
+                    by_shape[f"{k}@{shape}:zero"] += 1
+                    before[k] += 1
+                    if n == before[k]:
+                        continue
                 if k != "stencil3d_block":
                     by_shape[f"{k}@{shape}"] += n - before[k]
                     continue
-                passes = block3_passes(name, a, out)
+                passes = block3_passes(self, name, a, out)
                 if sum(passes.values()) != n - before[k]:
                     fail(f"{name} at {shape} made {n - before[k]} "
                          f"stencil3d_block launches, not {passes}")
                 for form, m in passes.items():
-                    by_shape[f"{k}@{shape}:{form}"] += m
+                    if m:
+                        by_shape[f"{k}@{shape}:{form}"] += m
             if name == "smooth":
+                call = ("smooth3_call" if len(self.shape) == 3
+                        else "smooth_call")
                 form = (a[2] is None, isinstance(out, tuple))
-                by_shape[f"smooth_call@{shape}:" + next(
+                by_shape[f"{call}@{shape}:" + next(
                     (k for k, v in FORMS.items() if v == form), "other")] += 1
             return out
         return counted
@@ -1591,7 +1796,7 @@ def phase_main_path3():
           table_bytes=[r.nbytes() for r in solver.reducers],
           device_gib=torch.cuda.memory_allocated() / 2**30, seconds=setup)
 
-    names = ("stencil_mv3", "jacobi_smooth3", "cheb_step3")
+    names = names3(LEVELS3, 2, False)
     u, launches, by_shape = drive(solver, names, MAX_CG_ITERS3, "solve3")
     S32, mg = stage_times(solver, "stages3")
     if not on_cuda(solver, u, S32, mg):
@@ -1987,7 +2192,7 @@ def phase_elasticity3():
           probe_columns=nF * 125, probe_chunk=ksp._probe_chunk(
               A, torch.float64),
           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    names = ("stencil3d_block",)
+    names = ("stencil3d_block", "smooth3")
     plain = Counter()
     with plain_on_card(plain):
         (u, info), t_first, launches, by_shape = counted_run(
@@ -2010,22 +2215,30 @@ def phase_elasticity3():
              "background size")
     # what the V-cycle's structure predicts: one V-cycle per CG iteration
     # and one per pass (the initial z = M r); per V-cycle and smoothed level
-    # the sweep from zero, 2·NU − 1 sweeps and one residual; one apply per
-    # Krylov matvec (iterations + one initial residual per pass) and one per
-    # field in the deflation-space test, at the finest shape only
+    # two smoothing calls, each one smooth3 launch where the plan holds the
+    # level in one launch, else one launch a pass: the sweep from zero,
+    # 2·NU − 1 sweeps and one residual; one apply per Krylov matvec
+    # (iterations + one initial residual per pass) and one per field in the
+    # deflation-space test, at the finest shape only
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
     cycles = info.iters + passes
     want = {}
     for sh in BLOCK3_SMOOTHED:
-        key = "stencil3d_block@" + "x".join(map(str, (nF, *sh)))
+        shape = "x".join(map(str, (nF, *sh)))
+        if sk._plan3(sh, 2, nF, dev.index or 0)[1]:
+            want[f"smooth3@{shape}"] = 2 * cycles
+            continue
+        key = "stencil3d_block@" + shape
         want.update({f"{key}:zero": cycles, f"{key}:residual": cycles,
                      f"{key}:sweep": (2 * NU - 1) * cycles})
     want["stencil3d_block@" + "x".join(map(str, (nF, *BLOCK3_SMOOTHED[0])))
          + ":apply"] = cycles + nF
     got = {k: v for k, v in by_shape.items()
-           if k.startswith("stencil3d_block@")}
+           if k.startswith(("stencil3d_block@", "smooth3@"))}
     if got != want:
-        fail(f"elasticity3: stencil3d_block launches {got} are not what "
-             f"{cycles} V-cycles predict: {want}")
+        fail(f"elasticity3: stencil3d_block and smooth3 launches {got} are "
+             f"not what {cycles} V-cycles predict: {want}")
     if plain["elsewhere"]:
         fail(f"elasticity3: {plain['elsewhere']} plain stencil applies on "
              "the card outside the coarse dense inverse")
@@ -2633,7 +2846,29 @@ N_BG_BH3 = 63                    # demos/biharmonic.py --dim 3 --ref 3
 LEVELS_BH3 = [(s_,) * 3 for s_ in (65, 33, 17)]
 ODD_SHAPES3 = [(9, 11, 13), (13, 10, 17)]
 SOAK3_R3_ROUNDS = 67             # x 3 kernels x 2 dtypes = 402 launches
-NAMES3 = ("stencil_mv3", "jacobi_smooth3", "cheb_step3")
+# the 3D scalar paths' kernels: the Krylov apply, and per smoothed level
+# either one smooth3 launch a smoothing call or, one launch a pass, the
+# step from zero and the sweeps (jacobi_smooth3), the Chebyshev steps
+# (cheb_step3) and the residual (stencil3d_block)
+NAMES3 = ("stencil_mv3", "jacobi_smooth3", "cheb_step3", "stencil3d_block",
+          "smooth3")
+PASSES3 = ("jacobi_smooth3", "cheb_step3", "stencil3d_block")
+
+
+def names3(shapes, radius: int, f64: bool) -> tuple:
+    """The kernels a scalar 3D cycle on these smoothed level shapes
+    launches: NAMES3, less smooth3 where the plan holds no level in one
+    launch and less the per-pass kernels where it holds every level."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    fused = [bool(sk._plan3(tuple(sh), radius, 1,
+                            torch.cuda.current_device(), f64)[1])
+             for sh in shapes]
+    return tuple(k for k in NAMES3
+                 if not (k == "smooth3" and not any(fused))
+                 and not (k in PASSES3 and all(fused)))
 # The JAX package's rows of demos/biharmonic.py --mesh-root synthetic --dim 3
 # --ref 0..3 (f64 gmres+mg on a CPU; studies/biharmonic_synthetic.jsonl, the
 # nested-grid rows, whose "L2", "H1", "H2" columns hold the demo's relative
@@ -2747,29 +2982,21 @@ def kernels3_r3(worst, dev):
     del soak
     torch.cuda.empty_cache()
 
-    instances = []
-    for row in ptxas_report(sk.library_path().with_suffix(
-            ".log").read_text()):
-        # stencil3d_kernel<R, MODE> (f32, r = 1, 2) and
-        # stencil3d_r3_kernel<T, MODE>
-        m = (re.fullmatch(r"stencil3d_kernelI()Li(\d)ELi(\d)EE",
-                          row["kernel"])
-             or re.fullmatch(r"stencil3d_r3_kernelI([fd])()Li(\d)EE",
-                             row["kernel"]))
-        if m:
-            instances.append({
-                "dtype": "f64" if m.group(1) == "d" else "f32",
-                "radius": int(m.group(2) or 3),
-                "kernel": NAMES3[int(m.group(3))],
-                **{k: row.get(k) for k in ("registers", "spill_stores",
-                                           "spill_loads", "stack")}})
-    phase("kernel_check", kernel="3D radius-3 instances",
+    # every 3D kernel instance: stencil3d_mv (4), and the marching pass,
+    # level and zero kernels (8, 8, 4)
+    instances = [{k: row.get(k) for k in ("kernel", "registers",
+                                          "spill_stores", "spill_loads",
+                                          "stack")}
+                 for row in ptxas_report(sk.library_path().with_suffix(
+                     ".log").read_text())
+                 if row["kernel"].startswith(("stencil3d_mv", "march"))]
+    phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
           ptxas=instances)
-    if len(instances) != 12 or any(
+    if len(instances) != 24 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
-        fail(f"the scalar 3D instances are not all built without spill: "
+        fail(f"the 3D instances are not all built without spill: "
              f"{instances}")
 
     rows = []
@@ -2983,6 +3210,7 @@ def phase_biharmonic3():
 
     from iifea_tpu_torch.api import l2_norm
     from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops import stencil_kernels as sk
     from iifea_tpu_torch.solvers import ksp
 
     gpu = torch.device("cuda", 0)
@@ -3000,7 +3228,9 @@ def phase_biharmonic3():
     plain = Counter()
     with plain_on_card(plain):
         (u, info), t_first, launches, by_shape = counted_run(
-            lambda: bh_solve(A, b, shape), NAMES3, "biharmonic3")
+            lambda: bh_solve(A, b, shape), names3(LEVELS_BH3, 3,
+                                                  route == "f64"),
+            "biharmonic3")
     peak = torch.cuda.max_memory_allocated() / 2**30
     relres = rel_residual(A, b, u)
     norms = prob.error_norms(M.mv(u))
@@ -3022,9 +3252,19 @@ def phase_biharmonic3():
             and bool(torch.isfinite(u).all())):
         fail("biharmonic3: the solution is not a finite card vector of the "
              "background size")
+    # per smoothed level one smooth3 launch a call, or its passes; the
+    # Krylov apply at the finest level
+    def launched(k, s_):
+        key = f"{k}@{'x'.join(map(str, s_))}{tag}"
+        return any(n > 0 for kk, n in by_shape.items()
+                   if kk == key or kk.startswith(key + ":"))
+
     missing = [s_ for s_ in LEVELS_BH3 if not all(
-        by_shape.get(f"{k}@{'x'.join(map(str, s_))}{tag}", 0) > 0
-        for k in NAMES3)]
+        launched(k, s_)
+        for k in ((("stencil_mv3",) if s_ == LEVELS_BH3[0] else ())
+                  + (("smooth3",)
+                     if sk._plan3(s_, 3, 1, 0, route == "f64")[1]
+                     else PASSES3)))]
     if missing:
         fail(f"biharmonic3: a kernel did not launch at the smoothed shapes "
              f"{missing}: {by_shape}")
@@ -3067,7 +3307,8 @@ def phase_biharmonic3():
     torch.cuda.reset_peak_memory_stats()
     (u_o, info_o), t_o, launches_o, by_shape_o = counted_run(
         lambda: bh_solve(A, b, shape, mixed=other == "mixed",
-                         max_it=OTHER_ROUTE_MAX_IT), NAMES3,
+                         max_it=OTHER_ROUTE_MAX_IT),
+        names3(LEVELS_BH3, 3, other == "f64"),
         "biharmonic3_other_route")
     relres_o = rel_residual(A, b, u_o)
     u_f = M.mv(u)
@@ -3199,8 +3440,9 @@ def main() -> None:
         for name, (source, replaces) in KERNELS.items():
             if tag and name not in counts:
                 continue
-            # a fused smoothing call is one launch of "smooth"
-            timed_as = "smooth_call" if name == "smooth" else name
+            # a fused smoothing call is one launch of "smooth" ("smooth3")
+            timed_as = {"smooth": "smooth_call",
+                        "smooth3": "smooth3_call"}.get(name, name)
             t = next(r for r in timing
                      if r["kernel"] == timed_as and "plain_ms" in r
                      and instance_tag(r["radius"], r["dtype"] == "f64")

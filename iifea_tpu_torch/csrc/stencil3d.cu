@@ -1,63 +1,77 @@
-// Variable-coefficient 3D stencil apply, fused weighted-Jacobi sweep and
-// fused Chebyshev smoothing step for Hopper (sm_90a), in f32 and f64; and
-// the block (multi-field) apply, residual and point-block sweep
-// `stencil3d_block` (second half of this file, f32).
+// Variable-coefficient 3D stencil kernels for Hopper (sm_90a), in f32 and
+// f64: the apply `stencil3d_mv`, and the marching kernels behind every 3D
+// smoothing pass (`stencil3d_pass`: weighted-Jacobi and point-block sweeps,
+// the Chebyshev step, block applies and residuals) and behind a multigrid
+// level's whole smoothing call (`stencil3d_level`, one cooperative launch).
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
-// `_smooth3_kernel`), and extends the latter to the Chebyshev step of the
-// 3D V-cycle smoother (iifea_tpu/ops/multigrid.py StencilMultigrid3D._smooth):
+// `_smooth3_kernel`), extends the latter to the Chebyshev step of the 3D
+// V-cycle smoother (iifea_tpu/ops/multigrid.py StencilMultigrid3D._smooth),
+// and carries the 3D block operators the reference runs as XLA ops
+// (iifea_tpu/ops/stencil.py StencilOperatorBlock3D.mv, ops/multigrid.py
+// StencilMultigridBlock3D._smooth). With nF fields on field-blocked vectors
+// (nF, nx, ny, nz), coefficients C (nF, nF, m^3, nx, ny, nz), m = 2r+1,
+// q = ((oi+r)*m + (oj+r))*m + (ok+r), node id (i*ny + j)*nz + k:
 //
-//   A x:    y[i,j,k] = sum_q C[q,i,j,k] * x[i+oi, j+oj, k+ok],
-//           q = ((oi+r)*m + (oj+r))*m + (ok+r), m = 2r+1
-//   jacobi: y = x + omega * invd * (b - A x)
-//   cheb:   r = invd * (b - A x);  d' = alpha * r + beta * d;  y = x + d'
-//           (d is updated in place; beta == 0 never reads d)
+//   (A x)[f1] = sum_f2 sum_q C[f1,f2,q] * shift_q(x[f2])   (x zero outside)
+//   apply:     y = A x
+//   residual:  y = b - A x
+//   sweep:     y = x + omega * Binv (b - A x)   Binv (nF, nF, n) nodal
+//                                               blocks; nF = 1: 1/diag
+//   cheb:      r = invd (b - A x); d' = s0 r + s1 d; y = x + d'   (nF = 1)
+//   zero:      y = omega * Binv b               (a sweep from x = 0)
 //
-// with x zero outside the (nx, ny, nz) lattice. C is stored as m^3
-// contiguous logical (nx, ny, nz) volumes, node id = (i*ny + j)*nz + k; no
-// tile padding. Plane offsets are 64-bit (125 planes of 105^3 exceed 2^31
-// elements' worth of bytes).
+// Instances (scalar type, radius, fields): f32 at r = 1, 2 for 1 to 3
+// fields and at r = 3 (the quadratic B-spline biharmonic's 343 taps) for
+// one field; f64 at r = 3 for one field. `stencil3d_mv` has f32 r = 1, 2, 3
+// and f64 r = 3.
 //
-// Instances (scalar type, radius): f32 at r = 1, 2 (the scalar 3D
-// problems' 27- and 125-tap stencils) and r = 3 (the quadratic B-spline
-// biharmonic's 343 taps), f64 at r = 3 (the biharmonic's default route).
-// Every instance is the same body (stencil3d_point); only its tap loop and
-// register plan differ (see taps and r3_blocks).
+// What bounds them: memory traffic. A point reads nF^2 m^3 coefficients
+// once (1,125 f32 at nF = 3, r = 2; 343 f64 at r = 3) against ~2 flops
+// each. At 3 x 97^3, r = 2 the planes are 4.1 GB: 1.23 ms at 3.35 TB/s.
+// The small multigrid levels (3 x 13^3, 17^3) are chains of latencies
+// instead: few points, each with a long list of loads.
 //
-// What bounds it: memory traffic. Every output point reads its m^3
-// coefficients once (125 f32 for r=2, 343 for r=3) plus one x value and
-// writes one y value: ~2 flops per coefficient word, far below the card's
-// flop/byte balance. Compulsory traffic at 105^3, r=2: 125 * 4.63 MB + x +
-// y = 588 MB, i.e. 0.176 ms at 3.35 TB/s (the Chebyshev step adds invd, b
-// and d read + d written: 607 MB, 0.181 ms); at 65^3, r=3: 343 planes of
-// 274,625 points, 0.113 ms in f32 and 0.226 ms in f64. The design
-// therefore reads each coefficient exactly once, coalesced along k
-// (threadIdx.x runs along k, the contiguous axis), and stages the x tile
-// with its r-wide halo in shared memory (2r+2 x 2r+4 x 2r+32 values: 12.2
-// KB in f32 and 24.3 KB in f64 at r=3) so the m^3 shifted reads of x hit
-// shared memory instead of device memory. The halo is zero-filled outside
-// the lattice, which is the boundary masking of the zero-padded apply. The
-// smoothing variants read x[i,j,k] from the same shared tile, so a sweep
-// never writes A x to device memory. Blocks are independent (no carried
-// sum as on the TPU's sequential x-offset grid).
+// The marching design (`march`):
+//
+// * a block owns a RUN of tp consecutive points of the flattened (j, k)
+//   plane (tp = 256 / split); only the last run of a plane is ragged (at
+//   97^2, 37 runs of 256 with 99% of lanes busy, against 76% of a 32-wide
+//   k tile), and the coefficient reads of a run are one contiguous,
+//   coalesced stretch of each plane in the planes' own layout;
+// * the 2r+1 x planes the run needs, each with r rows of halo in j and k,
+//   are copied into shared memory with cp.async; a block takes one i-plane
+//   (blocks that walked along i through several planes, copying the next
+//   while the current one's coefficients streamed, were no faster at any
+//   level shape on an H100: 3 x 97^3 1.434 ms at 1 plane, 1.452 at 4);
+// * a thread keeps two (f2, oi) trips of nF m^2 coefficient loads in
+//   flight (one for the scalar f32 r <= 2 instances), with launch bounds
+//   from those loads' registers; at nF = 3, r = 2 the large levels run one
+//   block per SM (fewer coefficient planes streamed at once);
+// * on small levels `split` > 1 threads share a point: each takes every
+//   split-th trip and the partial sums meet in shared memory in a fixed
+//   order; the plan picks split from the run count and the card's
+//   occupancy so that the grid fills the SMs at every level shape;
+// * a level's smoothing call (nu sweeps or Chebyshev steps and the trailing
+//   residual) is one cooperative launch where the plan says the level is
+//   small (`stencil3d_level`, `grid.sync()` between passes, x ping-ponged
+//   through the L2; the step from zero folded into the next pass's
+//   staging). Both routes run the same body on the same points with the
+//   same split, so they agree bitwise.
 //
 // Launch contract: PyTorch's current stream, no synchronisation, no
-// allocation (the caller allocates y; y must not alias x, since
-// neighbouring blocks read x's halo). Each entry returns cudaGetLastError()
-// so a refused launch is reported to the caller.
+// allocation (the caller allocates outputs and scratch; y must not alias x,
+// since neighbouring blocks read x's halo). Each entry returns the launch's
+// cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
-
-constexpr int kTZ = 32;  // output points along k per block (blockDim.x)
-constexpr int kTY = 4;   // along j (blockDim.y)
-constexpr int kTX = 2;   // along i (blockDim.z)
-constexpr int kThreads = kTX * kTY * kTZ;
-
-enum Mode { kMv = 0, kJacobi = 1, kCheb = 2 };
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -66,11 +80,22 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// The tap loop. At r <= 2 (f32) all m^3 taps are unrolled into one trip,
-// the loop of the first port. At r = 3 a point's 343 coefficients (686
-// words in f64) would all be hoisted and spilled, so the loop over oi
-// stays rolled and a trip unrolls the m^2 = 49 (oj, ok) taps: 49 words in
-// flight in f32, 98 in f64.
+// -- stencil3d_mv: one 32x4x2 tile a block --------------------------------
+//
+// Each coefficient is read once, coalesced along k (threadIdx.x runs along
+// k, the contiguous axis); the x tile with its r-wide halo (2r+2 x 2r+4 x
+// 2r+32 values) is staged in shared memory so the m^3 shifted reads of x
+// hit shared memory. The halo is zero outside the lattice.
+
+constexpr int kTZ = 32;  // output points along k per block (blockDim.x)
+constexpr int kTY = 4;   // along j (blockDim.y)
+constexpr int kTX = 2;   // along i (blockDim.z)
+constexpr int kThreads = kTX * kTY * kTZ;
+
+// The tap loop. At r <= 2 (f32) all m^3 taps are unrolled into one trip.
+// At r = 3 a point's 343 coefficients (686 words in f64) would all be
+// hoisted and spilled, so the loop over oi stays rolled and a trip unrolls
+// the m^2 = 49 (oj, ok) taps: 49 words in flight in f32, 98 in f64.
 template <class T, int R>
 __device__ __forceinline__ T taps(const T* __restrict__ Cp, int64_t plane,
                                   const T (&xs)[kTX + 2 * R][kTY + 2 * R]
@@ -111,12 +136,11 @@ __device__ __forceinline__ T taps(const T* __restrict__ Cp, int64_t plane,
   return acc;
 }
 
-// The body of every instance: stage the x tile, one output point a thread.
-template <class T, int R, int MODE>
-__device__ __forceinline__ void stencil3d_point(
-    const T* __restrict__ C, const T* __restrict__ x,
-    const T* __restrict__ invd, const T* __restrict__ b, T* __restrict__ d,
-    T s0, T s1, T* __restrict__ y, int nx, int ny, int nz) {
+template <class T, int R>
+__device__ __forceinline__ void mv_point(const T* __restrict__ C,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ y, int nx, int ny,
+                                         int nz) {
   constexpr int SX = kTX + 2 * R;
   constexpr int SY = kTY + 2 * R;
   constexpr int SZ = kTZ + 2 * R;
@@ -127,7 +151,6 @@ __device__ __forceinline__ void stencil3d_point(
   const int k0 = blockIdx.x * kTZ;
   const int tid = (threadIdx.z * kTY + threadIdx.y) * kTZ + threadIdx.x;
 
-  // x tile plus halo; zero outside the lattice
   for (int t = tid; t < SX * SY * SZ; t += kThreads) {
     const int li = t / (SY * SZ);
     const int rem = t - li * (SY * SZ);
@@ -148,332 +171,679 @@ __device__ __forceinline__ void stencil3d_point(
   const int j = j0 + threadIdx.y;
   const int k = k0 + threadIdx.x;
   if (i >= nx || j >= ny || k >= nz) return;
-
   const int64_t plane = (int64_t)nx * ny * nz;
   const int64_t p = ((int64_t)i * ny + j) * nz + k;
-  const T acc = taps<T, R>(C + p, plane, xs);
-  if (MODE == kMv) {
-    y[p] = acc;
-    return;
-  }
-  const T xc = xs[threadIdx.z + R][threadIdx.y + R][threadIdx.x + R];
-  const T res = invd[p] * (b[p] - acc);
-  if (MODE == kJacobi) {
-    y[p] = xc + s0 * res;
-  } else {
-    const T dn = s1 != T(0) ? fma_t(s0, res, s1 * d[p]) : s0 * res;
-    d[p] = dn;
-    y[p] = xc + dn;
-  }
+  y[p] = taps<T, R>(C + p, plane, xs);
 }
 
-// r = 1, 2 (f32): the launch bounds of the first port, the compiler's own
-// register plan (32 registers: the loads interleave with the FMAs).
-template <int R, int MODE>
+// r = 1, 2 (f32): the compiler's own register plan (32 registers: the
+// loads interleave with the FMAs).
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-stencil3d_kernel(const float* __restrict__ C, const float* __restrict__ x,
-                 const float* __restrict__ invd,
-                 const float* __restrict__ b, float* __restrict__ d,
-                 float s0, float s1, float* __restrict__ y, int nx, int ny,
-                 int nz) {
-  stencil3d_point<float, R, MODE>(C, x, invd, b, d, s0, s1, y, nx, ny, nz);
+stencil3d_mv_kernel(const float* __restrict__ C, const float* __restrict__ x,
+                    float* __restrict__ y, int nx, int ny, int nz) {
+  mv_point<float, R>(C, x, y, nx, ny, nz);
 }
 
 // r = 3: resident blocks per SM asked of the compiler from the 32-bit words
 // of one trip's loads, which must fit under the cap (65536 / 256 threads /
 // blocks registers): 3 blocks (85 registers) for f32's 49 words, 2 (128)
-// for f64's 98, as pass_blocks does in stencil2d.cu.
+// for f64's 98.
 template <class T>
 __host__ __device__ constexpr int r3_blocks() {
   return 49 * (int)(sizeof(T) / 4) <= 50 ? 3 : 2;
 }
 
-template <class T, int MODE>
+template <class T>
 __global__ void __launch_bounds__(kThreads, r3_blocks<T>())
-stencil3d_r3_kernel(const T* __restrict__ C, const T* __restrict__ x,
-                    const T* __restrict__ invd, const T* __restrict__ b,
-                    T* __restrict__ d, T s0, T s1, T* __restrict__ y, int nx,
-                    int ny, int nz) {
-  stencil3d_point<T, 3, MODE>(C, x, invd, b, d, s0, s1, y, nx, ny, nz);
+stencil3d_mv_r3_kernel(const T* __restrict__ C, const T* __restrict__ x,
+                       T* __restrict__ y, int nx, int ny, int nz) {
+  mv_point<T, 3>(C, x, y, nx, ny, nz);
 }
 
-template <class T, int R, int MODE>
-int launch_instance(const void* C, const void* x, const void* invd,
-                    const void* b, void* d, double s0, double s1, void* y,
-                    int nx, int ny, int nz, cudaStream_t stream) {
+template <class T, int R>
+int launch_mv(const void* C, const void* x, void* y, int nx, int ny, int nz,
+              cudaStream_t stream) {
   const dim3 block(kTZ, kTY, kTX);
   const dim3 grid((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY,
                   (nx + kTX - 1) / kTX);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   if constexpr (R == 3) {
-    stencil3d_r3_kernel<T, MODE><<<grid, block, 0, stream>>>(
-        (const T*)C, (const T*)x, (const T*)invd, (const T*)b, (T*)d,
-        (T)s0, (T)s1, (T*)y, nx, ny, nz);
+    stencil3d_mv_r3_kernel<T><<<grid, block, 0, stream>>>(
+        (const T*)C, (const T*)x, (T*)y, nx, ny, nz);
   } else {
-    stencil3d_kernel<R, MODE><<<grid, block, 0, stream>>>(
-        (const T*)C, (const T*)x, (const T*)invd, (const T*)b, (T*)d,
-        (T)s0, (T)s1, (T*)y, nx, ny, nz);
+    stencil3d_mv_kernel<R><<<grid, block, 0, stream>>>(
+        (const float*)C, (const float*)x, (float*)y, nx, ny, nz);
   }
   return (int)cudaGetLastError();
 }
 
-// The instances, by (f64, radius).
-template <int MODE>
-int launch(const void* C, const void* x, const void* invd, const void* b,
-           void* d, double s0, double s1, void* y, int nx, int ny, int nz,
-           int radius, int f64, cudaStream_t stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
-  switch (f64 * 10 + radius) {
-    case 1:
-      return launch_instance<float, 1, MODE>(C, x, invd, b, d, s0, s1, y,
-                                             nx, ny, nz, stream);
-    case 2:
-      return launch_instance<float, 2, MODE>(C, x, invd, b, d, s0, s1, y,
-                                             nx, ny, nz, stream);
-    case 3:
-      return launch_instance<float, 3, MODE>(C, x, invd, b, d, s0, s1, y,
-                                             nx, ny, nz, stream);
-    case 13:
-      return launch_instance<double, 3, MODE>(C, x, invd, b, d, s0, s1, y,
-                                              nx, ny, nz, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// -- the marching kernels ----------------------------------------------------
+
+constexpr int kMarch = 256;      // threads per block: tp points x split
+constexpr int kMaxSteps = 8;     // smoothing steps a level's launch takes
+
+enum Pass { kApply = 0, kResidual = 1, kSweep = 2, kCheb = 3, kZero = 4 };
+// how x reaches shared memory: copied with cp.async (in a level's launch
+// also x that other blocks wrote before the last grid barrier, whose fence
+// makes those writes visible to the copies), or computed as the sweep from
+// zero, omega0 Binv b
+enum Stage { kCopy = 0, kFromZero = 1 };
+
+struct Geom {
+  int nx, ny, nz, npl;   // npl = ny * nz points per i-plane
+  int64_t plane;         // nx * npl
+  int tp, split, runs;   // points per run, threads per point, runs per plane
+  int rows, width;       // staged rows of a plane (the run's + 2r), nz + 2r
+  int drow, dcol;        // kMarch = drow * width + dcol: a staging stride
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int R>
+Geom make_geom(int nx, int ny, int nz, int split) {
+  Geom g;
+  g.nx = nx; g.ny = ny; g.nz = nz;
+  g.npl = ny * nz;
+  g.plane = (int64_t)nx * g.npl;
+  g.split = split;
+  g.tp = kMarch / split;
+  g.runs = cdiv(g.npl, g.tp);
+  // a run of tp points starting anywhere in a row spans at most this many
+  // rows
+  const int run_rows = (nz + g.tp - 2) / nz + 1;
+  g.rows = (run_rows < ny ? run_rows : ny) + 2 * R;
+  g.width = nz + 2 * R;
+  g.drow = kMarch / g.width;
+  g.dcol = kMarch - g.drow * g.width;
+  return g;
+}
+
+// the 2r+1 staged x planes of every field, then the split's partial sums
+template <class T, int R, int NF>
+size_t smem_bytes(const Geom& g) {
+  return ((size_t)(2 * R + 1) * NF * g.rows * g.width
+          + (size_t)NF * kMarch) * sizeof(T);
+}
+
+// The (f2, oi) trips a thread keeps in flight (their loads unrolled
+// together), the words of their coefficient loads, and the resident blocks
+// per SM asked of the compiler so that those loads fit under the register
+// cap (65536 / 256 threads / blocks) beside ~24 of bookkeeping: two trips
+// at nF = 3, r = 2 (150 words) and f64 r = 3 (196) take 1 block (255
+// registers), f32 r = 3 (98) and nF = 2, r = 2 (100) 2. The scalar f32
+// r <= 2 instances (the 3D Poisson cycle) keep one trip in flight: at 53^3
+// two trips' registers cost a wave (0.0336 ms against 0.0310 on an H100).
+// A level's launch keeps more live across its passes: ~56. At most 6
+// blocks (42 registers): at 7 the scalar r = 1 body spills.
+template <class T, int R, int NF>
+__host__ __device__ constexpr bool scalar_r2() {
+  return NF == 1 && R <= 2 && sizeof(T) == 4;
+}
+template <class T, int R, int NF>
+__host__ __device__ constexpr int trips() {
+  return scalar_r2<T, R, NF>() ? 1 : 2;
+}
+template <class T, int R, int NF>
+__host__ __device__ constexpr int march_blocks(int bookkeeping = 24) {
+  return 256 / (trips<T, R, NF>() * NF * (2 * R + 1) * (2 * R + 1) *
+                    (int)(sizeof(T) / 4) + bookkeeping) > 6
+             ? 6
+             : 256 / (trips<T, R, NF>() * NF * (2 * R + 1) * (2 * R + 1) *
+                          (int)(sizeof(T) / 4) + bookkeeping);
+}
+
+template <class T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 8 : 0)
+                 : "memory");
   }
 }
 
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
 
-// -- block (multi-field) operators -------------------------------------------
-//
-// `stencil3d_block`: for NF = 1..3 fields on field-blocked vectors (NF*n,),
-// coefficients C[f1][f2][q] as NF*NF*m^3 contiguous (nx, ny, nz) volumes and
-// nodal smoother blocks Binv[f1][f2] as NF*NF volumes (NF = 1: the flat
-// 1/diag), in ONE launch
-//
-//   apply:    y[f1] = sum_f2 sum_q C[f1,f2,q] * shift_q(x[f2])
-//   residual: y = b - A x
-//   sweep:    y[f1] = x[f1] + omega * sum_f2 Binv[f1,f2] * (b - A x)[f2]
-//   zero:     y[f1] = omega * sum_f2 Binv[f1,f2] * b[f2]   (the sweep from
-//             x = 0: no coefficient is read)
-//
-// The reference computes the apply as a scan of NF^2 * m^3 slice
-// multiply-adds (iifea_tpu/ops/stencil.py StencilOperatorBlock3D.mv) and
-// the sweep as an einsum over b - A x
-// (iifea_tpu/ops/multigrid.py StencilMultigridBlock3D._smooth).
-//
-// What bounds it: the coefficient planes. At 3 x 97^3, r = 2 the 9 * 125
-// volumes are 4.1 GB against 11 MB of x: ~1.23 ms at 3.35 TB/s. So: the x
-// tiles of all NF fields, with halo, are staged once in shared memory
-// (NF * 6*8*36 floats = 20.7 KB for r = 2, NF = 3); a thread keeps NF
-// accumulators and reads each of its NF*NF*m^3 coefficients once, coalesced
-// along k; volume offsets are 64-bit. Registers: the loop over (f2, oi) is
-// kept rolled, so at most NF * m^2 coefficient loads are in flight per
-// thread (75 for NF = 3, r = 2) instead of all NF*NF*m^3 = 1,125, which the
-// compiler would otherwise hoist and spill.
+// x after one sweep from zero at point p, field f1: omega Binv b.
+template <class T, int NF>
+__device__ __forceinline__ T from_zero(const T* __restrict__ binv,
+                                       const T* __restrict__ b, T omega,
+                                       int64_t plane, int64_t p, int f1) {
+  T v = T(0);
+#pragma unroll
+  for (int f2 = 0; f2 < NF; ++f2) {
+    v = fma_t(omega * __ldg(binv + (int64_t)(f1 * NF + f2) * plane + p),
+              __ldg(b + f2 * plane + p), v);
+  }
+  return v;
+}
 
-enum BlockMode { kApply = 0, kResidual = 1, kSweep = 2, kZero = 3 };
+// Stage x plane gi (every field) into `slot` ([NF][rows][width]): rows
+// j0 .. j0 + rows - 1, columns -r .. nz + r - 1; zero outside the lattice.
+// The thread starts at element threadIdx.x = (row0, col0) and steps by
+// kMarch elements, (drow, dcol), without dividing.
+template <class T, int R, int NF, int STAGE>
+__device__ __forceinline__ void stage_plane(T* slot, const Geom& g, int gi,
+                                            int j0, int row0, int col0,
+                                            const T* x,
+                                            const T* __restrict__ binv,
+                                            const T* __restrict__ b,
+                                            T omega0) {
+  const int per = g.rows * g.width;
+  const bool plane_in = gi >= 0 && gi < g.nx;
+  int row = row0, col = col0;
+  for (int e = threadIdx.x; e < per; e += kMarch) {
+    const int gj = j0 + row;
+    const int gk = col - R;
+    const bool in =
+        plane_in && gj >= 0 && gj < g.ny && gk >= 0 && gk < g.nz;
+    const int64_t p = ((int64_t)gi * g.ny + gj) * g.nz + gk;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      if constexpr (STAGE == kCopy) {
+        cp_async(slot + f * per + e, in ? x + f * g.plane + p : x, in);
+      } else {
+        slot[f * per + e] =
+            in ? from_zero<T, NF>(binv, b, omega0, g.plane, p, f) : T(0);
+      }
+    }
+    row += g.drow;
+    col += g.dcol;
+    if (col >= g.width) {
+      col -= g.width;
+      ++row;
+    }
+  }
+}
 
-template <int R, int NF, int MODE>
-__global__ void __launch_bounds__(kThreads)
-stencil3d_block_kernel(const float* __restrict__ C,
-                       const float* __restrict__ x,
-                       const float* __restrict__ b,
-                       const float* __restrict__ binv, float omega,
-                       float* __restrict__ y, int nx, int ny, int nz) {
+// One (f2, oi) trip at a point: acc[f1] += sum_(oj, ok) C[f1, f2, q] *
+// window, NF m^2 loads. Cq: C + (f2 m^3 + oi m^2) plane + p; xw: the
+// window slot of field f2 at the point's (row, column) offset -r.
+template <class T, int R, int NF>
+__device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
+                                     const T* xw, int width, T (&acc)[NF]) {
   constexpr int M = 2 * R + 1;
   constexpr int M3 = M * M * M;
-  constexpr int SX = kTX + 2 * R;
-  constexpr int SY = kTY + 2 * R;
-  constexpr int SZ = kTZ + 2 * R;
-  __shared__ float xs[MODE == kZero ? 1 : NF][SX][SY][SZ];
-
-  const int i0 = blockIdx.z * kTX;
-  const int j0 = blockIdx.y * kTY;
-  const int k0 = blockIdx.x * kTZ;
-  const int64_t plane = (int64_t)nx * ny * nz;
-
-  if (MODE != kZero) {
-    const int tid = (threadIdx.z * kTY + threadIdx.y) * kTZ + threadIdx.x;
-    // x tiles of every field plus halo; zero outside the lattice
-    for (int t = tid; t < NF * SX * SY * SZ; t += kThreads) {
-      const int f = t / (SX * SY * SZ);
-      int rem = t - f * (SX * SY * SZ);
-      const int li = rem / (SY * SZ);
-      rem -= li * (SY * SZ);
-      const int lj = rem / SZ;
-      const int lk = rem - lj * SZ;
-      const int gi = i0 + li - R;
-      const int gj = j0 + lj - R;
-      const int gk = k0 + lk - R;
-      float v = 0.0f;
-      if (gi >= 0 && gi < nx && gj >= 0 && gj < ny && gk >= 0 && gk < nz) {
-        v = x[f * plane + ((int64_t)gi * ny + gj) * nz + gk];
+#pragma unroll
+  for (int f1 = 0; f1 < NF; ++f1) {
+#pragma unroll
+    for (int oj = 0; oj < M; ++oj) {
+#pragma unroll
+      for (int ok = 0; ok < M; ++ok) {
+        acc[f1] = fma_t(
+            __ldg(Cq + ((int64_t)f1 * NF * M3 + oj * M + ok) * plane),
+            xw[oj * width + ok], acc[f1]);
       }
-      xs[f][li][lj][lk] = v;
     }
-    __syncthreads();
   }
+}
 
-  const int i = i0 + threadIdx.z;
-  const int j = j0 + threadIdx.y;
-  const int k = k0 + threadIdx.x;
-  if (i >= nx || j >= ny || k >= nz) return;
-  const int64_t p = ((int64_t)i * ny + j) * nz + k;
+// One pass over the block's run on plane i: the body of every marching
+// entry. All threads of the block call it. `x` null: the pass stages the
+// sweep from zero (omega0 Binv b) in place of x (STAGE must be kFromZero).
+// `d` (kCheb): read at the point when s1 != 0 (from zero: the staged x is
+// the direction), then written.
+template <class T, int R, int NF, int STAGE>
+__device__ __forceinline__ void march(
+    const T* __restrict__ C, const T* x, const T* __restrict__ b,
+    const T* __restrict__ binv, T* d, T omega0, T s0, T s1, T* y, int pass,
+    const Geom& g, int run, int i, T* sm) {
+  constexpr int M = 2 * R + 1;
+  constexpr int M3 = M * M * M;
+  const int per = g.rows * g.width;
+  T* red = sm + M * NF * per;
+  const int s = threadIdx.x / g.tp;
+  const int pl = threadIdx.x - s * g.tp;
+  const int q0 = run * g.tp;
+  const int q = q0 + pl;
+  const bool valid = q < g.npl;
+  const int jf = q0 / g.nz;
+  const int j = q / g.nz;
+  const int k = q - j * g.nz;
+  const int wr = j - jf;
+  const int64_t plane = g.plane;
+  const int row0 = threadIdx.x / g.width;
+  const int col0 = threadIdx.x - row0 * g.width;
 
-  float acc[NF];
+  // planes i - r .. i + r in slots 0 .. 2r
+  for (int oi = 0; oi < M; ++oi) {
+    stage_plane<T, R, NF, STAGE>(sm + oi * NF * per, g, i + oi - R, jf - R,
+                                 row0, col0, x, binv, b, omega0);
+  }
+  if (STAGE == kCopy) cp_async_wait();
+  __syncthreads();
+
+  T acc[NF];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = 0.0f;
-
-  if (MODE != kZero) {
-    // rolled over (f2, oi): NF * M * M coefficient loads per trip
+  for (int f = 0; f < NF; ++f) acc[f] = T(0);
+  const int64_t p = (int64_t)i * g.npl + q;
+  if (valid) {
 #pragma unroll 1
-    for (int t = 0; t < NF * M; ++t) {
-      const int f2 = t / M;
-      const int oi = t - f2 * M;
-      const float* Cp = C + ((int64_t)f2 * M3 + oi * M * M) * plane + p;
+    for (int t = s; t < NF * M; t += trips<T, R, NF>() * g.split) {
 #pragma unroll
-      for (int f1 = 0; f1 < NF; ++f1) {
-#pragma unroll
-        for (int oj = 0; oj < M; ++oj) {
-#pragma unroll
-          for (int ok = 0; ok < M; ++ok) {
-            const int64_t q = (int64_t)f1 * NF * M3 + oj * M + ok;
-            acc[f1] = fmaf(
-                __ldg(Cp + q * plane),
-                xs[f2][threadIdx.z + oi][threadIdx.y + oj][threadIdx.x + ok],
-                acc[f1]);
-          }
+      for (int u = 0; u < trips<T, R, NF>(); ++u) {
+        const int tu = t + u * g.split;
+        if (tu < NF * M) {
+          const int f2 = tu / M;
+          const int oi = tu - f2 * M;
+          const T* xw = sm + (oi * NF + f2) * per + wr * g.width + k;
+          trip<T, R, NF>(C + (int64_t)(f2 * M3 + oi * M * M) * plane + p,
+                         plane, xw, g.width, acc);
         }
       }
     }
   }
-
-  if (MODE == kApply) {
+  if (g.split > 1) {
+    // the other splits' partial sums, added by split 0 in split order
+    if (s > 0) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) red[(s * NF + f) * g.tp + pl] = acc[f];
+    }
+    __syncthreads();
+    if (s == 0) {
+      for (int s2 = 1; s2 < g.split; ++s2) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f] += red[(s2 * NF + f) * g.tp + pl];
+      }
+    }
+  }
+  if (s != 0 || !valid) return;
+  const T* xc = sm + R * NF * per + (wr + R) * g.width + k + R;
+  if (pass == kApply) {
 #pragma unroll
     for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
-    return;
-  }
-  float res[NF];
+  } else if (pass == kResidual) {
 #pragma unroll
-  for (int f = 0; f < NF; ++f) res[f] = b[f * plane + p] - acc[f];
-  if (MODE == kResidual) {
+    for (int f = 0; f < NF; ++f) y[f * plane + p] = b[f * plane + p] - acc[f];
+  } else if (pass == kSweep) {
+    T res[NF];
 #pragma unroll
-    for (int f = 0; f < NF; ++f) y[f * plane + p] = res[f];
-    return;
-  }
+    for (int f = 0; f < NF; ++f) res[f] = b[f * plane + p] - acc[f];
 #pragma unroll
-  for (int f1 = 0; f1 < NF; ++f1) {
-    float s = 0.0f;
+    for (int f1 = 0; f1 < NF; ++f1) {
+      T v = T(0);
 #pragma unroll
-    for (int f2 = 0; f2 < NF; ++f2) {
-      s = fmaf(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], s);
+      for (int f2 = 0; f2 < NF; ++f2) {
+        v = fma_t(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], v);
+      }
+      y[f1 * plane + p] = xc[f1 * per] + s0 * v;
     }
-    const float xc =
-        MODE == kZero
-            ? 0.0f
-            : xs[f1][threadIdx.z + R][threadIdx.y + R][threadIdx.x + R];
-    y[f1 * plane + p] = xc + omega * s;
+  } else if (pass == kCheb) {
+    const T res = binv[p] * (b[p] - acc[0]);
+    const T dprev = x == nullptr ? xc[0] : s1 != T(0) ? d[p] : T(0);
+    const T dn = s1 != T(0) ? fma_t(s0, res, s1 * dprev) : s0 * res;
+    d[p] = dn;
+    y[p] = xc[0] + dn;
   }
 }
 
-template <int R, int NF>
-void launch_block_mode(int mode, dim3 grid, dim3 block, cudaStream_t stream,
-                       const float* C, const float* x, const float* b,
-                       const float* binv, float omega, float* y, int nx,
-                       int ny, int nz) {
-#define IIFEA_LAUNCH(MODE)                                             \
-  stencil3d_block_kernel<R, NF, MODE><<<grid, block, 0, stream>>>(     \
-      C, x, b, binv, omega, y, nx, ny, nz)
-  switch (mode) {
-    case kApply: IIFEA_LAUNCH(kApply); break;
-    case kResidual: IIFEA_LAUNCH(kResidual); break;
-    case kSweep: IIFEA_LAUNCH(kSweep); break;
-    default: IIFEA_LAUNCH(kZero); break;
-  }
-#undef IIFEA_LAUNCH
+// One pass, one block per (run, i-plane).
+template <class T, int R, int NF>
+__global__ void __launch_bounds__(kMarch, march_blocks<T, R, NF>())
+march_kernel(const T* __restrict__ C, const T* x, const T* __restrict__ b,
+             const T* __restrict__ binv, T* d, T s0, T s1, T* y, int pass,
+             Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  march<T, R, NF, kCopy>(C, x, b, binv, d, T(0), s0, s1, y, pass, g,
+                         blockIdx.x % g.runs, blockIdx.x / g.runs,
+                         reinterpret_cast<T*>(smem_raw));
 }
 
-template <int R>
-int launch_block_fields(int n_fields, int mode, dim3 grid, dim3 block,
-                        cudaStream_t stream, const float* C, const float* x,
-                        const float* b, const float* binv, float omega,
-                        float* y, int nx, int ny, int nz) {
-  switch (n_fields) {
-    case 1:
-      launch_block_mode<R, 1>(mode, grid, block, stream, C, x, b, binv,
-                              omega, y, nx, ny, nz);
-      break;
-    case 2:
-      launch_block_mode<R, 2>(mode, grid, block, stream, C, x, b, binv,
-                              omega, y, nx, ny, nz);
-      break;
-    case 3:
-      launch_block_mode<R, 3>(mode, grid, block, stream, C, x, b, binv,
-                              omega, y, nx, ny, nz);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+// y = omega Binv b: one sweep from zero, one thread per point; d, when not
+// null, gets the same values (the first Chebyshev direction).
+template <class T, int NF>
+__global__ void march_zero_kernel(const T* __restrict__ binv,
+                                  const T* __restrict__ b, T omega, T* y,
+                                  T* d, int64_t plane) {
+  const int64_t p = (int64_t)blockIdx.x * kMarch + threadIdx.x;
+  if (p >= plane) return;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const T v = from_zero<T, NF>(binv, b, omega, plane, p, f);
+    y[f * plane + p] = v;
+    if (d != nullptr) d[f * plane + p] = v;
   }
+}
+
+// The coefficients of a level's smoothing steps: step s is a sweep with
+// omega = s0[s], or a Chebyshev step with (s0, s1)[s] (s1[0] = 0).
+struct Steps {
+  double s0[kMaxSteps], s1[kMaxSteps];
+};
+
+// A level's smoothing call in one cooperative launch, one block per (run,
+// i-plane): `sweeps` steps from x (x null: from zero; the first step is
+// then omega0 = s0[0] Binv b, folded into the next pass's staging, and with
+// sweeps == 1 written to out), the last written to out, the others
+// ping-ponged between tmp and out; then res = b - A out when res is not
+// null. A grid barrier separates passes. The pass sequence is the one the
+// per-pass route launches.
+template <class T, int R, int NF>
+__global__ void __launch_bounds__(kMarch, march_blocks<T, R, NF>(56))
+march_level_kernel(const T* __restrict__ C, const T* __restrict__ binv,
+                   const T* __restrict__ b, const T* x, T* d, T* out, T* tmp,
+                   T* res, int sweeps, int cheb, Steps st, Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int run = blockIdx.x % g.runs;
+  const int i = blockIdx.x / g.runs;
+  const int pass = cheb ? kCheb : kSweep;
+  const T omega0 = (T)st.s0[0];
+  const T* cur = x;
+  int k = 0;
+  if (x == nullptr) {
+    const int q = run * g.tp + threadIdx.x;
+    if (sweeps == 1 && threadIdx.x < g.tp && q < g.npl) {
+      const int64_t p = (int64_t)i * g.npl + q;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        out[f * g.plane + p] =
+            from_zero<T, NF>(binv, b, omega0, g.plane, p, f);
+      }
+    }
+    k = 1;
+  }
+  for (; k < sweeps; ++k) {
+    T* dst = ((sweeps - 1 - k) & 1) ? tmp : out;
+    if (cur == nullptr) {
+      march<T, R, NF, kFromZero>(C, cur, b, binv, d, omega0, (T)st.s0[k],
+                                 (T)st.s1[k], dst, pass, g, run, i, sm);
+    } else {
+      march<T, R, NF, kCopy>(C, cur, b, binv, d, omega0, (T)st.s0[k],
+                             (T)st.s1[k], dst, pass, g, run, i, sm);
+    }
+    cur = dst;
+    if (k + 1 < sweeps || res != nullptr) cg::this_grid().sync();
+  }
+  if (res != nullptr) {
+    if (cur == nullptr) {
+      march<T, R, NF, kFromZero>(C, cur, b, binv, nullptr, omega0, T(0),
+                                 T(0), res, kResidual, g, run, i, sm);
+    } else {
+      march<T, R, NF, kCopy>(C, cur, b, binv, nullptr, omega0, T(0), T(0),
+                             res, kResidual, g, run, i, sm);
+    }
+  }
+}
+
+// Per instance: the dynamic shared memory limit raised once, and the
+// resident blocks per SM of each kernel at a given shared memory size.
+template <class T, int R, int NF>
+cudaError_t prepare() {
+  static cudaError_t done = cudaErrorNotReady;
+  if (done == cudaErrorNotReady) {
+    int dev = 0, optin = 0;
+    done = cudaGetDevice(&dev);
+    if (done == cudaSuccess) {
+      done = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (done == cudaSuccess) {
+      done = cudaFuncSetAttribute(march_kernel<T, R, NF>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  optin);
+    }
+    if (done == cudaSuccess) {
+      done = cudaFuncSetAttribute(march_level_kernel<T, R, NF>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  optin);
+    }
+  }
+  return done;
+}
+
+template <class T, int R, int NF>
+cudaError_t blocks_per_sm(bool level, size_t smem, int* out) {
+  cudaError_t e = prepare<T, R, NF>();
+  if (e != cudaSuccess) return e;
+  return level ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     out, march_level_kernel<T, R, NF>, kMarch, smem)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     out, march_kernel<T, R, NF>, kMarch, smem);
+}
+
+int device_attribute(cudaDeviceAttr attr) {
+  int dev = 0, value = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&value, attr, dev) != cudaSuccess) {
+    return 0;
+  }
+  return value;
+}
+
+int sm_count() {
+  static const int sms = device_attribute(cudaDevAttrMultiProcessorCount);
+  return sms;
+}
+
+// One resident block per SM for the instances whose point streams at least
+// 1,000 coefficient planes (nF = 3, r = 2: 1,125), on levels whose blocks
+// make three waves of one: at two blocks per SM the 3 x 97^3 passes ran at
+// 1.550 ms, at one 1.441 (H100); the 3 x 25^3 level, one wave, ran slower
+// at one. The launch asks for more than half an SM's shared memory.
+template <class T, int R, int NF>
+bool one_block_per_sm(int64_t blocks) {
+  return NF * NF * (2 * R + 1) * (2 * R + 1) * (2 * R + 1) >= 1000 &&
+         blocks >= 3 * (int64_t)sm_count();
+}
+
+size_t one_block_smem() {
+  static const size_t bytes =
+      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerMultiprocessor) /
+          2 + 1;
+  return bytes;
+}
+
+// The plan of one level shape (out[0..2]): split, whether the level's
+// smoothing call is one launch (1) or one launch per pass (0), and the
+// co-resident blocks of the level launch. From the sweep of every split at
+// the 3D paths' level shapes on an H100 (tests/compare_stencil3d.py
+// --sweep):
+// * split: the smallest power of two whose (run, plane) blocks fill half
+//   the card's resident blocks, and at most what leaves each thread
+//   `trips` trips (a thread with fewer in flight only adds a reduction):
+//   3 x 13^3 took 0.0061 ms at split 8 against 0.0094 at 16 and 0.0144 at
+//   1, 17^3 f64 0.0069 at 4 against 0.0073 at 8;
+// * a level launch, which needs every block co-resident, where the blocks
+//   fit, and not for the scalar f32 r <= 2 instances: their passes are
+//   short, and on a card kept busy (a CUDA graph) one launch a pass was
+//   faster (27^3 post-smoothing 0.0115 ms against 0.0139 in one launch,
+//   on an H100). Blocks that walked two planes to make a larger level fit
+//   were slower than one launch a pass (f64 r = 3 at 33^3: 0.0916 ms
+//   against 0.0808), so a block takes one plane.
+template <class T, int R, int NF>
+int plan(int nx, int ny, int nz, int* out) {
+  const int sms = sm_count();
+  if (sms == 0) return -1;
+  const int per_thread = cdiv(NF * (2 * R + 1), trips<T, R, NF>());
+  int split = 1;
+  for (;;) {
+    const Geom g = make_geom<R>(nx, ny, nz, split);
+    int per_sm = 0;
+    if (blocks_per_sm<T, R, NF>(false, smem_bytes<T, R, NF>(g), &per_sm) !=
+            cudaSuccess ||
+        per_sm == 0) {
+      return -1;
+    }
+    if (2 * (int64_t)g.runs * nx >= (int64_t)sms * per_sm ||
+        2 * split > per_thread || split == 16) {
+      break;
+    }
+    split *= 2;
+  }
+  const Geom g = make_geom<R>(nx, ny, nz, split);
+  int level_sm = 0;
+  if (blocks_per_sm<T, R, NF>(true, smem_bytes<T, R, NF>(g), &level_sm) !=
+      cudaSuccess) {
+    return -1;
+  }
+  const int level_cap = sms * level_sm;
+  out[0] = split;
+  out[1] = !scalar_r2<T, R, NF>() && (int64_t)g.runs * nx <= level_cap;
+  out[2] = level_cap;
+  return 0;
+}
+
+bool valid_split(int split) {
+  return split == 1 || split == 2 || split == 4 || split == 8 ||
+         split == 16;
+}
+
+template <class T, int R, int NF>
+int launch_pass(const void* C, const void* x, const void* b,
+                const void* binv, void* d, double omega0, double s0,
+                double s1, void* y, int nx, int ny, int nz, int pass,
+                int split, cudaStream_t stream) {
+  if (pass == kZero) {
+    const int64_t n = (int64_t)nx * ny * nz;
+    march_zero_kernel<T, NF>
+        <<<(unsigned)((n + kMarch - 1) / kMarch), kMarch, 0, stream>>>(
+            (const T*)binv, (const T*)b, (T)omega0, (T*)y, (T*)d, n);
+    return (int)cudaGetLastError();
+  }
+  if (!valid_split(split) || pass < kApply || pass > kCheb ||
+      (pass == kCheb && NF != 1) || x == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geom g = make_geom<R>(nx, ny, nz, split);
+  cudaError_t e = prepare<T, R, NF>();
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (int64_t)g.runs * nx;
+  size_t smem = smem_bytes<T, R, NF>(g);
+  if (one_block_per_sm<T, R, NF>(blocks) && smem < one_block_smem()) {
+    smem = one_block_smem();
+  }
+  march_kernel<T, R, NF><<<(unsigned)blocks, kMarch, smem, stream>>>(
+      (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
+      (T)s1, (T*)y, pass, g);
   return (int)cudaGetLastError();
+}
+
+template <class T, int R, int NF>
+int launch_level(const void* C, const void* binv, const void* b,
+                 const void* x, void* d, void* out, void* tmp, void* res,
+                 const double* s0, const double* s1, int sweeps, int cheb,
+                 int nx, int ny, int nz, int split, cudaStream_t stream) {
+  if (!valid_split(split) || sweeps < 1 ||
+      sweeps > kMaxSteps || (cheb && NF != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geom g = make_geom<R>(nx, ny, nz, split);
+  const size_t smem = smem_bytes<T, R, NF>(g);
+  int per_sm = 0;
+  cudaError_t e = blocks_per_sm<T, R, NF>(true, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  if ((int64_t)g.runs * nx > (int64_t)sm_count() * per_sm) {
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  Steps st = {};
+  for (int s = 0; s < sweeps; ++s) {
+    st.s0[s] = s0[s];
+    st.s1[s] = s1[s];
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(g.runs * nx);
+  cfg.blockDim = dim3(kMarch);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, march_level_kernel<T, R, NF>, (const T*)C, (const T*)binv,
+      (const T*)b, (const T*)x, (T*)d, (T*)out, (T*)tmp, (T*)res, sweeps,
+      cheb, st, g);
 }
 
 }  // namespace
 
+// The marching instances, by (f64, radius, fields): CALL(T, R, NF) for each.
+#define DISPATCH3(f64, radius, nf, CALL)                         \
+  switch ((f64) * 100 + (radius) * 10 + (nf)) {                  \
+    case 11: return CALL(float, 1, 1);                           \
+    case 12: return CALL(float, 1, 2);                           \
+    case 13: return CALL(float, 1, 3);                           \
+    case 21: return CALL(float, 2, 1);                           \
+    case 22: return CALL(float, 2, 2);                           \
+    case 23: return CALL(float, 2, 3);                           \
+    case 31: return CALL(float, 3, 1);                           \
+    case 131: return CALL(double, 3, 1);                         \
+    default: return (int)cudaErrorInvalidValue;                  \
+  }
+
 extern "C" {
 
-// The scalar entries take the operands' scalar type as f64 (0: float, 1:
-// double) and their scalars in double; the instances are f32 r = 1, 2, 3
-// and f64 r = 3, any other (f64, radius) is refused.
-
-// y = A x
+// y = A x on scalar planes; f32 at r = 1, 2, 3 and f64 at r = 3.
 int stencil3d_mv(const void* C, const void* x, void* y, int nx, int ny,
                  int nz, int radius, int f64, void* stream) {
-  return launch<kMv>(C, x, nullptr, nullptr, nullptr, 0.0, 0.0, y, nx, ny,
-                     nz, radius, f64, (cudaStream_t)stream);
+  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (f64 * 10 + radius) {
+    case 1: return launch_mv<float, 1>(C, x, y, nx, ny, nz, s);
+    case 2: return launch_mv<float, 2>(C, x, y, nx, ny, nz, s);
+    case 3: return launch_mv<float, 3>(C, x, y, nx, ny, nz, s);
+    case 13: return launch_mv<double, 3>(C, x, y, nx, ny, nz, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// y = x + omega * invd * (b - A x)
-int stencil3d_jacobi(const void* C, const void* invd, const void* b,
-                     const void* x, double omega, void* y, int nx, int ny,
-                     int nz, int radius, int f64, void* stream) {
-  return launch<kJacobi>(C, x, invd, b, nullptr, omega, 0.0, y, nx, ny, nz,
-                         radius, f64, (cudaStream_t)stream);
+// The plan of a level shape for an instance: out[0] split, out[1] 1 where
+// the level's smoothing call is one launch (0: one launch per pass), out[2]
+// the level launch's co-resident blocks. 0 on success, negative if a query
+// failed.
+int stencil3d_plan(int nx, int ny, int nz, int radius, int nf, int f64,
+                   int* out) {
+  if (nx <= 0 || ny <= 0 || nz <= 0) return -1;
+#define CALL(T, R, NF) plan<T, R, NF>(nx, ny, nz, out)
+  DISPATCH3(f64, radius, nf, CALL)
+#undef CALL
 }
 
-// d = alpha * invd * (b - A x) + beta * d (in place); y = x + d
-int stencil3d_cheb(const void* C, const void* invd, const void* b,
-                   const void* x, void* d, double alpha, double beta,
-                   void* y, int nx, int ny, int nz, int radius, int f64,
-                   void* stream) {
-  return launch<kCheb>(C, x, invd, b, d, alpha, beta, y, nx, ny, nz, radius,
-                       f64, (cudaStream_t)stream);
+// One pass on nF fields: pass 0 y = A x, 1 y = b - A x, 2 y = x + s0 Binv
+// (b - A x), 3 (nF = 1) the Chebyshev step with (s0, s1) and d, 4 y =
+// omega0 Binv b (the sweep from zero; d, when not null, gets the same
+// values). `split` is the plan's. Operands a pass does not read may be
+// null; y must not alias x, d or b.
+int stencil3d_pass(const void* C, const void* x, const void* b,
+                   const void* binv, void* d, double omega0, double s0,
+                   double s1, void* y, int nx, int ny, int nz, int radius,
+                   int nf, int f64, int pass, int split, void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
+#define CALL(T, R, NF)                                                      \
+  launch_pass<T, R, NF>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,    \
+                        pass, split, (cudaStream_t)stream)
+  DISPATCH3(f64, radius, nf, CALL)
+#undef CALL
 }
 
-// Block apply (mode 0), residual b - A x (1), point-block sweep
-// x + omega * Binv * (b - A x) (2) or the sweep from zero omega * Binv * b
-// (3) on n_fields = 1..3 fields in one launch; operands a mode does not read
-// may be null. y must not alias x.
-int stencil3d_block(const float* C, const float* x, const float* b,
-                    const float* binv, float omega, float* y, int nx, int ny,
-                    int nz, int radius, int n_fields, int mode,
-                    void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0 || mode < kApply || mode > kZero) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 block(kTZ, kTY, kTX);
-  const dim3 grid((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY,
-                  (nx + kTX - 1) / kTX);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  if (radius == 1) {
-    return launch_block_fields<1>(n_fields, mode, grid, block,
-                                  (cudaStream_t)stream, C, x, b, binv, omega,
-                                  y, nx, ny, nz);
-  }
-  if (radius == 2) {
-    return launch_block_fields<2>(n_fields, mode, grid, block,
-                                  (cudaStream_t)stream, C, x, b, binv, omega,
-                                  y, nx, ny, nz);
-  }
-  return (int)cudaErrorInvalidValue;
+// A level's smoothing call in ONE cooperative launch: `sweeps` (1 to 8)
+// sweeps (cheb 0, omega s0[k]) or Chebyshev steps (cheb 1, nF = 1, (s0,
+// s1)[k], s1[0] = 0) from x (x null: from zero) into out, then res = b -
+// A out when res is not null. tmp is the ping-pong buffer (sweeps >= 2), d
+// the Chebyshev direction (cheb, unless one step from zero). None of out,
+// tmp, res, d may alias x or each other. Every block of the plan must be
+// co-resident, else the launch is refused.
+int stencil3d_level(const void* C, const void* binv, const void* b,
+                    const void* x, void* d, void* out, void* tmp, void* res,
+                    const double* s0, const double* s1, int sweeps, int cheb,
+                    int nx, int ny, int nz, int radius, int nf, int f64,
+                    int split, void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
+#define CALL(T, R, NF)                                                       \
+  launch_level<T, R, NF>(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps,    \
+                         cheb, nx, ny, nz, split, (cudaStream_t)stream)
+  DISPATCH3(f64, radius, nf, CALL)
+#undef CALL
 }
 
 }  // extern "C"

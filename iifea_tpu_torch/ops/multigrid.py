@@ -12,13 +12,13 @@ block (multi-field) stencil operators (port of ``StencilMultigrid``,
 * smoothing, 2D: weighted Jacobi with fixed sweep counts (a linear,
   symmetric preconditioner, valid inside CG); block: ω = 1 point-block
   Jacobi on the l1-regularised nodal (nF×nF) blocks. Both through the
-  ``smooth`` kernel entry: per level, the pre-smoothing from zero and the
-  residual handed to the coarser level are one call, the post-smoothing
-  one call, each one launch on the small lattices and one launch per sweep
-  on the large ones (3D block: one ``stencil3d_block`` launch per sweep
-  and per residual). 3D: Chebyshev on the l1-Jacobi scaling over the fixed
-  interval [1.05/α, 1.05], one fused ``cheb_step3`` kernel per sweep, the
-  residual on the ``stencil_mv3`` kernel. The other smoother of each
+  ``smooth`` kernel entry (3D: ``smooth3``): per level, the pre-smoothing
+  from zero and the residual handed to the coarser level are one call, the
+  post-smoothing one call, each one launch on the small lattices and one
+  launch per pass on the large ones. 3D scalar: Chebyshev on the l1-Jacobi
+  scaling over the fixed interval [1.05/α, 1.05], through the same
+  ``smooth3`` calls (the steps' coefficients fixed per hierarchy). The
+  other smoother of each
   scalar class is an option: ``StencilMultigrid(smoother='chebyshev')``
   (interval from a power-iteration λmax per level) and
   ``StencilMultigrid3D(smoother='jacobi', omega=…)``;
@@ -413,6 +413,24 @@ class StencilMultigrid:
         return self._vcycle(0, r)
 
 
+def chebyshev_steps(sweeps: int, cheb_alpha: float, hi: float = 1.05):
+    """The (s0, s1) of ``sweeps`` Chebyshev steps on [hi/α, hi]: (1/θ, 0),
+    then (2ρ'/δ, ρ'ρ) with ρ' = 1/(2σ − ρ), σ = θ/δ, ρ₀ = 1/σ. From x = 0
+    the first step is the weighted-Jacobi sweep with ω = 1/θ and the
+    direction d its result."""
+    lo = hi / cheb_alpha
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    steps = [(1.0 / theta, 0.0)] if sweeps > 0 else []
+    for _ in range(sweeps - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        steps.append((2.0 * rho_new / delta, rho_new * rho))
+        rho = rho_new
+    return steps
+
+
 class StencilMultigrid3D:
     """Symmetric V-cycle preconditioner for a StencilOperator3D.
 
@@ -425,7 +443,8 @@ class StencilMultigrid3D:
     spectrum by 1, so no eigenvalue estimate is needed and the smoother
     stays stable on sliver-cut stencils, where plain weighted Jacobi
     diverges. ``smoother='jacobi'`` runs ``omega``-weighted l1-Jacobi
-    sweeps instead (the fused ``jacobi_smooth3`` kernel).
+    sweeps instead. Either way a level's pre-smoothing with its residual,
+    and its post-smoothing, are one ``smooth3`` call each.
     """
 
     CHEB_HI = 1.05
@@ -452,49 +471,35 @@ class StencilMultigrid3D:
         self.coarse_inv = (_dense_inverse3(self.levels[-1]) if dense_ok
                            else None)
 
-    def _smooth(self, lvl: int, x, b, sweeps: int, x_zero: bool = False):
-        """``sweeps`` smoothing steps from x (Chebyshev, or ω-weighted
-        l1-Jacobi sweeps); ``x_zero`` says x is the zero vector (the
-        pre-smoother's start)."""
-        if sweeps <= 0:
-            return x
-        S = self.levels[lvl]
-        invd = self.inv_diags[lvl]
+    def _steps(self, sweeps: int):
+        """The (s0, s1) of ``sweeps`` smoothing steps: ω for the Jacobi
+        sweeps, else ``chebyshev_steps``."""
         if self.smoother == "jacobi":
-            for _ in range(sweeps):
-                x = S.jacobi_smooth(invd, b, x, self.omega)
-            return x
-        hi = self.CHEB_HI
-        lo = hi / self.cheb_alpha
-        theta = 0.5 * (hi + lo)
-        delta = 0.5 * (hi - lo)
-        sigma = theta / delta
-        rho = 1.0 / sigma
-        if x_zero:
-            # from x = 0 the first step is a weighted-Jacobi sweep with
-            # ω = 1/θ, and its direction d equals the new x exactly (a
-            # copy: the next fused step updates d in place while reading x)
-            x = S.jacobi_smooth(invd, b, x, 1.0 / theta)
-            d = x.clone()
-        else:
-            x, d = S.cheb_sweep(invd, b, x, None, 1.0 / theta, 0.0)
-        for _ in range(sweeps - 1):
-            rho_new = 1.0 / (2.0 * sigma - rho)
-            x, d = S.cheb_sweep(invd, b, x, d, 2.0 * rho_new / delta,
-                                rho_new * rho)
-            rho = rho_new
-        return x
+            return [(self.omega, 0.0)] * sweeps
+        return chebyshev_steps(sweeps, self.cheb_alpha, self.CHEB_HI)
+
+    def _smooth(self, lvl: int, x, b, sweeps: int, x_zero: bool = False,
+                with_residual: bool = False):
+        """``sweeps`` smoothing steps on level ``lvl`` (Chebyshev, or
+        ω-weighted l1-Jacobi sweeps) from x, or from zero when ``x_zero``
+        (the pre-smoother's start; x is then not read), in one smoothing
+        call; with ``with_residual`` also b − A x_ν."""
+        if sweeps <= 0 and not with_residual:
+            return torch.zeros_like(b) if x_zero else x
+        return self.levels[lvl].smooth(
+            self.inv_diags[lvl], b, None if x_zero else x,
+            self._steps(sweeps), with_residual,
+            cheb=self.smoother == "chebyshev")
 
     def _vcycle(self, lvl: int, b):
         S = self.levels[lvl]
         if lvl == len(self.levels) - 1:
             if self.coarse_inv is not None:
                 return self.coarse_inv @ b
-            return self._smooth(lvl, torch.zeros_like(b), b,
-                                self.coarse_sweeps, x_zero=True)
-        x = self._smooth(lvl, torch.zeros_like(b), b, self.nu_pre,
-                         x_zero=True)
-        r = b - S.mv(x)
+            return self._smooth(lvl, None, b, self.coarse_sweeps,
+                                x_zero=True)
+        x, r = self._smooth(lvl, None, b, self.nu_pre, x_zero=True,
+                            with_residual=True)
         rc = _restrict3(r.reshape(S.shape)).reshape(-1)
         xc = self._vcycle(lvl + 1, rc)
         x = x + _prolong3(xc.reshape(self.levels[lvl + 1].shape)).reshape(-1)
@@ -660,7 +665,8 @@ class StencilMultigridBlock3D(StencilMultigridBlock):
     blocks, dense pseudo-inverse for ≤ DENSE_CAP_BLOCK dofs) with
     per-field trilinear transfers and the 3D direct RAP
     (97 → 49 → 25 → 13 → 7 at n_bg=96, the 3 × 7³ level dense). On a card
-    every sweep and residual is one ``stencil3d_block`` launch."""
+    a smoothing call is one ``smooth3`` launch on the small levels and one
+    ``stencil3d_block`` launch a pass on the large ones."""
 
     _coarsen = staticmethod(_coarsen_block3)
     _restrict = staticmethod(_restrict3)

@@ -14,9 +14,9 @@ reference has no counterpart here.
 
 Applies and sweeps on a card go through the hand-written kernels of
 ``ops/stencil_kernels.py`` (a block apply is one launch, a level's
-smoothing call one launch on the small 2D lattices, a 3D block sweep one
-launch): f32, and f64 for scalar 2D operators and for radius-3 scalar 3D
-ones; another dtype or radius raises there. On the CPU the f32 operators
+smoothing call one launch on the small 2D and 3D lattices): f32, and f64
+for scalar 2D operators and for radius-3 scalar 3D ones; another dtype or
+radius raises there. On the CPU the f32 operators
 go through the same wrappers (their plain versions) and the others use the
 plain shifted-slice form ``mv_ref``.
 
@@ -244,6 +244,19 @@ class StencilOperator3D:
         return sk.cheb_step3_plain(self.coeffs, invd, b, x, d, alpha, beta,
                                    self.shape, self.radius)
 
+    def smooth(self, invd: torch.Tensor, b: torch.Tensor,
+               x: torch.Tensor | None, steps, with_residual: bool = False,
+               cheb: bool = False):
+        """A level's smoothing call: the (s0, s1) ``steps`` from x (None:
+        from zero), weighted-Jacobi sweeps with ω = s0 or (``cheb``)
+        Chebyshev steps, and with ``with_residual`` also b − A x_ν
+        (returns the pair): the ``smooth3`` kernel entry where ``mv`` takes
+        the kernels (one launch on the small lattices, one a pass on the
+        large ones), its plain version otherwise."""
+        fn = sk.smooth3 if self._kernels() else sk.smooth3_plain
+        return fn(self.coeffs, invd, b, x, steps, self.shape, self.radius,
+                  with_residual, cheb)
+
     def diag(self) -> torch.Tensor:
         r = self.radius
         m = 2 * r + 1
@@ -398,9 +411,9 @@ class StencilOperatorBlock2D(_StencilOperatorBlock):
 class StencilOperatorBlock3D(_StencilOperatorBlock):
     """Block (multi-field) stencil operator on an (nx1, ny1, nz1) lattice,
     for 3D vector problems; coefficients (nF, nF, (2r+1)³, nx1, ny1, nz1).
-    On a card every apply, residual and point-block sweep is one launch of
-    the ``stencil3d_block`` kernel (a non-f32 operator raises there); on the
-    CPU the plain versions."""
+    On a card every apply is one launch of the ``stencil3d_block`` kernel
+    and a level's smoothing call goes through ``smooth3`` (a non-f32
+    operator raises there); on the CPU the plain versions."""
 
     dim = 3
 
@@ -417,32 +430,14 @@ class StencilOperatorBlock3D(_StencilOperatorBlock):
                with_residual: bool = False):
         """``sweeps`` point-block Jacobi sweeps x ← x + ω·Binv·(b − A x)
         from x (None: from zero; the first sweep is then ω·Binv·b) and with
-        ``with_residual`` also b − A x_ν (returns the pair): one
-        stencil3d_block launch per sweep and one for the residual on a card,
-        the plain versions on the CPU."""
-        args = (self.shape, self.radius)
-        if self.device.type == "cuda":
-            def sweep(x):
-                return sk.stencil3d_block(self.coeffs, x, *args, b=b,
-                                          binv=binv, omega=omega)
-
-            def residual(x):
-                return sk.stencil3d_block(self.coeffs, x, *args, b=b)
-        else:
-            def sweep(x):
-                return sk.sweep3_block_plain(self.coeffs, binv, b, x, omega,
-                                             *args)
-
-            def residual(x):
-                return sk.residual3_block_plain(self.coeffs, b, x, *args)
-
+        ``with_residual`` also b − A x_ν (returns the pair): on a card the
+        ``smooth3`` kernel entry (one launch on the small lattices, one a
+        pass on the large ones), on the CPU its plain version."""
         if sweeps < 0:
             raise ValueError(f"sweeps must be >= 0, got {sweeps}")
-        if x is None and sweeps == 0:
-            x = torch.zeros_like(b)
-        for _ in range(sweeps):
-            x = sweep(x)
-        return (x, residual(x)) if with_residual else x
+        fn = sk.smooth3 if self.device.type == "cuda" else sk.smooth3_plain
+        return fn(self.coeffs, binv, b, x, [(omega, 0.0)] * sweeps,
+                  self.shape, self.radius, with_residual)
 
     def mv_ref(self, x: torch.Tensor) -> torch.Tensor:
         """Plain shifted-slice apply; x may be batched (..., n)."""

@@ -7,10 +7,12 @@ holds the two entries built on them for block operators and small lattices:
 ``stencil_mv_block``, a block (multi-field) apply or residual b − A x in
 one launch, and ``smooth``, a multigrid level's ν sweeps and trailing
 residual in one launch) and
-``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``, which also holds
-the fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother and
+``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``: ``stencil_mv3``
+on its own kernel, and one marching kernel behind ``jacobi_smooth3``, the
+fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother and
 ``stencil3d_block``, the 3D block apply, residual and point-block sweep in
-one launch). Every
+one launch; ``smooth3``, a 3D level's whole smoothing call, is one
+cooperative launch of it on the small levels). Every
 ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (one nvcc per source, run together, then one link) into one shared library
 in ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
@@ -21,7 +23,9 @@ Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version
 in this module; a CUDA tensor always launches the kernel (or raises). Each
 wrapper counts its kernel launches in ``<wrapper>.launches``; a smoothing
 call that takes one launch per pass counts its sweeps under
-``jacobi_smooth`` and its residual under ``stencil_mv_block``.
+``jacobi_smooth`` and its residual under ``stencil_mv_block`` (3D:
+``jacobi_smooth3`` or ``cheb_step3`` on scalar planes, ``stencil3d_block``
+on block ones and for the residual).
 
 Instances: the 2D kernels take f32 at r = 1, 2 for 1 to 3 fields and at
 r = 3 (the biharmonic's 49 taps) for one field, and f64 at r = 1, 2, 3 for
@@ -200,6 +204,31 @@ def sweep3_block_plain(C, binv, b, x, omega, shape, radius):
     return d if x is None else x + d
 
 
+def smooth3_plain(C, binv, b, x, steps, shape, radius, with_residual=False,
+                  cheb=False):
+    """The plain version of ``smooth3``: its steps one after another with
+    the single-pass plain functions (from zero the first step is
+    ``sweep3_block_plain`` from None, and for Chebyshev d its result),
+    then b − A x_ν where asked."""
+    if x is None:
+        if steps:
+            x = sweep3_block_plain(C, binv, b, None, steps[0][0], shape,
+                                   radius)
+        else:
+            x = torch.zeros_like(b)
+        d, todo = x, steps[1:]
+    else:
+        d, todo = None, steps
+    for s0, s1 in todo:
+        if cheb:
+            x, d = cheb_step3_plain(C, binv, b, x, d, s0, s1, shape, radius)
+        else:
+            x = sweep3_block_plain(C, binv, b, x, s0, shape, radius)
+    if with_residual:
+        return x, residual3_block_plain(C, b, x, shape, radius)
+    return x
+
+
 # -- build and load -------------------------------------------------------------
 
 
@@ -262,7 +291,7 @@ def build() -> Path:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i = ctypes.c_void_p, ctypes.c_int
     d = ctypes.c_double
     lib.stencil2d_mv.argtypes = [p, p, p, i, i, i, i, p]
     lib.stencil2d_block.argtypes = [p, p, p, p, d, p, i, i, i, i, i, i, p]
@@ -270,14 +299,15 @@ def _lib() -> ctypes.CDLL:
                                      i, p]
     lib.stencil2d_smooth_plan.argtypes = [i, i, i, i, i]
     lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.stencil3d_jacobi.argtypes = [p, p, p, p, d, p, i, i, i, i, i, p]
-    lib.stencil3d_cheb.argtypes = [p, p, p, p, p, d, d, p, i, i, i, i, i,
-                                   p]
-    lib.stencil3d_block.argtypes = [p, p, p, p, f, p, i, i, i, i, i, i, p]
+    lib.stencil3d_plan.argtypes = [i, i, i, i, i, i, p]
+    lib.stencil3d_pass.argtypes = [p, p, p, p, p, d, d, d, p, i, i, i, i, i,
+                                   i, i, i, p]
+    lib.stencil3d_level.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                    i, i, i, i, i, i, p]
     for fn in (lib.stencil2d_mv, lib.stencil2d_block,
                lib.stencil2d_smooth, lib.stencil2d_smooth_plan,
-               lib.stencil3d_mv, lib.stencil3d_jacobi, lib.stencil3d_cheb,
-               lib.stencil3d_block):
+               lib.stencil3d_mv, lib.stencil3d_plan, lib.stencil3d_pass,
+               lib.stencil3d_level):
         fn.restype = i
     return lib
 
@@ -598,20 +628,58 @@ def stencil_mv3(C, x, shape, radius):
     return y
 
 
+# passes of the stencil3d_pass entry (_APPLY, _RESIDUAL, _SWEEP as above)
+_CHEB, _ZERO = 3, 4
+# the most steps a level's smoothing launch takes (kMaxSteps)
+MAX_LEVEL_STEPS3 = 8
+
+
+@functools.cache
+def _plan3(shape, radius, nF, device_index, f64: bool = False):
+    """(split, level, level_blocks) of a 3D level shape, asked of the
+    library once per (lattice, radius, fields, device, scalar type):
+    threads per point, whether a smoothing call there is one launch (1) or
+    one launch per pass (0), and the blocks the card holds of a level's
+    launch. The library decides from the run count and occupancy queries
+    of the instance."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        rc = _lib().stencil3d_plan(*shape, radius, nF, int(f64), out)
+    if rc != 0:
+        raise RuntimeError(f"stencil3d_plan failed: {rc}")
+    return tuple(out)
+
+
+def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
+           s1=0.0, d=None, y=None, split=None):
+    """One stencil3d_pass launch of ``pass_`` on checked CUDA operands into
+    ``y`` (new when None), which it returns; ``split`` overrides the
+    plan's. The _ZERO pass is omega0·Binv·b (also into ``d`` when
+    given)."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    if y is None:
+        y = torch.empty_like(b if b is not None else x)
+    with torch.cuda.device(y.device):
+        if split is None:
+            split = _plan3(tuple(shape), radius, nF, y.device.index or 0,
+                           y.dtype == torch.float64)[0]
+        rc = _lib().stencil3d_pass(
+            ptr(C), ptr(x), ptr(b), ptr(binv), ptr(d), float(omega0),
+            float(s0), float(s1), y.data_ptr(), *shape, radius, nF, _f64(y),
+            pass_, split, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "stencil3d_pass")
+    return y
+
+
 def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
     """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32 at r = 1,
-    2, 3; f64 at r = 3). CPU: plain version; CUDA: the stencil3d_jacobi
-    kernel instance."""
+    2, 3; f64 at r = 3). CPU: plain version; CUDA: the sweep pass of the
+    stencil3d_pass kernel instance."""
     if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
         return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _lib().stencil3d_jacobi(
-            C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-            float(omega), y.data_ptr(), *shape, radius, _f64(x),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(rc, "stencil3d_jacobi")
+    y = _pass3(_SWEEP, C, x, b, invd, shape, radius, 1, s0=omega)
     jacobi_smooth3.launches += 1
     return y
 
@@ -620,9 +688,9 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
     """One Chebyshev smoothing step in one pass on a 3D lattice (f32 at r =
     1, 2, 3; f64 at r = 3): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
     ``d`` is None on the first step (β must be 0). Returns (x', d'). CPU:
-    plain version; CUDA: the stencil3d_cheb kernel instance, which writes
-    x' to a new tensor and d' over ``d`` (each point reads only its own
-    d)."""
+    plain version; CUDA: the Chebyshev pass of the stencil3d_pass kernel
+    instance, which writes x' to a new tensor and d' over ``d`` (each point
+    reads only its own d)."""
     if d is None and beta != 0:
         raise ValueError("the first Chebyshev step (d=None) takes beta=0")
     if d is not None and d.data_ptr() == x.data_ptr():
@@ -630,16 +698,10 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
     planes = (invd, b) if d is None else (invd, b, d)
     if _check(C, x, shape, radius, *planes, dim=3) == "cpu":
         return cheb_step3_plain(C, invd, b, x, d, alpha, beta, shape, radius)
-    y = torch.empty_like(x)
     if d is None:
         d = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _lib().stencil3d_cheb(
-            C.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-            d.data_ptr(), float(alpha), float(beta), y.data_ptr(), *shape,
-            radius, _f64(x), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(rc, "stencil3d_cheb")
+    y = _pass3(_CHEB, C, x, b, invd, shape, radius, 1, s0=alpha, s1=beta,
+               d=d)
     cheb_step3.launches += 1
     return y, d
 
@@ -654,9 +716,9 @@ def stencil3d_block(C, x, shape, radius, b=None, binv=None, omega=1.0):
       (nF, nF, n) nodal blocks (scalar planes: the flat 1/diag); with ``x``
       None the sweep from zero, ω·Binv·b, which reads no coefficient.
 
-    CPU: the plain versions; CUDA: ONE launch of the stencil3d_block
-    kernel, which stages the x tiles of all fields once and keeps nF
-    accumulators per point."""
+    CPU: the plain versions; CUDA: ONE launch of the stencil3d_pass
+    kernel, which stages the x planes of all fields once per block and
+    keeps nF accumulators per point."""
     if binv is not None and b is None:
         raise ValueError("a sweep needs b")
     if x is None and binv is None:
@@ -670,25 +732,133 @@ def stencil3d_block(C, x, shape, radius, b=None, binv=None, omega=1.0):
             return residual3_block_plain(C, b, x, shape, radius)
         return apply3_block_plain(C, x, shape, radius)
     mode = (_APPLY if b is None else _RESIDUAL if binv is None
-            else _SWEEP_FROM_ZERO if x is None else _SWEEP)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    y = torch.empty_like(vectors[0])
-    with torch.cuda.device(y.device):
-        rc = _lib().stencil3d_block(
-            C.data_ptr(), ptr(x), ptr(b), ptr(binv), float(omega),
-            y.data_ptr(), *shape, radius, nF, mode,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(rc, "stencil3d_block")
+            else _ZERO if x is None else _SWEEP)
+    y = _pass3(mode, C, x, b, binv, shape, radius, nF, omega0=omega,
+               s0=omega)
     stencil3d_block.launches += 1
     return y
 
 
+def passes3(sweeps: int, from_zero: bool, with_residual: bool) -> list:
+    """The launches of a 3D smoothing call on the per-pass route, in order:
+    "zero" (the first step from zero, ω·Binv·b), one ("step", k) per
+    further step k, "residual"."""
+    first = int(from_zero and sweeps >= 1)
+    return (["zero"] * first + [("step", k) for k in range(first, sweeps)]
+            + ["residual"] * with_residual)
+
+
+def _smooth3_route(shape, radius, nF, device_index, f64, sweeps, from_zero,
+                   with_residual) -> int:
+    """GRID where the plan says the level's smoothing call fits one
+    cooperative launch and the call has at least two passes, else
+    PER_PASS."""
+    if not 1 <= sweeps <= MAX_LEVEL_STEPS3:
+        return PER_PASS
+    if len(passes3(sweeps, from_zero, with_residual)) < 2:
+        return PER_PASS
+    return GRID if _plan3(tuple(shape), radius, nF, device_index,
+                          f64)[1] else PER_PASS
+
+
+def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
+                  with_residual, cheb, split=None):
+    """``smooth3`` on checked CUDA operands by ``route``. PER_PASS launches
+    ``passes3``, counted on scalar planes as ``jacobi_smooth3`` (the step
+    from zero, and sweeps) or ``cheb_step3`` (Chebyshev steps), on a block
+    operator as ``stencil3d_block``, the residual as ``stencil3d_block``.
+    GRID is one stencil3d_level launch (counted as ``smooth3``; the step
+    from zero folded into the next pass's staging), refused (this raises)
+    where the level's blocks are not all co-resident. ``split`` overrides
+    the plan's."""
+    sweeps = len(steps)
+    s0 = [float(a) for a, _ in steps]
+    s1 = [float(c) for _, c in steps]
+    if split is None:
+        split = _plan3(tuple(shape), radius, nF, b.device.index or 0,
+                       b.dtype == torch.float64)[0]
+    d = torch.empty_like(b) if cheb and sweeps >= 1 else None
+    if route == GRID:
+        out = torch.empty_like(b)
+        res = torch.empty_like(b) if with_residual else None
+        tmp = torch.empty_like(b) if sweeps - (x is None) >= 2 else None
+        a0 = (ctypes.c_double * len(s0))(*s0)
+        a1 = (ctypes.c_double * len(s1))(*s1)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        with torch.cuda.device(b.device):
+            rc = _lib().stencil3d_level(
+                C.data_ptr(), binv.data_ptr(), b.data_ptr(), ptr(x), ptr(d),
+                out.data_ptr(), ptr(tmp), ptr(res), a0, a1, sweeps,
+                int(cheb), *shape, radius, nF, _f64(b), split,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(rc, "stencil3d_level")
+        smooth3.launches += 1
+        return (out, res) if with_residual else out
+    step_counter = (stencil3d_block if C.dim() == 6
+                    else cheb_step3 if cheb else jacobi_smooth3)
+    zero_counter = stencil3d_block if C.dim() == 6 else jacobi_smooth3
+    out, r = (torch.zeros_like(b) if x is None and sweeps == 0 else x), None
+    for p in passes3(sweeps, x is None, with_residual):
+        if p == "residual":
+            r = _pass3(_RESIDUAL, C, out, b, binv, shape, radius, nF,
+                       split=split)
+            stencil3d_block.launches += 1
+        elif p == "zero":
+            out = _pass3(_ZERO, C, None, b, binv, shape, radius, nF,
+                         omega0=s0[0], d=d, split=split)
+            zero_counter.launches += 1
+        else:
+            k = p[1]
+            out = _pass3(_CHEB if cheb else _SWEEP, C, out, b, binv, shape,
+                         radius, nF, s0=s0[k], s1=s1[k], d=d, split=split)
+            step_counter.launches += 1
+    return (out, r) if with_residual else out
+
+
+def smooth3(C, binv, b, x, steps, shape, radius, with_residual=False,
+            cheb=False):
+    """A 3D multigrid level's smoothing call: ``len(steps)`` steps from x,
+    or from zero when ``x`` is None, and with ``with_residual`` also
+    r = b − A x_ν; returns x_ν or (x_ν, r). ``steps`` holds (s0, s1) per
+    step:
+
+    * sweeps (``cheb`` False): x ← x + s0·Binv·(b − A x), s1 unused; scalar
+      planes take ``binv`` = the flat 1/diag (weighted Jacobi), block
+      coefficients (nF, nF, (2r+1)³, *shape) the (nF, nF, n) nodal blocks;
+    * Chebyshev steps (``cheb``, scalar planes): r = binv·(b − A x),
+      d ← s0·r + s1·d, x ← x + d, with s1 = 0 on the first step; from zero
+      the first step is the sweep s0·binv·b and d its result.
+
+    CPU: ``smooth3_plain``. CUDA: where the plan says the level is small,
+    all passes in ONE launch of the stencil3d_level kernel (a cooperative
+    grid, a barrier between passes), else one launch per pass; either way
+    the same arithmetic, bitwise."""
+    steps = [(float(a), float(c)) for a, c in steps]
+    if cheb and C.dim() != 4:
+        raise ValueError("the Chebyshev smoother takes scalar planes")
+    if cheb and steps and steps[0][1] != 0:
+        raise ValueError("the first Chebyshev step takes s1 = 0")
+    vectors = (b,) if x is None else (b, x)
+    if C.dim() == 4:
+        kind = _check(C, b, shape, radius, binv, *vectors[1:], dim=3)
+        nF = 1
+    else:
+        kind, nF = _check_block(C, shape, radius, vectors, binv, dim=3)
+    if kind == "cpu":
+        return smooth3_plain(C, binv, b, x, steps, shape, radius,
+                             with_residual, cheb)
+    route = _smooth3_route(tuple(shape), radius, nF, b.device.index or 0,
+                           b.dtype == torch.float64, len(steps), x is None,
+                           with_residual)
+    return _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
+                         with_residual, cheb)
+
+
 WRAPPERS = (stencil_mv, jacobi_smooth, stencil_mv_block, smooth, stencil_mv3,
-            jacobi_smooth3, cheb_step3, stencil3d_block)
+            jacobi_smooth3, cheb_step3, stencil3d_block, smooth3)
 
 
 def reset_launches() -> None:

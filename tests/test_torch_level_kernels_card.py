@@ -128,3 +128,209 @@ def test_torch_smooth_refuses_a_level_that_does_not_fit():
     y_ref, r_ref = sk.smooth_plain(C, binv, b, None, 0.8, 2, shape, 2, True)
     assert float((y - y_ref).abs().max()) <= 1e-4 * float(y_ref.abs().max())
     assert float((r - r_ref).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# -- 3D: smooth3 (a level's sweeps or Chebyshev steps and residual) --------
+
+# the 3D cycles' small level shapes, one non-cube, and one whose
+# (j, k) plane ends in a ragged run (19·37 = 703 points: 2 runs of 256 and
+# one of 191)
+SHAPES3 = [(13, 13, 13), (17, 17, 17), (25, 25, 25), (33, 33, 33),
+           (13, 10, 17), (11, 19, 37)]
+# (fields, radius, dtype, Chebyshev): the block instances (fields ≥ 1),
+# and the scalar ones (fields 0) with Jacobi sweeps and Chebyshev steps
+INSTANCES3 = ([(nf, r, torch.float32, False) for nf in (1, 2, 3)
+               for r in (1, 2)]
+              + [(0, r, torch.float32, cheb) for r in (1, 2, 3)
+                 for cheb in (False, True)]
+              + [(0, 3, torch.float64, cheb) for cheb in (False, True)])
+STEPS3 = [(0.9, 0.0), (1.2, 0.35), (1.1, 0.5)]
+
+
+def _card_operands3(n_fields, radius, shape, dtype, seed):
+    """A diagonally dominant 3D operator on the card (n_fields = 0: scalar
+    planes and the flat 1/diag), its smoother blocks, b and x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    from iifea_tpu_torch.ops.stencil import StencilOperatorBlock3D
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    m3 = (2 * radius + 1) ** 3
+    nF = max(n_fields, 1)
+    n = nF * shape[0] * shape[1] * shape[2]
+    C = rng.uniform(-0.1, 0.1, (nF, nF, m3, *shape))
+    for f in range(nF):
+        C[f, f, m3 // 2] += 4.0
+    C, b, x = (torch.from_numpy(a).to(dev, dtype)
+               for a in (C, rng.standard_normal(n), rng.standard_normal(n)))
+    if n_fields == 0:
+        C = C[0, 0].contiguous()
+        return C, (1.0 / C[m3 // 2]).reshape(-1).contiguous(), b, x
+    return C, tmg._point_binv(StencilOperatorBlock3D(C, shape, radius)), b, x
+
+
+def _err_ok(a, ref, dtype, scale=None):
+    """f32 within 1e-4·max|scale| (the sum order), f64 within 1e-12; scale
+    is ref unless given (a smoothed residual is held to the size of its
+    terms, b: it is small by cancellation)."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    scale = ref if scale is None else scale
+    return float((a - ref).abs().max()) <= tol * float(scale.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES3)
+@pytest.mark.parametrize("n_fields,radius,dtype,cheb", INSTANCES3)
+def test_torch_smooth3_entry_on_card(n_fields, radius, dtype, cheb, shape):
+    """smooth3 on the card, ν = 1, 2, 3, from x and from zero, with and
+    without the residual: the per-pass route and the routed call equal the
+    plain version (f32 1e-4, f64 1e-12 relative); the fused route, where
+    the level's blocks are co-resident, is one launch a call and bitwise
+    equal to the per-pass launches, and is refused where they are not."""
+    C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
+                                    7 * radius + n_fields)
+    nF = max(n_fields, 1)
+    split, _, level_blocks = sk._plan3(shape, radius, nF, 0,
+                                       dtype == torch.float64)
+    runs = -(-shape[1] * shape[2] // (256 // split))
+    fits = runs * shape[0] <= level_blocks
+    for sweeps in (1, 2, 3):
+        steps = STEPS3[:sweeps]
+        for start in (x, None):
+            for with_residual in (False, True):
+                args = (C, binv, b, start, steps, shape, radius)
+                ref = sk.smooth3_plain(*args, with_residual, cheb)
+                before = sk.launches()
+                per_pass = sk._smooth3_cuda(sk.PER_PASS, *args, nF,
+                                            with_residual, cheb)
+                assert sk.smooth3.launches == before["smooth3"]
+                got = [per_pass, sk.smooth3(*args, with_residual, cheb)]
+                if fits:
+                    before = sk.launches()
+                    got.append(sk._smooth3_cuda(sk.GRID, *args, nF,
+                                                with_residual, cheb))
+                    assert sk.launches() == {**before, "smooth3":
+                                             before["smooth3"] + 1}
+                else:
+                    with pytest.raises(RuntimeError, match="stencil3d_level"):
+                        sk._smooth3_cuda(sk.GRID, *args, nF, with_residual,
+                                         cheb)
+                torch.cuda.synchronize()
+                for out in got:
+                    for a, a_ref, a_pass, scale in zip(
+                            _tuple(out), _tuple(ref), _tuple(per_pass),
+                            (None, b)):
+                        assert _err_ok(a, a_ref, dtype, scale)
+                        assert torch.equal(a, a_pass)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES3)
+@pytest.mark.parametrize("n_fields,radius,dtype", sorted(
+    {(nf, r, dt) for nf, r, dt, _ in INSTANCES3}, key=str))
+def test_torch_stencil3d_passes_on_card(n_fields, radius, dtype, shape):
+    """Each pass of the marching kernel through its wrapper (scalar:
+    jacobi_smooth3, cheb_step3 with β = 0 and β ≠ 0; block: stencil3d_block
+    apply, residual, sweep, sweep from zero) against the plain version, and
+    a sweep at every split the shape can take."""
+    C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
+                                    11 * radius + n_fields)
+    nF = max(n_fields, 1)
+    a = (shape, radius)
+    if n_fields == 0:
+        d = torch.randn_like(x)
+        got = {"jacobi": sk.jacobi_smooth3(C, binv, b, x, 0.7, *a),
+               "cheb0": sk.cheb_step3(C, binv, b, x, None, 1.3, 0.0, *a)[0],
+               "cheb": sk.cheb_step3(C, binv, b, x, d.clone(), 1.3, 0.45,
+                                     *a)[0]}
+        ref = {"jacobi": sk.jacobi_smooth3_plain(C, binv, b, x, 0.7, *a),
+               "cheb0": sk.cheb_step3_plain(C, binv, b, x, None, 1.3, 0.0,
+                                            *a)[0],
+               "cheb": sk.cheb_step3_plain(C, binv, b, x, d, 1.3, 0.45,
+                                           *a)[0]}
+    else:
+        got = {"apply": sk.stencil3d_block(C, x, *a),
+               "residual": sk.stencil3d_block(C, x, *a, b=b),
+               "sweep": sk.stencil3d_block(C, x, *a, b=b, binv=binv,
+                                           omega=0.8),
+               "zero": sk.stencil3d_block(C, None, *a, b=b, binv=binv,
+                                          omega=0.8)}
+        ref = {"apply": sk.apply3_block_plain(C, x, *a),
+               "residual": sk.residual3_block_plain(C, b, x, *a),
+               "sweep": sk.sweep3_block_plain(C, binv, b, x, 0.8, *a),
+               "zero": sk.sweep3_block_plain(C, binv, b, None, 0.8, *a)}
+    torch.cuda.synchronize()
+    for k in got:
+        assert _err_ok(got[k], ref[k], dtype), k
+    sweep = sk.sweep3_block_plain(C, binv, b, x, 0.8, *a)
+    for split in (1, 2, 4, 8, 16):
+        if split >= 2 * nF * (2 * radius + 1):
+            break
+        y = sk._pass3(sk._SWEEP, C, x, b, binv, *a, nF, s0=0.8, split=split)
+        torch.cuda.synchronize()
+        assert _err_ok(y, sweep, dtype), split
+
+
+# the level shapes of the 3D paths: elasticity (3 fields, r = 2), Poisson
+# (scalar f32 r = 2), biharmonic (scalar f64 r = 3)
+PATH_LEVELS3 = {
+    "elasticity": (3, 2, False, [(97,) * 3, (49,) * 3, (25,) * 3,
+                                 (13,) * 3]),
+    "poisson": (1, 2, False, [(105,) * 3, (53,) * 3, (27,) * 3]),
+    "biharmonic": (1, 3, True, [(65,) * 3, (33,) * 3, (17,) * 3]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(PATH_LEVELS3))
+def test_torch_plan3_at_path_levels(path):
+    """The plan at every level shape of the three 3D paths: a power-of-two
+    split, and the level launch only where its blocks are co-resident — on
+    the smallest block and radius-3 levels but not the largest, never on
+    the scalar radius-2 ones; a level launch that does not fit is
+    refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    nF, radius, f64, shapes = PATH_LEVELS3[path]
+    plans = [sk._plan3(sh, radius, nF, 0, f64) for sh in shapes]
+    for sh, (split, level, level_blocks) in zip(shapes, plans):
+        assert split in (1, 2, 4, 8, 16) and level in (0, 1)
+        runs = -(-sh[1] * sh[2] // (256 // split))
+        assert level_blocks > 0
+        if level:
+            assert runs * sh[0] <= level_blocks
+    assert plans[0][1] == 0
+    assert plans[-1][1] == (0 if path == "poisson" else 1)
+    # the largest level forced into one launch
+    sh, dt = shapes[0], torch.float64 if f64 else torch.float32
+    n = sh[0] * sh[1] * sh[2]
+    m3 = (2 * radius + 1) ** 3
+    C = torch.zeros((m3, *sh) if nF == 1 else (nF, nF, m3, *sh), dtype=dt,
+                    device="cuda")
+    binv = torch.zeros((n,) if nF == 1 else (nF, nF, n), dtype=dt,
+                       device="cuda")
+    b = torch.zeros(nF * n, dtype=dt, device="cuda")
+    with pytest.raises(RuntimeError, match="stencil3d_level"):
+        sk._smooth3_cuda(sk.GRID, C, binv, b, torch.zeros_like(b), STEPS3[:2],
+                         sh, radius, nF, True, False)
+
+
+@pytest.mark.gpu
+def test_torch_smooth3_refuses_other_instances_on_card():
+    """Instances that do not exist raise on the card too: the Chebyshev
+    smoother on block planes, f64 block planes, radius 3 block planes, f64
+    scalar planes at radius 2."""
+    C, binv, b, x = _card_operands3(2, 1, (9, 9, 9), torch.float32, 5)
+    with pytest.raises(ValueError, match="scalar planes"):
+        sk.smooth3(C, binv, b, x, STEPS3[:1], (9, 9, 9), 1, cheb=True)
+    with pytest.raises(TypeError, match="float32"):
+        sk.smooth3(C.double(), binv.double(), b.double(), x.double(),
+                   STEPS3[:1], (9, 9, 9), 1)
+    Cs, invd, bs, xs = _card_operands3(0, 2, (9, 9, 9), torch.float64, 6)
+    with pytest.raises(TypeError, match="radius 3"):
+        sk.smooth3(Cs, invd, bs, xs, STEPS3[:1], (9, 9, 9), 2)
+    C3, binv3, b3, x3 = _card_operands3(1, 1, (9, 9, 9), torch.float32, 7)
+    C3 = torch.zeros((1, 1, 343, 9, 9, 9), device=C3.device)
+    with pytest.raises(ValueError, match="radius 1 or 2"):
+        sk.smooth3(C3, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 3)

@@ -281,7 +281,9 @@ def test_torch_biharmonic3d_mg_on_card(n_bg):
     torch.cuda.synchronize()
     assert x.is_cuda and info.converged and abs(info.iters - info_h.iters) <= 2
     assert sk.stencil_mv3.launches > 0
-    assert (sk.cheb_step3.launches > 0) == (n_bg > 7)
+    # the 17³ level smooths as Chebyshev passes or in one smooth3 launch a
+    # call, as the plan routes it
+    assert (sk.cheb_step3.launches + sk.smooth3.launches > 0) == (n_bg > 7)
     n, n_h = prob.error_norms(M.mv(x)), prob_h.error_norms(M_h.mv(x_h))
     for k in ("L2_rel", "H1_rel", "H2_rel"):
         assert abs(n[k] - n_h[k]) <= 1e-6 * n_h[k], k
