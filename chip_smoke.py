@@ -28,11 +28,14 @@ line; the first failure exits non-zero:
      interleaved radius-2 launches over 105³, 53³, 27³ and 14³ (the 3D
      V-cycle's levels), synchronised and compared; times as in phase 2 at
      105³, 53³ and 27³. Then stencil3d_block (the 3D block apply,
-     residual, point-block sweep and sweep from zero, one launch each)
-     against its plain versions for 1 to 3 fields, r = 1, 2, at small
-     shapes and at every level shape of the 3D block V-cycle (97³ … 13³),
-     scalar planes also against stencil_mv3 / jacobi_smooth3, a soak of
-     interleaved launches and smoothing calls, and times at 3 and 2 fields.
+     residual, point-block sweep and sweep from zero, one launch each,
+     each counted under its pass's name: stencil3d_block, residual3_block,
+     sweep3_block, zero3_block; on scalar planes apply3, residual3,
+     jacobi_smooth3, zero3) against its plain versions for 1 to 3 fields,
+     r = 1, 2, at small shapes and at every level shape of the 3D block
+     V-cycle (97³ … 13³), scalar planes also against stencil_mv3 /
+     jacobi_smooth3, a soak of interleaved launches and smoothing calls,
+     and times of each pass at 3 and 2 fields.
      Then the radius-3
      instances of the three scalar kernels (the 3D biharmonic's, f32 and
      f64; the Chebyshev step with β = 0 and β ≠ 0) against their plain
@@ -47,7 +50,8 @@ line; the first failure exits non-zero:
      the plan says the level fits, which must then launch and equal the
      passes bitwise, and be refused where it does not), against its plain
      version, and its times by each route (``smooth3_call`` the routed,
-     ``smooth3_other_route`` the other).
+     ``smooth3_other_route`` the other); the scalar cycles' sweep from zero
+     (zero3) and residual pass (residual3) checked and timed.
   4. small reference: the card's n_bg=64 2D solution checked with a host
      f64 residual, and the n_bg=24 card and host solutions compared; the
      Chebyshev smoother option inside the n_bg=64 solve.
@@ -69,9 +73,11 @@ line; the first failure exits non-zero:
      A.mv_multi, with its residual, peak memory and error-norm gates.
   7. main path 3D: the same at n_bg=104 (105³ = 1,157,625 background dofs,
      13,182,000 foreground tetrahedra), with host setup per stage, table
-     bytes and peak device memory, the front-end with CG and the trimmed
-     general-probe solve; its error norms must be below those of an
-     n_bg=52 solve.
+     bytes and peak device memory; the same lattice's refinement with the
+     Jacobi smoother option (``StencilMultigrid3D(smoother='jacobi')``, the
+     scalar sweep pass's path), counted, to a 1e-8 residual; the front-end
+     with CG and the trimmed general-probe solve; its error norms must be
+     below those of an n_bg=52 solve.
   8. demo: ``python3 -m iifea_tpu_torch.demos.poisson --ref 4 --solv gmres
      --pc jacobi`` on the card (the general operator, no stencil kernel),
      held against the same demo on the host.
@@ -93,7 +99,8 @@ line; the first failure exits non-zero:
      n_fields=3)`` at n_bg=96 (3 × 97³ = 2,738,019 background dofs),
      counted per lattice shape (per smoothed level per V-cycle two smooth3
      launches where the plan holds the level in one launch, else 5
-     stencil3d_block launches; one per Krylov matvec), staged, profiled;
+     launches: zero3_block, 3 sweep3_block, residual3_block; one
+     stencil3d_block apply per Krylov matvec), staged, profiled;
      error norms below an n_bg=48 solve's with an L2 rate above 1.5.
   12. newton: ``solve_nonlinear(linear_pc='mg')`` on the nonlinear
      diffusion form at n_bg=1024 (every Newton step assembled and solved
@@ -145,7 +152,10 @@ first (2x513x513), and a smoothing call is booked by its form
 The line before the last is the kernel summary JSON (the radius-3
 instances, 2D and 3D, as rows of their kernel's name with an ``instance``
 key, their launches from the biharmonics' two routes), the last line the
-device JSON.
+device JSON. Each row's launches are those counted under its name, and its
+times are those of the one ``kernel_time`` row of that name and instance
+timed with its plain version, at a main-path shape where that kernel runs
+(``smooth3``: a level the plan gives one launch).
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -179,9 +189,19 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     # jacobi_smooth for a whole level: ν sweeps and the residual in one
     # launch (a cooperative grid)
     "smooth": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:136"),
-    # stencil_mv3 / jacobi_smooth3 for 3D block operators: apply, residual
-    # or point-block sweep of all nF fields in one launch
+    # the 3D marching kernel's other passes on scalar planes: the V-cycle's
+    # residual b − A x (the reference's b − stencil_mv3), and its
+    # pre-smoother's first step, the sweep from zero ω·invd·b (a
+    # jacobi_smooth3 from x = 0; march_zero_kernel, which reads no plane)
+    "residual3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
+    "zero3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
+    # stencil_mv3 / jacobi_smooth3 for 3D block operators, all nF fields in
+    # one launch: the apply, the residual, the point-block sweep and the
+    # sweep from zero
     "stencil3d_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
+    "residual3_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:325"),
+    "sweep3_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
+    "zero3_block": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
     # jacobi_smooth3 for a whole 3D level: ν sweeps or Chebyshev steps and
     # the residual in one launch (a cooperative grid)
     "smooth3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
@@ -987,27 +1007,29 @@ def block3_calls(C, binv, b, x, shape, radius, omega=0.8, plain=False):
 
 def check_block3(worst, gen, shape, radius, n_fields, dev):
     """stencil3d_block's four passes at ``shape`` against the plain
-    versions: one launch each; scalar planes also against stencil_mv3 and
+    versions: one launch each, booked under its pass's name
+    (``sk.PASS3_NAMES``); scalar planes also against stencil_mv3 and
     jacobi_smooth3. Prints one summary line."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
     C, binv, b, x = block3_operands(gen, shape, radius, n_fields, dev)
     calls = block3_calls(C, binv, b, x, shape, radius)
+    names = {mode: sk.PASS3_NAMES[mode, n_fields > 1] for mode in calls}
     before = sk.launches()
     got = {mode: fn() for mode, fn in calls.items()}
-    if sk.launches() != {**before, "stencil3d_block":
-                         before["stencil3d_block"] + len(calls)}:
-        fail(f"stencil3d_block at {shape} was not one launch a pass: "
-             f"{before} -> {sk.launches()}")
+    if sk.launches() != {**before, **{k: before[k] + 1
+                                      for k in names.values()}}:
+        fail(f"stencil3d_block at {shape} was not one launch a pass, "
+             f"counted under its name: {before} -> {sk.launches()}")
     refs = block3_calls(C, binv, b, x, shape, radius, plain=True)
-    errs = [_check(worst, "stencil3d_block", got[mode], refs[mode](), shape,
+    errs = [_check(worst, names[mode], got[mode], refs[mode](), shape,
                    radius, quiet=True, n_fields=n_fields, what=mode)
             for mode in calls]
     if n_fields == 0:
-        errs.append(_check(worst, "stencil3d_block", got["apply"],
+        errs.append(_check(worst, names["apply"], got["apply"],
                            sk.stencil_mv3(C, x, shape, radius), shape,
                            radius, quiet=True, what="apply vs stencil_mv3"))
-        errs.append(_check(worst, "stencil3d_block", got["sweep"],
+        errs.append(_check(worst, names["sweep"], got["sweep"],
                            sk.jacobi_smooth3(C, binv, b, x, 0.8, shape,
                                              radius), shape, radius,
                            quiet=True, what="sweep vs jacobi_smooth3"))
@@ -1018,8 +1040,9 @@ def check_block3(worst, gen, shape, radius, n_fields, dev):
 
 def kernels3_block(worst, dev):
     """The 3D block entry: checks, a soak, and ``kernel_time`` rows per
-    pass (``form``) at every level shape of the 3D block V-cycle for 3 and
-    2 fields."""
+    pass, under the pass's name, at every level shape of the 3D block
+    V-cycle for 3 and 2 fields (the plain versions' times at the finest
+    level for 3 fields)."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
@@ -1059,8 +1082,8 @@ def kernels3_block(worst, dev):
     torch.cuda.synchronize()
     after = sk.launches()
     phase("soak", kernel="stencil3d_block, smooth3",
-          launches={k: after[k] - before[k] for k in ("stencil3d_block",
-                                                      "smooth3")},
+          launches={k: after[k] - before[k] for k in after
+                    if after[k] != before[k]},
           shapes=[[N_FIELDS_EL3, *sh] for sh in BLOCK3_SMOOTHED], radius=2,
           seconds=time.perf_counter() - t0, mismatches=int(mismatches))
     if int(mismatches) != 0:
@@ -1078,10 +1101,10 @@ def kernels3_block(worst, dev):
             main = (n_fields, sh) == (N_FIELDS_EL3, BLOCK3_SMOOTHED[0])
             for mode in BLOCK3_MODES:
                 rows.append(time_kernel(
-                    "stencil3d_block", [n_fields, *sh], calls[mode],
-                    plain[mode] if main and mode == "apply" else None,
+                    sk.PASS3_NAMES[mode, True], [n_fields, *sh],
+                    calls[mode], plain[mode] if main else None,
                     bound_=bound_passes(sh, n_fields, [mode]),
-                    plain_launches=2, form=mode))
+                    plain_launches=2))
             del C, binv, b, x, calls, plain
             torch.cuda.empty_cache()
     return rows
@@ -1106,12 +1129,13 @@ def scalar3_operands(gen, shape, radius, dtype, dev):
 def smooth3_paths():
     """The 3D paths' smoothed levels: (tag, fields (0: scalar planes),
     radius, dtype, Chebyshev, level shapes, the shape whose pre-smoothing
-    call also times its plain version)."""
+    call also times its plain version: a level the plan gives one launch,
+    where the call is the level kernel's, or None)."""
     import torch
 
     return (
         ("elasticity3", N_FIELDS_EL3, 2, torch.float32, False,
-         BLOCK3_SMOOTHED, BLOCK3_SMOOTHED[2]),
+         BLOCK3_SMOOTHED, BLOCK3_SMOOTHED[-1]),
         ("poisson3", 0, 2, torch.float32, True, LEVELS3, None),
         ("biharmonic3", 0, 3, torch.float64, True, LEVELS_BH3,
          LEVELS_BH3[-1]),
@@ -1129,8 +1153,10 @@ def kernels3_smooth(worst, dev):
     level and then equal the passes bitwise, and be refused where they do
     not. Then ``kernel_time`` rows of each form by
     each route that takes the level (``smooth3_call`` routed,
-    ``smooth3_other_route``), the scalar call's step from zero, and the
-    scalar residual pass at radius 3. Returns the rows."""
+    ``smooth3_other_route``), the scalar call's step from zero (``zero3``,
+    checked against its plain version) and its residual pass
+    (``residual3``), with their plain versions' times at the finest level.
+    Returns the rows."""
     import torch
 
     from iifea_tpu_torch.ops import multigrid
@@ -1183,9 +1209,9 @@ def kernels3_smooth(worst, dev):
                         errs.append(_check(
                             worst, "smooth3", v, v_ref, sh, r, quiet=True,
                             scale=scale, form=form))
-                        if k:   # the per-pass residual is a block pass
-                            _check(worst, "stencil3d_block", v, v_ref, sh, r,
-                                   quiet=True, scale=scale)
+                        if k:   # the per-pass route's residual pass
+                            _check(worst, sk.PASS3_NAMES["residual", nF > 1],
+                                   v, v_ref, sh, r, quiet=True, scale=scale)
                         first = per_pass[k] if with_residual else per_pass
                         bitwise &= bool(torch.equal(v, first))
             phase("kernel_check", kernel="smooth3", path=path, shape=key,
@@ -1222,21 +1248,26 @@ def kernels3_smooth(worst, dev):
                             else len(sk.passes3(NU, from_zero,
                                                 with_residual)))))
             if n_fields == 0:
-                # the scalar call's step from zero, booked as jacobi_smooth3
+                # the scalar call's step from zero and its residual pass,
+                # each under its own name
+                zero = partial(sk._pass3, sk._ZERO, C, None, b, binv, sh, r,
+                               1, omega0=steps[0][0])
+                zero_plain = partial(sk.sweep3_block_plain, C, binv, b, None,
+                                     steps[0][0], sh, r)
+                _check(worst, "zero3", zero(), zero_plain(), sh, r,
+                       quiet=True)
+                top = sh == shapes[0]
                 rows.append(time_kernel(
-                    "jacobi_smooth3", key,
-                    partial(sk._pass3, sk._ZERO, C, None, b, binv, sh, r, 1,
-                            omega0=steps[0][0]),
-                    bound_=bound_passes(sh, 1, ["zero"], r, f64), radius=r,
-                    f64=f64, form="zero"))
-            if r == 3 and sh == shapes[0]:
-                # the scalar residual pass, booked as stencil3d_block
+                    "zero3", key, zero, zero_plain if top else None,
+                    bound_=bound_passes(sh, 1, ["zero"], r, f64),
+                    plain_launches=2, radius=r, f64=f64))
                 rows.append(time_kernel(
-                    "stencil3d_block", key,
+                    "residual3", key,
                     partial(sk._pass3, sk._RESIDUAL, C, x, b, None, sh, r, 1),
-                    partial(sk.residual3_block_plain, C, b, x, sh, r),
+                    partial(sk.residual3_block_plain, C, b, x, sh, r)
+                    if top else None,
                     bound_=bound_passes(sh, 1, ["residual"], r, f64),
-                    plain_launches=2, radius=r, f64=f64, form="residual"))
+                    plain_launches=2, radius=r, f64=f64))
             del C, binv, b, x
             torch.cuda.empty_cache()
     return rows
@@ -1480,16 +1511,14 @@ def stage_times(solver, tag: str):
 def count_by_shape(by_shape: Counter):
     """Count the stencil kernels' launches per lattice shape while the
     block runs. Every launch goes through a
-    StencilOperator2D/3D/Block2D/Block3D method (``mv``, ``smooth``, ``jacobi_smooth``, ``cheb_sweep``); each is called through a shim that reads the wrappers'
-    own counters before and after the call and books the difference under
-    the operator's shape (a block operator's led by its field count). A
-    ``smooth`` call is also booked itself, by its form, as
-    ``smooth_call@shape:pre`` (from zero, with the residual), ``:post``
-    (from x, without) or ``:other`` (3D: ``smooth3_call@…``). The
-    stencil3d_block launches are booked by pass:
-    ``stencil3d_block@shape:apply`` / ``:zero`` / ``:sweep`` /
-    ``:residual``; a scalar 3D call's step from zero as
-    ``jacobi_smooth3@shape:zero``."""
+    StencilOperator2D/3D/Block2D/Block3D method (``mv``, ``smooth``,
+    ``jacobi_smooth``); each is called through a shim that reads the
+    launch counters (``sk.launches()``: each kernel's, each 3D pass's under
+    its own name) before and after the call and books the difference
+    under the operator's shape (a block operator's led by its field count),
+    ``kernel@shape``. A ``smooth`` call is also booked itself, by its form,
+    as ``smooth_call@shape:pre`` (from zero, with the residual), ``:post``
+    (from x, without) or ``:other`` (3D: ``smooth3_call@…``)."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
@@ -1500,20 +1529,6 @@ def count_by_shape(by_shape: Counter):
         StencilOperatorBlock3D,
     )
 
-    def block3_passes(self, name, a, out):
-        """stencil3d_block launches of one per-pass method call, by pass:
-        a block apply; a block smoothing call's zero, sweep and residual
-        passes; a scalar 3D smoothing call's residual."""
-        if name == "mv":
-            return {"apply": 1}
-        passes = sk.passes3(len(a[3]) if isinstance(self, StencilOperator3D)
-                            else a[4], a[2] is None, isinstance(out, tuple))
-        if isinstance(self, StencilOperator3D):
-            return {"residual": passes.count("residual")}
-        return {"zero": passes.count("zero"),
-                "sweep": sum(isinstance(p, tuple) for p in passes),
-                "residual": passes.count("residual")}
-
     def shim(name, method):
         def counted(self, *a, **kw):
             before = sk.launches()
@@ -1523,25 +1538,8 @@ def count_by_shape(by_shape: Counter):
                 *self.shape)))
             shape += instance_tag(self.radius, self.dtype == torch.float64)
             for k, n in sk.launches().items():
-                if n == before[k]:
-                    continue
-                if (k == "jacobi_smooth3" and name == "smooth"
-                        and a[2] is None):
-                    # a scalar 3D call's step from zero, one launch
-                    by_shape[f"{k}@{shape}:zero"] += 1
-                    before[k] += 1
-                    if n == before[k]:
-                        continue
-                if k != "stencil3d_block":
+                if n != before[k]:
                     by_shape[f"{k}@{shape}"] += n - before[k]
-                    continue
-                passes = block3_passes(self, name, a, out)
-                if sum(passes.values()) != n - before[k]:
-                    fail(f"{name} at {shape} made {n - before[k]} "
-                         f"stencil3d_block launches, not {passes}")
-                for form, m in passes.items():
-                    if m:
-                        by_shape[f"{k}@{shape}:{form}"] += m
             if name == "smooth":
                 call = ("smooth3_call" if len(self.shape) == 3
                         else "smooth_call")
@@ -1554,7 +1552,7 @@ def count_by_shape(by_shape: Counter):
     saved = [(cls, name, cls.__dict__[name])
              for cls in (StencilOperator2D, StencilOperator3D,
                          StencilOperatorBlock2D, StencilOperatorBlock3D)
-             for name in ("mv", "smooth", "jacobi_smooth", "cheb_sweep")
+             for name in ("mv", "smooth", "jacobi_smooth")
              if name in cls.__dict__]
     for cls, name, method in saved:
         setattr(cls, name, shim(name, method))
@@ -1780,9 +1778,34 @@ def phase_main_path():
     return launches, by_shape
 
 
+def jacobi_option3(solver):
+    """The 3D path's other smoother, ``StencilMultigrid3D(smoother=
+    'jacobi')`` (l1-Jacobi ω-sweeps: the path of the scalar sweep pass,
+    which the default Chebyshev cycle does not launch), through the
+    solver's f32 MG-PCG refinement to a 1e-8 f64 residual on the same
+    lattice, counted. Returns (launches by kernel, by shape)."""
+    from iifea_tpu_torch.ops import multigrid
+
+    b64, Kc, Kf = solver.assemble()
+    bound_ = solver.bind(Kc, Kf)
+    S32 = solver.probe(bound_)
+    (_, relres, iters), seconds, launches, by_shape = counted_run(
+        lambda: solver.refine(S32, multigrid.StencilMultigrid3D(
+            S32, smoother="jacobi"), bound_, b64, 1e-8),
+        ("stencil_mv3", "zero3", "jacobi_smooth3", "residual3"),
+        "solve3_jacobi")
+    phase("solve3_jacobi", smoother="jacobi", cg_iters=iters,
+          rel_residual=relres, seconds=seconds, launches=launches,
+          launches_by_shape=by_shape)
+    if not relres < 1e-8:
+        fail(f"solve3_jacobi: f64 relative residual {relres} >= 1e-8")
+    return launches, by_shape
+
+
 def phase_main_path3():
-    """The 3D main path at n_bg = N_BG3; returns its kernel launch
-    counts."""
+    """The 3D main path at n_bg = N_BG3, then the same lattice with the
+    Jacobi smoother option (``jacobi_option3``); returns their kernel
+    launch counts, added."""
     import torch
 
     dev = torch.device("cuda", 0)
@@ -1807,7 +1830,12 @@ def phase_main_path3():
         _, dt = sync_time(lambda: solver.solve(rtol=1e-10))
         totals.append(dt)
     norms = prob.error_norms(M.mv(u))
-    del solver, S32, mg
+    del S32, mg
+    jacobi_launches, jacobi_by_shape = jacobi_option3(solver)
+    launches = {k: launches.get(k, 0) + jacobi_launches.get(k, 0)
+                for k in {*launches, *jacobi_launches}}
+    by_shape = Counter(by_shape) + Counter(jacobi_by_shape)
+    del solver
     torch.cuda.empty_cache()
     front_end(prob, M, u, SHAPE3, ("cg",), names, MAX_CG_ITERS3,
               "front_end3")
@@ -2158,6 +2186,7 @@ def phase_elasticity3():
     import torch
 
     from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops import stencil_kernels as sk
     from iifea_tpu_torch.solvers import ksp
 
     dev = torch.device("cuda", 0)
@@ -2193,6 +2222,9 @@ def phase_elasticity3():
               A, torch.float64),
           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     names = ("stencil3d_block", "smooth3")
+    if not all(sk._plan3(sh, 2, nF, dev.index or 0)[1]
+               for sh in BLOCK3_SMOOTHED):
+        names += ("zero3_block", "sweep3_block", "residual3_block")
     plain = Counter()
     with plain_on_card(plain):
         (u, info), t_first, launches, by_shape = counted_run(
@@ -2220,8 +2252,6 @@ def phase_elasticity3():
     # 2·NU − 1 sweeps and one residual; one apply per Krylov matvec
     # (iterations + one initial residual per pass) and one per field in the
     # deflation-space test, at the finest shape only
-    from iifea_tpu_torch.ops import stencil_kernels as sk
-
     cycles = info.iters + passes
     want = {}
     for sh in BLOCK3_SMOOTHED:
@@ -2229,13 +2259,14 @@ def phase_elasticity3():
         if sk._plan3(sh, 2, nF, dev.index or 0)[1]:
             want[f"smooth3@{shape}"] = 2 * cycles
             continue
-        key = "stencil3d_block@" + shape
-        want.update({f"{key}:zero": cycles, f"{key}:residual": cycles,
-                     f"{key}:sweep": (2 * NU - 1) * cycles})
+        want.update({f"zero3_block@{shape}": cycles,
+                     f"residual3_block@{shape}": cycles,
+                     f"sweep3_block@{shape}": (2 * NU - 1) * cycles})
     want["stencil3d_block@" + "x".join(map(str, (nF, *BLOCK3_SMOOTHED[0])))
-         + ":apply"] = cycles + nF
+         ] = cycles + nF
     got = {k: v for k, v in by_shape.items()
-           if k.startswith(("stencil3d_block@", "smooth3@"))}
+           if k.startswith(("stencil3d_block@", "smooth3@", "zero3_block@",
+                            "residual3_block@", "sweep3_block@"))}
     if got != want:
         fail(f"elasticity3: stencil3d_block and smooth3 launches {got} are "
              f"not what {cycles} V-cycles predict: {want}")
@@ -2848,11 +2879,10 @@ ODD_SHAPES3 = [(9, 11, 13), (13, 10, 17)]
 SOAK3_R3_ROUNDS = 67             # x 3 kernels x 2 dtypes = 402 launches
 # the 3D scalar paths' kernels: the Krylov apply, and per smoothed level
 # either one smooth3 launch a smoothing call or, one launch a pass, the
-# step from zero and the sweeps (jacobi_smooth3), the Chebyshev steps
-# (cheb_step3) and the residual (stencil3d_block)
-NAMES3 = ("stencil_mv3", "jacobi_smooth3", "cheb_step3", "stencil3d_block",
-          "smooth3")
-PASSES3 = ("jacobi_smooth3", "cheb_step3", "stencil3d_block")
+# step from zero (zero3), the Chebyshev steps (cheb_step3) and the residual
+# (residual3)
+PASSES3 = ("zero3", "cheb_step3", "residual3")
+NAMES3 = ("stencil_mv3", *PASSES3, "smooth3")
 
 
 def names3(shapes, radius: int, f64: bool) -> tuple:
@@ -3440,13 +3470,19 @@ def main() -> None:
         for name, (source, replaces) in KERNELS.items():
             if tag and name not in counts:
                 continue
-            # a fused smoothing call is one launch of "smooth" ("smooth3")
+            # a fused smoothing call is one launch of "smooth" ("smooth3"),
+            # timed where the plan gives the level that launch
             timed_as = {"smooth": "smooth_call",
                         "smooth3": "smooth3_call"}.get(name, name)
-            t = next(r for r in timing
+            found = [r for r in timing
                      if r["kernel"] == timed_as and "plain_ms" in r
                      and instance_tag(r["radius"], r["dtype"] == "f64")
-                     == tag)
+                     == tag]
+            if len(found) != 1 or (timed_as != name
+                                   and found[0].get("route") != "grid"):
+                fail(f"{name}{tag}: the summary needs one row timed with "
+                     f"its plain version by its own kernel, got {found}")
+            t = found[0]
             row = {"name": name, "route": "cuda", "source": source,
                    "replaces": replaces, "launches": counts[name],
                    "max_abs_err": worst[name + tag], "ms": t["device_ms"],

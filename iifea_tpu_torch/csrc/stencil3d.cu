@@ -390,8 +390,15 @@ __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
 // entry. All threads of the block call it. `x` null: the pass stages the
 // sweep from zero (omega0 Binv b) in place of x (STAGE must be kFromZero).
 // `d` (kCheb): read at the point when s1 != 0 (from zero: the staged x is
-// the direction), then written.
-template <class T, int R, int NF, int STAGE>
+// the direction), then written. EARLY (one field): the point's b, Binv and
+// d are loaded before the staging, so their latency overlaps it and the
+// epilogue waits on no load (the 3D Poisson cycle's 53^3 Jacobi /
+// Chebyshev passes were 3.9% / 4.0% slower than the 32 x 4 x 2 tile's
+// without, +0.3% / -2.3% with, on an H100); a level's launch loads them
+// after the stream, since the two registers more halve its co-resident
+// blocks at f64 r = 3 (130 registers) and take the 33^3 level out of one
+// launch.
+template <class T, int R, int NF, int STAGE, bool EARLY>
 __device__ __forceinline__ void march(
     const T* __restrict__ C, const T* x, const T* __restrict__ b,
     const T* __restrict__ binv, T* d, T omega0, T s0, T s1, T* y, int pass,
@@ -410,8 +417,16 @@ __device__ __forceinline__ void march(
   const int k = q - j * g.nz;
   const int wr = j - jf;
   const int64_t plane = g.plane;
+  const int64_t p = (int64_t)i * g.npl + q;
   const int row0 = threadIdx.x / g.width;
   const int col0 = threadIdx.x - row0 * g.width;
+  T b1 = T(0), i1 = T(0), d1 = T(0);
+  auto point_operands = [&] {
+    if (pass != kApply) b1 = __ldg(b + p);
+    if (pass == kSweep || pass == kCheb) i1 = __ldg(binv + p);
+    if (pass == kCheb && x != nullptr && s1 != T(0)) d1 = d[p];
+  };
+  if (EARLY && NF == 1 && s == 0 && valid) point_operands();
 
   // planes i - r .. i + r in slots 0 .. 2r
   for (int oi = 0; oi < M; ++oi) {
@@ -424,7 +439,6 @@ __device__ __forceinline__ void march(
   T acc[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) acc[f] = T(0);
-  const int64_t p = (int64_t)i * g.npl + q;
   if (valid) {
 #pragma unroll 1
     for (int t = s; t < NF * M; t += trips<T, R, NF>() * g.split) {
@@ -456,13 +470,18 @@ __device__ __forceinline__ void march(
     }
   }
   if (s != 0 || !valid) return;
+  if (!EARLY && NF == 1) point_operands();
   const T* xc = sm + R * NF * per + (wr + R) * g.width + k + R;
   if (pass == kApply) {
 #pragma unroll
     for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
+  } else if (pass == kResidual && NF == 1) {
+    y[p] = b1 - acc[0];
   } else if (pass == kResidual) {
 #pragma unroll
     for (int f = 0; f < NF; ++f) y[f * plane + p] = b[f * plane + p] - acc[f];
+  } else if (pass == kSweep && NF == 1) {
+    y[p] = xc[0] + s0 * (i1 * (b1 - acc[0]));
   } else if (pass == kSweep) {
     T res[NF];
 #pragma unroll
@@ -477,8 +496,8 @@ __device__ __forceinline__ void march(
       y[f1 * plane + p] = xc[f1 * per] + s0 * v;
     }
   } else if (pass == kCheb) {
-    const T res = binv[p] * (b[p] - acc[0]);
-    const T dprev = x == nullptr ? xc[0] : s1 != T(0) ? d[p] : T(0);
+    const T res = i1 * (b1 - acc[0]);
+    const T dprev = x == nullptr ? xc[0] : s1 != T(0) ? d1 : T(0);
     const T dn = s1 != T(0) ? fma_t(s0, res, s1 * dprev) : s0 * res;
     d[p] = dn;
     y[p] = xc[0] + dn;
@@ -492,9 +511,9 @@ march_kernel(const T* __restrict__ C, const T* x, const T* __restrict__ b,
              const T* __restrict__ binv, T* d, T s0, T s1, T* y, int pass,
              Geom g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  march<T, R, NF, kCopy>(C, x, b, binv, d, T(0), s0, s1, y, pass, g,
-                         blockIdx.x % g.runs, blockIdx.x / g.runs,
-                         reinterpret_cast<T*>(smem_raw));
+  march<T, R, NF, kCopy, true>(C, x, b, binv, d, T(0), s0, s1, y, pass,
+                               g, blockIdx.x % g.runs, blockIdx.x / g.runs,
+                               reinterpret_cast<T*>(smem_raw));
 }
 
 // y = omega Binv b: one sweep from zero, one thread per point; d, when not
@@ -554,22 +573,24 @@ march_level_kernel(const T* __restrict__ C, const T* __restrict__ binv,
   for (; k < sweeps; ++k) {
     T* dst = ((sweeps - 1 - k) & 1) ? tmp : out;
     if (cur == nullptr) {
-      march<T, R, NF, kFromZero>(C, cur, b, binv, d, omega0, (T)st.s0[k],
-                                 (T)st.s1[k], dst, pass, g, run, i, sm);
+      march<T, R, NF, kFromZero, false>(C, cur, b, binv, d, omega0,
+                                        (T)st.s0[k], (T)st.s1[k], dst, pass,
+                                        g, run, i, sm);
     } else {
-      march<T, R, NF, kCopy>(C, cur, b, binv, d, omega0, (T)st.s0[k],
-                             (T)st.s1[k], dst, pass, g, run, i, sm);
+      march<T, R, NF, kCopy, false>(C, cur, b, binv, d, omega0, (T)st.s0[k],
+                                    (T)st.s1[k], dst, pass, g, run, i, sm);
     }
     cur = dst;
     if (k + 1 < sweeps || res != nullptr) cg::this_grid().sync();
   }
   if (res != nullptr) {
     if (cur == nullptr) {
-      march<T, R, NF, kFromZero>(C, cur, b, binv, nullptr, omega0, T(0),
-                                 T(0), res, kResidual, g, run, i, sm);
+      march<T, R, NF, kFromZero, false>(C, cur, b, binv, nullptr, omega0,
+                                        T(0), T(0), res, kResidual, g, run,
+                                        i, sm);
     } else {
-      march<T, R, NF, kCopy>(C, cur, b, binv, nullptr, omega0, T(0), T(0),
-                             res, kResidual, g, run, i, sm);
+      march<T, R, NF, kCopy, false>(C, cur, b, binv, nullptr, omega0, T(0),
+                                    T(0), res, kResidual, g, run, i, sm);
     }
   }
 }

@@ -231,19 +231,6 @@ class StencilOperator3D:
         return sk.jacobi_smooth3_plain(self.coeffs, invd, b, x, omega,
                                        self.shape, self.radius)
 
-    def cheb_sweep(self, invd: torch.Tensor, b: torch.Tensor,
-                   x: torch.Tensor, d: torch.Tensor | None, alpha: float,
-                   beta: float):
-        """One Chebyshev step r = invd·(b − A x), d' = α·r + β·d,
-        x' = x + d' (d None on the first step): the fused cheb_step3 kernel
-        where ``mv`` takes the kernels, the plain version otherwise.
-        Returns (x', d')."""
-        if self._kernels():
-            return sk.cheb_step3(self.coeffs, invd, b, x, d, alpha, beta,
-                                 self.shape, self.radius)
-        return sk.cheb_step3_plain(self.coeffs, invd, b, x, d, alpha, beta,
-                                   self.shape, self.radius)
-
     def smooth(self, invd: torch.Tensor, b: torch.Tensor,
                x: torch.Tensor | None, steps, with_residual: bool = False,
                cheb: bool = False):

@@ -20,12 +20,15 @@ loaded with ``ctypes``), keyed by a hash of all sources and the flags, so a
 fresh checkout builds everything it runs.
 
 Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version
-in this module; a CUDA tensor always launches the kernel (or raises). Each
-wrapper counts its kernel launches in ``<wrapper>.launches``; a smoothing
-call that takes one launch per pass counts its sweeps under
-``jacobi_smooth`` and its residual under ``stencil_mv_block`` (3D:
-``jacobi_smooth3`` or ``cheb_step3`` on scalar planes, ``stencil3d_block``
-on block ones and for the residual).
+in this module; a CUDA tensor always launches the kernel (or raises).
+Launches are counted where they are made (``launches()``): a 2D wrapper's
+in ``<wrapper>.launches`` (a 2D smoothing call that takes one launch per
+pass counts its sweeps under ``jacobi_smooth`` and its residual under
+``stencil_mv_block``, the functions that launch them); ``stencil_mv3``'s and
+``smooth3``'s (a 3D level's one cooperative launch) likewise; every launch
+of the 3D marching entry ``stencil3d_pass`` under the name of its pass and
+instance, ``PASS3_NAMES`` (``jacobi_smooth3``, ``cheb_step3``,
+``stencil3d_block``, …), whichever wrapper made it.
 
 Instances: the 2D kernels take f32 at r = 1, 2 for 1 to 3 fields and at
 r = 3 (the biharmonic's 49 taps) for one field, and f64 at r = 1, 2, 3 for
@@ -630,6 +633,18 @@ def stencil_mv3(C, x, shape, radius):
 
 # passes of the stencil3d_pass entry (_APPLY, _RESIDUAL, _SWEEP as above)
 _CHEB, _ZERO = 3, 4
+_PASSES = ("apply", "residual", "sweep", "cheb", "zero")
+# The name a stencil3d_pass launch counts under, by (pass, nF > 1): the
+# passes of march_kernel and the sweep from zero (march_zero_kernel), on
+# one field (scalar planes) or on a block operator's 2 or 3.
+PASS3_NAMES = {
+    ("apply", False): "apply3", ("residual", False): "residual3",
+    ("sweep", False): "jacobi_smooth3", ("cheb", False): "cheb_step3",
+    ("zero", False): "zero3",
+    ("apply", True): "stencil3d_block", ("residual", True): "residual3_block",
+    ("sweep", True): "sweep3_block", ("zero", True): "zero3_block",
+}
+_pass3_launches = dict.fromkeys(PASS3_NAMES.values(), 0)
 # the most steps a level's smoothing launch takes (kMaxSteps)
 MAX_LEVEL_STEPS3 = 8
 
@@ -653,9 +668,9 @@ def _plan3(shape, radius, nF, device_index, f64: bool = False):
 def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
            s1=0.0, d=None, y=None, split=None):
     """One stencil3d_pass launch of ``pass_`` on checked CUDA operands into
-    ``y`` (new when None), which it returns; ``split`` overrides the
-    plan's. The _ZERO pass is omega0·Binv·b (also into ``d`` when
-    given)."""
+    ``y`` (new when None), which it returns, counted under its
+    ``PASS3_NAMES`` entry; ``split`` overrides the plan's. The _ZERO pass
+    is omega0·Binv·b (also into ``d`` when given)."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -670,6 +685,7 @@ def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
             float(s0), float(s1), y.data_ptr(), *shape, radius, nF, _f64(y),
             pass_, split, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "stencil3d_pass")
+    _pass3_launches[PASS3_NAMES[_PASSES[pass_], nF > 1]] += 1
     return y
 
 
@@ -679,9 +695,7 @@ def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
     stencil3d_pass kernel instance."""
     if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
         return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
-    y = _pass3(_SWEEP, C, x, b, invd, shape, radius, 1, s0=omega)
-    jacobi_smooth3.launches += 1
-    return y
+    return _pass3(_SWEEP, C, x, b, invd, shape, radius, 1, s0=omega)
 
 
 def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
@@ -702,7 +716,6 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
         d = torch.empty_like(x)
     y = _pass3(_CHEB, C, x, b, invd, shape, radius, 1, s0=alpha, s1=beta,
                d=d)
-    cheb_step3.launches += 1
     return y, d
 
 
@@ -733,10 +746,8 @@ def stencil3d_block(C, x, shape, radius, b=None, binv=None, omega=1.0):
         return apply3_block_plain(C, x, shape, radius)
     mode = (_APPLY if b is None else _RESIDUAL if binv is None
             else _ZERO if x is None else _SWEEP)
-    y = _pass3(mode, C, x, b, binv, shape, radius, nF, omega0=omega,
-               s0=omega)
-    stencil3d_block.launches += 1
-    return y
+    return _pass3(mode, C, x, b, binv, shape, radius, nF, omega0=omega,
+                  s0=omega)
 
 
 def passes3(sweeps: int, from_zero: bool, with_residual: bool) -> list:
@@ -764,13 +775,10 @@ def _smooth3_route(shape, radius, nF, device_index, f64, sweeps, from_zero,
 def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
                   with_residual, cheb, split=None):
     """``smooth3`` on checked CUDA operands by ``route``. PER_PASS launches
-    ``passes3``, counted on scalar planes as ``jacobi_smooth3`` (the step
-    from zero, and sweeps) or ``cheb_step3`` (Chebyshev steps), on a block
-    operator as ``stencil3d_block``, the residual as ``stencil3d_block``.
-    GRID is one stencil3d_level launch (counted as ``smooth3``; the step
-    from zero folded into the next pass's staging), refused (this raises)
-    where the level's blocks are not all co-resident. ``split`` overrides
-    the plan's."""
+    ``passes3``, each counted by ``_pass3``. GRID is one stencil3d_level
+    launch (counted as ``smooth3``; the step from zero folded into the
+    next pass's staging), refused (this raises) where the level's blocks
+    are not all co-resident. ``split`` overrides the plan's."""
     sweeps = len(steps)
     s0 = [float(a) for a, _ in steps]
     s1 = [float(c) for _, c in steps]
@@ -797,24 +805,18 @@ def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
         _raise_on(rc, "stencil3d_level")
         smooth3.launches += 1
         return (out, res) if with_residual else out
-    step_counter = (stencil3d_block if C.dim() == 6
-                    else cheb_step3 if cheb else jacobi_smooth3)
-    zero_counter = stencil3d_block if C.dim() == 6 else jacobi_smooth3
     out, r = (torch.zeros_like(b) if x is None and sweeps == 0 else x), None
     for p in passes3(sweeps, x is None, with_residual):
         if p == "residual":
             r = _pass3(_RESIDUAL, C, out, b, binv, shape, radius, nF,
                        split=split)
-            stencil3d_block.launches += 1
         elif p == "zero":
             out = _pass3(_ZERO, C, None, b, binv, shape, radius, nF,
                          omega0=s0[0], d=d, split=split)
-            zero_counter.launches += 1
         else:
             k = p[1]
             out = _pass3(_CHEB if cheb else _SWEEP, C, out, b, binv, shape,
                          radius, nF, s0=s0[k], s1=s1[k], d=d, split=split)
-            step_counter.launches += 1
     return (out, r) if with_residual else out
 
 
@@ -858,17 +860,21 @@ def smooth3(C, binv, b, x, steps, shape, radius, with_residual=False,
 
 
 WRAPPERS = (stencil_mv, jacobi_smooth, stencil_mv_block, smooth, stencil_mv3,
-            jacobi_smooth3, cheb_step3, stencil3d_block, smooth3)
+            smooth3)
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for name in _pass3_launches:
+        _pass3_launches[name] = 0
 
 
 def launches() -> dict:
-    """Launch counts of every wrapper, by name."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Launch counts by name: each wrapper that launches a kernel itself,
+    and each stencil3d_pass pass (``PASS3_NAMES``)."""
+    return {**{fn.__name__: fn.launches for fn in WRAPPERS},
+            **_pass3_launches}
 
 
 reset_launches()

@@ -11,11 +11,8 @@ shapes their paths launch them at. Card only; imports no JAX.
     python3 tests/compare_stencil3d.py --time
     # two trees in turns (A, B, B, A), each in its own process:
     python3 tests/compare_stencil3d.py --trees parent_dir,.
-    # the same with the kernels built with extra nvcc flags (a variant the
-    # sources read from a macro):
-    python3 tests/compare_stencil3d.py --time -DNAME=VALUE
     # the change's split, and its routes, swept at one shape:
-    python3 tests/compare_stencil3d.py --sweep block3:25 [-D...]
+    python3 tests/compare_stencil3d.py --sweep block3:25
 
 ``--one CASE`` makes exactly one launch of the case (the first stencil
 kernel of the process), which is what ``--ncu`` profiles.
@@ -270,14 +267,13 @@ def vcycle_ms(label, nf, side, r, what, reps: int = 20) -> dict:
     return out
 
 
-def time_tree(tag: str, defines=()) -> None:
+def time_tree(tag: str) -> None:
     """One JSON line per (case, row): device ms on this tree; then host ms
     per V-cycle of each 3D path."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    sk.NVCC_FLAGS = (*sk.NVCC_FLAGS, *defines)
     sk.build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -288,16 +284,14 @@ def time_tree(tag: str, defines=()) -> None:
             for row, fn in calls.items():
                 print(json.dumps({"tree": tag, "case": label, "side": side,
                                   "row": row, "ms": device_ms(fn),
-                                  "card": smi, "defines": list(defines)}),
-                      flush=True)
+                                  "card": smi}), flush=True)
             del calls
             torch.cuda.empty_cache()
     for label, nf, side, r, what in VCYCLES:
         for route, ms in vcycle_ms(label, nf, side, r, what).items():
             print(json.dumps({"tree": tag, "case": "vcycle", "side": side,
                               "row": f"{label}:{route}", "ms": ms,
-                              "card": smi, "defines": list(defines)}),
-                  flush=True)
+                              "card": smi}), flush=True)
         torch.cuda.empty_cache()
 
 
@@ -357,17 +351,11 @@ if __name__ == "__main__":
     elif args == ["--ncu"]:
         ncu()
     elif args[:1] == ["--time"]:
-        tag = args[args.index("--tag") + 1] if "--tag" in args else "."
-        time_tree(tag, tuple(a for a in args if a.startswith("-D")))
+        time_tree(args[args.index("--tag") + 1] if "--tag" in args else ".")
     elif args[:1] == ["--trees"]:
         trees(args[1].split(","))
     elif args[:1] == ["--sweep"]:
-        from iifea_tpu_torch.ops import stencil_kernels as sk
-
-        sk.NVCC_FLAGS = (*sk.NVCC_FLAGS,
-                         *(a for a in args if a.startswith("-D")))
         for target in args[1:]:
-            if not target.startswith("-D"):
-                sweep(target)
+            sweep(target)
     else:
         raise SystemExit(__doc__)

@@ -125,7 +125,7 @@ def test_torch_stencil3d_routing_refuses(monkeypatch):
     with pytest.raises(TypeError, match="radius 3"):
         S.jacobi_smooth(invd, b, x, 0.67)
     with pytest.raises(TypeError, match="radius 3"):
-        S.cheb_sweep(invd, b, x, None, 1.0, 0.0)
+        S.smooth(invd, b, x, [(1.0, 0.0)], cheb=True)
     with pytest.raises(ValueError, match="radius 1 to 3"):
         sk.stencil_mv3(torch.zeros((729, *shape)), torch.zeros(210), shape,
                        4)

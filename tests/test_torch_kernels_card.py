@@ -223,7 +223,7 @@ def test_torch_stencil3d_refuses_other_instances_on_card():
         with pytest.raises(TypeError):
             S.jacobi_smooth(invd, b, x, 0.67)
         with pytest.raises(TypeError):
-            S.cheb_sweep(invd, b, x, None, 1.0, 0.0)
+            S.smooth(invd, b, x, [(1.0, 0.0)], cheb=True)
     C, x, *_ = _operands3((9, 9, 9), 3, dev, 3)
     with pytest.raises(ValueError):
         sk.stencil3d_block(C, x, (9, 9, 9), 3)
@@ -253,9 +253,10 @@ def _block_operands3(n_fields, radius, shape, dev, seed):
 @pytest.mark.parametrize("radius", [1, 2])
 @pytest.mark.parametrize("n_fields", [0, 1, 2, 3])
 def test_torch_stencil3d_block_on_card(n_fields, radius, shape):
-    """stencil3d_block's four passes on the card: one launch each, equal to
-    the plain versions at 1e-4·max|y|, bitwise repeatable; with scalar
-    planes equal to stencil_mv3 and jacobi_smooth3 at the same tolerance."""
+    """stencil3d_block's four passes on the card: one launch each, counted
+    under its pass's name, equal to the plain versions at 1e-4·max|y|,
+    bitwise repeatable; with scalar planes equal to stencil_mv3 and
+    jacobi_smooth3 at the same tolerance."""
     dev = _card()
     C, binv, b, x = _block_operands3(n_fields, radius, shape, dev, 21)
     args = (shape, radius)
@@ -270,8 +271,9 @@ def test_torch_stencil3d_block_on_card(n_fields, radius, shape):
     before = sk.launches()
     got = run()
     torch.cuda.synchronize()
-    assert sk.launches() == {**before, "stencil3d_block":
-                             before["stencil3d_block"] + 4}
+    names = [sk.PASS3_NAMES[p, n_fields > 1]
+             for p in ("apply", "residual", "sweep", "zero")]
+    assert sk.launches() == {**before, **{k: before[k] + 1 for k in names}}
     y_ref = sk.apply3_block_plain(C, x, *args)
     refs = (y_ref, b - y_ref,
             sk.sweep3_block_plain(C, binv, b, x, 0.8, *args),
@@ -288,9 +290,9 @@ def test_torch_stencil3d_block_on_card(n_fields, radius, shape):
 def test_torch_block3d_operator_on_card():
     """StencilOperatorBlock3D on the card: ``mv`` is one launch, ``smooth``
     one ``smooth3`` launch a call where the plan holds the level in one
-    launch, else one ``stencil3d_block`` launch a pass (the first sweep
-    from zero folded into the second); both equal to the CPU operator's
-    plain versions; a non-f32 operator raises."""
+    launch, else one launch a pass (the sweep from zero, the sweeps, the
+    residual); both equal to the CPU operator's plain versions; a non-f32
+    operator raises."""
     dev = _card()
     shape = (13, 10, 17)
     C, binv, b, x = _block_operands3(3, 2, shape, dev, 22)
@@ -302,10 +304,12 @@ def test_torch_block3d_operator_on_card():
     xp = S.smooth(binv, b, x, 1.0, 2)
     torch.cuda.synchronize()
     fused = sk._plan3(shape, 2, 3, dev.index or 0)[1] > 0
+    passes = {} if fused else {"zero3_block": 1, "sweep3_block": 3,
+                               "residual3_block": 1}
     assert sk.launches() == {
-        **before,
-        "stencil3d_block": before["stencil3d_block"] + (1 if fused else 5),
-        "smooth3": before["smooth3"] + 2 * fused}
+        **before, "stencil3d_block": before["stencil3d_block"] + 1,
+        "smooth3": before["smooth3"] + 2 * fused,
+        **{k: before[k] + n for k, n in passes.items()}}
     xs_ref, r_ref = S_cpu.smooth(binv.cpu(), b.cpu(), None, 1.0, 2,
                                  with_residual=True)
     assert _close(y.cpu(), S_cpu.mv(x.cpu()))

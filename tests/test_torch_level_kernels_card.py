@@ -10,6 +10,8 @@ card and no JAX, without the package's conftest:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_level_kernels_card.py -q
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -185,7 +187,8 @@ def _err_ok(a, ref, dtype, scale=None):
 def test_torch_smooth3_entry_on_card(n_fields, radius, dtype, cheb, shape):
     """smooth3 on the card, ν = 1, 2, 3, from x and from zero, with and
     without the residual: the per-pass route and the routed call equal the
-    plain version (f32 1e-4, f64 1e-12 relative); the fused route, where
+    plain version (f32 1e-4, f64 1e-12 relative); the per-pass route's
+    launches are counted under their passes' names; the fused route, where
     the level's blocks are co-resident, is one launch a call and bitwise
     equal to the per-pass launches, and is refused where they are not."""
     C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
@@ -204,7 +207,13 @@ def test_torch_smooth3_entry_on_card(n_fields, radius, dtype, cheb, shape):
                 before = sk.launches()
                 per_pass = sk._smooth3_cuda(sk.PER_PASS, *args, nF,
                                             with_residual, cheb)
-                assert sk.smooth3.launches == before["smooth3"]
+                made = Counter(
+                    sk.PASS3_NAMES[
+                        p if isinstance(p, str)
+                        else "cheb" if cheb else "sweep", nF > 1]
+                    for p in sk.passes3(sweeps, start is None, with_residual))
+                assert sk.launches() == {**before, **{
+                    k: before[k] + n for k, n in made.items()}}
                 got = [per_pass, sk.smooth3(*args, with_residual, cheb)]
                 if fits:
                     before = sk.launches()
