@@ -18,11 +18,13 @@ line; the first failure exits non-zero:
      for 1 to 3 fields, r = 1, 2, ν = 1, 2, 3, from x and from zero, with
      and without the residual, at odd shapes and at every level shape; at
      every level shape the V-cycles smooth (scalar 1025² … 65², block
-     513² … 17²; r=2) the device time per launch or per smoothing call (a
+     513² … 17² with 2 and with 3 fields; r=2) the device time per launch
+     or per smoothing call (a
      CUDA graph of 50 calls, one event pair around its replay), the
      per-call time from an idle card (one event pair around one call: the
      wrapper's host work included) and the bound; the plain versions'
-     device times at the main-path shapes.
+     device times at the main-path shapes. Every stencil2d.cu instance
+     must be built without spill (the compiler's report).
   3. kernels3: stencil_mv3, jacobi_smooth3 and cheb_step3 against their
      plain versions at small shapes and at 105³; a soak of thousands of
      interleaved radius-2 launches over 105³, 53³, 27³ and 14³ (the 3D
@@ -139,6 +141,17 @@ line; the first failure exits non-zero:
      then the f32-mixed route, counted and capped.
   20. demo_biharmonic3: ``python3 -m iifea_tpu_torch.demos.biharmonic --dim
      3 --ref 0`` on the card against the same demo on the host.
+  21. navier_stokes: the Taylor-Green vortex through ``iifea_tpu_torch.
+     demos.tg_vortex`` (three-field block MG-GMRES in every Newton
+     iteration): ref 2 over T = 1 on the card and on the host (the same
+     Newton iterations per step, norms to 1e-6 of the host's and 1e-2 of
+     the JAX package's row), then ref 7 (3 × 513² = 789,507 background
+     dofs), 3 steps with the pressure pinned, counted per kernel and
+     shape, staged (assembly, probe, hierarchy, Krylov), a further step
+     profiled; every step within 10 Newton iterations, every linear
+     solve converged, L2u below the JAX ref-3 row's, the three-field
+     instances launched at every smoothed level, no plain stencil apply
+     on the card outside the dense coarse inverse.
 
 Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
 the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
@@ -151,7 +164,9 @@ first (2x513x513), and a smoothing call is booked by its form
 (``smooth_call@…:pre`` from zero with the residual, ``:post`` from x).
 The line before the last is the kernel summary JSON (the radius-3
 instances, 2D and 3D, as rows of their kernel's name with an ``instance``
-key, their launches from the biharmonics' two routes), the last line the
+key, their launches from the biharmonics' two routes; the three-field 2D
+instances as rows with ``instance`` "nf3", their launches from the
+Taylor-Green cell), the last line the
 device JSON. Each row's launches are those counted under its name, and its
 times are those of the one ``kernel_time`` row of that name and instance
 timed with its plain version, at a main-path shape where that kernel runs
@@ -216,6 +231,7 @@ LEVELS2 = [(s_, s_) for s_ in (1025, 513, 257, 129, 65)]
 BLOCK_SMOOTHED = [(s_, s_) for s_ in (513, 257, 129, 65, 33, 17)]
 BLOCK_EXTRA = [s_ for s_ in BLOCK_SMOOTHED if s_ not in LEVELS2]
 N_FIELDS_EL = 2               # fields of the elasticity block operator
+N_FIELDS_NS = 3               # fields of the Navier-Stokes block operator
 # the biharmonic (bench.py --workload biharmonic): a 513² quadratic B-spline
 # net, radius-3 stencils; the V-cycle smooths 513² … 65², 33² is dense
 N_BG_BH = 511
@@ -311,21 +327,28 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def instance_tag(radius: int = 2, f64: bool = False) -> str:
-    """The tag of a 2D kernel instance in launch keys and summary rows:
-    empty for the f32 instances at radius 1 and 2 (the earlier main
-    paths'), "/r3", "/f64", "/r3/f64" otherwise."""
-    return ("/r3" if radius == 3 else "") + ("/f64" if f64 else "")
+def instance_tag(radius: int = 2, f64: bool = False, n_fields: int = 1,
+                 dim: int = 2) -> str:
+    """The tag of a kernel instance in launch keys, worst errors, timed
+    rows and summary rows: empty for the f32 instances at radius 1 and 2
+    (the earlier main paths'), "/r3", "/f64", "/r3/f64" otherwise, and
+    "/nf3" after it for the three-field 2D instances (the Taylor-Green
+    path's)."""
+    return (("/r3" if radius == 3 else "") + ("/f64" if f64 else "")
+            + ("/nf3" if dim == 2 and n_fields == 3 else ""))
 
 
 def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
-                radius: int = 2, f64: bool = False, **kv) -> dict:
+                radius: int = 2, f64: bool = False, n_fields: int = 1,
+                dim: int = 2, **kv) -> dict:
     """One ``kernel_time`` line: device ms, call ms and bound at ``shape``
-    (and the plain version's device ms where ``plain`` is given).
-    ``bound_`` is (ms, by) where the row is not one launch of ``name``."""
+    (and the plain version's device ms where ``plain`` is given), with
+    the ``instance`` tag. ``bound_`` is (ms, by) where the row is not
+    one launch of ``name``."""
     b_ms, by = bound_ or bound(name, shape, radius, f64)
     row = {"kernel": name, "shape": list(shape), "radius": radius,
-           "dtype": "f64" if f64 else "f32", **kv,
+           "dtype": "f64" if f64 else "f32",
+           "instance": instance_tag(radius, f64, n_fields, dim), **kv,
            "device_ms": device_ms(fn), "call_ms": call_ms(fn),
            "bound_ms": b_ms, "bound_by": by}
     if plain is not None:
@@ -491,7 +514,8 @@ def _check(worst, name, y, y_ref, shape, radius, quiet=False, scale=None,
               max_abs_err=err, bound=lim, **kv)
     if not err <= lim:
         fail(f"{name} {shape} r={radius} {y.dtype} {kv}: {err} > {lim}")
-    key = name + instance_tag(radius, f64)
+    key = name + instance_tag(radius, f64, kv.get("n_fields", 1),
+                              len(shape))
     worst[key] = max(worst.get(key, 0.0), err)
     return err
 
@@ -640,11 +664,20 @@ def time_level(rng, shape, n_fields, dev, main_block, main_smooth,
     f64 = C.dtype == torch.float64
     nF = max(n_fields, 1)
     key = list(shape) if n_fields == 0 else [nF, *shape]
+    tag = {"n_fields": nF}
     rows = [time_kernel(
         "stencil_mv_block", key, partial(sk.stencil_mv_block, C, x, shape, r),
         partial(sk.apply_plain, C, x, shape, r) if main_block else None,
         bound_=bound_passes(shape, nF, ["apply"], r, f64), radius=r,
-        f64=f64)]
+        f64=f64, **tag)]
+    if nF == 3 and main_block:
+        # the sweep pass, counted as jacobi_smooth
+        rows.append(time_kernel(
+            "jacobi_smooth", key,
+            partial(sk._sweep_cuda, C, binv, b, x, 0.67, shape, r, nF),
+            partial(sk.sweep_plain, C, binv, b, x, 0.67, shape, r),
+            bound_=bound_passes(shape, nF, ["sweep"], r, f64), radius=r,
+            f64=f64, **tag))
     routed = sk._smooth_route(tuple(shape), r, nF, dev.index or 0, f64)
     fits = fitting_routes(C, binv, b, x, shape, r, nF)
     for form, (from_zero, with_residual) in FORMS.items():
@@ -663,7 +696,7 @@ def time_level(rng, shape, n_fields, dev, main_block, main_smooth,
                 partial(sk.smooth_plain, C, binv, b, start, 0.67, NU,
                         shape, r, with_residual) if is_main else None,
                 bound_=bnd, radius=r, f64=f64, per_pass_bound_ms=per_pass,
-                form=form,
+                form=form, **tag,
                 route=ROUTES[route],
                 launches_per_call=(
                     1 if route != sk.PER_PASS
@@ -680,6 +713,7 @@ def phase_kernels():
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     worst = {}
+    check_no_spill_2d()
 
     def operands(shape, radius):
         m = 2 * radius + 1
@@ -721,7 +755,7 @@ def phase_kernels():
                     worst, rng, shape, radius, n_fields, dev, (1, 2, 3),
                     all_forms)
     level_sets = ((0, LEVELS2), (N_FIELDS_EL, BLOCK_SMOOTHED),
-                  (3, BLOCK_SMOOTHED[1:]))
+                  (N_FIELDS_NS, BLOCK_SMOOTHED))
     for n_fields, shapes in level_sets:
         for shape in shapes:
             bitwise &= check_level_entries(
@@ -763,14 +797,46 @@ def phase_kernels():
              if sk._smooth_route(sh, 2, 1, 0) != sk.PER_PASS]
     if not fused:
         fail("no scalar level's smoothing call is routed to one launch")
-    for n_fields, shapes in level_sets[:2]:
+    # the three-field instances' summary rows: the block apply and the
+    # sweep pass at the finest level, the fused call at the largest level
+    # the plan gives one launch
+    fused3 = [sh for sh in BLOCK_SMOOTHED
+              if sk._smooth_route(sh, 2, N_FIELDS_NS, 0) != sk.PER_PASS]
+    if not fused3:
+        fail("no three-field level's smoothing call is routed to one launch")
+    for n_fields, shapes in level_sets:
         for shape in shapes:
             rows += time_level(
                 rng, shape, n_fields, dev,
-                main_block=(n_fields, shape) == (N_FIELDS_EL,
-                                                 BLOCK_SMOOTHED[0]),
-                main_smooth=n_fields == 0 and shape == fused[0])
+                main_block=(n_fields in (N_FIELDS_EL, N_FIELDS_NS)
+                            and shape == BLOCK_SMOOTHED[0]),
+                main_smooth=(n_fields, shape) in ((0, fused[0]),
+                                                  (N_FIELDS_NS, fused3[0])))
     return worst, rows + kernels_r3(worst, rng, dev)
+
+
+def built_instances(prefixes) -> list:
+    """Registers, spill and stack of every built kernel whose name starts
+    with one of ``prefixes``, from the compiler's report beside the
+    library."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    return [{k: row.get(k) for k in ("kernel", "registers", "spill_stores",
+                                     "spill_loads", "stack")}
+            for row in ptxas_report(sk.library_path().with_suffix(
+                ".log").read_text())
+            if row["kernel"].startswith(prefixes)]
+
+
+def check_no_spill_2d():
+    """Every stencil2d.cu instance (the pass kernel's 10 instances x 4
+    passes, the level kernel's 10) built without spill."""
+    instances = built_instances(("pass_kernel", "level_kernel"))
+    phase("kernel_check", kernel="2D instances", ptxas=instances)
+    if len(instances) != 50 or any(
+            r["spill_stores"] or r["spill_loads"] for r in instances):
+        fail(f"the 2D instances are not all built without spill: "
+             f"{instances}")
 
 
 def kernels_r3(worst, rng, dev):
@@ -3014,12 +3080,7 @@ def kernels3_r3(worst, dev):
 
     # every 3D kernel instance: stencil3d_mv (4), and the marching pass,
     # level and zero kernels (8, 8, 4)
-    instances = [{k: row.get(k) for k in ("kernel", "registers",
-                                          "spill_stores", "spill_loads",
-                                          "stack")}
-                 for row in ptxas_report(sk.library_path().with_suffix(
-                     ".log").read_text())
-                 if row["kernel"].startswith(("stencil3d_mv", "march"))]
+    instances = built_instances(("stencil3d_mv", "march"))
     phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
@@ -3367,12 +3428,188 @@ def phase_demo_biharmonic3():
     biharmonic_demo(["--dim", "3", "--ref", "0"], "demo_biharmonic3")
 
 
+# the Navier-Stokes Taylor-Green vortex (demos/tg_vortex.py --mesh-root
+# synthetic --solv gmres --pc mg): the small reference at ref 2 over the
+# whole interval (JAX RESULTS.md's row: L2u, H1u, L2p), the cell at ref 7
+NS_SMALL = ["--ref", "2", "--T", "1.0", "--mesh-root", "synthetic",
+            "--solv", "gmres", "--pc", "mg"]
+NS_JAX_ROW = {"L2u": 0.001513, "H1u": 0.04738, "L2p": 0.4106}
+NS_JAX_REL = 1e-2     # the JAX row is printed to 4 digits
+NS_HOST_REL = 1e-6    # the card's norms against the port's own host run
+NS_FULL = ["--k", "1", "--ref", "7", "--Re", "100", "--T", "0.008",
+           "--mesh-root", "synthetic", "--solv", "gmres", "--pc", "mg",
+           "--pin-pressure", "True"]
+NS_MAX_L2U = 3.915e-4    # the JAX ref-3 row at T = 1: ref 7 must be below
+NS_LEVELS = [(s_, s_) for s_ in (513, 257, 129, 65, 33, 17)]
+
+
+@contextlib.contextmanager
+def newton_record(steps: list):
+    """Record every ``solve_nonlinear`` call (a time step) while the block
+    runs: per step ([(iterations, converged) of each linear solve, one per
+    Newton iteration], synced seconds). The demos import
+    ``solve_nonlinear`` from ``iifea_tpu_torch.solvers`` when they run, and
+    the Newton loop calls ``newton.solve_ksp``; both are wrapped."""
+    import iifea_tpu_torch.solvers as solvers
+    from iifea_tpu_torch.solvers import newton
+
+    outer, inner = solvers.solve_nonlinear, newton.solve_ksp
+
+    def stepped(*a, **kw):
+        steps.append([])
+        out, dt = sync_time(lambda: outer(*a, **kw))
+        steps[-1] = (steps[-1], dt)
+        return out
+
+    def solved(*a, **kw):
+        x, info = inner(*a, **kw)
+        steps[-1].append((int(info.iters), bool(info.converged)))
+        return x, info
+
+    solvers.solve_nonlinear, newton.solve_ksp = stepped, solved
+    try:
+        yield
+    finally:
+        solvers.solve_nonlinear, newton.solve_ksp = outer, inner
+
+
+def tg_demo(argv, device: str):
+    """The Taylor-Green demo in this process on ``device``, its printed
+    report kept apart; returns (the demo's result, per-step linear solves,
+    seconds)."""
+    import io
+
+    from iifea_tpu_torch.demos import tg_vortex
+
+    steps = []
+    with newton_record(steps), contextlib.redirect_stdout(io.StringIO()):
+        out, dt = sync_time(lambda: tg_vortex.main(argv + ["--device",
+                                                           device]))
+    return out, steps, dt
+
+
+def phase_navier_stokes():
+    """The Taylor-Green vortex through the port's demo (the user's entry
+    point). Small reference: ref 2 over T = 1 without the pin, on the card
+    and on the host: the same Newton iterations per step, norms within
+    NS_HOST_REL of the host's and NS_JAX_REL of the JAX package's row.
+    Then the cell: ref 7 (n_bg = 512, 3 × 513² = 789,507 dofs, 2,097,152
+    triangles), 3 midpoint steps, the pressure pinned, counted per kernel
+    and lattice shape with every counter set to 0 just before, staged
+    (assembly, probe, hierarchy, Krylov), and once more profiled. Gates:
+    every step converged in ≤ 10 Newton iterations, every linear solve
+    converged, L2u below NS_MAX_L2U, launches of the three-field instances
+    at every smoothed level shape, no plain stencil apply on the card
+    outside the dense coarse inverse. Returns (launches by kernel, by
+    shape) of the counted run."""
+    import torch
+
+    from iifea_tpu_torch.ops import assembly, multigrid
+    from iifea_tpu_torch.solvers import ksp, newton as newton_mod
+
+    card, card_steps, t_card = tg_demo(NS_SMALL, "cuda")
+    host, host_steps, t_host = tg_demo(NS_SMALL, "cpu")
+    keys = list(NS_JAX_ROW)
+    rel_host = {k: abs(card["norms"][k] - host["norms"][k])
+                / host["norms"][k] for k in keys}
+    rel_jax = {k: abs(card["norms"][k] - v) / v
+               for k, v in NS_JAX_ROW.items()}
+    newton = [len(st) for st, _ in card_steps]
+    host_newton = [len(st) for st, _ in host_steps]
+    phase("navier_stokes_small", argv=NS_SMALL, steps=card["n_steps"],
+          seconds=t_card, host_seconds=t_host, newton_iters=newton,
+          host_newton_iters=host_newton,
+          gmres_iters=[[i for i, _ in st] for st, _ in card_steps],
+          host_gmres_iters=[[i for i, _ in st] for st, _ in host_steps],
+          error_norms=card["norms"], host_error_norms=host["norms"],
+          norms_rel_diff_host=rel_host, norms_rel_diff_jax=rel_jax)
+    if newton != host_newton:
+        fail(f"navier_stokes_small: Newton iterations per step {newton} "
+             f"differ from the host's {host_newton}")
+    if not max(rel_host.values()) <= NS_HOST_REL:
+        fail(f"navier_stokes_small: card norms {card['norms']} differ from "
+             f"the host's {host['norms']} by {rel_host}")
+    if not max(rel_jax.values()) <= NS_JAX_REL:
+        fail(f"navier_stokes_small: norms {card['norms']} differ from the "
+             f"JAX row {NS_JAX_ROW} by {rel_jax}")
+    del card, host
+    torch.cuda.empty_cache()
+
+    # -- the cell: ref 7, counted and staged -----------------------------------
+    names = ("stencil_mv_block", "jacobi_smooth", "smooth")
+    plain, stages, steps = Counter(), Counter(), []
+    targets = [(assembly.Form, "jacobian_and_residual"),
+               (ksp, "_probe_block"), (multigrid, "StencilMultigridBlock"),
+               (ksp, "_deflation_space"), (newton_mod, "solve_ksp")]
+    with plain_on_card(plain), timed_calls(targets, stages):
+        out, seconds, launches, by_shape = counted_run(
+            lambda: tg_demo(NS_FULL, "cuda"), names, "navier_stokes")
+    out, steps, _ = out
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    newton = [len(st) for st, _ in steps]
+    step_s = [dt for _, dt in steps]
+    steps = [st for st, _ in steps]
+    solve = stages["solve_ksp"]
+    staged = {"assembly": stages["jacobian_and_residual"],
+              "probe": stages["_probe_block"],
+              "hierarchy": stages["StencilMultigridBlock"],
+              "deflation": stages["_deflation_space"],
+              "krylov": solve - stages["_probe_block"]
+              - stages["StencilMultigridBlock"] - stages["_deflation_space"]}
+    # the Newton steps' other work (residual norms, extraction, updates)
+    staged["other_in_steps"] = sum(step_s) - staged["assembly"] - solve
+    phase("navier_stokes", argv=NS_FULL, n_bg_dofs=out["M"].n_bg_dofs,
+          steps=out["n_steps"], Dt=out["Dt"], seconds=seconds,
+          step_seconds=step_s, setup_and_norms_seconds=seconds - sum(step_s),
+          newton_iters=newton,
+          gmres_iters=[[i for i, _ in st] for st in steps],
+          stage_seconds=staged, launches=launches, launches_by_shape=by_shape,
+          plain_applies_on_card=dict(plain), peak_gib=peak,
+          error_norms=out["norms"])
+    if not (out["n_steps"] == 3 and len(steps) == 3
+            and all(1 <= n <= 10 for n in newton)):
+        fail(f"navier_stokes: steps {out['n_steps']}, Newton iterations "
+             f"{newton}")
+    if not all(ok for st in steps for _, ok in st):
+        fail(f"navier_stokes: a linear solve did not converge: {steps}")
+    if not (out["up_f"].is_cuda and bool(torch.isfinite(out["up_f"]).all())
+            and out["norms"]["L2u"] < NS_MAX_L2U):
+        fail(f"navier_stokes: L2u {out['norms']['L2u']} not below "
+             f"{NS_MAX_L2U}, or the state is not a finite card vector")
+    missing = [s_ for s_ in NS_LEVELS if not any(
+        by_shape.get(f"{k}@{N_FIELDS_NS}x{s_[0]}x{s_[1]}", 0) > 0
+        for k in names)]
+    if missing:
+        fail(f"navier_stokes: no three-field launch at {missing}: "
+             f"{by_shape}")
+    if plain["elsewhere"]:
+        fail(f"navier_stokes: {plain['elsewhere']} plain stencil applies on "
+             "the card outside the coarse dense inverse")
+    # a steady window for the profile: one more time step from the cell's
+    # final state, as the demo takes it
+    import io
+
+    from iifea_tpu_torch.solvers import solve_nonlinear
+
+    t_next = out["t"] + 0.5 * out["Dt"]
+
+    def next_step():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return solve_nonlinear(out["prob"].form, out["up_f"], out["M"],
+                                   out["up_p"], aux={"up_old": out["up_f"]},
+                                   params={"t": t_next},
+                                   **out["step_kwargs"])
+
+    profile_solve(next_step, "navier_stokes_profile")
+    return launches, by_shape
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
           "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
           "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
           "demo_p2", "small_reference_biharmonic3", "biharmonic3",
-          "demo_biharmonic3")
+          "demo_biharmonic3", "navier_stokes")
 
 
 def kernel_shapes(timing, by_shape):
@@ -3391,8 +3628,8 @@ def kernel_shapes(timing, by_shape):
     for r in timing:
         n = by_shape.get(key(r), 0)
         rows.append({**r, "launches": n})
-        excess[r["kernel"] + instance_tag(r["radius"], r["dtype"] == "f64")] \
-            += n * (r["device_ms"] - r["bound_ms"])
+        excess[r["kernel"] + r["instance"]] += n * (r["device_ms"]
+                                                 - r["bound_ms"])
     timed = {key(r) for r in timing}
     phase("kernel_shapes", rows=rows, excess_ms=dict(excess),
           untimed={k: v for k, v in by_shape.items() if k not in timed})
@@ -3445,6 +3682,12 @@ def main() -> None:
                      ("demo_biharmonic3", phase_demo_biharmonic3)):
         if name in run:
             fn()
+    # the three-field 2D instances' launches come from the Taylor-Green
+    # cell alone
+    ns = None
+    if "navier_stokes" in run:
+        ns, ns_shapes = phase_navier_stokes()
+        by_shape.update(ns_shapes)
     # {instance tag: (launches by kernel, by shape)} of the 2D and the 3D
     # biharmonic: their kernels differ, so one tag's counts merge
     bh = {}
@@ -3465,7 +3708,8 @@ def main() -> None:
     rows = []
     # the r = 3 instances' launches come from the biharmonic's solves (the
     # route taken, and the other one)
-    instances = [("", launches)] + [(tag, bh[tag][0]) for tag in sorted(bh)]
+    instances = ([("", launches)] + [(tag, bh[tag][0]) for tag in sorted(bh)]
+                 + [(instance_tag(n_fields=N_FIELDS_NS), ns)])
     for tag, counts in instances:
         for name, (source, replaces) in KERNELS.items():
             if tag and name not in counts:
@@ -3476,8 +3720,7 @@ def main() -> None:
                         "smooth3": "smooth3_call"}.get(name, name)
             found = [r for r in timing
                      if r["kernel"] == timed_as and "plain_ms" in r
-                     and instance_tag(r["radius"], r["dtype"] == "f64")
-                     == tag]
+                     and r["instance"] == tag]
             if len(found) != 1 or (timed_as != name
                                    and found[0].get("route") != "grid"):
                 fail(f"{name}{tag}: the summary needs one row timed with "

@@ -18,6 +18,14 @@ their rank picks ``StencilOperator2D``, ``StencilOperator3D``,
 ``StencilOperatorBlock2D`` or ``StencilOperatorBlock3D``.
 A tetrahedron mesh (3D coords, 4 vertices per cell) is carried like a
 triangle mesh.
+
+A time-stepping run's state is not carried here but by its checkpoint
+directory (``utils/checkpoint.py``), whose files both packages write and
+read alike. The Taylor-Green vortex's state is the pair ``up_p`` (the
+background dof vector at the step's end) and ``up_old_f`` (the foreground
+field of the step before, the VMS kernel's ``up_old``), with the step and
+``t`` in its ``.meta.json``: ``demos/tg_vortex.py --ckpt DIR`` resumes a
+directory written by either package's demo.
 """
 from __future__ import annotations
 

@@ -34,6 +34,9 @@
 //   of x hit shared memory; every thread keeps nF accumulators, and the
 //   residual and sweep epilogues reuse them, so A x never travels through
 //   device memory;
+// * a point whose nF^2 m^2 coefficients are more than a pass's registers
+//   hold (nF = 3, r = 2: 225 words) streams them in rolled (f2, oi) trips
+//   of nF m loads, two in flight (`streamed`), so no instance spills;
 // * does a whole multigrid level's work in one launch where the level is
 //   small (`stencil2d_smooth`): nu sweeps and, when asked, the trailing
 //   residual, one block per tile. A thread keeps its point's coefficients,
@@ -79,14 +82,14 @@ enum Mode { kApply = 0, kResidual = 1, kSweep = 2, kSweepFromZero = 3 };
 // coefficient loads are unrolled and ptxas front-loads them, so the cap
 // (65536 / 256 threads / blocks registers) must hold them: 4 blocks (64
 // registers) up to 25 words, 3 (85) up to 50, else 2 (128); block
-// operators 2. A level's launch keeps a point's coefficients in registers
-// across its passes where they fit (nF <= 2: up to 106 words; nF = 3
-// rereads them, and at r = 2 ptxas still front-loads its 225 coefficients
-// and spills about 1 KB a thread at the 255-register cap), and its grid
-// must be co-resident: 3 blocks per SM up to 25 words (the 297 tiles of a
-// scalar f32 r = 2 257 x 257 level), 2 up to 50, else 1 (an f64 r = 3
+// operators 2. A point with more words than that cap holds (nF = 3, r = 2:
+// 225) streams its coefficients instead (`streamed`). A level's launch
+// keeps a point's coefficients in registers across its passes where they
+// fit (nF <= 2: up to 106 words; nF = 3 rereads them every pass), and its
+// grid must be co-resident: 3 blocks per SM up to 25 words (the 297 tiles
+// of a scalar f32 r = 2 257 x 257 level), 2 up to 50, else 1 (an f64 r = 3
 // point's 98 words: 255 registers, 132 co-resident tiles); block
-// operators 1 (the 85 tiles of a 2-field 129 x 129).
+// operators 1 (the 85 tiles of a 2- or 3-field 129 x 129).
 template <class T, int R, int NF>
 __host__ __device__ constexpr int coef_words() {
   return NF * NF * (2 * R + 1) * (2 * R + 1) * (int)(sizeof(T) / 4);
@@ -104,6 +107,19 @@ __host__ __device__ constexpr int level_blocks() {
                 : coef_words<T, R, NF>() <= 50 ? 2 : 1;
 }
 __host__ __device__ constexpr bool resident(int nf) { return nf <= 2; }
+// Whether a pass streams the point's coefficients in rolled (f2, oi) trips
+// of nF m loads, kTrips in flight, rather than unrolling all nF^2 m^2: the
+// unrolled loads are front-loaded by ptxas whatever __restrict__ or
+// clobbers say, and 225 of them (nF = 3, r = 2) spilled 72-88 B a thread
+// at a pass's 128-register cap and ~1.1 KB at a level launch's 255. The
+// trips keep the order of the sums (f2, then oi, then oj for each output
+// field), so a streamed instance computes what the unrolled one did,
+// bitwise. Two trips in flight, as in csrc/stencil3d.cu's marching kernel.
+template <class T, int R, int NF>
+__host__ __device__ constexpr bool streamed() {
+  return coef_words<T, R, NF>() > 128;
+}
+constexpr int kTrips = 2;
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -231,15 +247,43 @@ __device__ __forceinline__ void point_pass(const Ops& op, T omega, T* y,
   constexpr int M = 2 * R + 1;
   T acc[NF];
 #pragma unroll
-  for (int f1 = 0; f1 < NF; ++f1) {
-    acc[f1] = T(0);
+  for (int f1 = 0; f1 < NF; ++f1) acc[f1] = T(0);
+  if constexpr (streamed<T, R, NF>()) {
+    static_assert(!resident(NF), "a streamed point reads C from memory");
+    // trip t = (f2, oi): acc[f1] += sum_oj C[f1, f2, oi, oj] x[f2](oi, oj)
+#pragma unroll 1
+    for (int t0 = 0; t0 < NF * M; t0 += kTrips) {
 #pragma unroll
-    for (int f2 = 0; f2 < NF; ++f2) {
+      for (int u = 0; u < kTrips; ++u) {
+        const int t = t0 + u;
+        if (NF * M % kTrips == 0 || t < NF * M) {
+          const int f2 = t / M;
+          const int oi = t - f2 * M;
+          const T* Cq = op.C + (int64_t)(f2 * M * M + oi * M) * plane + p;
+          const T* xw = &sm.xs[f2][threadIdx.y + oi][threadIdx.x];
 #pragma unroll
-      for (int k = 0; k < M * M; ++k) {
-        acc[f1] = fma_t(op.coef((f1 * NF + f2) * M * M + k),
-                        sm.xs[f2][threadIdx.y + k / M][threadIdx.x + k % M],
-                        acc[f1]);
+          for (int f1 = 0; f1 < NF; ++f1) {
+#pragma unroll
+            for (int oj = 0; oj < M; ++oj) {
+              acc[f1] = fma_t(
+                  __ldg(Cq + (int64_t)(f1 * NF * M * M + oj) * plane),
+                  xw[oj], acc[f1]);
+            }
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int f1 = 0; f1 < NF; ++f1) {
+#pragma unroll
+      for (int f2 = 0; f2 < NF; ++f2) {
+#pragma unroll
+        for (int k = 0; k < M * M; ++k) {
+          acc[f1] = fma_t(op.coef((f1 * NF + f2) * M * M + k),
+                          sm.xs[f2][threadIdx.y + k / M][threadIdx.x + k % M],
+                          acc[f1]);
+        }
       }
     }
   }

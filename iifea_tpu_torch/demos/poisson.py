@@ -7,8 +7,10 @@ Runs on the GPU unless ``--device cpu`` is given. Meshes are synthetic
 (``--mesh-root synthetic``, the default): the reference's mesh files are
 not in the repository. In 3D the solve is direct, as in the reference.
 ``--k 2`` runs P2 foreground and background spaces (2D; the synthetic 3D
-meshes are linear, as in the reference). Not ported yet, and refused with
-a message: ``--devices`` > 1 (multi-GPU) and ``--wv`` (VTU output).
+meshes are linear, as in the reference). ``--wv True`` writes the
+foreground solution, the exact field and their difference to the VTU file
+``--ov``. Not ported yet, and refused with a message: ``--devices`` > 1
+(multi-GPU).
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def parse_args(argv=None):
     p.add_argument('--of', dest='of', default='poisson_data.csv',
                    help='Destination for output data')
     p.add_argument('--wv', dest='wv', default=False,
-                   help='write a VTU file (not ported yet)')
+                   help='write the solution fields to a VTU file for '
+                        'ParaView')
     p.add_argument('--ov', dest='ov', default='poisson_fields.vtu',
                    help='VTU output path for --wv')
     p.add_argument('--beta', dest='beta', default='10.0',
@@ -91,8 +94,6 @@ def main(argv=None) -> dict:
     if args.devices > 1:
         sys.exit(f"--devices {args.devices}: the multi-GPU solve is not "
                  "ported yet (ROADMAP.md item 16)")
-    if str2bool(args.wv):
-        sys.exit("--wv: VTU output is not ported yet (ROADMAP.md item 17)")
     device = torch.device(args.device)
 
     if dim == 3:
@@ -134,6 +135,18 @@ def main(argv=None) -> dict:
         with open(args.of, 'a') as f:
             f.write("\n")
             f.write(f"{ref},{norms['H10']},{norms['L2']},{k}")
+    if str2bool(args.wv):
+        from torch.func import vmap
+
+        from iifea_tpu_torch.utils.fieldio import write_vtu
+
+        u_f = M.mv(u_p)
+        u_ex = vmap(prob.u_ex)(torch.as_tensor(
+            prob.space.node_coords, dtype=u_f.dtype, device=u_f.device))
+        write_vtu(args.ov, prob.space,
+                  point_data={"u": u_f, "u_exact": u_ex, "error": u_f - u_ex},
+                  cell_data={"material": mesh_f.material})
+        print(f"wrote fields to {args.ov}", flush=True)
     for line in ('-' * 40, '-' * 5 + f" {nitsche} " + '-' * 5, '-' * 40,
                  f"L2 norm: {norms['L2']}", f"H10 norm: {norms['H10']}",
                  f"H1 norm: {norms['H1']}", '-' * 40):

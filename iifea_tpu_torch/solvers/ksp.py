@@ -39,6 +39,12 @@ by design:
   in f64, as JAX does on the CPU. On CUDA an f64 stencil is taken by the
   2D scalar kernels and, at radius 3 (the 3D biharmonic), by the 3D scalar
   ones; other 3D and all block operators refuse it.
+* In the mixed route each f32 pass solves for the residual less its
+  component along the deflation vectors that are also left null vectors
+  of A (``_left_null_rows``): no update reduces that component, and a pass
+  asked to reach below it stalls. A pass on a one-level hierarchy checks
+  its CG every iteration. JAX's mixed route (a TPU's) does neither; its
+  f64 route, and the port's, are the same arithmetic.
 * The Krylov matvec is ``S.mv``, the hand kernel for f32 stencils, as in
   ``BinnedLatticeSolver``; JAX applies ``S.mv_ref`` because of a TPU
   layout clash between a Pallas call and the V-cycle's convolutions.
@@ -165,6 +171,20 @@ def _deflation_space(S, n_fields, dtype):
     return torch.stack(qs) if qs else None
 
 
+def _left_null_rows(A, Q, S):
+    """The rows q of the deflation space Q that are also left null vectors
+    of the exact operator (‖Aᵀq‖ < 1e-8·max row sum, in A's f64), or None.
+    The residual's component along such a q is a property of b that no
+    update can change: for an enclosed flow's constant pressure the
+    continuity rows tested with q = 1 sum to the boundary flux of the
+    data, whatever u and p are."""
+    sig = float(S.coeffs.abs().sum(dim=(1, 2)).max())
+    adt = A.blocks[0].dtype
+    rows = [q for q in Q
+            if float(torch.linalg.vector_norm(A.mv_t(q.to(adt)))) < 1e-8 * sig]
+    return torch.stack(rows) if rows else None
+
+
 def _probe(reducers, blocks, shape, dtype):
     """Stencil operator of Mᵀ A_f M from the compact element blocks: the
     direct congruence assembly, f64 tables and blocks, cast to ``dtype``."""
@@ -179,7 +199,7 @@ def _probe(reducers, blocks, shape, dtype):
 
 
 def _run_stencil_krylov(S, mg, Q, b, x0, rtol, atol, method, max_it,
-                        restart):
+                        restart, check_every=4):
     """MG-preconditioned Krylov on a stencil operator: CG for 'cg', (F)GMRES
     for every other method, as in the reference. With a deflation space Q
     the preconditioner is P·mg·P, P = I − QᵀQ."""
@@ -188,11 +208,11 @@ def _run_stencil_krylov(S, mg, Q, b, x0, rtol, atol, method, max_it,
         def minv(r):
             z = mg.minv(r - Q.T @ (Q @ r))
             return z - Q.T @ (Q @ z)
-    # check every 4 iterations: a V-cycle per iteration costs more than
-    # the host sync of a check, and CG's default of 8 would run further
-    # past the tolerance
+    # check every 4 iterations by default: a V-cycle per iteration costs
+    # more than the host sync of a check, and CG's default of 8 would run
+    # further past the tolerance
     kw = dict(minv=minv, rtol=rtol, atol=atol, max_it=max_it,
-              check_every=4)
+              check_every=check_every)
     if method == "cg":
         return krylov.cg(S.mv, b, x0, **kw)
     return krylov.gmres(S.mv, b, x0, restart=restart, **kw)
@@ -275,10 +295,20 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
                                    max_it, restart)
 
     # -- mixed precision: f32 MG-Krylov passes + f64 refinement --------------
+    # a pass aims at the reducible part of the residual: its component
+    # along a left null vector stays whatever the pass does, and asking a
+    # pass to reach below it stalls every pass (the unpinned Taylor-Green
+    # system: thousands of GMRES iterations a solve on the card, 16 + 12
+    # with the projection at n_bg = 16)
+    QL = None if Q is None else _left_null_rows(A, Q, S)
     b_norm = float(torch.linalg.vector_norm(b))
     rtol_eff = max(float(rtol), float(atol) / max(b_norm, 1e-300))
     x64 = x0.to(torch.float64)
     zero32 = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+    # a pass on a single level checks every iteration: its dense inverse
+    # takes the residual to the f32 floor in one, and the iterations past
+    # it amplify rounding noise
+    check_every = 1 if len(mg.levels) == 1 else 4
     iters, relf, hist = 0, 1.0, []
     for _ in range(12):
         r64 = b - A.mv(x64)
@@ -289,10 +319,16 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
         # contract only as far as this pass needs (0.25x margin for the
         # f32 apply error), clamped to the f32 floor
         rtol_pass = min(max(0.25 * rtol_eff / relf, 1e-6), 3e-2)
-        dx, info = _run_stencil_krylov(S, mg, Q, r64.to(torch.float32),
-                                       zero32,
+        r32 = r64.to(torch.float32)
+        if QL is not None:
+            r32 = r32 - QL.T @ (QL @ r32)
+        # a pass stops where its f32 residual stops falling (three checks
+        # of CG; GMRES's three cycles): the single 3 x 9³ level of the 3D
+        # elasticity at n_bg = 8 (a coarse inverse amplifying a near-null
+        # pair) otherwise wandered for up to 10⁶ CG iterations on a card
+        dx, info = _run_stencil_krylov(S, mg, Q, r32, zero32,
                                        rtol_pass, 0.0, method, max_it,
-                                       restart)
+                                       restart, check_every)
         iters += info.iters
         x64 = x64 + dx.to(torch.float64)
         if info.iters == 0:

@@ -112,6 +112,46 @@ def test_torch_smooth_entry_on_card(n_fields, radius, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("side", [513, 257, 129, 65, 33, 17])
+def test_torch_three_field_levels_on_card(side):
+    """The three-field radius-2 instances (the Taylor-Green cycle's) at its
+    level shapes: the apply, the residual, one sweep, the sweep from zero
+    and the V-cycle's two smoothing calls (ν = 2; from zero with the
+    residual, from x) by every route the plan allows, against the plain
+    versions at 1e-4·max|y|; the fused launch bitwise equal to the
+    passes."""
+    shape = (side, side)
+    C, binv, b, x = _card_operands(3, 2, shape, 14)
+    ref = sk.apply_plain(C, x, shape, 2)
+    lim = 1e-4 * float(ref.abs().max())
+    assert float((sk.stencil_mv_block(C, x, shape, 2) - ref).abs().max()) \
+        <= lim
+    res = sk.stencil_mv_block(C, x, shape, 2, b=b)
+    assert float((res - (b - ref)).abs().max()) <= lim
+    for start in (x, None):
+        one = sk._smooth_cuda(sk.PER_PASS, C, binv, b, start, 0.8, 1, shape,
+                              2, 3, False)
+        one_ref = sk.smooth_plain(C, binv, b, start, 0.8, 1, shape, 2)
+        assert float((one - one_ref).abs().max()) <= (
+            1e-4 * float(one_ref.abs().max()))
+    routes = [sk.PER_PASS]
+    if sk._smooth_route(shape, 2, 3, 0) == sk.GRID:
+        routes.append(sk.GRID)
+    for start, with_residual in ((None, True), (x, False)):
+        ref = _tuple(sk.smooth_plain(C, binv, b, start, 0.8, 2, shape, 2,
+                                     with_residual))
+        outs = [_tuple(sk._smooth_cuda(route, C, binv, b, start, 0.8, 2,
+                                       shape, 2, 3, with_residual))
+                for route in routes]
+        torch.cuda.synchronize()
+        for out in outs:
+            for a, a_ref, a_pass in zip(out, ref, outs[0]):
+                assert float((a - a_ref).abs().max()) <= (
+                    1e-4 * float(a_ref.abs().max()))
+                assert torch.equal(a, a_pass)
+
+
+@pytest.mark.gpu
 def test_torch_smooth_refuses_a_level_that_does_not_fit():
     """A level with more tiles than are co-resident takes one launch per
     pass, and its forced fused launch raises instead of running."""

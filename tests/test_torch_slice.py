@@ -79,15 +79,16 @@ def test_torch_slice_rejects_unsupported(reference):
 
 
 def test_torch_port_imports_no_jax():
-    code = ("import sys, iifea_tpu_torch, iifea_tpu_torch.solvers.lattice_fast"
-            ", iifea_tpu_torch.convert, iifea_tpu_torch.ops.cell_window"
-            ", iifea_tpu_torch.ops.projection, iifea_tpu_torch.ops.multigrid"
-            ", iifea_tpu_torch.ops.stencil_kernels"
-            ", iifea_tpu_torch.mesh.generators, iifea_tpu_torch.solvers"
-            ", iifea_tpu_torch.solvers.newton, iifea_tpu_torch.solvers.precond"
-            ", iifea_tpu_torch.utils.logging, iifea_tpu_torch.api"
-            ", iifea_tpu_torch.models.biharmonic, iifea_tpu_torch.mesh.bspline"
-            ", iifea_tpu_torch.demos.biharmonic; "
+    """Every module of the port (models, utils, demos included) and
+    chip_smoke.py import neither JAX nor the JAX package."""
+    code = ("import importlib, pkgutil, sys, iifea_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "iifea_tpu_torch.__path__, 'iifea_tpu_torch.')]; "
+            "import iifea_tpu_torch.models.navier_stokes, "
+            "iifea_tpu_torch.utils.checkpoint, iifea_tpu_torch.utils.fieldio, "
+            "iifea_tpu_torch.demos.tg_vortex, "
+            "iifea_tpu_torch.demos.background_unfitted.tg_unfitted; "
+            "import chip_smoke; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'iifea_tpu' not in sys.modules, 'iifea_tpu imported'")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -194,3 +194,66 @@ def test_torch_condition_number(kind):
     assert abs(smin - smin_j) <= 1e-6 * smin_j
     s = np.linalg.svd(A, compute_uv=False)
     assert abs(smax - s.max()) <= 1e-6 * s.max()
+
+
+def test_torch_cg_stall_stops_at_the_floor():
+    """CG's stagnation stop: on an inconsistent singular system the
+    residual cannot fall below the part of b outside the range, and CG
+    stops three checks after its least residual (unconverged, stalled),
+    returning the iterate of that least residual instead of running on
+    past the floor (here into overflow) to max_it. A system CG solves
+    never meets the stop: the same iterate as a textbook CG run for the
+    same number of iterations."""
+    n = 40
+    d = torch.linspace(1.0, 4.0, n, dtype=torch.float64)
+    d[-1] = 0.0
+    b = torch.ones(n, dtype=torch.float64)
+
+    def mv(v):
+        return d * v
+
+    x, info = krylov.cg(mv, b, rtol=1e-12, max_it=400, check_every=4)
+    assert info.stalled and not info.converged and info.iters < 400
+    assert info.iters == 4 * (info.history.index(min(info.history)) + 3)
+    assert info.resnorm == min(info.history) >= 1.0
+    assert float(torch.linalg.vector_norm(b - mv(x))) == pytest.approx(
+        info.resnorm, rel=1e-12)
+    d[-1] = 2.0
+    x1, i1 = krylov.cg(mv, b, rtol=1e-10, check_every=4)
+    assert i1.converged and not i1.stalled
+    xr, r = torch.zeros_like(b), b.clone()
+    p, rr = r.clone(), torch.dot(r, r)
+    for _ in range(i1.iters):
+        ap = mv(p)
+        alpha = rr / torch.dot(p, ap)
+        xr, r = xr + alpha * p, r - alpha * ap
+        rr_new = torch.dot(r, r)
+        p, rr = r + rr_new / rr * p, rr_new
+    assert torch.allclose(x1, xr, rtol=1e-13, atol=0)
+
+
+def test_torch_mixed_single_level_checks_every_iteration():
+    """The mixed route on a one-level hierarchy (3D elasticity at n_bg = 8:
+    the dense 3 × 9³ inverse is the whole preconditioner) checks its f32 CG
+    every iteration, so a pass stops where the inverse has taken the
+    residual to the floor instead of iterating on rounding noise: at most
+    two iterations a pass, and the f64 route's error norms."""
+    from iifea_tpu_torch.mesh.generators import immersed_cube_problem
+    from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+    from iifea_tpu_torch.solvers.ksp import solve_ksp
+
+    mesh, M = immersed_cube_problem(n_fg=10, n_bg=8, n_fields=3,
+                                    device="cpu")
+    prob = ImmersedElasticityProblem(mesh, k=1, sym=True, device="cpu")
+    A, b = assemble_background_system(
+        prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64), M)
+    kw = dict(method="cg", pc="mg", rtol=1e-10, lattice_shape=(9, 9, 9),
+              n_fields=3, monitor=False)
+    x64, _ = solve_ksp(A, b, mixed=False, **kw)
+    x, info = solve_ksp(A, b, mixed=True, **kw)
+    passes = len(info.history) - 1
+    assert info.converged and 1 <= info.iters <= 2 * passes
+    n, n64 = prob.error_norms(M.mv(x)), prob.error_norms(M.mv(x64))
+    for k in ("L2", "H10"):
+        assert abs(n[k] - n64[k]) < 1e-8 * n64[k]

@@ -3,7 +3,8 @@
 (the block kernels), the single-level 3D case whose coarse inverse is the
 whole preconditioner, the biharmonic (radius 3, f64 and mixed; 2D, and
 3D at n_bg = 7, 15),
-``pc='asm'`` and ``solve_nonlinear(linear_pc='mg')``. Every case skips
+``pc='asm'``, ``solve_nonlinear(linear_pc='mg')`` and one Taylor-Green
+time step through the demo (three-field block MG). Every case skips
 without a CUDA device.
 
 The file imports nothing of JAX, so it also runs on a machine that has a
@@ -290,3 +291,30 @@ def test_torch_biharmonic3d_mg_on_card(n_bg):
     n, n_h = prob.error_norms(M.mv(x)), prob_h.error_norms(M_h.mv(x_h))
     for k in ("L2_rel", "H1_rel", "H2_rel"):
         assert abs(n[k] - n_h[k]) <= 1e-6 * n_h[k], k
+
+
+@pytest.mark.gpu
+def test_torch_tg_step_on_card():
+    """Two Taylor-Green time steps of the demo at ref 2 with --pc mg and the
+    pressure pinned, on the card (the three-field kernel instances) and on
+    the host: the same step count, error norms within 1e-6 relative (the
+    card's MG-GMRES runs in f32 refined to the same f64 tolerance)."""
+    import contextlib
+    import io
+
+    from iifea_tpu_torch.demos import tg_vortex
+
+    dev = _card()
+    argv = ["--ref", "2", "--T", "0.17", "--mesh-root", "synthetic",
+            "--pc", "mg", "--pin-pressure", "True"]
+    out = {}
+    for d in ("cpu", dev):
+        sk.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[d] = tg_vortex.main(argv + ["--device", d])
+    launched = sk.launches()
+    assert out[dev]["up_f"].is_cuda and out[dev]["n_steps"] == 2
+    assert launched["jacobi_smooth"] + launched["smooth"] > 0
+    assert launched["stencil_mv_block"] > 0
+    for k, v in out["cpu"]["norms"].items():
+        assert abs(out[dev]["norms"][k] - v) <= 1e-6 * v, k
