@@ -152,6 +152,22 @@ line; the first failure exits non-zero:
      solve converged, L2u below the JAX ref-3 row's, the three-field
      instances launched at every smoothed level, no plain stencil apply
      on the card outside the dense coarse inverse.
+  22. shells: the Kirchhoff-Love shells through ``iifea_tpu_torch.demos.
+     background_unfitted.pinned_shell_unfitted`` and ``cut_shell_unfitted``
+     (nested autodiff element Hessians on the card, host LU of Mᵀ A_f M):
+     the pinned demo at --ref 1 on the card and on the host (the same
+     Newton iterations, the centre displacement to 1e-8); both demos at
+     their defaults (ref 4, 13,068 background dofs; the cut demo's 10 load
+     steps), held to the JAX package's golds to 1e-6, per Newton iteration
+     the device assembly and the host's to_scipy and LU seconds, the
+     pinned run profiled; the pinned demo at --ref 5 as a size row.
+  23. poisson_unfitted: ``iifea_tpu_torch.demos.background_unfitted.
+     poisson_unfitted --n 16, 32, 64`` on the card, L2 and H1 within 1e-8
+     of the JAX package's rows.
+  24. determinism: the Taylor-Green ref-7 cell's first linear solve set up
+     from nothing three times: the initial state, rhs, planes and solution
+     bitwise equal and the same GMRES count; two elasticity n_bg=512
+     probes bitwise equal (ROADMAP §3 P5).
 
 Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
 the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
@@ -177,6 +193,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -3604,12 +3621,280 @@ def phase_navier_stokes():
     return launches, by_shape
 
 
+# the Kirchhoff-Love shells through the port's demos at their defaults (ref
+# 4: 32,768 P2 triangles, 198,147 foreground dofs, a 66² quadratic B-spline
+# net with three fields, 13,068 background dofs), held to the JAX package's
+# full-precision golds (studies/unfitted.jsonl); the small reference is the
+# pinned demo at --ref 1, card against the port's host run
+SHELL_GOLDS = {"pinned": 0.013311397557701023, "cut": 0.4453083791096255}
+SHELL_GOLD_REL = 1e-6
+SHELL_HOST_REL = 1e-8
+SHELL_SIZE_REF = 5            # the pinned demo's size row: 50,700 dofs
+# poisson_unfitted at n = 16, 32, 64: (L2, H1) of studies/unfitted.jsonl
+PU_ROWS = {16: (0.8324617710388913, 4.619121793635782),
+           32: (0.2184733048760064, 1.8485587849773495),
+           64: (0.05876376557410996, 0.8371992158395066)}
+PU_REL = 1e-8
+DET_REPEATS = 3               # repeats of the Taylor-Green first step
+
+
+def demo_in_process(module, argv, device: str):
+    """A demo's ``main`` in this process on ``device``, its printed report
+    kept apart, the kernel wrappers' launch counters set to 0 just before
+    and read just after; returns (result, seconds, the launches that
+    happened by kernel, peak device GiB)."""
+    import io
+
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, dt = sync_time(lambda: module.main(argv + ["--device", device]))
+    launched = {k: v for k, v in sk.launches().items() if v}
+    return out, dt, launched, torch.cuda.max_memory_allocated() / 2**30
+
+
+def newton_stages(record) -> dict:
+    """A Newton record's seconds per stage, per iteration: the device
+    assembly (element Hessians, residual, Mᵀr), the host's Mᵀ A_f M
+    (``to_scipy``) and its sparse LU (``direct_solve``)."""
+    return {k: [rec[k] for rec in record]
+            for k in ("assembly", "to_scipy", "direct_solve")}
+
+
+def phase_shells():
+    """The Kirchhoff-Love shells through the port's two background-unfitted
+    demos (the user's entry points). Small reference: the pinned demo at
+    --ref 1 on the card and on the host, the same Newton iterations and
+    the centre displacement to SHELL_HOST_REL. Then the pinned demo at its
+    defaults, profiled (device busy share), and the cut demo at its
+    defaults (10 load steps): each held to its JAX gold to SHELL_GOLD_REL,
+    the pinned centre's in-plane components below 1e-10; per Newton
+    iteration the device assembly and the host's to_scipy and LU seconds,
+    Newton iterations per step, launches, peak device and host memory.
+    Last the pinned demo's size row at --ref SHELL_SIZE_REF, staged (its
+    gate: Newton converges, a finite displacement). No stencil kernel is on
+    this path: the linear solves are host LU."""
+    import torch
+
+    from iifea_tpu_torch.demos.background_unfitted import (
+        cut_shell_unfitted as cut,
+        pinned_shell_unfitted as pinned,
+    )
+
+    card, t_card, _, _ = demo_in_process(pinned, ["--ref", "1"], "cuda")
+    host, t_host, _, _ = demo_in_process(pinned, ["--ref", "1"], "cpu")
+    rel = abs(card["disp"][2] - host["disp"][2]) / abs(host["disp"][2])
+    phase("shells_small", argv=["--ref", "1"], seconds=t_card,
+          host_seconds=t_host, newton_iters=card["newton_iters"],
+          host_newton_iters=host["newton_iters"], disp=card["disp"],
+          host_disp=host["disp"], disp_z_rel_diff_host=rel)
+    if card["newton_iters"] != host["newton_iters"]:
+        fail(f"shells_small: Newton iterations {card['newton_iters']} differ "
+             f"from the host's {host['newton_iters']}")
+    if not rel <= SHELL_HOST_REL:
+        fail(f"shells_small: disp_z {card['disp'][2]} differs from the "
+             f"host's {host['disp'][2]} by {rel}")
+    del card, host
+
+    for kind, module in (("pinned", pinned), ("cut", cut)):
+        host_peak_reset()
+        res = {}
+
+        def run():
+            res["out"] = demo_in_process(module, [], "cuda")
+
+        if kind == "pinned":
+            profile_solve(run, "shells_pinned_profile")
+        else:
+            run()
+        out, seconds, launched, peak = res["out"]
+        value = out["disp"][2] if kind == "pinned" else out["tip"][2]
+        rel = abs(value - SHELL_GOLDS[kind]) / SHELL_GOLDS[kind]
+        record = (out["record"] if kind == "pinned"
+                  else [rec for step in out["record"] for rec in step])
+        stages = newton_stages(record)
+        phase(f"shells_{kind}", n_bg_dofs=out["M"].n_bg_dofs,
+              n_fg_dofs=out["prob"].space.n_dofs,
+              block_cells=out["prob"].cell_dom.n_elem, seconds=seconds,
+              stage_seconds=out["stage_seconds"],
+              newton_iters=out["newton_iters"],
+              stage_totals={k: sum(v) for k, v in stages.items()},
+              per_iteration=stages, value=value, gold=SHELL_GOLDS[kind],
+              rel_diff_gold=rel, launches=launched, peak_gib=peak,
+              host_peak_gib=host_peak_gib(),
+              displacement=out["disp"] if kind == "pinned" else out["tip"])
+        if not (out["u_f"].is_cuda and rel <= SHELL_GOLD_REL):
+            fail(f"shells_{kind}: {value} not within {SHELL_GOLD_REL} of "
+                 f"the JAX gold {SHELL_GOLDS[kind]}, or not on the card")
+        if kind == "pinned" and not max(map(abs, out["disp"][:2])) < 1e-10:
+            fail(f"shells_pinned: in-plane centre displacement "
+                 f"{out['disp'][:2]}")
+        del out, res
+        torch.cuda.empty_cache()
+
+    host_peak_reset()
+    out, seconds, launched, peak = demo_in_process(
+        pinned, ["--ref", str(SHELL_SIZE_REF)], "cuda")
+    stages = newton_stages(out["record"])
+    phase("shells_size_row", argv=["--ref", str(SHELL_SIZE_REF)],
+          n_bg_dofs=out["M"].n_bg_dofs, n_fg_dofs=out["prob"].space.n_dofs,
+          block_cells=out["prob"].cell_dom.n_elem, seconds=seconds,
+          stage_seconds=out["stage_seconds"],
+          newton_iters=out["newton_iters"],
+          stage_totals={k: sum(v) for k, v in stages.items()},
+          per_iteration=stages, disp=out["disp"], peak_gib=peak,
+          host_peak_gib=host_peak_gib())
+    if not all(math.isfinite(v) for v in out["disp"]):
+        fail(f"shells_size_row: displacement {out['disp']}")
+
+
+def phase_poisson_unfitted():
+    """``python3 -m iifea_tpu_torch.demos.background_unfitted.poisson_unfitted
+    --n 16, 32, 64`` on the card (runtime P1 transfer matrix, host LU):
+    L2 and H1 within PU_REL of the JAX package's rows."""
+    from iifea_tpu_torch.demos.background_unfitted import poisson_unfitted
+
+    for n, (l2, h1) in PU_ROWS.items():
+        out, seconds, _, peak = demo_in_process(poisson_unfitted,
+                                                ["--n", str(n)], "cuda")
+        rel = {"L2": abs(out["L2"] - l2) / l2, "H1": abs(out["H1"] - h1) / h1}
+        phase("poisson_unfitted", n=n, seconds=seconds, L2=out["L2"],
+              H1=out["H1"], jax_row=[l2, h1], rel_diff=rel, peak_gib=peak)
+        if not (out["u_f"].is_cuda and max(rel.values()) <= PU_REL):
+            fail(f"poisson_unfitted --n {n}: norms {out['L2']}, "
+                 f"{out['H1']} not within {PU_REL} of {l2}, {h1}")
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    t = getattr(t, "coeffs", t)
+    return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def tg_cell(device: str = "cuda"):
+    """The Taylor-Green ref-7 cell set up from nothing as the demo does
+    (mesh, problem, L2 projection, pressure pin): (prob, M, up_p, up_f,
+    the pinned dofs, the lattice shape, t of the first step's midpoint)."""
+    import torch
+
+    from iifea_tpu_torch.api import l2_project
+    from iifea_tpu_torch.demos import tg_vortex
+    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.models.navier_stokes import (
+        TaylorGreenProblem,
+        u_exact,
+    )
+
+    args = tg_vortex.parse_args(NS_FULL)
+    n = 8 * 2 ** int(args.ref)
+    mesh, M = immersed_square_problem(n_fg=n, n_bg=n // 2, n_fields=3,
+                                      device=device)
+    steps = math.ceil(float(args.T) / (4 / math.sqrt(mesh.n_cells)))
+    Dt = float(args.T) / steps
+    prob = TaylorGreenProblem(mesh, k=1, Re=float(args.Re), Dt=Dt,
+                              n_bg_dofs=M.n_bg_dofs, device=device)
+
+    def ic(x):
+        return torch.cat([u_exact(x, prob.nu, 0.0), torch.zeros_like(x[:1])])
+
+    up_p, up_f = l2_project(ic, prob.space, prob.cell_dom, M)
+    pin = tg_vortex.pressure_pin(prob, M, up_f, up_f)
+    return prob, M, up_p, up_f, pin, (n // 2 + 1,) * 2, 0.5 * Dt
+
+
+def tg_first_system(prob, M, up_p, up_f, pin, t):
+    """The first Newton iteration's (A, b, element blocks, foreground
+    residual), as ``solve_nonlinear`` forms them."""
+    from iifea_tpu_torch.ops.projection import BackgroundOperator
+    from iifea_tpu_torch.solvers.trim import apply_trim_rhs, mask_from_ids
+
+    blocks, res = prob.form.jacobian_and_residual(up_f, {"up_old": up_f},
+                                                  {"t": t})
+    mask = mask_from_ids(pin, M.n_bg_dofs, device=up_p.device)
+    A = BackgroundOperator(prob.form, blocks, M).with_trim(mask)
+    return A, apply_trim_rhs(M.rmv(res), mask, target=up_p), blocks, res
+
+
+def tg_solve(A, b, shape, planes: list):
+    """The demo's first linear solve (``solve_nonlinear``'s defaults; the
+    mixed route, as on a card by default), the probe's planes appended to
+    ``planes``; returns (x, info)."""
+    from iifea_tpu_torch.solvers import ksp
+
+    probe = ksp._probe_block
+
+    def kept(*a, **kw):
+        planes.append(probe(*a, **kw))
+        return planes[-1]
+
+    ksp._probe_block = kept
+    try:
+        return ksp.solve_ksp(A, b, method="gmres", pc="mg", rtol=1e-8,
+                             atol=1e-9, lattice_shape=shape, n_fields=3,
+                             monitor=False, mixed=True)
+    finally:
+        ksp._probe_block = probe
+
+
+def tg_first_solve():
+    """The cell set up from nothing and its first linear solve; returns
+    (GMRES iterations, digests of the initial state, the rhs, the planes,
+    the solution)."""
+    prob, M, up_p, up_f, pin, shape, t = tg_cell()
+    A, b, _, _ = tg_first_system(prob, M, up_p, up_f, pin, t)
+    planes = []
+    x, info = tg_solve(A, b, shape, planes)
+    return (int(info.iters), {"state": _digest(up_f), "rhs": _digest(b),
+                              "planes": _digest(planes[0]),
+                              "solution": _digest(x)})
+
+
+def phase_determinism():
+    """Run-to-run determinism (ROADMAP §3 P5). The Taylor-Green ref-7
+    cell's first linear solve, set up from nothing DET_REPEATS times in
+    this process: the initial state, the rhs, the probe's planes and the
+    solution bitwise equal in every repeat, and the same GMRES count; then
+    two block probes of the elasticity n_bg=512 operator give bitwise-
+    equal planes."""
+    import torch
+
+    from iifea_tpu_torch.solvers import ksp
+
+    runs = []
+    for _ in range(DET_REPEATS):
+        runs.append(sync_time(tg_first_solve))
+        torch.cuda.empty_cache()
+    iters = [r[0][0] for r in runs]
+    digests = [r[0][1] for r in runs]
+    phase("determinism_taylor_green", repeats=DET_REPEATS,
+          gmres_iters=iters, digests=digests,
+          seconds=[r[1] for r in runs])
+    if len(set(iters)) != 1 or any(d != digests[0] for d in digests):
+        fail(f"determinism: the Taylor-Green first solve differs between "
+             f"repeats: iterations {iters}, digests {digests}")
+    _, _, A, _, _ = build_elasticity(N_BG_EL, "cuda")
+    probes = [sync_time(lambda: ksp._probe_block(
+        A, (N_BG_EL + 1,) * 2, N_FIELDS_EL, 2, torch.float32))
+        for _ in range(2)]
+    planes = [_digest(S) for S, _ in probes]
+    phase("determinism_elasticity_probe", n_bg=N_BG_EL, planes=planes,
+          probe_seconds=[t for _, t in probes])
+    if planes[0] != planes[1]:
+        fail(f"determinism: two elasticity probes differ: {planes}")
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
           "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
           "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
           "demo_p2", "small_reference_biharmonic3", "biharmonic3",
-          "demo_biharmonic3", "navier_stokes")
+          "demo_biharmonic3", "navier_stokes", "shells", "poisson_unfitted",
+          "determinism")
 
 
 def kernel_shapes(timing, by_shape):
@@ -3688,6 +3973,14 @@ def main() -> None:
     if "navier_stokes" in run:
         ns, ns_shapes = phase_navier_stokes()
         by_shape.update(ns_shapes)
+    # the shells and poisson_unfitted solve by host LU (no stencil kernel
+    # on their path); the determinism gate repeats the Taylor-Green cell's
+    # first solve
+    for name, fn in (("shells", phase_shells),
+                     ("poisson_unfitted", phase_poisson_unfitted),
+                     ("determinism", phase_determinism)):
+        if name in run:
+            fn()
     # {instance tag: (launches by kernel, by shape)} of the 2D and the 3D
     # biharmonic: their kernels differ, so one tag's counts merge
     bh = {}

@@ -26,6 +26,12 @@ background dof vector at the step's end) and ``up_old_f`` (the foreground
 field of the step before, the VMS kernel's ``up_old``), with the step and
 ``t`` in its ``.meta.json``: ``demos/tg_vortex.py --ckpt DIR`` resumes a
 directory written by either package's demo.
+
+A Kirchhoff-Love shell's state is its numpy mesh (``coords``, ``cells``,
+``material``) through ``from_numpy_state`` and the vectors ``u_f`` (the
+foreground displacement, node-interleaved) and ``u_p`` (the background
+one); the B-spline extraction M is rebuilt in each package from the same
+node coordinates (``BSplineSpace2D.transfer_matrix``).
 """
 from __future__ import annotations
 

@@ -74,6 +74,9 @@ class Mesh:
     def hmax(self) -> float:
         return float(self.cell_diameters.max())
 
+    def hmin(self) -> float:
+        return float(self.cell_diameters.min())
+
     def diameters_of(self, cell_ids: np.ndarray) -> np.ndarray:
         """``cell_diameters[cell_ids]``: the largest vertex-pair distance,
         over the distinct pairs (a pair and its reverse have the same

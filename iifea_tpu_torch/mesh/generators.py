@@ -152,6 +152,36 @@ def locate_structured_rect(mesh: Mesh, points: np.ndarray,
     return np.where(inside, cell, -1), ref
 
 
+def locate_cells(mesh: Mesh, points: np.ndarray,
+                 tol: float = 1e-10) -> np.ndarray:
+    """Point location on any simplex mesh: the containing cell id per
+    point, -1 if outside. The reference's uniform bucket grid over cell
+    bounding boxes, searched per point as one vectorised test: a point on
+    a shared facet gets the lowest-numbered cell its bucket lists, as
+    there."""
+    points = np.atleast_2d(np.asarray(points, dtype=np.float64))
+    dim = mesh.dim
+    lo = mesh.coords.min(0) - tol
+    hi = mesh.coords.max(0) + tol
+    n_buckets = max(int(round(mesh.n_cells ** (1.0 / dim))), 1)
+    width = (hi - lo) / n_buckets
+
+    def bucket_of(x):
+        return np.clip(((x - lo) / width).astype(np.int64), 0, n_buckets - 1)
+
+    cc = mesh.cell_coords
+    cmin, cmax = bucket_of(cc.min(1)), bucket_of(cc.max(1))
+    Jinv = np.linalg.inv(np.swapaxes(cc[:, 1:, :] - cc[:, :1, :], 1, 2))
+    out = np.full(len(points), -1, dtype=np.int64)
+    for p, (x, b) in enumerate(zip(points, bucket_of(points))):
+        cand = np.flatnonzero(np.all((cmin <= b) & (b <= cmax), axis=1))
+        lam = np.einsum("cij,cj->ci", Jinv[cand], x - cc[cand, 0, :])
+        hit = cand[(lam.min(1) >= -tol) & (lam.sum(1) <= 1 + tol)]
+        if len(hit):
+            out[p] = hit[0]
+    return out
+
+
 def locate_structured_box(mesh: Mesh, points: np.ndarray,
                           tol: float = 1e-10):
     """O(1) vectorized point location in a box_mesh (Kuhn triangulation).

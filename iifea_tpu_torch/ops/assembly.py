@@ -15,10 +15,10 @@ come from ``torch.func.jacfwd`` of the kernel, in element chunks of
 JAC_CHUNK.
 
 Residuals and the foreground operator applications scatter element
-vectors with ``index_add_``: on CUDA the order in which several elements
-add onto one dof is not fixed, so f64 results may differ in the last bits
-from run to run. Not ported: Hessian tabulation (P2 and the biharmonic
-model, later slices).
+vectors onto dofs by a fixed-order sum (``ops/segment.SegmentSum``, one per
+term, built on first use), so their f64 results are the same on every run.
+Cell and facet domains tabulate P2 Hessians or Laplacians on request
+(``with_hessian``).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from torch.func import jacfwd, vmap
 from iifea_tpu_torch.mesh.core import FunctionSpace, flat_dofs
 from iifea_tpu_torch.ops import quadrature
 from iifea_tpu_torch.ops.reference_elements import local_facets
+from iifea_tpu_torch.ops.segment import SegmentSum
 
 # elements per vmap(jacfwd) batch: bounds the tangent-batched temporaries
 JAC_CHUNK = 262144
@@ -269,12 +270,6 @@ def build_facet_domain(space: FunctionSpace, facet_ids: np.ndarray,
     )
 
 
-def scatter_into_multi(Y: torch.Tensor, domain, data: torch.Tensor):
-    """Y (k, n_dofs) += the stacked element vectors ``data`` (k, ne·nE),
-    scattered onto the domain's dofs; returns Y."""
-    return Y.index_add_(1, domain.eldofsT.reshape(-1), data)
-
-
 class Term(NamedTuple):
     domain: CellDomain | FacetDomain
     kernel: Callable
@@ -288,6 +283,31 @@ class Form:
         self.terms = tuple(terms)
         self.n_dofs = space.n_dofs
         self.n_fields = space.n_fields
+        self._sums = [None] * len(self.terms)
+        self._csr = None
+
+    def csr_pattern(self):
+        """(indptr, indices, slot): the host CSR pattern of the foreground
+        operator the element blocks make, and for each block entry (the
+        terms in order, each (nE, ne, ne) element-leading) its slot in
+        ``indices``; built once per form."""
+        if self._csr is None:
+            n = self.n_dofs
+            keys = []
+            for dom, _ in self.terms:
+                fl = dom.flat_eldofs_np.astype(np.int64)      # (nE, ne)
+                keys.append((fl[:, :, None] * n + fl[:, None, :]).ravel())
+            keys, slot = np.unique(np.concatenate(keys), return_inverse=True)
+            indptr = np.searchsorted(keys // n, np.arange(n + 1))
+            self._csr = (indptr, (keys % n).astype(np.int32), slot)
+        return self._csr
+
+    def _scatter(self, i: int) -> SegmentSum:
+        """Term i's element vectors (ne·nE) onto dofs, in a fixed order."""
+        if self._sums[i] is None:
+            self._sums[i] = SegmentSum(self.terms[i].domain.eldofsT,
+                                       self.n_dofs)
+        return self._sums[i]
 
     def _local(self, kern, nb, params, with_jac, ctx_dims):
         """vmapped per-element (jacobian, residual) of a term's kernel; the
@@ -321,10 +341,12 @@ class Form:
         aux = aux or {}
         r = torch.zeros(self.n_dofs, dtype=u.dtype, device=u.device)
         nf = self.n_fields
-        for dom, kern in self.terms:
+        for i, (dom, kern) in enumerate(self.terms):
             ne, nE = dom.eldofsT.shape
             K = (torch.zeros((ne, ne, nE), dtype=u.dtype, device=u.device)
                  if with_jac else None)
+            rloc = (torch.zeros((ne, nE), dtype=u.dtype, device=u.device)
+                    if with_res else None)
             vloc = self._local(kern, ne // nf, params, with_jac,
                                _ctx_dims(dom.ctx(slice(0, 0))))
             for s in range(0, nE, JAC_CHUNK):
@@ -334,8 +356,9 @@ class Form:
                 if with_jac:
                     K[..., sl] = Kc
                 if with_res:
-                    r.index_add_(0, dom.eldofsT[:, sl].reshape(-1),
-                                 rl.reshape(-1))
+                    rloc[:, sl] = rl
+            if with_res:
+                self._scatter(i)(rloc.reshape(-1), out=r)
             blocks.append(K)
         return blocks, r
 
@@ -356,10 +379,10 @@ class Form:
     def matvec(self, blocks, x: torch.Tensor) -> torch.Tensor:
         """The foreground operator y = A_f x from element blocks."""
         y = torch.zeros(self.n_dofs, dtype=x.dtype, device=x.device)
-        for (dom, _), K in zip(self.terms, blocks):
+        for i, ((dom, _), K) in enumerate(zip(self.terms, blocks)):
             xe = x[dom.eldofsT]                                # (ne, nE)
             ye = (K * xe[None]).sum(dim=1)                     # (ne, nE)
-            y.index_add_(0, dom.eldofsT.reshape(-1), ye.reshape(-1))
+            self._scatter(i)(ye.reshape(-1), out=y)
         return y
 
     def matvec_multi(self, blocks, X: torch.Tensor) -> torch.Tensor:
@@ -367,19 +390,19 @@ class Form:
         (k, n_dofs)."""
         k = X.shape[0]
         Y = torch.zeros((k, self.n_dofs), dtype=X.dtype, device=X.device)
-        for (dom, _), K in zip(self.terms, blocks):
+        for i, ((dom, _), K) in enumerate(zip(self.terms, blocks)):
             xe = X[:, dom.eldofsT]                             # (k, ne, nE)
             ye = torch.einsum("abE,kbE->kaE", K, xe)
-            scatter_into_multi(Y, dom, ye.reshape(k, -1))
+            self._scatter(i)(ye.reshape(k, -1), out=Y)
         return Y
 
     def matvec_t(self, blocks, x: torch.Tensor) -> torch.Tensor:
         """The transposed foreground operator y = A_fᵀ x."""
         y = torch.zeros(self.n_dofs, dtype=x.dtype, device=x.device)
-        for (dom, _), K in zip(self.terms, blocks):
+        for i, ((dom, _), K) in enumerate(zip(self.terms, blocks)):
             xe = x[dom.eldofsT]                                # (ne, nE)
             ye = (K * xe[:, None]).sum(dim=0)                  # (ne, nE)
-            y.index_add_(0, dom.eldofsT.reshape(-1), ye.reshape(-1))
+            self._scatter(i)(ye.reshape(-1), out=y)
         return y
 
 

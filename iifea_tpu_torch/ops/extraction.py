@@ -2,10 +2,10 @@
 
 Port of ``iifea_tpu/ops/extraction.py``. The host copy is row-major ELL
 (``idx_np``/``val_np``, (n_fg, kmax)); the device copy is slot-major
-(kmax, n_fg). ``mv`` is a gather and weighted slot sum; ``rmv`` is an f64
-``index_add_`` (on CUDA its order of accumulation onto a repeated
-background dof is not fixed, so results may differ in the last bits from
-run to run). The ``*_multi`` variants take stacked (k, n) vectors, the
+(kmax, n_fg). ``mv`` is a gather and weighted slot sum; ``rmv`` is the
+transpose's fixed-order sum (``ops/segment.SegmentSum``, built on first
+use: each background dof's entries sorted once), so its f64 result is the
+same on every run. The ``*_multi`` variants take stacked (k, n) vectors, the
 right-hand-side axis first. ``to_scipy`` exports M as a host CSR matrix for
 the direct solve.
 
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from iifea_tpu_torch.ops.segment import SegmentSum
 
 
 class ExtractionOperator:
@@ -35,6 +37,8 @@ class ExtractionOperator:
         self.valT = torch.as_tensor(
             np.ascontiguousarray(self.val_np.T), device=self.device
         )
+        self._tsum = None
+        self._scipy = None
 
     @classmethod
     def from_triples(cls, fg_nodes, bg_nodes, weights, n_fg_nodes: int,
@@ -85,12 +89,16 @@ class ExtractionOperator:
         """u_f = M u_b."""
         return (self.valT * u_b[self.idxT]).sum(dim=0)
 
+    def _transpose(self) -> SegmentSum:
+        """Mᵀ's fixed-order sum over the nonzero weights, built once."""
+        if self._tsum is None:
+            self._tsum = SegmentSum(self.idxT, self.n_bg_dofs,
+                                    keep=self.valT != 0)
+        return self._tsum
+
     def rmv(self, r_f: torch.Tensor) -> torch.Tensor:
         """r_b = Mᵀ r_f."""
-        data = (self.valT * r_f[None, :]).reshape(-1)
-        out = torch.zeros(self.n_bg_dofs, dtype=data.dtype,
-                          device=self.device)
-        return out.index_add_(0, self.idxT.reshape(-1), data)
+        return self._transpose()((self.valT * r_f[None, :]).reshape(-1))
 
     def mv_multi(self, U: torch.Tensor) -> torch.Tensor:
         """(k, n_bg) -> (k, n_fg)."""
@@ -99,22 +107,24 @@ class ExtractionOperator:
     def rmv_multi(self, R: torch.Tensor) -> torch.Tensor:
         """(k, n_fg) -> (k, n_bg)."""
         k = R.shape[0]
-        data = (self.valT[None] * R[:, None, :]).reshape(k, -1)
-        out = torch.zeros((k, self.n_bg_dofs), dtype=data.dtype,
-                          device=self.device)
-        return out.index_add_(1, self.idxT.reshape(-1), data)
+        return self._transpose()(
+            (self.valT[None] * R[:, None, :]).reshape(k, -1))
 
     def row_blocks(self, eldofsT: torch.Tensor):
         """ELL planes of the foreground dof ids (ne, nE): (idx, val), each
         (kmax, ne, nE)."""
         return self.idxT[:, eldofsT], self.valT[:, eldofsT]
 
-    def to_scipy(self):
-        """Host CSR copy of M (n_fg, n_bg) for the direct solve."""
-        import scipy.sparse as sp
+    def to_scipy(self, transpose: bool = False):
+        """Host CSR copy of M (n_fg, n_bg), or of Mᵀ, for the direct solve;
+        built once (callers do not modify it)."""
+        if self._scipy is None:
+            import scipy.sparse as sp
 
-        rows = np.repeat(np.arange(self.n_fg_dofs), self.idx_np.shape[1])
-        return sp.coo_matrix(
-            (self.val_np.ravel(), (rows, self.idx_np.ravel())),
-            shape=(self.n_fg_dofs, self.n_bg_dofs),
-        ).tocsr()
+            rows = np.repeat(np.arange(self.n_fg_dofs), self.idx_np.shape[1])
+            Msp = sp.coo_matrix(
+                (self.val_np.ravel(), (rows, self.idx_np.ravel())),
+                shape=(self.n_fg_dofs, self.n_bg_dofs),
+            ).tocsr()
+            self._scipy = (Msp, Msp.T.tocsr())
+        return self._scipy[1 if transpose else 0]

@@ -19,6 +19,7 @@ import torch
 
 from iifea_tpu_torch.ops.assembly import Form
 from iifea_tpu_torch.ops.extraction import ExtractionOperator
+from iifea_tpu_torch.ops.segment import SegmentSum
 
 
 class BackgroundOperator:
@@ -31,8 +32,8 @@ class BackgroundOperator:
     on trimmed rows.
 
     The scatters (``Form.matvec`` onto foreground dofs, ``M.rmv`` onto
-    background dofs, the diagonal's) are ``index_add_``: on CUDA their order
-    is not fixed, so f64 results may differ in the last bits from run to
+    background dofs, the diagonal's) are fixed-order sums
+    (``ops/segment.py``): an application gives the same f64 bits on every
     run."""
 
     def __init__(self, form: Form, blocks: list[torch.Tensor],
@@ -47,17 +48,20 @@ class BackgroundOperator:
         self._support = None
 
     def support(self):
-        """(rows, idx, val): the foreground dofs the form's terms touch, in
-        ascending order, and M's ELL planes on them ((kmax, len(rows))
-        each); built once per operator. A stacked application needs M on
-        those rows only: a foreground larger than the block (the 3D
-        biharmonic's 16.2 M P2 nodes against the 3.6 M of its block
-        cells) would otherwise gather and scatter every row."""
+        """(rows, idx, val, mt): the foreground dofs the form's terms touch,
+        in ascending order, M's ELL planes on them ((kmax, len(rows))
+        each) and the fixed-order sum of Mᵀ on them; built once per
+        operator. A stacked application needs M on those rows only: a
+        foreground larger than the block (the 3D biharmonic's 16.2 M P2
+        nodes against the 3.6 M of its block cells) would otherwise gather
+        and scatter every row."""
         if self._support is None:
             rows = torch.unique(torch.cat([
                 dom.eldofsT.reshape(-1) for dom, _ in self.form.terms]))
-            self._support = (rows, self.M.idxT[:, rows].contiguous(),
-                             self.M.valT[:, rows].contiguous())
+            idx = self.M.idxT[:, rows].contiguous()
+            val = self.M.valT[:, rows].contiguous()
+            self._support = (rows, idx, val,
+                             SegmentSum(idx, self.n, keep=val != 0))
         return self._support
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,18 +78,16 @@ class BackgroundOperator:
         probe's path). M and Mᵀ run on the rows of ``support`` only: the
         form reads and writes no other foreground dof, so the result is
         that of ``M.rmv_multi(form.matvec_multi(blocks, M.mv_multi(X)))``
-        up to rounding (the scatter skips exact zeros; the slot sums of the
-        gather may group differently)."""
-        rows, idx, val = self.support()
+        up to rounding (Mᵀ skips exact zeros; the slot sums of the gather
+        may group differently)."""
+        rows, idx, val, mt = self.support()
         k = X.shape[0]
         U_rows = (val[None] * X[:, idx]).sum(dim=1)
         U = torch.zeros((k, self.form.n_dofs), dtype=U_rows.dtype,
                         device=U_rows.device)
         U[:, rows] = U_rows
         R = self.form.matvec_multi(self.blocks, U)[:, rows]
-        data = (val[None] * R[:, None, :]).reshape(k, -1)
-        Y = torch.zeros((k, self.n), dtype=data.dtype, device=data.device)
-        Y.index_add_(1, idx.reshape(-1), data)
+        Y = mt((val[None] * R[:, None, :]).reshape(k, -1))
         if self.shift is not None:
             Y = Y + self.shift[None, :] * X
         if self.trim_mask is not None:
@@ -129,7 +131,7 @@ class BackgroundOperator:
         its dofs ((km, ne) each), the contribution to diag[j] is
         Σ_{a,k,b,l} val[k,a] K[a,b] val[l,b] [idx[k,a]=j][idx[l,b]=j]: per
         chunk of elements, one batched compare of the index planes, one
-        contraction and one ``index_add_``."""
+        contraction and one fixed-order sum onto the dofs."""
         d = torch.zeros(self.n, dtype=self.blocks[0].dtype,
                         device=self.blocks[0].device)
         for (dom, _), K in zip(self.form.terms, self.blocks):
@@ -141,7 +143,7 @@ class BackgroundOperator:
                       == ic[None, None, :, :, :]).to(K.dtype)
                 T = torch.einsum("abE,KaLbE,LbE->KaE",
                                  K[..., s:s + chunk], eq, vc) * vc
-                d.index_add_(0, ic.reshape(-1), T.reshape(-1))
+                SegmentSum(ic, self.n, keep=vc != 0)(T.reshape(-1), out=d)
         if self.shift is not None:
             d = d + self.shift
         if self.trim_mask is not None:
@@ -170,14 +172,14 @@ class BackgroundOperator:
                 eqn = (node[:, :, None, None, :]
                        == node[None, None, :, :, :]).to(K.dtype)
                 Kc = K[..., s:s + chunk]
+                onto = SegmentSum(node, m, keep=vc != 0)
                 for fa in range(nf):
                     va = torch.where(fld == fa, vc, 0.0)
                     for fb in range(nf):
                         vb = torch.where(fld == fb, vc, 0.0)
                         T = torch.einsum("abE,KaLbE,LbE->KaE", Kc, eqn,
                                          vb) * va
-                        out[fa, fb].index_add_(0, node.reshape(-1),
-                                               T.reshape(-1))
+                        onto(T.reshape(-1), out=out[fa, fb])
         blocks = out.permute(2, 0, 1)                     # (m, nf, nf)
         eye = torch.eye(nf, dtype=K0.dtype, device=K0.device)
         if self.shift is not None:
@@ -192,21 +194,21 @@ class BackgroundOperator:
 
     def to_scipy(self):
         """Explicit A_b as a host scipy CSR matrix, Mᵀ A_f M (the reference's
-        PtAP), for the sparse direct solve."""
+        PtAP), for the sparse direct solve. A_f's entries are summed into
+        the form's fixed CSR pattern (``Form.csr_pattern``) and M, Mᵀ are
+        the extraction's cached host copies, so a Newton iteration pays
+        for the two sparse products only."""
         import scipy.sparse as sp
 
         n_fg = self.form.n_dofs
-        A_f = sp.csr_matrix((n_fg, n_fg))
-        for (dom, _), K in zip(self.form.terms, self.blocks):
-            fl = dom.flat_eldofs_np                       # (nE, ne)
-            ne = fl.shape[1]
-            rows = np.repeat(fl, ne, axis=1).ravel()
-            cols = np.tile(fl, (1, ne)).ravel()
-            Kel = np.moveaxis(K.cpu().numpy(), -1, 0)     # (nE, ne, ne)
-            A_f = A_f + sp.coo_matrix((Kel.ravel(), (rows, cols)),
-                                      shape=(n_fg, n_fg)).tocsr()
-        Msp = self.M.to_scipy()
-        A_b = (Msp.T @ A_f @ Msp).tocsr()
+        indptr, indices, slot = self.form.csr_pattern()
+        Kel = np.concatenate([np.moveaxis(K.cpu().numpy(), -1, 0).ravel()
+                              for K in self.blocks])      # (nE, ne, ne) each
+        A_f = sp.csr_matrix(
+            (np.bincount(slot, weights=Kel, minlength=len(indices)),
+             indices, indptr), shape=(n_fg, n_fg))
+        A_b = (self.M.to_scipy(transpose=True) @ A_f
+               @ self.M.to_scipy()).tocsr()
         if self.shift is not None:
             A_b = (A_b + sp.diags(self.shift.cpu().numpy())).tocsr()
         if self.trim_mask is not None:

@@ -66,6 +66,7 @@ from iifea_tpu_torch.ops.projection import BackgroundOperator
 from iifea_tpu_torch.solvers import krylov, precond
 from iifea_tpu_torch.solvers.direct import solve_direct
 from iifea_tpu_torch.solvers.trim import apply_trim_rhs, trim_mask_from_diag
+from iifea_tpu_torch.utils.profiling import timed
 
 _NO_GPU_PC = {"ICC", "ILU", "ILUT"}
 
@@ -106,9 +107,9 @@ def lattice_tables(form, M, shape):
 def _probe_chunk(A, dtype) -> int | None:
     """Probe columns per chunk so the stacked ``A.mv_multi``'s live
     temporaries stay under PROBE_BUDGET_BYTES: those of the element
-    product, or those of the extraction's gather and scatter on the
-    operator's support (two (k, kmax, rows) planes), whichever is
-    larger."""
+    product, or those of the extraction's gather and Mᵀ on the operator's
+    support (two (k, kmax, rows) planes), whichever is larger, plus the
+    largest padded gather of a fixed-order sum (the form's scatters, Mᵀ)."""
     per_col, n_temps = 0, 4
     for dom, _ in A.form.terms:
         ne, nE = dom.eldofsT.shape
@@ -116,7 +117,10 @@ def _probe_chunk(A, dtype) -> int | None:
             per_col, n_temps = ne * nE, ne + 3
     if per_col == 0:
         return None
-    words = max(n_temps * per_col, 2 * A.support()[2].numel())
+    gathers = [A.form._scatter(i).pos.numel()
+               for i in range(len(A.form.terms))]
+    words = (max(n_temps * per_col, 2 * A.support()[2].numel())
+             + max(gathers + [A.support()[3].pos.numel()]))
     item = torch.empty((), dtype=dtype).element_size()
     return max(int(PROBE_BUDGET_BYTES // (words * item)), 1)
 
@@ -345,13 +349,15 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
               monitor: bool = True, lattice_shape: tuple | None = None,
               n_fields: int = 1, stencil_radius: int = 2,
               mixed: bool | None = None, asm_core: int = 64,
-              asm_overlap: int = 1):
+              asm_overlap: int = 1, timings: dict | None = None):
     """Solve A u = b on the background space; returns (u, info), info None
     for the direct solve. Everything runs on b's device (the direct solve's
     factorization and pc='asm''s patch setup on the host). ``mixed``
     applies to pc='mg' only: None = auto (on for f64 systems on CUDA),
     True/False forces it. ``asm_core``/``asm_overlap``: dofs per patch core
-    and adjacency layers of overlap of pc='asm'."""
+    and adjacency layers of overlap of pc='asm'. ``timings``, a dict,
+    accumulates the direct solve's host stages: "to_scipy" (Mᵀ A_f M
+    formed on the host) and "direct_solve" (the sparse LU)."""
     method = method or "gmres"
     pc = pc or "jacobi"
     if pc in _NO_GPU_PC:
@@ -367,7 +373,11 @@ def solve_ksp(A: BackgroundOperator, b: torch.Tensor,
             b = apply_trim_rhs(b, mask)
 
     if method in ("mumps", "direct"):
-        u = solve_direct(A.to_scipy(), b.cpu().numpy())
+        timings = {} if timings is None else timings
+        with timed(timings, "to_scipy"):
+            A_sp = A.to_scipy()
+        with timed(timings, "direct_solve"):
+            u = solve_direct(A_sp, b.cpu().numpy())
         return torch.as_tensor(u, dtype=b.dtype, device=b.device), None
 
     x0 = torch.zeros_like(b) if x0 is None else x0

@@ -20,6 +20,9 @@ Everything runs on ``u_p``'s device.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
+
 import torch
 
 from iifea_tpu_torch.ops.assembly import Form
@@ -32,10 +35,30 @@ from iifea_tpu_torch.solvers.trim import (
     trim_mask_from_diag,
 )
 from iifea_tpu_torch.utils.logging import log_info
+from iifea_tpu_torch.utils.profiling import timed
 
 
 class NonlinearSolveError(RuntimeError):
     pass
+
+
+# the list ``recording`` fills, per thread and task
+_RECORD: ContextVar[list | None] = ContextVar("newton_record", default=None)
+
+
+@contextmanager
+def recording(record: list):
+    """Within the block, every Newton iteration of ``solve_nonlinear``
+    appends one dict to ``record``: the seconds of the assembly
+    (``assembly``: element Jacobians, residual and Mᵀr) and of the linear
+    solve (``solve``, with the direct solve's host stages ``to_scipy`` and
+    ``direct_solve`` inside it), each synchronised with the card, and the
+    linear iterations (``linear_iters``, None for the direct solve)."""
+    token = _RECORD.set(record)
+    try:
+        yield record
+    finally:
+        _RECORD.reset(token)
 
 
 def _norm(v: torch.Tensor) -> float:
@@ -71,6 +94,7 @@ def solve_nonlinear(
     ptc_sigma0: float | None = None,
 ):
     """Newton's iteration; returns (u_p, u_f) with u_f = M u_p kept in sync.
+    Inside a ``recording`` block each iteration is recorded.
 
     ``linear_pc='mg'`` + ``lattice_shape`` routes each linearised solve
     through the stencil fast path (``solvers/ksp._mg_solve``).
@@ -89,6 +113,7 @@ def solve_nonlinear(
     aux = aux or {}
     initial_norm = initial_norm_res = None
     converged = False
+    record = _RECORD.get()
 
     def trim_mask(A):
         if bfr_tol is not None:
@@ -98,8 +123,14 @@ def solve_nonlinear(
         return None
 
     for i in range(max_iters):
-        blocks, res = form.jacobian_and_residual(u_f, aux, params)
-        R_b = M.rmv(res)
+        rec = {}
+
+        def clock(key):
+            return nullcontext() if record is None else timed(rec, key)
+
+        with clock("assembly"):
+            blocks, res = form.jacobian_and_residual(u_f, aux, params)
+            R_b = M.rmv(res)
         A = BackgroundOperator(form, blocks, M)
         mask = trim_mask(A)
         if mask is not None:
@@ -121,11 +152,16 @@ def solve_nonlinear(
         if ptc_sigma0 is not None:
             sig = ptc_sigma0 * min(1.0, relative_norm_res)
             A = A.with_shift(sig * A.diag().abs())
-        du_p, _ = solve_ksp(
-            A, R_b, method=linear_method or "gmres", pc=linear_pc or "jacobi",
-            monitor=monitor_linear, rtol=linear_rtol, atol=linear_atol,
-            lattice_shape=lattice_shape, n_fields=n_fields,
-        )
+        with clock("solve"):
+            du_p, info = solve_ksp(
+                A, R_b, method=linear_method or "gmres",
+                pc=linear_pc or "jacobi", monitor=monitor_linear,
+                rtol=linear_rtol, atol=linear_atol,
+                lattice_shape=lattice_shape, n_fields=n_fields, timings=rec,
+            )
+        if record is not None:
+            rec["linear_iters"] = None if info is None else int(info.iters)
+            record.append(rec)
         current_norm = _norm(du_p)
         if i == 0:
             initial_norm = current_norm

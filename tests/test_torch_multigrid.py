@@ -105,6 +105,48 @@ def test_torch_pinv_matches():
     assert _rel(Xt, np.linalg.inv(A)) < 1e-12
 
 
+@pytest.mark.parametrize("dim,n_fields", [(2, 1), (3, 1), (2, 3), (3, 3)])
+def test_torch_dense_coarse_matrix_from_planes(dim, n_fields):
+    """The coarsest level's dense matrix read off the planes equals the
+    operator applied to every unit vector, bitwise (scalar and block, 2D
+    and 3D, radius 2 and a radius-3 scalar case)."""
+    from iifea_tpu_torch.ops import stencil as tst
+
+    shape = (5, 6) if dim == 2 else (4, 5, 3)
+    r = 3 if (dim, n_fields) == (2, 1) else 2
+    taps = (2 * r + 1) ** dim
+    lead = () if n_fields == 1 else (n_fields, n_fields)
+    C = torch.from_numpy(np.random.default_rng(dim + n_fields).standard_normal(
+        lead + (taps,) + shape))
+    cls = {(2, False): tst.StencilOperator2D, (3, False): tst.StencilOperator3D,
+           (2, True): tst.StencilOperatorBlock2D,
+           (3, True): tst.StencilOperatorBlock3D}[(dim, n_fields > 1)]
+    S = cls(C, shape, r)
+    ref = S.mv_ref(torch.eye(S.n, dtype=S.dtype)).T
+    assert torch.equal(tmg._dense(S), ref)
+
+
+def test_torch_pinv_lone_rows_match():
+    """A matrix whose unsupported dofs couple to nothing but their unit
+    diagonal (a cut lattice's coarsest level): the port iterates those rows
+    as scalars and the coupled block as a matrix; JAX's full iteration
+    agrees to 1e-12, a singular coupled pair included."""
+    rng = np.random.default_rng(11)
+    n = 120
+    B = rng.standard_normal((n, n))
+    A = B @ B.T / n
+    A[:, 0] = A[:, 1]                       # a null pair in the block
+    A[0, :] = A[1, :]
+    lone = rng.permutation(np.arange(2, n))[:50]
+    A[lone, :] = 0.0
+    A[:, lone] = 0.0
+    A[lone, lone] = rng.uniform(0.5, 3.0, len(lone))
+    for steps in (44, 50):
+        Xt = tmg._pinv(torch.from_numpy(A), iters=steps).numpy()
+        Xj = np.asarray(jmg._pinv(jnp.asarray(A), iters=steps))
+        assert _rel(Xt, Xj) < 1e-12
+
+
 def test_torch_cg_matches(operator):
     """f32 MG-PCG from identical state: same iteration count (or within one
     check chunk), x to 1e-5."""

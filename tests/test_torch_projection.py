@@ -214,7 +214,7 @@ def test_torch_generate_unfitted_mesh(dim, rot):
 
 def test_torch_port_front_end_imports_no_jax():
     """No module of the port imports jax or the JAX package, nor do the
-    card tests and the card-side comparison script, which run on a machine
+    card tests and the card-side comparison scripts, which run on a machine
     without JAX."""
     import ast
     import pathlib
@@ -224,6 +224,7 @@ def test_torch_port_front_end_imports_no_jax():
     files.append(root / "chip_smoke.py")
     files += sorted((root / "tests").glob("test_torch_*_card.py"))
     files.append(root / "tests" / "compare_coarse_pinv.py")
+    files.append(root / "tests" / "compare_determinism.py")
     for name in ("ksp.py", "newton.py", "precond.py", "logging.py",
                  "test_torch_kernels_card.py", "test_torch_solves_card.py"):
         assert any(f.name == name for f in files), name

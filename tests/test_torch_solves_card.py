@@ -3,8 +3,9 @@
 (the block kernels), the single-level 3D case whose coarse inverse is the
 whole preconditioner, the biharmonic (radius 3, f64 and mixed; 2D, and
 3D at n_bg = 7, 15),
-``pc='asm'``, ``solve_nonlinear(linear_pc='mg')`` and one Taylor-Green
-time step through the demo (three-field block MG). Every case skips
+``pc='asm'``, ``solve_nonlinear(linear_pc='mg')``, one Taylor-Green
+time step through the demo (three-field block MG) and the pinned
+Kirchhoff-Love shell demo at --ref 1. Every case skips
 without a CUDA device.
 
 The file imports nothing of JAX, so it also runs on a machine that has a
@@ -318,3 +319,26 @@ def test_torch_tg_step_on_card():
     assert launched["stencil_mv_block"] > 0
     for k, v in out["cpu"]["norms"].items():
         assert abs(out[dev]["norms"][k] - v) <= 1e-6 * v, k
+
+
+@pytest.mark.gpu
+def test_torch_pinned_shell_on_card():
+    """The pinned Kirchhoff-Love shell demo at --ref 1 on the card (element
+    Hessians assembled on the device, host LU) and on the host: the same
+    Newton iterations, the centre displacement to 1e-8 relative."""
+    import contextlib
+    import io
+
+    from iifea_tpu_torch.demos.background_unfitted import (
+        pinned_shell_unfitted as demo,
+    )
+
+    dev = _card()
+    out = {}
+    for d in ("cpu", dev):
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[d] = demo.main(["--ref", "1", "--device", d])
+    assert out[dev]["u_f"].is_cuda
+    assert out[dev]["newton_iters"] == out["cpu"]["newton_iters"]
+    z, z_host = out[dev]["disp"][2], out["cpu"]["disp"][2]
+    assert abs(z - z_host) <= 1e-8 * abs(z_host)
