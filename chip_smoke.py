@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (iifea_tpu_torch) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--phases`` runs
-a comma-separated subset, for debugging). Phases, each printed on its own
-line; the first failure exits non-zero:
+a comma-separated subset, for debugging; ``--backend nccl`` runs the
+sharded phase on four cards). Phases, each printed on its own line, then
+``phase_seconds`` (each phase's wall seconds); the first failure exits
+non-zero:
 
   0. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
      requires torch.cuda.is_available().
@@ -135,8 +137,8 @@ line; the first failure exits non-zero:
      = 63 (65³ = 274,625 background dofs): host set-up per stage with the
      peak resident set, the assembly, ``solve_ksp(gmres, pc='mg',
      stencil_radius=3)`` counted per kernel, instance and shape (no plain
-     apply on the card outside the dense coarse inverse), three warm
-     solves staged, a profiled one, peak memory, the f64 residual and the
+     apply on the card outside the dense coarse inverse), a warm solve
+     staged, a profiled one, peak memory, the f64 residual and the
      L2/H1/H2 norms against the JAX package's ref-3 row (1e-5 relative);
      then the f32-mixed route, counted and capped.
   20. demo_biharmonic3: ``python3 -m iifea_tpu_torch.demos.biharmonic --dim
@@ -168,6 +170,25 @@ line; the first failure exits non-zero:
      from nothing three times: the initial state, rhs, planes and solution
      bitwise equal and the same GMRES count; two elasticity n_bg=512
      probes bitwise equal (ROADMAP §3 P5).
+  25. sharded: ``bench.py --devices 4`` on the card: the single-device
+     hierarchy of the 2D main path (n_bg=1024) built once and handed to
+     four ranks (``parallel.sharding.launch``, gloo: four ranks on one card,
+     every halo staged through pinned host buffers), each running the
+     sharded f32 MG-PCG inside the f64 refinement
+     (``parallel.multigrid.refine_sharded``), counted per rank: the kernels
+     it launched (``stencil_mv``, ``jacobi_smooth``, ``stencil_mv_block``
+     must all launch; no plain apply on the card outside the dense coarse
+     inverse), its collectives, seconds and peak memory; f64 residual
+     < 1e-10, CG iterations within 4 of the single device's, the solution
+     within 1e-7·max|x| on dofs with a diagonal above 0.05 of the largest,
+     every rank's solution bitwise equal. On the same ranks the sharded 2D,
+     3D (n_bg=52) and block (elasticity n_bg=512) applies and V-cycles
+     against their single-device counterparts (a V-cycle with 129² and 65²
+     replicated among them) and the cell-sharded ``ShardedProjectedSystem``
+     at n_bg=1024 against the operator (1e-10); then ``demos/poisson.py
+     --devices 4 --ref 4`` against the single-device demo with CG (norms
+     to 1e-8). ``--backend nccl`` runs the phase with one rank on each of
+     four cards.
 
 Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
 the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
@@ -2994,13 +3015,12 @@ JAX_ROWS_BH3 = {
 }
 JAX_ROW_REL = 1e-5               # the card's norms against those rows
 # ... at n_bg = 63, where a 1e-10 residual leaves the norms uncertain by
-# ~1e-5 (κ ~ h⁻⁴): on an H100 the converged solution (rtol 1e-12, the
-# biharmonic3_tight line) lies 1.1–1.3e-5 from the JAX row (that row's own
-# 1e-10 solve), the 1e-10 one 1.5–2.4e-5; two 1e-10 solves may differ by
-# the sum of their distances from the converged one, and the bound leaves
-# twice that
+# ~1e-5 (κ ~ h⁻⁴): on an H100 the converged solution (rtol 1e-12, which
+# an earlier form of this phase solved; PERF.md §5) lay 1.1–1.3e-5 from
+# the JAX row (that row's own 1e-10 solve), the 1e-10 one 1.5–2.4e-5; two
+# 1e-10 solves may differ by the sum of their distances from the converged
+# one, and the bound leaves twice that
 JAX_ROW_REL_63 = 5e-5
-TIGHT_RTOL = 1e-12               # the converged yardstick at n_bg = 63
 # the host's f64 cycle takes 12 / 684 / 432 iterations at n_bg = 7 / 15 /
 # 31 (GMRES(300)); the bound catches a cycle that stops contracting
 MAX_GMRES_ITERS_BH3 = 3000
@@ -3308,7 +3328,7 @@ def phase_biharmonic3():
     nodes): host set-up per stage with its peak resident set, the assembly,
     ``solve_ksp(gmres, pc='mg', stencil_radius=3)`` once counted per kernel,
     instance and lattice shape (no plain stencil apply on the card outside
-    the coarse dense inverse), three warm solves staged (probe, hierarchy,
+    the coarse dense inverse), a warm solve staged (probe, hierarchy,
     Krylov), a profiled one, peak device memory; f64 residual < 1e-10 and
     L2_rel, H1_rel, H2_rel within JAX_ROW_REL of the JAX package's ref-3
     row. Then the route not taken (f32 mixed), counted and capped at
@@ -3385,31 +3405,17 @@ def phase_biharmonic3():
     if not peak < PEAK_GIB:
         fail(f"biharmonic3: peak device memory {peak} GiB")
 
-    runs = []
-    for _ in range(3):
-        stages = Counter()
-        with timed_calls([(ksp, "_probe_general"),
-                          (multigrid, "StencilMultigrid3D")], stages):
-            (_, info_w), t_w = sync_time(lambda: bh_solve(A, b, shape))
-        runs.append({"solve_ksp": t_w, "probe": stages["_probe_general"],
-                     "hierarchy": stages["StencilMultigrid3D"],
-                     "krylov": t_w - sum(stages.values()),
-                     "iters": info_w.iters})
-    runs.sort(key=lambda r: r["solve_ksp"])
-    phase("biharmonic3_stages", setup=setup, median=runs[1], runs=runs)
+    # one warm solve staged (PERF.md §5 keeps the earlier three and the
+    # 1e-12 solve)
+    stages = Counter()
+    with timed_calls([(ksp, "_probe_general"),
+                      (multigrid, "StencilMultigrid3D")], stages):
+        (_, info_w), t_w = sync_time(lambda: bh_solve(A, b, shape))
+    run = {"solve_ksp": t_w, "probe": stages["_probe_general"],
+           "hierarchy": stages["StencilMultigrid3D"],
+           "krylov": t_w - sum(stages.values()), "iters": info_w.iters}
+    phase("biharmonic3_stages", setup=setup, warm=run)
     profile_solve(lambda: bh_solve(A, b, shape), "biharmonic3_profile")
-
-    # the converged yardstick: how far a 1e-10 residual leaves the norms
-    (u_t, info_t), t_t = sync_time(lambda: bh_solve(A, b, shape,
-                                                    rtol=TIGHT_RTOL))
-    norms_t = prob.error_norms(M.mv(u_t))
-    phase("biharmonic3_tight", rtol=TIGHT_RTOL, seconds=t_t,
-          iters=info_t.iters, rel_residual=rel_residual(A, b, u_t),
-          error_norms=norms_t,
-          jax_row_rel_diff=jax_row_rel(N_BG_BH3, norms_t),
-          norms_rel_diff_from_route={k: abs(norms[k] - norms_t[k])
-                                     / norms_t[k] for k in norms})
-    del u_t
 
     other = "mixed" if route == "f64" else "f64"
     torch.cuda.reset_peak_memory_stats()
@@ -3888,13 +3894,276 @@ def phase_determinism():
         fail(f"determinism: two elasticity probes differ: {planes}")
 
 
+N_RANKS = 4                      # the sharded phase's ranks, on one card
+N_BG_SHARD3 = 52                 # its 3D hierarchy: 53 → 27 → 14 dense
+MAX_SHARDED_ITERS_DIFF = 4       # CG iterations against the single device
+VCYCLE_REL = 3e-6                # sharded V-cycle vs single-device, f32
+SYSTEM_REL = 1e-10               # ShardedProjectedSystem vs the operator
+DEMO_SHARDED_REL = 1e-8          # demo --devices 4 vs its single-device run
+REF_SHARDED_DEMO = 4             # the demo's --ref: n_bg = 64
+SHARDED_MAIN = ("stencil_mv", "jacobi_smooth", "stencil_mv_block")
+
+
+def _rel_diff(a, b) -> float:
+    import torch
+
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def sharded_rank(mesh, p):
+    """One rank of the sharded phase: the sharded MG-PCG refinement of the
+    2D main path counted (launches by kernel, collectives, seconds, plain
+    applies on the card), then the other sharded classes against their
+    single-device counterparts on the same card (not counted)."""
+    import torch
+
+    from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.models.poisson import PoissonProblem
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+    from iifea_tpu_torch.parallel.multigrid import (
+        ShardedMultigrid2D,
+        ShardedMultigrid3D,
+        ShardedMultigridBlock2D,
+        refine_sharded,
+    )
+    from iifea_tpu_torch.parallel.sharding import ShardedProjectedSystem
+    from iifea_tpu_torch.parallel.stencil import (
+        ShardedStencil2D,
+        ShardedStencil3D,
+        ShardedStencilBlock2D,
+    )
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "route": mesh.route, "entered": time.time()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = Counter()
+    with plain_on_card(plain):
+        sk.reset_launches()
+        c0 = mesh.collectives
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x, relres, iters = refine_sharded(mesh, p["solver"], p["S32"],
+                                          p["mg"], p["bound"], p["b64"],
+                                          1e-10)
+        torch.cuda.synchronize(dev)
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = {k: v for k, v in sk.launches().items() if v}
+        out["collectives"] = mesh.collectives - c0
+    out.update(relres=relres, iters=iters, plain_applies=dict(plain),
+               x_digest=_digest(x), x=x if mesh.rank == 0 else None,
+               peak_gib_refine=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+    gen = torch.Generator().manual_seed(12)
+
+    def vec(n, dtype=torch.float32):
+        return torch.randn(n, generator=gen, dtype=torch.float64).to(
+            dtype=dtype, device=dev)
+
+    S32, mg, S3, mg3, Sb, mgb = (p[k] for k in ("S32", "mg", "S3", "mg3",
+                                                "Sb", "mgb"))
+
+    def single(fn, S, r):
+        """The single-device fn on the hierarchy's own card (the launching
+        process's), brought to this rank's."""
+        return fn(r.to(S.device)).to(dev)
+
+    checks = {}
+    t0 = time.perf_counter()
+    smg = ShardedMultigrid2D(mg, mesh)
+    r = vec(S32.n)
+    y, y1 = (ShardedStencil2D(S32, mesh, bounds=smg.bounds0).mv(r),
+             single(S32.mv, S32, r))
+    checks["apply2_bitwise"] = bool(torch.equal(y, y1))
+    checks["apply2"] = _rel_diff(y, y1)
+    z1 = single(mg.minv, S32, r)
+    checks["vcycle2"] = _rel_diff(smg.minv(r), z1)
+    checks["vcycle2_levels"] = smg.n_sharded
+    # a higher threshold replicates 129² and 65² (fused smoothing calls)
+    smg = ShardedMultigrid2D(mg, mesh, min_shard_rows=200)
+    checks["vcycle2_replicated"] = _rel_diff(smg.minv(r), z1)
+    checks["vcycle2_replicated_levels"] = smg.n_sharded
+    r = vec(S3.n)
+    y, y1 = ShardedStencil3D(S3, mesh).mv(r), single(S3.mv, S3, r)
+    checks["apply3_bitwise"] = bool(torch.equal(y, y1))
+    checks["apply3"] = _rel_diff(y, y1)
+    smg = ShardedMultigrid3D(mg3, mesh)
+    checks["vcycle3"] = _rel_diff(smg.minv(r), single(mg3.minv, S3, r))
+    checks["vcycle3_levels"] = smg.n_sharded
+    r = vec(Sb.n)
+    y, y1 = ShardedStencilBlock2D(Sb, mesh).mv(r), single(Sb.mv, Sb, r)
+    checks["apply_block_bitwise"] = bool(torch.equal(y, y1))
+    checks["apply_block"] = _rel_diff(y, y1)
+    smg = ShardedMultigridBlock2D(mgb, mesh)
+    checks["vcycle_block"] = _rel_diff(smg.minv(r), single(mgb.minv, Sb, r))
+    checks["vcycle_block_levels"] = smg.n_sharded
+    out["checks_seconds"] = time.perf_counter() - t0
+
+    # the cell-sharded system: every rank builds the problem (its form
+    # holds local functions, which do not pickle)
+    t0 = time.perf_counter()
+    fmesh, M = immersed_square_problem(n_fg=fg_of(N_BG), n_bg=N_BG,
+                                       device=dev)
+    prob = PoissonProblem(fmesh, k=1, sym=True, beta_value=10, device=dev)
+    out["system_setup_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    system = ShardedProjectedSystem(prob.form, M, mesh)
+    x64, u64 = vec(M.n_bg_dofs, torch.float64), vec(M.n_bg_dofs,
+                                                      torch.float64)
+    blocks = system.assemble_blocks(torch.zeros_like(x64))
+    c0 = mesh.collectives
+    got = {"matvec": system.matvec(blocks, x64), "diag": system.diag(blocks),
+           "residual": system.residual_b(0.1 * u64)}
+    out["system_collectives"] = mesh.collectives - c0
+    if mesh.rank == 0:
+        A, _ = assemble_background_system(
+            prob.form, torch.zeros(prob.space.n_dofs, dtype=torch.float64,
+                                   device=dev), M)
+        ref = {"matvec": A.mv(x64), "diag": A.diag(),
+               "residual": M.rmv(prob.form.residual(M.mv(0.1 * u64)))}
+        for k in got:
+            checks[f"system_{k}"] = _rel_diff(got[k], ref[k])
+    out["system_seconds"] = time.perf_counter() - t0
+    out["checks"] = checks
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["left"] = time.time()
+    return out
+
+
+def phase_sharded(backend: str = "gloo"):
+    """bench.py --devices 4 on one card: the single-device hierarchy of
+    the 2D main path built once, handed to four gloo ranks (CUDA tensors
+    by IPC handle), the sharded f32 MG-PCG inside the f64 refinement on
+    every rank; gates on the f64 residual, the iterations against the
+    single-device solve, the solution on supported dofs, the kernels every
+    rank launched and plain applies on the card. Then the 3D, block and
+    cell-sharded classes against their single-device counterparts, and
+    the demo's --devices 4 against its single-device run. Backend 'nccl'
+    puts the ranks on four cards (the hierarchy stays on the first, the
+    ranks take their row blocks from it)."""
+    import torch
+
+    from iifea_tpu_torch.demos import poisson as demo
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.parallel import sharding
+    from iifea_tpu_torch.solvers import ksp
+
+    # explicit: a rank on another card would read "cuda" as its own
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    _, _, _, solver, _ = build_solver(N_BG, dev)
+    b64, K_cell, K_facet = solver.assemble()
+    bound = solver.bind(K_cell, K_facet)
+    S32 = solver.probe(bound)
+    mg = solver.build_mg(S32)
+    (x1, rel1, it1), t1 = sync_time(lambda: solver.refine(S32, mg, bound,
+                                                          b64, 1e-10))
+    _, _, _, solver3, _ = build_solver(N_BG_SHARD3, dev, dim=3)
+    S3 = solver3.probe(solver3.bind(*solver3.assemble()[1:]))
+    mg3 = solver3.build_mg(S3)
+    del solver3
+    _, _, A_el, _, _ = build_elasticity(N_BG_EL, dev)
+    Sb = ksp._probe_block(A_el, (N_BG_EL + 1,) * 2, 2, 2, torch.float32)
+    mgb = multigrid.StencilMultigridBlock(Sb)
+    del A_el
+    payload = {"solver": solver, "S32": S32, "mg": mg, "bound": bound,
+               "b64": b64, "S3": S3, "mg3": mg3, "Sb": Sb, "mgb": mgb}
+    setup = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    t0, wall0 = time.perf_counter(), time.time()
+    try:
+        ranks = sharding.launch(sharded_rank, N_RANKS, backend,
+                                args=(payload,), device=dev, timeout=600)
+    except RuntimeError as e:
+        fail(f"sharded: {e}")
+    t_launch = time.perf_counter() - t0
+    # from the launch to the last rank's entry, and from its exit to the
+    # results' return: spawning, joining the group, the IPC handles
+    spawn = max(r["entered"] for r in ranks) - wall0
+    teardown = wall0 + t_launch - max(r["left"] for r in ranks)
+    diag = S32.diag()
+    mask = diag > 0.05 * diag.max()
+    scale = max(float(x1.abs().max()), 1.0)
+    x0 = ranks[0]["x"].to(dev)
+    agree = float((x0 - x1)[mask].abs().max()) / scale
+    per_rank = [{k: r[k] for k in ("rank", "iters", "relres", "seconds",
+                                   "launches", "collectives",
+                                   "plain_applies", "peak_gib_refine",
+                                   "peak_gib", "checks_seconds",
+                                   "system_setup_seconds", "system_seconds",
+                                   "system_collectives") if k in r}
+                for r in ranks]
+    phase("sharded", backend=backend, route=ranks[0]["route"],
+          world_size=N_RANKS, cards=cards,
+          ranks_per_card=1 if backend == "nccl" else N_RANKS, n_bg=N_BG,
+          n_bg_dofs=int(b64.numel()), setup_seconds=setup,
+          launch_seconds=t_launch, spawn_seconds=spawn,
+          teardown_seconds=teardown, single_device={
+              "iters": it1, "rel_residual": rel1, "seconds": t1},
+          sharded_levels=ranks[0]["checks"]["vcycle2_levels"],
+          collectives_per_cg_iteration=ranks[0]["collectives"]
+          / max(ranks[0]["iters"], 1),
+          supported_dofs=int(mask.sum()), agreement=agree, ranks=per_rank,
+          checks=[r["checks"] for r in ranks])
+    for r in ranks:
+        tag = f"sharded: rank {r['rank']}"
+        if not r["relres"] < 1e-10:
+            fail(f"{tag}: f64 relative residual {r['relres']} >= 1e-10")
+        if abs(r["iters"] - it1) > MAX_SHARDED_ITERS_DIFF:
+            fail(f"{tag}: {r['iters']} CG iterations against the single "
+                 f"device's {it1}")
+        if not all(r["launches"].get(k, 0) > 0 for k in SHARDED_MAIN):
+            fail(f"{tag}: a kernel of the sharded path did not launch: "
+                 f"{r['launches']}")
+        if r["plain_applies"].get("elsewhere", 0):
+            fail(f"{tag}: {r['plain_applies']} plain stencil applies on "
+                 "the card outside the coarse dense inverse")
+        if r["x_digest"] != ranks[0]["x_digest"]:
+            fail(f"{tag}: its solution differs from rank 0's")
+        c = r["checks"]
+        for k in ("apply2", "apply3", "apply_block"):
+            if not c[k] <= TOL:
+                fail(f"{tag}: the sharded {k} differs from the single "
+                     f"device's by {c[k]}")
+        for k in ("vcycle2", "vcycle2_replicated", "vcycle3",
+                  "vcycle_block"):
+            if not c[k] <= VCYCLE_REL:
+                fail(f"{tag}: the sharded {k} differs from the single "
+                     f"device's by {c[k]}")
+    for k in ("matvec", "diag", "residual"):
+        if not ranks[0]["checks"][f"system_{k}"] <= SYSTEM_REL:
+            fail(f"sharded: ShardedProjectedSystem {k} differs by "
+                 f"{ranks[0]['checks'][f'system_{k}']}")
+    if not agree <= 1e-7:
+        fail(f"sharded: the solution differs from the single device's by "
+             f"{agree} of max|x| on supported dofs")
+
+    # the demo's SPMD path through its entry point
+    argv = ["--ref", str(REF_SHARDED_DEMO), "--device", str(dev)]
+    one, t_one = sync_time(lambda: demo.main(argv + ["--solv", "cg"]))
+    four, t_four = sync_time(lambda: demo.main(
+        argv + ["--devices", str(N_RANKS), "--backend", backend]))
+    rel = {k: abs(four["norms"][k] - one["norms"][k]) / one["norms"][k]
+           for k in one["norms"]}
+    phase("sharded_demo", ref=REF_SHARDED_DEMO, devices=N_RANKS,
+          backend=backend,
+          route=four["ranks"][0]["route"], single_seconds=t_one,
+          sharded_seconds=t_four, single_iters=one["info"].iters,
+          sharded_iters=four["info"].iters, norms=four["norms"],
+          norms_rel_diff=rel,
+          collectives=[r["collectives"] for r in four["ranks"]])
+    if not max(rel.values()) <= DEMO_SHARDED_REL:
+        fail(f"sharded_demo: norms {four['norms']} against the single "
+             f"device's {one['norms']}: {rel}")
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
           "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
           "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
           "demo_p2", "small_reference_biharmonic3", "biharmonic3",
           "demo_biharmonic3", "navier_stokes", "shells", "poisson_unfitted",
-          "determinism")
+          "determinism", "sharded")
 
 
 def kernel_shapes(timing, by_shape):
@@ -3924,24 +4193,36 @@ def kernel_shapes(timing, by_shape):
 def main() -> None:
     args = sys.argv[1:]
     run = set(PHASES)
+    backend = "gloo"
+    if args[-2:-1] == ["--backend"]:
+        backend, args = args[-1], args[:-2]
     if args[:1] == ["--phases"] and len(args) == 2:
         run = set(args[1].split(",")) | {"device", "build"}
     elif args:
-        fail(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
+        fail(f"usage: chip_smoke.py [--phases {','.join(PHASES)}] "
+             "[--backend gloo|nccl]")
     t0 = time.perf_counter()
     worst, timing, launches, by_shape = {}, [], Counter(), Counter()
-    phase_device()
-    phase_build()
+    seconds = {}
+
+    def run_phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    run_phase("device", phase_device)
+    run_phase("build", phase_build)
     for name, fn in (("kernels", phase_kernels),
                      ("kernels3", phase_kernels3)):
         if name in run:
-            w, t = fn()
+            w, t = run_phase(name, fn)
             worst.update(w)
             timing += t
-    if "small_reference" in run:
-        phase_small_reference()
-    if "small_reference3" in run:
-        phase_small_reference3()
+    for name, fn in (("small_reference", phase_small_reference),
+                     ("small_reference3", phase_small_reference3)):
+        if name in run:
+            run_phase(name, fn)
     # each main path's counted solve; the 2D and elasticity solves both
     # launch stencil_mv, and Counter.update adds their counts
     for name, fn in (("main_path", phase_main_path),
@@ -3953,7 +4234,7 @@ def main() -> None:
                      ("newton", phase_newton),
                      ("asm", phase_asm)):
         if name in run:
-            counts = fn()
+            counts = run_phase(name, fn)
             if counts is not None:
                 launches.update(counts[0])
                 by_shape.update(counts[1])
@@ -3966,12 +4247,12 @@ def main() -> None:
                       phase_small_reference_biharmonic3),
                      ("demo_biharmonic3", phase_demo_biharmonic3)):
         if name in run:
-            fn()
+            run_phase(name, fn)
     # the three-field 2D instances' launches come from the Taylor-Green
     # cell alone
     ns = None
     if "navier_stokes" in run:
-        ns, ns_shapes = phase_navier_stokes()
+        ns, ns_shapes = run_phase("navier_stokes", phase_navier_stokes)
         by_shape.update(ns_shapes)
     # the shells and poisson_unfitted solve by host LU (no stencil kernel
     # on their path); the determinism gate repeats the Taylor-Green cell's
@@ -3980,21 +4261,25 @@ def main() -> None:
                      ("poisson_unfitted", phase_poisson_unfitted),
                      ("determinism", phase_determinism)):
         if name in run:
-            fn()
+            run_phase(name, fn)
     # {instance tag: (launches by kernel, by shape)} of the 2D and the 3D
     # biharmonic: their kernels differ, so one tag's counts merge
     bh = {}
     for name, fn in (("biharmonic", phase_biharmonic),
                      ("biharmonic3", phase_biharmonic3)):
         if name in run:
-            for tag, (counts, shapes) in fn().items():
+            for tag, (counts, shapes) in run_phase(name, fn).items():
                 merged = bh.setdefault(tag, ({}, Counter()))
                 merged[0].update(counts)
                 merged[1].update(shapes)
                 by_shape.update(shapes)
+    # four ranks on the card: their own launches, counted per rank
+    if "sharded" in run:
+        run_phase("sharded", lambda: phase_sharded(backend=backend))
     import torch
 
     kernel_shapes(timing, by_shape)
+    phase("phase_seconds", **seconds)
     phase("elapsed", seconds=time.perf_counter() - t0)
     if run != set(PHASES):
         fail(f"only phases {sorted(run)} ran: no result")

@@ -45,8 +45,9 @@ class SolveInfo(NamedTuple):
     stalled: bool | None = None
 
 
-def _tol(b: torch.Tensor, rtol: float, atol: float) -> float:
-    return max(rtol * float(torch.linalg.vector_norm(b)), atol)
+def _tol(b: torch.Tensor, rtol: float, atol: float, norm=None) -> float:
+    norm = norm or torch.linalg.vector_norm
+    return max(rtol * float(norm(b)), atol)
 
 
 def _identity(x):
@@ -62,37 +63,48 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
        minv: Callable | None = None, rtol: float = 1e-8, atol: float = 1e-9,
-       max_it: int = 10000, check_every: int = 8):
+       max_it: int = 10000, check_every: int = 8,
+       dot: Callable | None = None):
     """Preconditioned conjugate gradients. iters is a multiple of
     check_every. Stops on convergence, on max_it, or after three
     consecutive checks that do not lower the least residual seen by 0.1%,
     and then returns the iterate of that least residual: a residual at its
-    arithmetic's floor only wanders (an f32 pass of the mixed route)."""
+    arithmetic's floor only wanders (an f32 pass of the mixed route).
+
+    ``dot(a, b)`` forms every inner product and norm (‖v‖ = √dot(v, v)):
+    a row-block sharded solve passes the local dot followed by a sum over
+    the ranks, so every rank sees the same scalars and takes the same
+    branches. None: ``torch.dot`` and ``torch.linalg.vector_norm``."""
     minv = minv or _identity
+    if dot is None:
+        dot, norm = torch.dot, torch.linalg.vector_norm
+    else:
+        def norm(v):
+            return torch.sqrt(dot(v, v))
     x = torch.zeros_like(b) if x0 is None else x0
-    tol = _tol(b, rtol, atol)
+    tol = _tol(b, rtol, atol, norm)
     chunk = max(int(check_every), 1)
 
     r = b - matvec(x)
     z = minv(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     it = 0
-    rn = float(torch.linalg.vector_norm(r))
+    rn = float(norm(r))
     history = [rn]
     best, x_best, stuck = rn, x, 0
     while rn > tol and it < max_it and stuck < 3:
         for _ in range(chunk):
             Ap = matvec(p)
-            alpha = _safe_div(rz, torch.dot(p, Ap))
+            alpha = _safe_div(rz, dot(p, Ap))
             x = x + alpha * p
             r = r - alpha * Ap
             z = minv(r)
-            rz_new = torch.dot(r, z)
+            rz_new = dot(r, z)
             p = z + _safe_div(rz_new, rz) * p
             rz = rz_new
         it += chunk
-        rn = float(torch.linalg.vector_norm(r))
+        rn = float(norm(r))
         history.append(rn)
         if rn < 0.999 * best:
             best, x_best, stuck = rn, x, 0

@@ -98,6 +98,19 @@ class BinnedLatticeSolver:
         self.gref = prob.cell_dom.gphi_ref.cpu().numpy()
         self.facet_form = Form(prob.space, [form.terms[1]])
 
+    def __getstate__(self):
+        """A 2D solver sent to another process (a rank of
+        ``parallel.sharding.launch``) carries its lattice tables and the
+        extraction, not the problem: the problem's form holds local
+        functions, which do not pickle. There it refines and measures f64
+        residuals; it cannot assemble. A 3D solver's residual needs the
+        form, so it does not pickle."""
+        if self.dim == 3:
+            raise TypeError("a 3D BinnedLatticeSolver does not pickle: its "
+                            "f64 residual needs the problem's form")
+        return {k: v for k, v in vars(self).items()
+                if k not in ("prob", "facet_form")}
+
     # -- pipeline stages --------------------------------------------------------
 
     def assemble(self):
@@ -148,10 +161,16 @@ class BinnedLatticeSolver:
         return krylov.cg(S32.mv, r32, minv=mg.minv, rtol=rtol_pass,
                          atol=1e-30, max_it=500, check_every=4)
 
-    def refine(self, S32, mg, bound, b64, rtol, max_passes: int = 10):
+    def refine(self, S32, mg, bound, b64, rtol, max_passes: int = 10,
+               cg_fn=None):
         """f32 MG-PCG passes with f64 residual refinement. Pass 0 solves on
         b; each later pass first measures the f64 residual and stops below
-        rtol. Returns (x64, relres, total CG iterations)."""
+        rtol. Returns (x64, relres, total CG iterations).
+
+        ``cg_fn(S32, mg, r32, rtol_pass) -> (dx32, info)`` replaces the
+        single-device CG (``cg``): the row-block sharded MG-PCG of
+        ``parallel.multigrid.refine_sharded`` runs inside this loop."""
+        cg_fn = cg_fn or self.cg
         x64 = torch.zeros(self.M.n_bg_dofs, dtype=torch.float64,
                           device=self.device)
         relres, iters = 1.0, 0
@@ -165,7 +184,7 @@ class BinnedLatticeSolver:
             # contract only as far as this pass needs (0.25x margin for the
             # f32 apply error), clamped to the f32 floor
             rtol_pass = float(np.clip(0.25 * rtol / relres, 1e-6, 3e-2))
-            dx, info = self.cg(S32, mg, r32, rtol_pass)
+            dx, info = cg_fn(S32, mg, r32, rtol_pass)
             iters += info.iters
             x64 = x64 + dx.to(torch.float64)
         else:

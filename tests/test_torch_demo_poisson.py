@@ -45,7 +45,7 @@ def test_torch_demo_poisson_matches_jax(capsys):
 @pytest.mark.parametrize("argv,msg", [
     (["--k", "3"], "degree is 1 or 2"),
     (["--dim", "3", "--k", "2"], "linear"),
-    (["--devices", "2"], "item 16"),
+    (["--devices", "2", "--backend", "nccl"], "nccl backend takes CUDA"),
     (["--mesh-root", "meshes"], "item 12e"),
 ])
 def test_torch_demo_poisson_refuses_unported(argv, msg):

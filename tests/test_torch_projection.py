@@ -225,8 +225,11 @@ def test_torch_port_front_end_imports_no_jax():
     files += sorted((root / "tests").glob("test_torch_*_card.py"))
     files.append(root / "tests" / "compare_coarse_pinv.py")
     files.append(root / "tests" / "compare_determinism.py")
+    files.append(root / "tests" / "torch_parallel_ranks.py")
     for name in ("ksp.py", "newton.py", "precond.py", "logging.py",
-                 "test_torch_kernels_card.py", "test_torch_solves_card.py"):
+                 "sharding.py", "stencil.py", "multigrid.py",
+                 "test_torch_kernels_card.py", "test_torch_solves_card.py",
+                 "test_torch_parallel_card.py", "torch_parallel_ranks.py"):
         assert any(f.name == name for f in files), name
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
