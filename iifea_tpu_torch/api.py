@@ -2,6 +2,7 @@
 ``iifea_tpu/api.py``): one function per public call of the reference's
 ``common``/``la_utils``.
 
+  readExOp                       -> ExtractionOperator.from_exop_csv
   getIdentity                    -> ExtractionOperator.identity
   zeroDofBackground              -> zero_dof_background
   transferToForeground           -> transfer_to_foreground
@@ -17,8 +18,6 @@
   mixedScalarSpace               -> mixed_scalar_space
   averageCellDiagonal            -> average_cell_diagonal
   cellMetric                     -> cell_metric
-
-``readExOp`` comes with the mesh files (ROADMAP.md item 12e).
 """
 from __future__ import annotations
 

@@ -17,7 +17,9 @@ operator's (nF, nF, m², nx1, ny1) or (nF, nF, m³, nx1, ny1, nz1) planes;
 their rank picks ``StencilOperator2D``, ``StencilOperator3D``,
 ``StencilOperatorBlock2D`` or ``StencilOperatorBlock3D``.
 A tetrahedron mesh (3D coords, 4 vertices per cell) is carried like a
-triangle mesh.
+triangle mesh; a mesh read from the reference's files carries its P2
+connectivity too (``cell_nodes=mesh.cell_nodes``), so a P2 space on it
+has the same Exodus node ids in both packages.
 
 A time-stepping run's state is not carried here but by its checkpoint
 directory (``utils/checkpoint.py``), whose files both packages write and
@@ -57,16 +59,17 @@ class State(NamedTuple):
         | StencilOperatorBlock3D | None)
 
 
-def from_numpy_state(*, coords=None, cells=None, material=None, idx=None,
-                     val=None, n_bg_dofs=None, coeffs=None,
-                     lattice_shape=None, radius: int = 2,
+def from_numpy_state(*, coords=None, cells=None, material=None,
+                     cell_nodes=None, idx=None, val=None, n_bg_dofs=None,
+                     coeffs=None, lattice_shape=None, radius: int = 2,
                      device) -> State:
     """Build whichever of (Mesh, ExtractionOperator, stencil operator) the
     given arrays determine; the others are None."""
     mesh = None
     if coords is not None:
         mesh = Mesh(np.asarray(coords), np.asarray(cells),
-                    None if material is None else np.asarray(material))
+                    None if material is None else np.asarray(material),
+                    None if cell_nodes is None else np.asarray(cell_nodes))
     M = None
     if idx is not None:
         M = ExtractionOperator(np.asarray(idx), np.asarray(val), n_bg_dofs,

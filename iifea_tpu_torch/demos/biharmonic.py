@@ -12,14 +12,18 @@ the C1 quadratic B-spline lattice (n_bg + 2)^dim; the fourth-order system
 is solved by MG-preconditioned GMRES on the radius-3 stencil
 (``solve_ksp(pc='mg', stencil_radius=3)``: on a card the hand kernels' f64
 radius-3 instances, 2D or 3D). ``--solv direct`` or ``mumps`` means GMRES
-there, as in the reference. Runs on the GPU unless ``--device cpu`` is
-given. Not ported yet, and refused with a message: the reference's mesh
-files (any other ``--mesh-root``, ROADMAP.md item 12e).
+there, as in the reference. Under a mesh root, the reference's files
+``square`` or ``cube``/``Quadratic/R{ref}`` (P2 on their Exodus node ids, M
+from ``ExOp_Cons.csv``; ``mesh.xdmf`` needs h5py), solved as the reference
+demo does: host SuperLU in 2D, defect-correction Newton on SuperLU in 3D
+(their background is no lattice). Runs on the GPU unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 import torch
@@ -61,8 +65,9 @@ def parse_args(argv=None):
                         "cosines); 'steep' the wavelength-2 cosines "
                         "cos(pi x_d + 0.5) in any dimension")
     p.add_argument('--mesh-root', dest='mesh_root', default='synthetic',
-                   help='"synthetic" for the generated immersed square (the '
-                        'reference mesh files are not in the repository)')
+                   help='root of the reference mesh files (square/..., '
+                        'cube/...), or "synthetic" for the generated '
+                        'immersed square or cube')
     p.add_argument('--device', dest='device', default='cuda',
                    help='torch device: cuda (default) or cpu')
     return p.parse_args(argv)
@@ -83,23 +88,30 @@ def main(argv=None) -> dict:
         immersed_cube_bspline_problem,
         immersed_square_bspline_problem,
     )
+    from iifea_tpu_torch.mesh.io import read_mesh, require_mesh_dir
     from iifea_tpu_torch.models.biharmonic import BiharmonicProblem
+    from iifea_tpu_torch.ops.extraction import ExtractionOperator
     from iifea_tpu_torch.ops.projection import assemble_background_system
     from iifea_tpu_torch.solvers.ksp import solve_ksp
+    from iifea_tpu_torch.solvers.newton import solve_newtons_linear
 
     args = parse_args(argv)
-    if args.mesh_root != "synthetic":
-        sys.exit("the reference mesh files are not in the repository; use "
-                 "--mesh-root synthetic (mesh I/O: ROADMAP.md item 12e)")
     dim = int(args.dimension)
     if dim not in (2, 3):
         sys.exit(f"--dim {args.dimension}: the problem dimension is 2 or 3")
     ref = args.ref
     device = torch.device(args.device)
 
+    lattice_shape = None
+    if args.mesh_root != "synthetic":
+        path = require_mesh_dir(os.path.join(
+            args.mesh_root, 'square' if dim == 2 else 'cube',
+            f"Quadratic/R{ref}"))
+        mesh_f = read_mesh(path)
+        dim = mesh_f.dim
     # nested grids (n_fg = 2·n_bg): every foreground cell sees one
     # polynomial piece of the spline, as in the reference demo
-    if dim == 3:
+    elif dim == 3:
         n_bg = 2 ** (int(ref) + 3) - 1
         mesh_f, M, lattice_shape = immersed_cube_bspline_problem(
             n_fg=2 * n_bg, n_bg=n_bg, device=device)
@@ -114,14 +126,33 @@ def main(argv=None) -> dict:
         filter_tol=float(args.ft),
         u_exact=steep_u_exact if args.mms == 'steep' else None,
         device=device)
+    if lattice_shape is None:
+        M = ExtractionOperator.from_exop_csv(
+            os.path.join(path, "ExOp_Cons.csv"), prob.space.n_nodes,
+            device=device)
 
     u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
-    dR_b, R_b = assemble_background_system(prob.form, u0, M)
-    solv = 'gmres' if args.solv in ('gmres', 'direct', 'mumps') else args.solv
-    u_p, info = solve_ksp(dR_b, R_b, method=solv, pc='mg', rtol=1e-10,
-                          lattice_shape=lattice_shape, stencil_radius=3,
-                          monitor=True)
-    norms = prob.error_norms(M.mv(u_p))
+    info = None
+    if lattice_shape is not None:
+        dR_b, R_b = assemble_background_system(prob.form, u0, M)
+        solv = ('gmres' if args.solv in ('gmres', 'direct', 'mumps')
+                else args.solv)
+        u_p, info = solve_ksp(dR_b, R_b, method=solv, pc='mg', rtol=1e-10,
+                              lattice_shape=lattice_shape, stencil_radius=3,
+                              monitor=True)
+        u_f = M.mv(u_p)
+    elif dim == 3:
+        # defect correction against the finite-precision blow-up of the
+        # fourth-order system, as the reference demo does
+        u_p, u_f = solve_newtons_linear(
+            prob.form, u0, M,
+            torch.zeros(M.n_bg_dofs, dtype=torch.float64, device=device),
+            max_iters=20, relative_tolerance=1e-12, linear_method='direct')
+    else:
+        dR_b, R_b = assemble_background_system(prob.form, u0, M)
+        u_p, info = solve_ksp(dR_b, R_b, method='direct', monitor=True)
+        u_f = M.mv(u_p)
+    norms = prob.error_norms(u_f)
 
     if str2bool(args.wf):
         with open(args.of, 'a') as f:

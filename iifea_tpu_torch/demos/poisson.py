@@ -4,23 +4,29 @@
     python3 -m iifea_tpu_torch.demos.poisson --ref 3 --solv gmres --pc jacobi
 
 Runs on the GPU unless ``--device cpu`` is given. Meshes are synthetic
-(``--mesh-root synthetic``, the default): the reference's mesh files are
-not in the repository. In 3D the solve is direct, as in the reference.
-``--k 2`` runs P2 foreground and background spaces (2D; the synthetic 3D
-meshes are linear, as in the reference). ``--wv True`` writes the
+(``--mesh-root synthetic``, the default) or the reference's files under a
+mesh root: ``square`` (2D) or ``cube`` (3D), ``Linear`` or ``Quadratic``
+(``--k 2``, on the files' Exodus node ids), ``R{ref}``, with M from the
+directory's ``ExOp_Cons.csv`` (``mesh.xdmf`` needs h5py). In 3D the solve
+is direct, as in the reference. ``--k 2`` runs P2 foreground and background
+spaces (the synthetic 3D meshes are linear, as in the reference).
+``--Ex False`` solves on the foreground mesh itself (identity M, dofs with
+a diagonal under 1e-9 of the largest trimmed). ``--wv True`` writes the
 foreground solution, the exact field and their difference to the VTU file
 ``--ov``. ``--devices N`` (N > 1) runs the JAX demo's SPMD path: N ranks
 (``parallel.sharding.launch``), each building the problem on its device
-and solving the cell-sharded system (``ShardedProjectedSystem``, one
-all-reduce per apply) by Jacobi-CG to rtol 1e-8, whatever ``--solv`` says;
-``--backend`` is nccl on cuda (one rank per card) and gloo on the CPU, and
-``--backend gloo`` puts N ranks on one card:
+(reading the mesh files itself) and solving the cell-sharded system
+(``ShardedProjectedSystem``, one all-reduce per apply) by Jacobi-CG to
+rtol 1e-8, whatever ``--solv`` says; ``--backend`` is nccl on cuda (one
+rank per card) and gloo on the CPU, and ``--backend gloo`` puts N ranks on
+one card:
 
     python3 -m iifea_tpu_torch.demos.poisson --ref 2 --devices 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -68,11 +74,19 @@ def parse_args(argv=None):
                         '(the default on the CPU; on cuda, several ranks '
                         'on one card)')
     p.add_argument('--mesh-root', dest='mesh_root', default='synthetic',
-                   help='"synthetic" for generated immersed meshes (the '
-                        'reference mesh files are not in the repository)')
+                   help='root of the reference mesh files (square/..., '
+                        'cube/...), or "synthetic" for generated immersed '
+                        'meshes')
     p.add_argument('--device', dest='device', default='cuda',
                    help='torch device: cuda (default) or cpu')
     return p.parse_args(argv)
+
+
+def mesh_path(args) -> str:
+    """The mesh directory of the reference's layout the flags name."""
+    sub = 'square' if int(args.dimension) == 2 else 'cube'
+    deg = 'Linear' if int(args.k) == 1 else 'Quadratic'
+    return os.path.join(args.mesh_root, sub, deg, f"R{args.ref}")
 
 
 def build_problem(args, device, log: bool = True):
@@ -81,6 +95,7 @@ def build_problem(args, device, log: bool = True):
         immersed_cube_problem,
         immersed_square_problem,
     )
+    from iifea_tpu_torch.mesh.io import read_mesh
     from iifea_tpu_torch.models.poisson import (
         PoissonProblem,
         select_coercive_beta,
@@ -89,7 +104,10 @@ def build_problem(args, device, log: bool = True):
 
     k = int(args.k)
     symmetric = str2bool(args.symmetric)
-    if int(args.dimension) == 3:
+    M_synth = None
+    if args.mesh_root != "synthetic":
+        mesh_f = read_mesh(mesh_path(args))
+    elif int(args.dimension) == 3:
         n = 6 * 2 ** int(args.ref)
         mesh_f, M_synth = immersed_cube_problem(n_fg=int(n * 1.19), n_bg=n,
                                                 device=device)
@@ -102,8 +120,14 @@ def build_problem(args, device, log: bool = True):
     beta_val = 10.0 if beta_auto else float(args.beta)
     prob = PoissonProblem(mesh_f, k=k, sym=symmetric, beta_value=beta_val,
                           device=device)
-    M = (M_synth if str2bool(args.Ex)
-         else ExtractionOperator.identity(prob.space.n_nodes, device=device))
+    if not str2bool(args.Ex):
+        M = ExtractionOperator.identity(prob.space.n_nodes, device=device)
+    elif M_synth is not None:
+        M = M_synth
+    else:
+        M = ExtractionOperator.from_exop_csv(
+            os.path.join(mesh_path(args), "ExOp_Cons.csv"),
+            prob.space.n_nodes, device=device)
 
     if beta_auto:
         if not symmetric:
@@ -137,6 +161,7 @@ def spmd_rank(mesh, argv):
 def main(argv=None) -> dict:
     """Run the demo; returns the error norms and the solve's info (with
     ``--devices N`` also ``ranks``, every rank's result)."""
+    from iifea_tpu_torch.mesh.io import require_mesh_dir
     from iifea_tpu_torch.ops.projection import assemble_background_system
     from iifea_tpu_torch.parallel import sharding
     from iifea_tpu_torch.solvers.ksp import _print_monitor, solve_ksp
@@ -148,13 +173,13 @@ def main(argv=None) -> dict:
     symmetric = str2bool(args.symmetric)
     ref = args.ref
     solver = args.solv
-    if args.mesh_root != "synthetic":
-        sys.exit("the reference mesh files are not in the repository; use "
-                 "--mesh-root synthetic (mesh I/O: ROADMAP.md item 12e)")
     if k not in (1, 2):
         sys.exit(f"--k {k}: the polynomial degree is 1 or 2")
-    if dim == 3 and k != 1:
-        sys.exit("synthetic 3D meshes are linear (k=1)")
+    if args.mesh_root == "synthetic":
+        if dim == 3 and k != 1:
+            sys.exit("synthetic 3D meshes are linear (k=1)")
+    else:
+        require_mesh_dir(mesh_path(args), need_exop=Ex)
     device = torch.device(args.device)
     backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
     if args.devices > 1:

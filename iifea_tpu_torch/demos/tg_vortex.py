@@ -10,16 +10,19 @@ Synthetic mode: ``TaylorGreenProblem`` on the generated immersed square
 of Dt ≈ 4/sqrt(cells) up to --T, every step a Newton solve; with
 ``--pc mg`` each linearised solve runs three-field block multigrid on the
 (n_bg+1)² lattice (the stencil kernels on a card). Runs on the GPU unless
-``--device cpu`` is given. ``--ckpt`` checkpoints are the JAX demo's files
-(the state is the ``up_p``/``up_old_f`` pair), so a run resumes across the
-two packages; ``--wv`` writes ``tg_results/fields.pvd``. Not ported, and
-refused with a message: the reference's mesh files (any other
-``--mesh-root``; ROADMAP.md item 12e).
+``--device cpu`` is given. Under a mesh root, the reference's files
+``square/Linear/R{ref}`` (``square/Quadratic/R{ref}`` for --k 2), M from
+their ``ExOp_Cons.csv`` (``mesh.xdmf`` needs h5py); their background is no
+lattice, so ``--pc mg`` is refused there. ``--ckpt`` checkpoints are the
+JAX demo's files (the state is the ``up_p``/``up_old_f`` pair), so a run
+resumes across the two packages; ``--wv`` writes
+``tg_results/fields.pvd``.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 import numpy as np
@@ -68,9 +71,9 @@ def parse_args(argv=None):
                         "enclosed-flow constant-pressure null mode; "
                         "recommended with --pc mg)")
     p.add_argument('--mesh-root', dest='mesh_root', default='synthetic',
-                   help="'synthetic' for a generated immersed square on a "
-                        "lattice background (the reference mesh files are "
-                        "not in the repository)")
+                   help="root of the reference mesh files (square/...), or "
+                        "'synthetic' for a generated immersed square on a "
+                        "lattice background (enables --pc mg)")
     p.add_argument('--wv', dest='wv', default=False,
                    help='write a ParaView velocity/pressure series '
                         '(tg_results/fields.pvd), one snapshot per '
@@ -125,18 +128,18 @@ def main(argv=None) -> dict:
     """Run the demo; returns the error norms, the step count and the final
     state."""
     from iifea_tpu_torch.api import l2_project
+    from iifea_tpu_torch.mesh.core import FunctionSpace
     from iifea_tpu_torch.mesh.generators import immersed_square_problem
+    from iifea_tpu_torch.mesh.io import read_mesh, require_mesh_dir
     from iifea_tpu_torch.models.navier_stokes import (
         TaylorGreenProblem,
         u_exact,
     )
+    from iifea_tpu_torch.ops.extraction import ExtractionOperator
     from iifea_tpu_torch.solvers import solve_nonlinear
     from iifea_tpu_torch.utils.logging import log_info
 
     args = parse_args(argv)
-    if args.mesh_root != "synthetic":
-        sys.exit("the reference mesh files are not in the repository; use "
-                 "--mesh-root synthetic (mesh I/O: ROADMAP.md item 12e)")
     k = int(args.k)
     ref = args.ref
     Re_num = float(args.Re)
@@ -144,12 +147,25 @@ def main(argv=None) -> dict:
     symmetric = str2bool(args.symmetric)
     device = torch.device(args.device)
 
-    n = 8 * 2 ** int(ref)
-    n_bg = max(n // 2, 4)
-    mesh_f, M = immersed_square_problem(n_fg=n, n_bg=n_bg, degree=k,
-                                        n_fields=3, device=device)
-    lattice_shape = (n_bg + 1, n_bg + 1)
-    fileName = "synthetic"
+    if args.mesh_root == "synthetic":
+        n = 8 * 2 ** int(ref)
+        n_bg = max(n // 2, 4)
+        mesh_f, M = immersed_square_problem(n_fg=n, n_bg=n_bg, degree=k,
+                                            n_fields=3, device=device)
+        lattice_shape = (n_bg + 1, n_bg + 1)
+        fileName = "synthetic"
+    else:
+        if args.pc == 'mg':
+            sys.exit("--pc mg: the mesh files' background is no lattice; "
+                     "use --pc jacobi")
+        deg = 'Linear' if k == 1 else 'Quadratic'
+        path = os.path.join(args.mesh_root, f"square/{deg}/R{ref}")
+        fileName = os.path.join(require_mesh_dir(path), "ExOp_Cons.csv")
+        mesh_f = read_mesh(path)
+        M = ExtractionOperator.from_exop_csv(
+            fileName, FunctionSpace(mesh_f, degree=k).n_nodes, n_fields=3,
+            device=device)
+        lattice_shape = None
 
     # midpoint steps, space-time quasi-uniformity
     N = math.sqrt(mesh_f.n_cells)

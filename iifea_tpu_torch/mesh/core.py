@@ -6,7 +6,10 @@ the P2 edge nodes are numbered in numpy (no native library), each with one
 stable sort of the sorted vertex tuples, so it stays fast at tens of
 millions of incidences; both keep the reference native library's order,
 first appearance in the (cell, local entity) scan, so dof vectors of the
-two packages compare entry by entry.
+two packages compare entry by entry. A mesh read from the reference's files
+may carry its own P2 connectivity (``cell_nodes``, the Exodus TRI6/TET10
+node ids of ``cell_nodes.csv``); a P2 space on it takes those ids as its
+node ids, as the reference's extraction files number them.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ class Mesh:
     """An immutable simplex mesh (triangles in 2D, tetrahedra in 3D)."""
 
     def __init__(self, coords: np.ndarray, cells: np.ndarray,
-                 material: np.ndarray | None = None):
+                 material: np.ndarray | None = None,
+                 cell_nodes: np.ndarray | None = None):
         self.coords = np.asarray(coords, dtype=np.float64)
         self.cells = np.ascontiguousarray(cells, dtype=np.int32)
         self.dim = self.coords.shape[1]
@@ -52,6 +56,11 @@ class Mesh:
         if material is None:
             material = np.zeros(self.n_cells, dtype=np.int32)
         self.material = np.asarray(material).astype(np.int32)
+        # optional P2 connectivity with external node ids (Exodus TRI6/TET10
+        # rows of cell_nodes.csv)
+        self.cell_nodes = (None if cell_nodes is None
+                           else np.ascontiguousarray(cell_nodes,
+                                                     dtype=np.int32))
 
     # -- geometry -----------------------------------------------------------
 
@@ -202,7 +211,9 @@ class FunctionSpace:
     """Lagrange space of degree 1 or 2 with ``n_fields`` components. Cell
     dofs are node ids, (n_cells, n_local_nodes): the mesh's vertex ids for
     P1; for P2 the vertices keep their ids and the edge nodes follow,
-    numbered by first appearance. The per-field dof id is
+    numbered by first appearance, unless the mesh carries ``cell_nodes``:
+    then those (Exodus) ids are the node ids, n_nodes = max + 1, and the
+    node coordinates come from the cell geometry. The per-field dof id is
     node·n_fields + field."""
 
     def __init__(self, mesh: Mesh, degree: int = 1, n_fields: int = 1):
@@ -217,9 +228,21 @@ class FunctionSpace:
             self.cell_dofs = mesh.cells
             self.n_nodes = mesh.n_verts
             self.node_coords = mesh.coords
+        elif mesh.cell_nodes is not None:
+            cn = mesh.cell_nodes
+            if cn.shape[1] != self.element.n_nodes:
+                raise ValueError(f"cell_nodes has {cn.shape[1]} columns, "
+                                 f"expected {self.element.n_nodes}")
+            self.cell_dofs = cn
+            self.n_nodes = int(cn.max()) + 1
+            self.node_coords = _exodus_p2_coords(mesh, cn, self.n_nodes)
         else:
             self.cell_dofs, self.n_nodes, self.node_coords = mesh.p2_nodes
         self.n_dofs = self.n_nodes * self.n_fields
+
+    def flat_cell_dofs(self) -> np.ndarray:
+        """(n_cells, n_local_nodes·n_fields) interleaved global dof ids."""
+        return flat_dofs(self.cell_dofs, self.n_fields)
 
 
 def flat_dofs(node_ids: np.ndarray, n_fields: int) -> np.ndarray:
@@ -259,3 +282,19 @@ def _p2_node_coords(mesh: Mesh, edge_first: np.ndarray) -> np.ndarray:
     used = np.zeros(mesh.n_verts, dtype=bool)
     used[mesh.cells.ravel()] = True
     return np.concatenate([np.where(used[:, None], mesh.coords, 0.0), mids])
+
+
+def _exodus_p2_coords(mesh: Mesh, cell_dofs: np.ndarray,
+                      n_nodes: int) -> np.ndarray:
+    """Node coordinates of a P2 space on external node ids (straight-sided):
+    each cell's vertex nodes take its vertices' coordinates, its edge nodes
+    the midpoints of the reference element's edges; an id no cell uses
+    stays at zero."""
+    edges = ReferenceElement(mesh.dim, 2).edges
+    nv = mesh.dim + 1
+    coords = np.zeros((n_nodes, mesh.dim))
+    coords[cell_dofs[:, :nv].ravel()] = mesh.coords[mesh.cells.ravel()]
+    mids = 0.5 * (mesh.coords[mesh.cells[:, edges[:, 0]]]
+                  + mesh.coords[mesh.cells[:, edges[:, 1]]])
+    coords[cell_dofs[:, nv:].ravel()] = mids.reshape(-1, mesh.dim)
+    return coords

@@ -9,6 +9,13 @@ foreground nodes. ``immersed_cube_problem`` is its 3D analog on Kuhn
 tetrahedra. ``immersed_square_bspline_problem`` and
 ``immersed_cube_bspline_problem`` put a P2 foreground on a quadratic
 B-spline background lattice (the biharmonic workload).
+
+Port-only, for the reference's mesh-file layout: ``quarter_plate_mesh`` is
+the Kirsch plate's fitted foreground, ``bspline_triples`` and
+``exop_triples`` give the extraction triples of a quadratic B-spline
+background trimmed to the functions that touch the body, as the
+reference's ExOp files hold them (``mesh/io.write_exop_triples`` writes
+them).
 """
 from __future__ import annotations
 
@@ -434,3 +441,69 @@ def immersed_cube_bspline_problem(n_fg: int, n_bg: int, L: float = 2.0,
     M = space.transfer_matrix(np.asarray(Vf.node_coords), n_fields=n_fields,
                               dtype=dtype, device=device)
     return mesh_f, M, space.ncp
+
+
+def quarter_plate_mesh(n: int, plate_extent: float = 4.0,
+                       radius: float = 1.0, material: int = 2) -> Mesh:
+    """The Kirsch plate's foreground: [0, L]² minus the quarter disc r < R,
+    fitted to the arc. A (2n+1) × (n+1) node grid: along the arc, node i
+    maps the angle π/4·i/n (first half) onto the edge x = L, and the
+    mirror image onto y = L; across, each node blends linearly from its
+    arc point (exactly on the circle) to its outer point, so the edges
+    y = 0, x = L, y = L and x = 0 hold exact coordinates. Every quad is
+    split into two triangles of the given material."""
+    i = np.arange(2 * n + 1)
+    first = i <= n
+    s_ = np.where(first, i, 2 * n - i) / n
+    a = 0.25 * np.pi * s_
+    inner = radius * np.where(first[:, None],
+                              np.stack([np.cos(a), np.sin(a)], 1),
+                              np.stack([np.sin(a), np.cos(a)], 1))
+    outer = plate_extent * np.where(first[:, None],
+                                    np.stack([np.ones_like(s_), s_], 1),
+                                    np.stack([s_, np.ones_like(s_)], 1))
+    t = (np.arange(n + 1) / n)[None, :, None]
+    coords = ((1 - t) * inner[:, None, :] + t * outer[:, None, :])
+    coords = coords.reshape(-1, 2)
+
+    def vid(a_, b_):
+        return a_ * (n + 1) + b_
+
+    a_, b_ = np.meshgrid(np.arange(2 * n), np.arange(n), indexing="ij")
+    v00, v10 = vid(a_, b_).ravel(), vid(a_ + 1, b_).ravel()
+    v01, v11 = vid(a_, b_ + 1).ravel(), vid(a_ + 1, b_ + 1).ravel()
+    cells = np.concatenate([np.stack([v00, v10, v11], 1),
+                            np.stack([v00, v11, v01], 1)])
+    return Mesh(coords, cells, np.full(len(cells), material, np.int32))
+
+
+def exop_triples(M: ExtractionOperator, keep_nodes=None):
+    """The 0-based (foreground node, background id, weight) triples of a
+    one-field M as the reference's extraction files hold them: nonzero
+    weights of the background functions that are nonzero at some node of
+    ``keep_nodes`` (None: at any node), those functions renumbered
+    0, 1, … in their order."""
+    rows = np.repeat(np.arange(M.n_fg_dofs), M.idx_np.shape[1])
+    bg, w = M.idx_np.ravel().astype(np.int64), M.val_np.ravel()
+    nz = w != 0
+    rows, bg, w = rows[nz], bg[nz], w[nz]
+    near = (np.ones(len(rows), bool) if keep_nodes is None
+            else np.isin(rows, keep_nodes))
+    kept = np.unique(bg[near])
+    new_id = np.full(M.n_bg_dofs, -1, np.int64)
+    new_id[kept] = np.arange(len(kept))
+    on = new_id[bg] >= 0
+    return rows[on], new_id[bg[on]], w[on]
+
+
+def bspline_triples(points: np.ndarray, n_bg: int, lo, hi, keep_nodes=None,
+                    degree: int = 2):
+    """``exop_triples`` of the degree-``degree`` B-spline space with n_bg
+    spans a side over the box [lo, hi] (2D or 3D by len(lo)), evaluated at
+    ``points``."""
+    from iifea_tpu_torch.mesh.bspline import BSplineSpace2D, BSplineSpace3D
+
+    cls = BSplineSpace2D if len(lo) == 2 else BSplineSpace3D
+    space = cls(degree, (n_bg,) * len(lo), tuple(lo), tuple(hi))
+    return exop_triples(space.transfer_matrix(points, device="cpu"),
+                        keep_nodes)

@@ -7,7 +7,8 @@ transpose's fixed-order sum (``ops/segment.SegmentSum``, built on first
 use: each background dof's entries sorted once), so its f64 result is the
 same on every run. The ``*_multi`` variants take stacked (k, n) vectors, the
 right-hand-side axis first. ``to_scipy`` exports M as a host CSR matrix for
-the direct solve.
+the direct solve. ``from_exop_csv`` reads M from the reference's extraction
+files.
 
 Multi-field layout, as in the reference: foreground dofs interleave fields
 (node·n_fields + field), background dofs are field-blocked
@@ -76,6 +77,23 @@ class ExtractionOperator:
             idx[fg_s * n_fields + f, pos] = bg_s + f * m
             val[fg_s * n_fields + f, pos] = w_s
         return cls(idx, val, m * n_fields, device)
+
+    @classmethod
+    def from_exop_csv(cls, paths, n_fg_nodes: int, n_fields: int = 1,
+                      dtype=np.float64, *,
+                      device="cuda") -> "ExtractionOperator":
+        """M from the reference's ``ExOp_Cons.csv`` triples (one path or a
+        list, concatenated). The files' ids are 1-based and the foreground
+        ones are node ids (Exodus ids for P2), so both map to id − 1; rows
+        with foreground id 0 are dropped."""
+        from iifea_tpu_torch.mesh.io import read_exop_triples
+
+        tri = read_exop_triples(paths)
+        fg = tri[:, 0].astype(np.int64) - 1
+        bg = tri[:, 1].astype(np.int64) - 1
+        ok = fg >= 0
+        return cls.from_triples(fg[ok], bg[ok], tri[ok, 2], n_fg_nodes,
+                                n_fields=n_fields, dtype=dtype, device=device)
 
     @classmethod
     def identity(cls, n_nodes: int, n_fields: int = 1, dtype=np.float64, *,

@@ -136,8 +136,8 @@ def test_torch_biharmonic_demo():
     ``--dim 3`` runs: with ``--mms steep`` (the wavelength-2 cosines in
     the problem's dimension, the reference's own 3D solution) at --ref 0
     it lands on the reference run's recorded L2_rel (studies/
-    biharmonic_synthetic.jsonl, "--dim 3 --ref 0"). The reference's mesh
-    files are refused."""
+    biharmonic_synthetic.jsonl, "--dim 3 --ref 0"). A mesh root without
+    the files exits naming the missing path."""
     with contextlib.redirect_stdout(io.StringIO()) as out:
         res = demo.main(["--ref", "0", "--device", "cpu"])
     assert res["info"].converged
@@ -149,7 +149,8 @@ def test_torch_biharmonic_demo():
     assert res3["info"].converged
     assert abs(res3["norms"]["L2_rel"] - 0.1428220610425672) <= \
         1e-8 * 0.1428220610425672
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit,
+                       match="no /nowhere/square/Quadratic/R3/mesh.xdmf"):
         demo.main(["--mesh-root", "/nowhere", "--device", "cpu"])
 
 

@@ -46,7 +46,9 @@ def test_torch_demo_poisson_matches_jax(capsys):
     (["--k", "3"], "degree is 1 or 2"),
     (["--dim", "3", "--k", "2"], "linear"),
     (["--devices", "2", "--backend", "nccl"], "nccl backend takes CUDA"),
-    (["--mesh-root", "meshes"], "item 12e"),
+    pytest.param(["--mesh-root", "meshes"],
+                 "no meshes/square/Linear/R0/mesh.xdmf",
+                 id="argv3-item 12e"),
 ])
 def test_torch_demo_poisson_refuses_unported(argv, msg):
     with pytest.raises(SystemExit, match=msg):

@@ -109,7 +109,9 @@ def test_torch_demo_elasticity_matches_jax(systems, capsys):
 @pytest.mark.parametrize("argv,msg", [
     (["--k", "2", "--pc", "mg"], "no lattice"),
     (["--k", "3"], "degree is 1 or 2"),
-    (["--mesh-root", "meshes"], "item 12e"),
+    pytest.param(["--mesh-root", "meshes"],
+                 "no meshes/hole_in_plate/Linear/R0/mesh.xdmf",
+                 id="argv2-item 12e"),
 ])
 def test_torch_demo_elasticity_refuses_unported(argv, msg):
     with pytest.raises(SystemExit, match=msg):

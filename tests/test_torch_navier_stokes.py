@@ -266,7 +266,9 @@ def test_torch_tg_demo_on_cpu(tmp_path):
 
 
 def test_torch_tg_demo_refuses_mesh_files():
-    with pytest.raises(SystemExit, match="12e"):
+    """A mesh root without the files exits naming the missing path."""
+    with pytest.raises(SystemExit,
+                       match="no /nonexistent/square/Linear/R0/mesh.xdmf"):
         demo.main(["--mesh-root", "/nonexistent", "--device", "cpu"])
 
 
