@@ -10,7 +10,9 @@ non-zero:
   0. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
      requires torch.cuda.is_available().
   1. build: compiles every iifea_tpu_torch/csrc/*.cu (stencil2d.cu,
-     stencil3d.cu) with nvcc (sm_90a), one nvcc per source in parallel.
+     stencil2d_f64.cu, stencil3d.cu, stencil3d_f64.cu: each scalar type's
+     instances of the kernels in stencil2d.cuh and stencil3d.cuh) with nvcc
+     (sm_90a), one nvcc per source in parallel.
   2. kernels: stencil_mv, jacobi_smooth, stencil_mv_block (the block
      apply and residual in one launch) and smooth (a level's ν sweeps and
      trailing residual, by each route: one launch per pass, and one
@@ -25,7 +27,7 @@ non-zero:
      CUDA graph of 50 calls, one event pair around its replay), the
      per-call time from an idle card (one event pair around one call: the
      wrapper's host work included) and the bound; the plain versions'
-     device times at the main-path shapes. Every stencil2d.cu instance
+     device times at the main-path shapes. Every stencil2d.cuh instance
      must be built without spill (the compiler's report).
   3. kernels3: stencil_mv3, jacobi_smooth3 and cheb_step3 against their
      plain versions at small shapes and at 105³; a soak of thousands of
@@ -207,6 +209,21 @@ non-zero:
      against host, the CSV's M bitwise, the shuffled system and one
      solution's norms through each numbering.
 
+  27. f64_routes (run after mesh_files, before the biharmonics): every
+     solve_ksp(pc='mg') configuration on the card. The f64 and radius-3
+     instances (f64 blocks at r = 1–3, f32 blocks at r = 3, 2 and 3 fields, 2D
+     and 3D; f64 3D scalar planes at r = 1, 2) against their plain versions
+     at odd shapes and at their paths' level shapes, by both smoothing
+     routes, a soak, and their times; the f64 route (``mixed=False``) of
+     the systems the elasticity, elasticity3, main_path3 (front-end) and
+     determinism (Taylor-Green ref 7) phases built, solved inside those
+     phases (``f64_route``: counted, residual, iterations against the mixed
+     route's, the foreground field against the mixed solution's); the
+     Taylor-Green ref-2 first system and the B-spline elasticity (k = 2,
+     radius 3, two fields) at n_bg = 15 card against host, at n_bg = 511 on
+     both routes with its L2 rate from n_bg = 127; the 3D counterpart card
+     against host on the 9³ net and on the card at n_bg = 15.
+
 Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
 the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
 and at every level of the 513² hierarchy, and times the radius-3 ones there.
@@ -224,7 +241,9 @@ Taylor-Green cell), the last line the
 device JSON. Each row's launches are those counted under its name, and its
 times are those of the one ``kernel_time`` row of that name and instance
 timed with its plain version, at a main-path shape where that kernel runs
-(``smooth3``: a level the plan gives one launch).
+(``smooth3``: a level the plan gives one launch). The f64_routes phase adds
+rows tagged by instance and field count (``/f64/nf2``, ``/r3/nf2``, …),
+their launches from the f64 route runs.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -243,8 +262,8 @@ from functools import partial
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-SOURCE2, SOURCE3 = ("iifea_tpu_torch/csrc/stencil2d.cu",
-                    "iifea_tpu_torch/csrc/stencil3d.cu")
+SOURCE2, SOURCE3 = ("iifea_tpu_torch/csrc/stencil2d.cuh",
+                    "iifea_tpu_torch/csrc/stencil3d.cuh")
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "stencil_mv": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:127"),
     "jacobi_smooth": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:136"),
@@ -387,10 +406,13 @@ def instance_tag(radius: int = 2, f64: bool = False, n_fields: int = 1,
     """The tag of a kernel instance in launch keys, worst errors, timed
     rows and summary rows: empty for the f32 instances at radius 1 and 2
     (the earlier main paths'), "/r3", "/f64", "/r3/f64" otherwise, and
-    "/nf3" after it for the three-field 2D instances (the Taylor-Green
-    path's)."""
+    "/nf3" after it for the three-field 2D f32 instances at radius 1 and 2
+    (the Taylor-Green path's); the block instances in f64 or at radius 3,
+    2D and 3D, carry their field count ("/f64/nf2", "/r3/f64/nf3", …)."""
+    tagged = radius == 3 or f64
     return (("/r3" if radius == 3 else "") + ("/f64" if f64 else "")
-            + ("/nf3" if dim == 2 and n_fields == 3 else ""))
+            + (f"/nf{n_fields}" if n_fields > 1 and tagged
+               else "/nf3" if dim == 2 and n_fields == 3 else ""))
 
 
 def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
@@ -603,7 +625,7 @@ def level_operands(rng, shape, radius, n_fields, dev, dtype=None):
                                                            radius)), b, x
 
 
-TILE = (8, 32)     # output rows x columns per block of csrc/stencil2d.cu
+TILE = (8, 32)     # output rows x columns per block of csrc/stencil2d.cuh
 
 
 def fitting_routes(C, binv, b, x, shape, radius, nF):
@@ -725,7 +747,7 @@ def time_level(rng, shape, n_fields, dev, main_block, main_smooth,
         partial(sk.apply_plain, C, x, shape, r) if main_block else None,
         bound_=bound_passes(shape, nF, ["apply"], r, f64), radius=r,
         f64=f64, **tag)]
-    if nF == 3 and main_block:
+    if main_block and (nF == 3 or (nF > 1 and (f64 or r == 3))):
         # the sweep pass, counted as jacobi_smooth
         rows.append(time_kernel(
             "jacobi_smooth", key,
@@ -884,11 +906,12 @@ def built_instances(prefixes) -> list:
 
 
 def check_no_spill_2d():
-    """Every stencil2d.cu instance (the pass kernel's 10 instances x 4
-    passes, the level kernel's 10) built without spill."""
+    """Every stencil2d.cuh instance (the pass kernel's 18 instances x 4
+    passes, the level kernel's 18: f32 and f64, r = 1-3, 1-3 fields) built
+    without spill."""
     instances = built_instances(("pass_kernel", "level_kernel"))
     phase("kernel_check", kernel="2D instances", ptxas=instances)
-    if len(instances) != 50 or any(
+    if len(instances) != 90 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the 2D instances are not all built without spill: "
              f"{instances}")
@@ -1080,22 +1103,23 @@ BLOCK3_SOAK_ROUNDS = 50          # x 4 shapes x 4 modes = 800 launches,
                                  # and the two smoothing calls a shape
 
 
-def block3_operands(gen, shape, radius, n_fields, dev):
+def block3_operands(gen, shape, radius, n_fields, dev, dtype=None):
     """A diagonally dominant nF-field 3D operator made on the card
     (n_fields = 0: scalar planes and the flat 1/diag), its smoother
-    blocks, b and x."""
+    blocks, b and x, in ``dtype`` (default f32)."""
     import torch
 
     from iifea_tpu_torch.ops import multigrid
     from iifea_tpu_torch.ops.stencil import StencilOperatorBlock3D
 
+    dtype = dtype or torch.float32
     nF, m3 = max(n_fields, 1), (2 * radius + 1) ** 3
     C = torch.rand((nF, nF, m3, *shape), generator=gen, device=dev,
-                   dtype=torch.float32).sub_(0.5).mul_(0.2)
+                   dtype=dtype).sub_(0.5).mul_(0.2)
     for f in range(nF):
         C[f, f, m3 // 2] += 4.0
     n = nF * shape[0] * shape[1] * shape[2]
-    b, x = (torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+    b, x = (torch.randn(n, generator=gen, device=dev, dtype=dtype)
             for _ in range(2))
     if n_fields == 0:
         C = C[0, 0].contiguous()
@@ -1126,14 +1150,15 @@ def block3_calls(C, binv, b, x, shape, radius, omega=0.8, plain=False):
                         omega=omega)}
 
 
-def check_block3(worst, gen, shape, radius, n_fields, dev):
+def check_block3(worst, gen, shape, radius, n_fields, dev, dtype=None):
     """stencil3d_block's four passes at ``shape`` against the plain
     versions: one launch each, booked under its pass's name
     (``sk.PASS3_NAMES``); scalar planes also against stencil_mv3 and
     jacobi_smooth3. Prints one summary line."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    C, binv, b, x = block3_operands(gen, shape, radius, n_fields, dev)
+    C, binv, b, x = block3_operands(gen, shape, radius, n_fields, dev,
+                                    dtype)
     calls = block3_calls(C, binv, b, x, shape, radius)
     names = {mode: sk.PASS3_NAMES[mode, n_fields > 1] for mode in calls}
     before = sk.launches()
@@ -1156,7 +1181,7 @@ def check_block3(worst, gen, shape, radius, n_fields, dev):
                            quiet=True, what="sweep vs jacobi_smooth3"))
     phase("kernel_check", kernel="stencil3d_block", shape=list(shape),
           radius=radius, n_fields=n_fields, checks=len(errs),
-          max_abs_err=max(errs))
+          dtype=str(C.dtype).replace("torch.", ""), max_abs_err=max(errs))
 
 
 def kernels3_block(worst, dev):
@@ -1265,7 +1290,7 @@ def smooth3_paths():
     )
 
 
-def kernels3_smooth(worst, dev):
+def kernels3_smooth(worst, dev, paths=None, timed=True):
     """smooth3, a 3D level's smoothing call, at every level shape of the
     3D elasticity, Poisson and biharmonic cycles, in the V-cycle's two
     forms (NU steps from zero with the residual; NU from x), against its
@@ -1277,7 +1302,9 @@ def kernels3_smooth(worst, dev):
     ``smooth3_other_route``), the scalar call's step from zero (``zero3``,
     checked against its plain version) and its residual pass
     (``residual3``), with their plain versions' times at the finest level.
-    Returns the rows."""
+    ``paths``: those of ``smooth3_paths`` unless given; a path's main
+    shape "fused" is its largest level the plan gives one launch; with
+    ``timed`` False the checks alone. Returns the rows."""
     import torch
 
     from iifea_tpu_torch.ops import multigrid
@@ -1285,14 +1312,18 @@ def kernels3_smooth(worst, dev):
 
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
-    for path, n_fields, r, dt, cheb, shapes, main in smooth3_paths():
+    for path, n_fields, r, dt, cheb, shapes, main in paths or smooth3_paths():
         f64 = dt == torch.float64
         nF = max(n_fields, 1)
+        if main == "fused":
+            main = next((sh for sh in shapes
+                         if sk._plan3(sh, r, nF, dev.index or 0, f64)[1]),
+                        None)
         steps = (multigrid.chebyshev_steps(NU, 8.0) if cheb
                  else [(1.0, 0.0)] * NU)
         for sh in shapes:
             C, binv, b, x = (
-                block3_operands(gen, sh, r, n_fields, dev) if n_fields
+                block3_operands(gen, sh, r, n_fields, dev, dt) if n_fields
                 else scalar3_operands(gen, sh, r, dt, dev))
             plan = sk._plan3(sh, r, nF, dev.index or 0, f64)
             # whether a launch of the level's blocks is co-resident
@@ -1329,10 +1360,11 @@ def kernels3_smooth(worst, dev):
                     for k, (v, v_ref, scale) in enumerate(pairs):
                         errs.append(_check(
                             worst, "smooth3", v, v_ref, sh, r, quiet=True,
-                            scale=scale, form=form))
+                            scale=scale, form=form, n_fields=nF))
                         if k:   # the per-pass route's residual pass
                             _check(worst, sk.PASS3_NAMES["residual", nF > 1],
-                                   v, v_ref, sh, r, quiet=True, scale=scale)
+                                   v, v_ref, sh, r, quiet=True, scale=scale,
+                                   n_fields=nF)
                         first = per_pass[k] if with_residual else per_pass
                         bitwise &= bool(torch.equal(v, first))
             phase("kernel_check", kernel="smooth3", path=path, shape=key,
@@ -1345,7 +1377,7 @@ def kernels3_smooth(worst, dev):
             routed = sk.GRID if plan[1] else sk.PER_PASS
             for form, (from_zero, with_residual) in FORMS.items():
                 start = None if from_zero else x
-                for route in [sk.PER_PASS] + [sk.GRID] * fits:
+                for route in ([sk.PER_PASS] + [sk.GRID] * fits) * timed:
                     is_main = (route == routed and form == "pre"
                                and sh == main)
                     rows.append(time_kernel(
@@ -1360,7 +1392,7 @@ def kernels3_smooth(worst, dev):
                         bound_=bound_call(sh, nF, NU, from_zero,
                                           with_residual, r, f64),
                         plain_launches=2, radius=r, f64=f64, form=form,
-                        path=path, route=ROUTES[route],
+                        n_fields=nF, dim=3, path=path, route=ROUTES[route],
                         per_pass_bound_ms=bound_passes(
                             sh, nF, passes_of(NU, from_zero, with_residual),
                             r, f64)[0],
@@ -1377,6 +1409,7 @@ def kernels3_smooth(worst, dev):
                                      steps[0][0], sh, r)
                 _check(worst, "zero3", zero(), zero_plain(), sh, r,
                        quiet=True)
+            if n_fields == 0 and timed:
                 top = sh == shapes[0]
                 rows.append(time_kernel(
                     "zero3", key, zero, zero_plain if top else None,
@@ -1815,6 +1848,14 @@ def front_end(prob, M, u_ref, shape, methods, names, max_iters, tag):
         if not all(gap[k] <= 1e-6 * norms_ref[k] + 1e-9 for k in gap):
             fail(f"{tag} {method}: error norms {norms} differ from "
                  f"BinnedLatticeSolver's {norms_ref}")
+    if F64_ON["on"] and len(shape) == 3:
+        # the f64 route on the same system, the front-end's norm rule
+        f64_route(tag, instance_tag(2, True),
+                  lambda: ksp.solve_ksp(A, b, method="cg", pc="mg",
+                                        rtol=1e-10, lattice_shape=shape,
+                                        monitor=False, mixed=False),
+                  A, b, names3(LEVELS3, 2, True), mixed_iters=info.iters,
+                  iters_diff=MAX_ITERS_DIFF3, norms=field_norms(prob, M, x))
     general_probe(prob, M, A, b, norms_ref, shape, names, max_iters, tag)
 
 
@@ -2238,6 +2279,12 @@ def phase_elasticity():
         fail(f"elasticity: {n_all} kernel launches in the profiled solve > "
              f"{MAX_LAUNCHES_EL}")
     del u2
+    if F64_ON["on"]:
+        f64_route("elasticity", instance_tag(2, True, N_FIELDS_EL),
+                  lambda: el_solve(A, b, N_BG_EL, mixed=False), A, b,
+                  block_names(2, BLOCK_SMOOTHED, 2, N_FIELDS_EL, True),
+                  mixed_iters=info.iters, iters_diff=MAX_ITERS_DIFF_EL,
+                  norms=field_norms(prob, M, u))
     del A, b
     torch.cuda.empty_cache()
 
@@ -2400,6 +2447,12 @@ def phase_elasticity3():
     del u2
     profile_solve(lambda: el_solve(A, b, N_BG_EL3, dim=3),
                   "elasticity3_profile")
+    if F64_ON["on"]:
+        f64_route("elasticity3", instance_tag(2, True, nF, 3),
+                  lambda: el_solve(A, b, N_BG_EL3, dim=3, mixed=False), A, b,
+                  block_names(3, BLOCK3_SMOOTHED, 2, nF, True),
+                  mixed_iters=info.iters, max_iters=MAX_CG_ITERS_EL3,
+                  norms=field_norms(prob, M, u))
     del A, b
     torch.cuda.empty_cache()
 
@@ -3106,14 +3159,14 @@ def kernels3_r3(worst, dev):
     del soak
     torch.cuda.empty_cache()
 
-    # every 3D kernel instance: stencil3d_mv (4), and the marching pass,
-    # level and zero kernels (8, 8, 4)
+    # every 3D kernel instance: stencil3d_mv (6), and the marching pass,
+    # level and zero kernels (18, 18, 6)
     instances = built_instances(("stencil3d_mv", "march"))
     phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
           ptxas=instances)
-    if len(instances) != 24 or any(
+    if len(instances) != 48 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the 3D instances are not all built without spill: "
              f"{instances}")
@@ -3763,10 +3816,12 @@ def _digest(t) -> str:
     return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def tg_cell(device: str = "cuda"):
-    """The Taylor-Green ref-7 cell set up from nothing as the demo does
-    (mesh, problem, L2 projection, pressure pin): (prob, M, up_p, up_f,
-    the pinned dofs, the lattice shape, t of the first step's midpoint)."""
+def tg_cell(device: str = "cuda", argv=None, pinned: bool = True):
+    """The Taylor-Green ref-7 cell (or the demo run ``argv`` asks for) set
+    up from nothing as the demo does (mesh, problem, L2 projection,
+    pressure pin unless not ``pinned``): (prob, M, up_p, up_f, the pinned
+    dofs, the lattice shape, t of the first step's midpoint)."""
+    import numpy as np
     import torch
 
     from iifea_tpu_torch.api import l2_project
@@ -3777,7 +3832,7 @@ def tg_cell(device: str = "cuda"):
         u_exact,
     )
 
-    args = tg_vortex.parse_args(NS_FULL)
+    args = tg_vortex.parse_args(NS_FULL if argv is None else argv)
     n = 8 * 2 ** int(args.ref)
     mesh, M = immersed_square_problem(n_fg=n, n_bg=n // 2, n_fields=3,
                                       device=device)
@@ -3790,7 +3845,8 @@ def tg_cell(device: str = "cuda"):
         return torch.cat([u_exact(x, prob.nu, 0.0), torch.zeros_like(x[:1])])
 
     up_p, up_f = l2_project(ic, prob.space, prob.cell_dom, M)
-    pin = tg_vortex.pressure_pin(prob, M, up_f, up_f)
+    pin = (tg_vortex.pressure_pin(prob, M, up_f, up_f) if pinned
+           else np.zeros(0, dtype=np.int64))
     return prob, M, up_p, up_f, pin, (n // 2 + 1,) * 2, 0.5 * Dt
 
 
@@ -3828,14 +3884,16 @@ def tg_solve(A, b, shape, planes: list):
         ksp._probe_block = probe
 
 
-def tg_first_solve():
+def tg_first_solve(keep=None):
     """The cell set up from nothing and its first linear solve; returns
     (GMRES iterations, digests of the initial state, the rhs, the planes,
-    the solution)."""
+    the solution). ``keep``, a dict, gets the system (A, b, shape)."""
     prob, M, up_p, up_f, pin, shape, t = tg_cell()
     A, b, _, _ = tg_first_system(prob, M, up_p, up_f, pin, t)
     planes = []
     x, info = tg_solve(A, b, shape, planes)
+    if keep is not None:
+        keep.update(A=A, b=b, shape=shape)
     return (int(info.iters), {"state": _digest(up_f), "rhs": _digest(b),
                               "planes": _digest(planes[0]),
                               "solution": _digest(x)})
@@ -3852,9 +3910,10 @@ def phase_determinism():
 
     from iifea_tpu_torch.solvers import ksp
 
-    runs = []
-    for _ in range(DET_REPEATS):
-        runs.append(sync_time(tg_first_solve))
+    runs, kept = [], {}
+    for k in range(DET_REPEATS):
+        runs.append(sync_time(lambda: tg_first_solve(
+            kept if k == DET_REPEATS - 1 else None)))
         torch.cuda.empty_cache()
     iters = [r[0][0] for r in runs]
     digests = [r[0][1] for r in runs]
@@ -3864,6 +3923,17 @@ def phase_determinism():
     if len(set(iters)) != 1 or any(d != digests[0] for d in digests):
         fail(f"determinism: the Taylor-Green first solve differs between "
              f"repeats: iterations {iters}, digests {digests}")
+    if F64_ON["on"]:
+        # the f64 route on the cell's first system (the last repeat's)
+        A, b, shape = kept["A"], kept["b"], kept["shape"]
+        f64_route("taylor_green", instance_tag(2, True, N_FIELDS_NS),
+                  lambda: ksp.solve_ksp(
+                      A, b, method="gmres", pc="mg", rtol=1e-8, atol=1e-9,
+                      lattice_shape=shape, n_fields=N_FIELDS_NS,
+                      monitor=False, mixed=False),
+                  A, b, block_names(2, NS_LEVELS, 2, N_FIELDS_NS, True),
+                  mixed_iters=iters[0], gate_rel=False)
+    kept.clear()
     _, _, A, _, _ = build_elasticity(N_BG_EL, "cuda")
     probes = [sync_time(lambda: ksp._probe_block(
         A, (N_BG_EL + 1,) * 2, N_FIELDS_EL, 2, torch.float32))
@@ -4423,13 +4493,491 @@ def phase_sharded(backend: str = "gloo"):
              f"device's {one['norms']}: {rel}")
 
 
+# -- f64_routes: every solve_ksp(pc='mg') configuration on the card ----------
+
+# the block instances the f64 and radius-3 routes added, (f64, radius,
+# fields), 2D and 3D
+NEW_BLOCK = ([(True, r, nf) for r in (1, 2, 3) for nf in (2, 3)]
+             + [(False, 3, nf) for nf in (2, 3)])
+# those on a 2D full-width path, checked at every level of its cycle
+# (513² … 17²): the elasticity's f64 route (2 fields), the Taylor-Green
+# cell's (3), the elasticity on the quadratic B-spline net (radius 3, 2
+# fields, f64 by default and f32 mixed)
+PATH_BLOCK2 = [(True, 2, 2), (True, 2, 3), (True, 3, 2), (False, 3, 2)]
+F64_RUNS = {}              # name: an f64 route's run inside another phase
+F64_ON = {"on": False}     # whether this run holds the f64_routes phase
+# the f64 route's foreground field against the mixed route's, L2 over the
+# cell domain relative to the field's: both meet a 1e-10 residual, which
+# fixes the field to ~κ·1e-10; the error norms (2D elasticity L2 2.5e-5 of
+# the field) are recorded beside it, not gated (at n_bg = 512 they differ
+# by 2.6e-4 relative while H10 agrees to 1e-9, on an H100)
+F64_FIELD_REL = 1e-7
+MAX_ITERS_DIFF_EL = 2      # elasticity: f64 CG iterations over the mixed's
+MAX_ITERS_DIFF3 = 4        # 3D Poisson: the same
+MAX_ITERS_DIFF_HOST = 2    # card against host on one route
+N_BG_14C = 511             # elasticity (k = 2) on a 513² quadratic B-spline net
+N_BG_14C_RATE = 127        # its L2 error falls from this size's ...
+RATE_14C = 2.0             # ... at more than this rate per halving of h (k = 2)
+N_BG_14C_SMALL = 15        # card against host (the host took 116 iterations)
+# the 3D counterpart (three fields on the quadratic B-spline box): card
+# against host on the 9³ net (one dense level; the host's f64 GMRES took
+# 152 iterations, 25 s on an 8-core host), the card alone on the 17³ net
+# (the host's 656 iterations took 379 s there)
+N_BG_14C3 = (7, 15)
+F64_SOAK_ROUNDS = 100
+
+
+def f64_route(name, tag, solve, A, b, names, *, mixed_iters=None,
+              iters_diff=None, max_iters=None, norms=None, gate_rel=True):
+    """The f64 route (``mixed=False``) of a system another phase built and
+    solved on the card's default (mixed) route: ``solve()`` with every launch
+    counter set to 0 just before and read just after (each kernel of
+    ``names`` must launch), no plain stencil apply on the card outside the
+    coarse dense inverse, converged, with an f64 relative residual below
+    1e-10 (``gate_rel``), iterations at most ``iters_diff`` above
+    ``mixed_iters`` (the f64 cycle may take fewer: elasticity n_bg=512 28
+    against 32, 3D Poisson 36 against 40 on an H100; the residual gate
+    holds it to the exact operator) and at most ``max_iters``, and with
+    ``norms`` = (error norms of a background vector, the L2 norm of its
+    foreground field over the cell domain, the mixed route's solution) the
+    foreground field within F64_FIELD_REL of the mixed route's (both error
+    norms recorded). Books the run under
+    ``name`` (instance ``tag``) for the f64_routes phase and the kernels
+    line. Returns (u, info)."""
+    import torch
+
+    plain = Counter()
+    with plain_on_card(plain):
+        (u, info), seconds, _, by_shape = counted_run(solve, names,
+                                                      f"f64_routes {name}")
+    launched = Counter()
+    for k, n in by_shape.items():
+        if "_call@" not in k:
+            launched[k.split("@")[0]] += n
+    rec = {"instance": tag, "iters": int(info.iters),
+           "mixed_iters": mixed_iters,
+           "converged": bool(info.converged), "seconds": seconds,
+           "rel_residual": rel_residual(A, b, u),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": dict(launched), "launches_by_shape": by_shape,
+           "plain_applies_on_card": dict(plain)}
+    if norms is not None:
+        fn, field, u_mixed = norms
+        got, ref = fn(u), fn(u_mixed)
+        rec.update(error_norms=got, mixed_error_norms=ref,
+                   norms_rel_diff={k: abs(got[k] - ref[k]) / ref[k]
+                                   for k in ref},
+                   field_rel_diff=field(u - u_mixed) / field(u_mixed))
+    F64_RUNS[name] = rec
+    phase("f64_route", name=name, **rec)
+    if not (u.is_cuda and info.converged and bool(torch.isfinite(u).all())):
+        fail(f"f64_routes {name}: not a converged finite card solution")
+    if gate_rel and not rec["rel_residual"] < 1e-10:
+        fail(f"f64_routes {name}: f64 residual {rec['rel_residual']}")
+    if iters_diff is not None and not info.iters <= mixed_iters + iters_diff:
+        fail(f"f64_routes {name}: {info.iters} iterations against the "
+             f"mixed route's {mixed_iters}")
+    if max_iters is not None and not info.iters <= max_iters:
+        fail(f"f64_routes {name}: {info.iters} iterations > {max_iters}")
+    if norms is not None and not rec["field_rel_diff"] <= F64_FIELD_REL:
+        fail(f"f64_routes {name}: the field is {rec['field_rel_diff']} from "
+             "the mixed route's")
+    if plain["elsewhere"]:
+        fail(f"f64_routes {name}: {plain['elsewhere']} plain stencil "
+             "applies on the card outside the coarse dense inverse")
+    return u, info
+
+
+def field_norms(prob, M, u_mixed):
+    """``f64_route``'s ``norms``: the problem's error norms and the L2 norm
+    of a background vector's foreground field over its cell domain, and
+    the mixed route's solution."""
+    from iifea_tpu_torch.api import l2_norm
+
+    n_fields = prob.space.n_fields
+    return (lambda v: prob.error_norms(M.mv(v)),
+            lambda v: l2_norm(M.mv(v), prob.cell_dom, n_fields), u_mixed)
+
+
+def block_names(dim, shapes, radius, n_fields, f64):
+    """The kernels a block cycle on these smoothed level shapes launches:
+    the apply, the fused smoothing call where the plan gives a level one
+    launch, the passes where it gives one none."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    dev = torch.cuda.current_device()
+    if dim == 2:
+        fused = [sk._smooth_route(tuple(sh), radius, n_fields, dev, f64)
+                 == sk.GRID for sh in shapes]
+        passes, apply, call = ("jacobi_smooth",), "stencil_mv_block", "smooth"
+    else:
+        fused = [bool(sk._plan3(tuple(sh), radius, n_fields, dev, f64)[1])
+                 for sh in shapes]
+        passes = ("zero3_block", "sweep3_block", "residual3_block")
+        apply, call = "stencil3d_block", "smooth3"
+    return ((apply,) + (call,) * any(fused)
+            + passes * (not all(fused)))
+
+
+def kernels_f64(worst, dev):
+    """The instances the f64 and radius-3 routes added against their plain
+    versions (f32 TOL, f64 TOL64), their compiler reports having been held
+    by the kernels phases: 2D blocks (stencil_mv_block, smooth by every
+    route) at odd shapes (ν = 1–3, every form) and, on a full-width path,
+    at every level shape of its cycle; 3D blocks (stencil3d_block's four
+    passes) at odd shapes and at the levels of their cycles (3 × 97³ … 13³
+    f64 r = 2; 65³, 33³, 17³ at r = 3), scalar f64 r = 1, 2 planes
+    (stencil_mv3, jacobi_smooth3, cheb_step3) at odd shapes and 105³ …
+    27³; smooth3 by both routes at those levels (bitwise equal where the
+    level call fits); a soak of interleaved launches. Then ``kernel_time``
+    rows, with the plain versions' times, of each kernel the full-width
+    f64 routes launch, at the shape they run it. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    f32, f64 = torch.float32, torch.float64
+    all_forms = [(z, w) for z in (False, True) for w in (False, True)]
+    bitwise = True
+    for is64, r, nF in NEW_BLOCK:
+        dt = f64 if is64 else f32
+        for sh in ODD_SHAPES:
+            bitwise &= check_level_entries(worst, rng, sh, r, nF, dev,
+                                           (1, 2, 3), all_forms, dt)
+        if (is64, r, nF) in PATH_BLOCK2:
+            for sh in BLOCK_SMOOTHED:
+                bitwise &= check_level_entries(worst, rng, sh, r, nF, dev,
+                                               (NU,), list(FORMS.values()),
+                                               dt)
+        torch.cuda.empty_cache()
+    if not bitwise:
+        fail("f64_routes: a 2D fused smoothing call differs from its passes")
+    for is64, r, nF in NEW_BLOCK:
+        dt = f64 if is64 else f32
+        for sh in ODD_SHAPES3:
+            check_block3(worst, gen, sh, r, nF, dev, dt)
+        for sh in (BLOCK3_SMOOTHED if (is64, r, nF) == (True, 2, 3)
+                   else LEVELS_BH3 if r == 3 else []):
+            check_block3(worst, gen, sh, r, nF, dev, dt)
+            torch.cuda.empty_cache()
+    for r in (1, 2):
+        for sh in ODD_SHAPES3 + (LEVELS3 if r == 2 else []):
+            check_block3(worst, gen, sh, r, 0, dev, f64)
+            C, invd, b, x = scalar3_operands(gen, sh, r, f64, dev)
+            d = torch.randn(b.shape, generator=gen, device=dev, dtype=f64)
+            _check(worst, "stencil_mv3", sk.stencil_mv3(C, x, sh, r),
+                   sk.stencil_mv3_plain(C, x, sh, r), sh, r, quiet=True)
+            _check(worst, "jacobi_smooth3",
+                   sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, r),
+                   sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, sh, r), sh,
+                   r, quiet=True)
+            for beta in (0.0, 0.45):
+                y, dy = sk.cheb_step3(C, invd, b, x, None if beta == 0
+                                      else d.clone(), 1.3, beta, sh, r)
+                ry, rd = sk.cheb_step3_plain(C, invd, b, x, None if beta == 0
+                                             else d, 1.3, beta, sh, r)
+                _check(worst, "cheb_step3", y, ry, sh, r, quiet=True)
+                _check(worst, "cheb_step3", dy, rd, sh, r, quiet=True)
+            del C, invd, b, x, d
+        torch.cuda.empty_cache()
+    paths = [("elasticity3_f64", N_FIELDS_EL3, 2, f64, False,
+              BLOCK3_SMOOTHED, "fused"),
+             ("poisson3_f64", 0, 2, f64, True, LEVELS3, "fused")]
+    rows = kernels3_smooth(worst, dev, paths)
+    checks = [(f"bspline_el3_{'f64' if is64 else 'f32'}_nf{nF}", nF, 3,
+               f64 if is64 else f32, False, LEVELS_BH3, None)
+              for is64, r, nF in NEW_BLOCK if r == 3]
+    kernels3_smooth(worst, dev, checks, timed=False)
+    phase("kernel_check", kernel="f64 and radius-3 instances",
+          worst={k: v for k, v in worst.items()
+                 if "/f64" in k or "/nf2" in k or "/r3/nf3" in k})
+
+    # soak: the new instances at their paths' shapes, interleaved, never
+    # synchronised until the end; every repeat equals its first result
+    ops = []
+    for is64, r, nF in PATH_BLOCK2:
+        C, binv, b, x = level_operands(rng, BLOCK_SMOOTHED[2], r, nF, dev,
+                                       f64 if is64 else f32)
+        ops.append(partial(sk.stencil_mv_block, C, x, BLOCK_SMOOTHED[2], r))
+        ops.append(partial(lambda *a: torch.cat(sk.smooth(*a, True)), C,
+                           binv, b, None, 1.0, NU, BLOCK_SMOOTHED[2], r))
+    for sh, r, nF in ((BLOCK3_SMOOTHED[1], 2, N_FIELDS_EL3),
+                      (LEVELS_BH3[-1], 3, N_FIELDS_EL3)):
+        C, binv, b, x = block3_operands(gen, sh, r, nF, dev, f64)
+        ops += list(block3_calls(C, binv, b, x, sh, r).values())
+        ops.append(partial(lambda *a: torch.cat(sk.smooth3(*a, True)), C,
+                           binv, b, None, [(1.0, 0.0)] * NU, sh, r))
+    C, invd, b, x = scalar3_operands(gen, LEVELS3[1], 2, f64, dev)
+    ops.append(partial(sk.cheb_step3, C, invd, b, x, None, 1.3, 0.0,
+                       LEVELS3[1], 2))
+    first = [fn() for fn in ops]
+    first = [v[0] if isinstance(v, tuple) else v for v in first]
+    mismatches = torch.zeros((), dtype=torch.int64, device=dev)
+    before = sum(sk.launches().values())
+    t0 = time.perf_counter()
+    for _ in range(F64_SOAK_ROUNDS):
+        for fn, ref in zip(ops, first):
+            v = fn()
+            mismatches += ((v[0] if isinstance(v, tuple) else v)
+                           != ref).sum()
+    torch.cuda.synchronize()
+    phase("soak", kernel="f64 and radius-3 instances",
+          launches=sum(sk.launches().values()) - before,
+          seconds=time.perf_counter() - t0, mismatches=int(mismatches))
+    if int(mismatches):
+        fail(f"f64_routes soak: {int(mismatches)} values differ between "
+             "repeats")
+    del ops, first
+    torch.cuda.empty_cache()
+
+    # the summary's rows: each kernel of a full-width route at its shape
+    for is64, r, nF in PATH_BLOCK2:
+        dt = f64 if is64 else f32
+        fused = [sh for sh in BLOCK_SMOOTHED
+                 if sk._smooth_route(sh, r, nF, 0, is64) == sk.GRID]
+        rows += time_level(rng, BLOCK_SMOOTHED[0], nF, dev, main_block=True,
+                           main_smooth=False, radius=r, dtype=dt)
+        if fused:
+            rows += time_level(rng, fused[0], nF, dev, main_block=False,
+                               main_smooth=True, radius=r, dtype=dt)
+        torch.cuda.empty_cache()
+    for sh, r in ((BLOCK3_SMOOTHED[0], 2), (LEVELS_BH3[-1], 3)):
+        C, binv, b, x = block3_operands(gen, sh, r, N_FIELDS_EL3, dev, f64)
+        calls = block3_calls(C, binv, b, x, sh, r, omega=1.0)
+        plain = block3_calls(C, binv, b, x, sh, r, omega=1.0, plain=True)
+        for mode in BLOCK3_MODES:
+            rows.append(time_kernel(
+                sk.PASS3_NAMES[mode, True], [N_FIELDS_EL3, *sh],
+                calls[mode], plain[mode],
+                bound_=bound_passes(sh, N_FIELDS_EL3, [mode], r, True),
+                plain_launches=2, radius=r, f64=True, n_fields=N_FIELDS_EL3,
+                dim=3))
+        del C, binv, b, x, calls, plain
+        torch.cuda.empty_cache()
+    rows += kernels3_smooth(worst, dev, [
+        ("bspline_el3_f64", N_FIELDS_EL3, 3, f64, False, [LEVELS_BH3[-1]],
+         "fused")])
+    C, invd, b, x = scalar3_operands(gen, SHAPE3, 2, f64, dev)
+    d = torch.randn(b.shape, generator=gen, device=dev, dtype=f64)
+    rows.append(time_kernel(
+        "stencil_mv3", SHAPE3, partial(sk.stencil_mv3, C, x, SHAPE3, 2),
+        partial(sk.stencil_mv3_plain, C, x, SHAPE3, 2), plain_launches=2,
+        f64=True))
+    rows.append(time_kernel(
+        "cheb_step3", SHAPE3,
+        partial(sk.cheb_step3, C, invd, b, x, d, 1.3, 0.45, SHAPE3, 2),
+        partial(sk.cheb_step3_plain, C, invd, b, x, d, 1.3, 0.45, SHAPE3, 2),
+        plain_launches=2, f64=True))
+    del C, invd, b, x, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bspline_elasticity(n_bg: int, device, dim: int = 2):
+    """Vector elasticity (k = 2) on the quadratic B-spline background:
+    ``immersed_square_bspline_problem(n_fg=2·n_bg, n_bg, n_fields=2)`` or
+    its cube (three fields), ImmersedElasticityProblem(k=2), assembled at
+    u = 0. Returns (prob, M, lattice shape, A, b, set-up seconds)."""
+    import torch
+
+    from iifea_tpu_torch.mesh import generators
+    from iifea_tpu_torch.models.elasticity import ImmersedElasticityProblem
+    from iifea_tpu_torch.ops.projection import assemble_background_system
+
+    t0 = time.perf_counter()
+    gen = (generators.immersed_square_bspline_problem if dim == 2
+           else generators.immersed_cube_bspline_problem)
+    mesh, M, shape = gen(n_fg=2 * n_bg, n_bg=n_bg, n_fields=dim,
+                         device=device)
+    prob = ImmersedElasticityProblem(mesh, k=2, device=device)
+    u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
+    A, b = assemble_background_system(prob.form, u0, M)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return prob, M, tuple(shape), A, b, time.perf_counter() - t0
+
+
+def bspline_el_solve(A, b, shape, dim: int = 2, **kw):
+    from iifea_tpu_torch.solvers import ksp
+
+    return ksp.solve_ksp(A, b, method="gmres", pc="mg", rtol=1e-10,
+                         lattice_shape=shape, stencil_radius=3,
+                         n_fields=dim, monitor=False, **kw)
+
+
+def card_against_host(tag, build, solve):
+    """One system built (``build(device)`` = (A, b, (prob, M) or None)) and
+    solved (``solve(A, b)``) on the card and on the host: both converged,
+    the same iterations within MAX_ITERS_DIFF_HOST and, where the problem
+    is given, the card's foreground field within F64_FIELD_REL of the
+    host's (L2 over the host's cell domain; the error norms recorded).
+    Prints and returns the phase line's fields."""
+    from iifea_tpu_torch.api import l2_norm
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        A, b, pm = build(dev)
+        (u, info), dt = sync_time(lambda: solve(A, b))
+        out[dev] = ({"iters": int(info.iters), "converged": bool(
+            info.converged), "on_card": u.is_cuda, "seconds": dt,
+            "rel_residual": rel_residual(A, b, u),
+            "error_norms": None if pm is None
+            else pm[0].error_norms(pm[1].mv(u))}, u.cpu(), pm)
+    (card, u_c, _), (host, u_h, pm) = out["cuda"], out["cpu"]
+    row = {"card": card, "host": host}
+    if pm is not None:
+        prob, M = pm
+
+        def field(v):
+            return l2_norm(M.mv(v), prob.cell_dom, prob.space.n_fields)
+
+        row.update(field_rel_diff=field(u_c - u_h) / field(u_h),
+                   norms_rel_diff={
+                       k: abs(v - host["error_norms"][k])
+                       / host["error_norms"][k]
+                       for k, v in card["error_norms"].items()})
+    phase(tag, **row)
+    if not (card["on_card"] and card["converged"] and host["converged"]):
+        fail(f"{tag}: not converged on the card or the host: {row}")
+    if not abs(card["iters"] - host["iters"]) <= MAX_ITERS_DIFF_HOST:
+        fail(f"{tag}: {card['iters']} iterations on the card, "
+             f"{host['iters']} on the host")
+    if pm is not None and not row["field_rel_diff"] <= F64_FIELD_REL:
+        fail(f"{tag}: the card's field is {row['field_rel_diff']} from the "
+             "host's")
+    return row
+
+
+def phase_f64_routes():
+    """Every solve_ksp(pc='mg') configuration of the JAX package on the
+    card's hand kernels (dimension 2|3, 1–3 fields, radius 1–3, f32|f64):
+    the new instances against their plain versions (``kernels_f64``); the
+    Taylor-Green small reference (ref 2, unpinned) first system on the f64
+    route, card against host; radius 3 with two fields (ROADMAP 14c):
+    elasticity (k = 2) on the quadratic B-spline net at n_bg = 15 card
+    against host, at n_bg = 511 (2 × 513² dofs) on the f64 default and the
+    f32 mixed route, counted, both below 1e-10, its L2 error falling from
+    n_bg = 127's at a rate above RATE_14C per halving; its 3D counterpart
+    (three fields) card against host on the 9³ net, and on the 17³ net
+    below 1e-10 with its L2 error below the 9³ net's. The
+    full-width f64 routes of the 3D elasticity (n_bg = 96), the 2D
+    elasticity (n_bg = 512), the Taylor-Green cell's first system (ref 7)
+    and the 3D Poisson front-end (n_bg = 104) run inside their own phases
+    on those phases' systems (``f64_route``) and are summed up here.
+    Returns (worst errors, kernel_time rows, {instance tag: (launches by
+    kernel, by shape)})."""
+    import math
+
+    import torch
+
+    from iifea_tpu_torch.solvers import ksp
+
+    dev = torch.device("cuda", 0)
+    worst = {}
+    rows = kernels_f64(worst, dev)
+
+    # the Taylor-Green small reference's first system on the f64 route
+    def tg_build(device):
+        prob, M, up_p, up_f, pin, shape, t = tg_cell(device, NS_SMALL,
+                                                     pinned=False)
+        A, b, _, _ = tg_first_system(prob, M, up_p, up_f, pin, t)
+        return A, b, None
+
+    card_against_host(
+        "f64_routes_taylor_green_small", tg_build,
+        lambda A, b: ksp.solve_ksp(
+            A, b, method="gmres", pc="mg", rtol=1e-8, atol=1e-9,
+            lattice_shape=(17, 17), n_fields=3, monitor=False, mixed=False))
+
+    # radius 3 with several fields: elasticity on the B-spline net
+    def bs_build(n_bg, dim):
+        def build(device):
+            prob, M, _, A, b, _ = bspline_elasticity(n_bg, device, dim)
+            return A, b, (prob, M)
+        return build
+
+    shape_small = (N_BG_14C_SMALL + 2,) * 2
+    card_against_host("f64_routes_bspline_elasticity_small",
+                      bs_build(N_BG_14C_SMALL, 2),
+                      lambda A, b: bspline_el_solve(A, b, shape_small))
+    small3, full3 = N_BG_14C3
+    row3 = card_against_host(
+        "f64_routes_bspline_elasticity3_small", bs_build(small3, 3),
+        lambda A, b: bspline_el_solve(A, b, (small3 + 2,) * 3, 3))
+    p3, M3, sh3, A3, b3, setup3 = bspline_elasticity(full3, "cuda", 3)
+    (u3, info3), t3 = sync_time(lambda: bspline_el_solve(A3, b3, sh3, 3))
+    n3 = p3.error_norms(M3.mv(u3))
+    relres3 = rel_residual(A3, b3, u3)
+    phase("f64_routes_bspline_elasticity3", n_bg=full3,
+          n_bg_dofs=M3.n_bg_dofs, setup_seconds=setup3, seconds=t3,
+          iters=int(info3.iters), rel_residual=relres3, error_norms=n3,
+          error_norms_small=row3["card"]["error_norms"])
+    if not (u3.is_cuda and relres3 < 1e-10 and n3["L2"]
+            < row3["card"]["error_norms"]["L2"]):
+        fail(f"f64_routes: 3D B-spline elasticity n_bg={full3}: residual "
+             f"{relres3}, norms {n3}")
+    del p3, M3, A3, b3, u3
+
+    p127, M127, sh127, A127, b127, _ = bspline_elasticity(N_BG_14C_RATE,
+                                                          "cuda")
+    u127, info127 = bspline_el_solve(A127, b127, sh127)
+    n127 = p127.error_norms(M127.mv(u127))
+    del p127, M127, A127, b127, u127
+    torch.cuda.empty_cache()
+    prob, M, shape, A, b, setup = bspline_elasticity(N_BG_14C, "cuda")
+    out = {}
+    for name, is64 in (("bspline_elasticity", True),
+                       ("bspline_elasticity_mixed", False)):
+        u, info = f64_route(
+            name, instance_tag(3, is64, 2),
+            lambda: bspline_el_solve(A, b, shape, mixed=not is64), A, b,
+            block_names(2, BLOCK_SMOOTHED, 3, 2, is64))
+        out[name] = (prob.error_norms(M.mv(u)), int(info.iters))
+    norms, iters = out["bspline_elasticity"]
+    rate = math.log2(n127["L2"] / norms["L2"]) / math.log2(
+        N_BG_14C / N_BG_14C_RATE)
+    phase("f64_routes_bspline_elasticity", n_bg=N_BG_14C,
+          n_bg_dofs=M.n_bg_dofs, lattice=list(shape), setup_seconds=setup,
+          iters=iters, mixed_iters=out["bspline_elasticity_mixed"][1],
+          error_norms=norms,
+          mixed_error_norms=out["bspline_elasticity_mixed"][0],
+          error_norms_n_bg127=n127, iters_n_bg127=int(info127.iters),
+          l2_rate_per_halving=rate)
+    if not all(0 < v < n127[k] for k, v in norms.items()):
+        fail(f"f64_routes: B-spline elasticity norms {norms} not below "
+             f"n_bg={N_BG_14C_RATE}'s {n127}")
+    if not rate > RATE_14C:
+        fail(f"f64_routes: B-spline elasticity L2 rate {rate} <= "
+             f"{RATE_14C}")
+    del prob, M, A, b
+    torch.cuda.empty_cache()
+
+    want = ("elasticity", "elasticity3", "front_end3", "taylor_green")
+    phase("f64_routes", runs={k: {f: v[f] for f in (
+        "instance", "iters", "mixed_iters", "rel_residual", "seconds",
+        "launches")} for k, v in F64_RUNS.items()},
+        missing=[k for k in want if k not in F64_RUNS])
+    by_tag = {}
+    for rec in F64_RUNS.values():
+        counts, shapes = by_tag.setdefault(rec["instance"], (Counter(),
+                                                              Counter()))
+        counts.update(rec["launches"])
+        shapes.update(rec["launches_by_shape"])
+    return worst, rows, by_tag
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
           "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
           "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
           "demo_p2", "small_reference_biharmonic3", "biharmonic3",
           "demo_biharmonic3", "navier_stokes", "shells", "poisson_unfitted",
-          "determinism", "mesh_files", "sharded")
+          "determinism", "mesh_files", "f64_routes", "sharded")
 
 
 def kernel_shapes(timing, by_shape):
@@ -4470,6 +5018,7 @@ def main() -> None:
     t0 = time.perf_counter()
     worst, timing, launches, by_shape = {}, [], Counter(), Counter()
     seconds = {}
+    F64_ON["on"] = "f64_routes" in run
 
     def run_phase(name, fn):
         t = time.perf_counter()
@@ -4529,6 +5078,16 @@ def main() -> None:
                      ("mesh_files", phase_mesh_files)):
         if name in run:
             run_phase(name, fn)
+    # the f64 and radius-3 routes: their instances' checks and rows, and
+    # their launches by instance tag (the full-width f64 runs made inside
+    # the phases above, the B-spline elasticity's here)
+    f64_tags = {}
+    if "f64_routes" in run:
+        w, t, f64_tags = run_phase("f64_routes", phase_f64_routes)
+        worst.update(w)
+        timing += t
+        for _, shapes in f64_tags.values():
+            by_shape.update(shapes)
     # {instance tag: (launches by kernel, by shape)} of the 2D and the 3D
     # biharmonic: their kernels differ, so one tag's counts merge
     bh = {}
@@ -4554,7 +5113,8 @@ def main() -> None:
     # the r = 3 instances' launches come from the biharmonic's solves (the
     # route taken, and the other one)
     instances = ([("", launches)] + [(tag, bh[tag][0]) for tag in sorted(bh)]
-                 + [(instance_tag(n_fields=N_FIELDS_NS), ns)])
+                 + [(instance_tag(n_fields=N_FIELDS_NS), ns)]
+                 + [(tag, f64_tags[tag][0]) for tag in sorted(f64_tags)])
     for tag, counts in instances:
         for name, (source, replaces) in KERNELS.items():
             if tag and name not in counts:

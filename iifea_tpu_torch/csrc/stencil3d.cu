@@ -1,821 +1,17 @@
-// Variable-coefficient 3D stencil kernels for Hopper (sm_90a), in f32 and
-// f64: the apply `stencil3d_mv`, and the marching kernels behind every 3D
-// smoothing pass (`stencil3d_pass`: weighted-Jacobi and point-block sweeps,
-// the Chebyshev step, block applies and residuals) and behind a multigrid
-// level's whole smoothing call (`stencil3d_level`, one cooperative launch).
-//
-// Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
-// `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
-// `_smooth3_kernel`), extends the latter to the Chebyshev step of the 3D
-// V-cycle smoother (iifea_tpu/ops/multigrid.py StencilMultigrid3D._smooth),
-// and carries the 3D block operators the reference runs as XLA ops
-// (iifea_tpu/ops/stencil.py StencilOperatorBlock3D.mv, ops/multigrid.py
-// StencilMultigridBlock3D._smooth). With nF fields on field-blocked vectors
-// (nF, nx, ny, nz), coefficients C (nF, nF, m^3, nx, ny, nz), m = 2r+1,
-// q = ((oi+r)*m + (oj+r))*m + (ok+r), node id (i*ny + j)*nz + k:
-//
-//   (A x)[f1] = sum_f2 sum_q C[f1,f2,q] * shift_q(x[f2])   (x zero outside)
-//   apply:     y = A x
-//   residual:  y = b - A x
-//   sweep:     y = x + omega * Binv (b - A x)   Binv (nF, nF, n) nodal
-//                                               blocks; nF = 1: 1/diag
-//   cheb:      r = invd (b - A x); d' = s0 r + s1 d; y = x + d'   (nF = 1)
-//   zero:      y = omega * Binv b               (a sweep from x = 0)
-//
-// Instances (scalar type, radius, fields): f32 at r = 1, 2 for 1 to 3
-// fields and at r = 3 (the quadratic B-spline biharmonic's 343 taps) for
-// one field; f64 at r = 3 for one field. `stencil3d_mv` has f32 r = 1, 2, 3
-// and f64 r = 3.
-//
-// What bounds them: memory traffic. A point reads nF^2 m^3 coefficients
-// once (1,125 f32 at nF = 3, r = 2; 343 f64 at r = 3) against ~2 flops
-// each. At 3 x 97^3, r = 2 the planes are 4.1 GB: 1.23 ms at 3.35 TB/s.
-// The small multigrid levels (3 x 13^3, 17^3) are chains of latencies
-// instead: few points, each with a long list of loads.
-//
-// The marching design (`march`):
-//
-// * a block owns a RUN of tp consecutive points of the flattened (j, k)
-//   plane (tp = 256 / split); only the last run of a plane is ragged (at
-//   97^2, 37 runs of 256 with 99% of lanes busy, against 76% of a 32-wide
-//   k tile), and the coefficient reads of a run are one contiguous,
-//   coalesced stretch of each plane in the planes' own layout;
-// * the 2r+1 x planes the run needs, each with r rows of halo in j and k,
-//   are copied into shared memory with cp.async; a block takes one i-plane
-//   (blocks that walked along i through several planes, copying the next
-//   while the current one's coefficients streamed, were no faster at any
-//   level shape on an H100: 3 x 97^3 1.434 ms at 1 plane, 1.452 at 4);
-// * a thread keeps two (f2, oi) trips of nF m^2 coefficient loads in
-//   flight (one for the scalar f32 r <= 2 instances), with launch bounds
-//   from those loads' registers; at nF = 3, r = 2 the large levels run one
-//   block per SM (fewer coefficient planes streamed at once);
-// * on small levels `split` > 1 threads share a point: each takes every
-//   split-th trip and the partial sums meet in shared memory in a fixed
-//   order; the plan picks split from the run count and the card's
-//   occupancy so that the grid fills the SMs at every level shape;
-// * a level's smoothing call (nu sweeps or Chebyshev steps and the trailing
-//   residual) is one cooperative launch where the plan says the level is
-//   small (`stencil3d_level`, `grid.sync()` between passes, x ping-ponged
-//   through the L2; the step from zero folded into the next pass's
-//   staging). Both routes run the same body on the same points with the
-//   same split, so they agree bitwise.
-//
-// Launch contract: PyTorch's current stream, no synchronisation, no
-// allocation (the caller allocates outputs and scratch; y must not alias x,
-// since neighbouring blocks read x's halo). Each entry returns the launch's
-// cudaError_t.
+// The 3D stencil kernels' public entries (plain C, loaded with ctypes) and
+// their f32 instances; the kernels are in csrc/stencil3d.cuh, the f64
+// instances in csrc/stencil3d_f64.cu.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
-
-namespace {
-
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-// -- stencil3d_mv: one 32x4x2 tile a block --------------------------------
-//
-// Each coefficient is read once, coalesced along k (threadIdx.x runs along
-// k, the contiguous axis); the x tile with its r-wide halo (2r+2 x 2r+4 x
-// 2r+32 values) is staged in shared memory so the m^3 shifted reads of x
-// hit shared memory. The halo is zero outside the lattice.
-
-constexpr int kTZ = 32;  // output points along k per block (blockDim.x)
-constexpr int kTY = 4;   // along j (blockDim.y)
-constexpr int kTX = 2;   // along i (blockDim.z)
-constexpr int kThreads = kTX * kTY * kTZ;
-
-// The tap loop. At r <= 2 (f32) all m^3 taps are unrolled into one trip.
-// At r = 3 a point's 343 coefficients (686 words in f64) would all be
-// hoisted and spilled, so the loop over oi stays rolled and a trip unrolls
-// the m^2 = 49 (oj, ok) taps: 49 words in flight in f32, 98 in f64.
-template <class T, int R>
-__device__ __forceinline__ T taps(const T* __restrict__ Cp, int64_t plane,
-                                  const T (&xs)[kTX + 2 * R][kTY + 2 * R]
-                                               [kTZ + 2 * R]) {
-  constexpr int M = 2 * R + 1;
-  T acc = T(0);
-  if constexpr (R >= 3) {
-#pragma unroll 1
-    for (int oi = 0; oi < M; ++oi) {
-      const T* Cq = Cp + (int64_t)(oi * M * M) * plane;
-#pragma unroll
-      for (int oj = 0; oj < M; ++oj) {
-#pragma unroll
-        for (int ok = 0; ok < M; ++ok) {
-          acc = fma_t(__ldg(Cq + (oj * M + ok) * plane),
-                      xs[threadIdx.z + oi][threadIdx.y + oj]
-                        [threadIdx.x + ok],
-                      acc);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int oi = 0; oi < M; ++oi) {
-#pragma unroll
-      for (int oj = 0; oj < M; ++oj) {
-#pragma unroll
-        for (int ok = 0; ok < M; ++ok) {
-          const int q = (oi * M + oj) * M + ok;
-          acc = fma_t(__ldg(Cp + q * plane),
-                      xs[threadIdx.z + oi][threadIdx.y + oj]
-                        [threadIdx.x + ok],
-                      acc);
-        }
-      }
-    }
-  }
-  return acc;
-}
-
-template <class T, int R>
-__device__ __forceinline__ void mv_point(const T* __restrict__ C,
-                                         const T* __restrict__ x,
-                                         T* __restrict__ y, int nx, int ny,
-                                         int nz) {
-  constexpr int SX = kTX + 2 * R;
-  constexpr int SY = kTY + 2 * R;
-  constexpr int SZ = kTZ + 2 * R;
-  __shared__ T xs[SX][SY][SZ];
-
-  const int i0 = blockIdx.z * kTX;
-  const int j0 = blockIdx.y * kTY;
-  const int k0 = blockIdx.x * kTZ;
-  const int tid = (threadIdx.z * kTY + threadIdx.y) * kTZ + threadIdx.x;
-
-  for (int t = tid; t < SX * SY * SZ; t += kThreads) {
-    const int li = t / (SY * SZ);
-    const int rem = t - li * (SY * SZ);
-    const int lj = rem / SZ;
-    const int lk = rem - lj * SZ;
-    const int gi = i0 + li - R;
-    const int gj = j0 + lj - R;
-    const int gk = k0 + lk - R;
-    T v = T(0);
-    if (gi >= 0 && gi < nx && gj >= 0 && gj < ny && gk >= 0 && gk < nz) {
-      v = x[((int64_t)gi * ny + gj) * nz + gk];
-    }
-    xs[li][lj][lk] = v;
-  }
-  __syncthreads();
-
-  const int i = i0 + threadIdx.z;
-  const int j = j0 + threadIdx.y;
-  const int k = k0 + threadIdx.x;
-  if (i >= nx || j >= ny || k >= nz) return;
-  const int64_t plane = (int64_t)nx * ny * nz;
-  const int64_t p = ((int64_t)i * ny + j) * nz + k;
-  y[p] = taps<T, R>(C + p, plane, xs);
-}
-
-// r = 1, 2 (f32): the compiler's own register plan (32 registers: the
-// loads interleave with the FMAs).
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-stencil3d_mv_kernel(const float* __restrict__ C, const float* __restrict__ x,
-                    float* __restrict__ y, int nx, int ny, int nz) {
-  mv_point<float, R>(C, x, y, nx, ny, nz);
-}
-
-// r = 3: resident blocks per SM asked of the compiler from the 32-bit words
-// of one trip's loads, which must fit under the cap (65536 / 256 threads /
-// blocks registers): 3 blocks (85 registers) for f32's 49 words, 2 (128)
-// for f64's 98.
-template <class T>
-__host__ __device__ constexpr int r3_blocks() {
-  return 49 * (int)(sizeof(T) / 4) <= 50 ? 3 : 2;
-}
-
-template <class T>
-__global__ void __launch_bounds__(kThreads, r3_blocks<T>())
-stencil3d_mv_r3_kernel(const T* __restrict__ C, const T* __restrict__ x,
-                       T* __restrict__ y, int nx, int ny, int nz) {
-  mv_point<T, 3>(C, x, y, nx, ny, nz);
-}
-
-template <class T, int R>
-int launch_mv(const void* C, const void* x, void* y, int nx, int ny, int nz,
-              cudaStream_t stream) {
-  const dim3 block(kTZ, kTY, kTX);
-  const dim3 grid((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY,
-                  (nx + kTX - 1) / kTX);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  if constexpr (R == 3) {
-    stencil3d_mv_r3_kernel<T><<<grid, block, 0, stream>>>(
-        (const T*)C, (const T*)x, (T*)y, nx, ny, nz);
-  } else {
-    stencil3d_mv_kernel<R><<<grid, block, 0, stream>>>(
-        (const float*)C, (const float*)x, (float*)y, nx, ny, nz);
-  }
-  return (int)cudaGetLastError();
-}
-
-// -- the marching kernels ----------------------------------------------------
-
-constexpr int kMarch = 256;      // threads per block: tp points x split
-constexpr int kMaxSteps = 8;     // smoothing steps a level's launch takes
-
-enum Pass { kApply = 0, kResidual = 1, kSweep = 2, kCheb = 3, kZero = 4 };
-// how x reaches shared memory: copied with cp.async (in a level's launch
-// also x that other blocks wrote before the last grid barrier, whose fence
-// makes those writes visible to the copies), or computed as the sweep from
-// zero, omega0 Binv b
-enum Stage { kCopy = 0, kFromZero = 1 };
-
-struct Geom {
-  int nx, ny, nz, npl;   // npl = ny * nz points per i-plane
-  int64_t plane;         // nx * npl
-  int tp, split, runs;   // points per run, threads per point, runs per plane
-  int rows, width;       // staged rows of a plane (the run's + 2r), nz + 2r
-  int drow, dcol;        // kMarch = drow * width + dcol: a staging stride
-};
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-template <int R>
-Geom make_geom(int nx, int ny, int nz, int split) {
-  Geom g;
-  g.nx = nx; g.ny = ny; g.nz = nz;
-  g.npl = ny * nz;
-  g.plane = (int64_t)nx * g.npl;
-  g.split = split;
-  g.tp = kMarch / split;
-  g.runs = cdiv(g.npl, g.tp);
-  // a run of tp points starting anywhere in a row spans at most this many
-  // rows
-  const int run_rows = (nz + g.tp - 2) / nz + 1;
-  g.rows = (run_rows < ny ? run_rows : ny) + 2 * R;
-  g.width = nz + 2 * R;
-  g.drow = kMarch / g.width;
-  g.dcol = kMarch - g.drow * g.width;
-  return g;
-}
-
-// the 2r+1 staged x planes of every field, then the split's partial sums
-template <class T, int R, int NF>
-size_t smem_bytes(const Geom& g) {
-  return ((size_t)(2 * R + 1) * NF * g.rows * g.width
-          + (size_t)NF * kMarch) * sizeof(T);
-}
-
-// The (f2, oi) trips a thread keeps in flight (their loads unrolled
-// together), the words of their coefficient loads, and the resident blocks
-// per SM asked of the compiler so that those loads fit under the register
-// cap (65536 / 256 threads / blocks) beside ~24 of bookkeeping: two trips
-// at nF = 3, r = 2 (150 words) and f64 r = 3 (196) take 1 block (255
-// registers), f32 r = 3 (98) and nF = 2, r = 2 (100) 2. The scalar f32
-// r <= 2 instances (the 3D Poisson cycle) keep one trip in flight: at 53^3
-// two trips' registers cost a wave (0.0336 ms against 0.0310 on an H100).
-// A level's launch keeps more live across its passes: ~56. At most 6
-// blocks (42 registers): at 7 the scalar r = 1 body spills.
-template <class T, int R, int NF>
-__host__ __device__ constexpr bool scalar_r2() {
-  return NF == 1 && R <= 2 && sizeof(T) == 4;
-}
-template <class T, int R, int NF>
-__host__ __device__ constexpr int trips() {
-  return scalar_r2<T, R, NF>() ? 1 : 2;
-}
-template <class T, int R, int NF>
-__host__ __device__ constexpr int march_blocks(int bookkeeping = 24) {
-  return 256 / (trips<T, R, NF>() * NF * (2 * R + 1) * (2 * R + 1) *
-                    (int)(sizeof(T) / 4) + bookkeeping) > 6
-             ? 6
-             : 256 / (trips<T, R, NF>() * NF * (2 * R + 1) * (2 * R + 1) *
-                          (int)(sizeof(T) / 4) + bookkeeping);
-}
-
-template <class T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(in ? 4 : 0)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(src), "r"(in ? 8 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// x after one sweep from zero at point p, field f1: omega Binv b.
-template <class T, int NF>
-__device__ __forceinline__ T from_zero(const T* __restrict__ binv,
-                                       const T* __restrict__ b, T omega,
-                                       int64_t plane, int64_t p, int f1) {
-  T v = T(0);
-#pragma unroll
-  for (int f2 = 0; f2 < NF; ++f2) {
-    v = fma_t(omega * __ldg(binv + (int64_t)(f1 * NF + f2) * plane + p),
-              __ldg(b + f2 * plane + p), v);
-  }
-  return v;
-}
-
-// Stage x plane gi (every field) into `slot` ([NF][rows][width]): rows
-// j0 .. j0 + rows - 1, columns -r .. nz + r - 1; zero outside the lattice.
-// The thread starts at element threadIdx.x = (row0, col0) and steps by
-// kMarch elements, (drow, dcol), without dividing.
-template <class T, int R, int NF, int STAGE>
-__device__ __forceinline__ void stage_plane(T* slot, const Geom& g, int gi,
-                                            int j0, int row0, int col0,
-                                            const T* x,
-                                            const T* __restrict__ binv,
-                                            const T* __restrict__ b,
-                                            T omega0) {
-  const int per = g.rows * g.width;
-  const bool plane_in = gi >= 0 && gi < g.nx;
-  int row = row0, col = col0;
-  for (int e = threadIdx.x; e < per; e += kMarch) {
-    const int gj = j0 + row;
-    const int gk = col - R;
-    const bool in =
-        plane_in && gj >= 0 && gj < g.ny && gk >= 0 && gk < g.nz;
-    const int64_t p = ((int64_t)gi * g.ny + gj) * g.nz + gk;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      if constexpr (STAGE == kCopy) {
-        cp_async(slot + f * per + e, in ? x + f * g.plane + p : x, in);
-      } else {
-        slot[f * per + e] =
-            in ? from_zero<T, NF>(binv, b, omega0, g.plane, p, f) : T(0);
-      }
-    }
-    row += g.drow;
-    col += g.dcol;
-    if (col >= g.width) {
-      col -= g.width;
-      ++row;
-    }
-  }
-}
-
-// One (f2, oi) trip at a point: acc[f1] += sum_(oj, ok) C[f1, f2, q] *
-// window, NF m^2 loads. Cq: C + (f2 m^3 + oi m^2) plane + p; xw: the
-// window slot of field f2 at the point's (row, column) offset -r.
-template <class T, int R, int NF>
-__device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
-                                     const T* xw, int width, T (&acc)[NF]) {
-  constexpr int M = 2 * R + 1;
-  constexpr int M3 = M * M * M;
-#pragma unroll
-  for (int f1 = 0; f1 < NF; ++f1) {
-#pragma unroll
-    for (int oj = 0; oj < M; ++oj) {
-#pragma unroll
-      for (int ok = 0; ok < M; ++ok) {
-        acc[f1] = fma_t(
-            __ldg(Cq + ((int64_t)f1 * NF * M3 + oj * M + ok) * plane),
-            xw[oj * width + ok], acc[f1]);
-      }
-    }
-  }
-}
-
-// One pass over the block's run on plane i: the body of every marching
-// entry. All threads of the block call it. `x` null: the pass stages the
-// sweep from zero (omega0 Binv b) in place of x (STAGE must be kFromZero).
-// `d` (kCheb): read at the point when s1 != 0 (from zero: the staged x is
-// the direction), then written. EARLY (one field): the point's b, Binv and
-// d are loaded before the staging, so their latency overlaps it and the
-// epilogue waits on no load (the 3D Poisson cycle's 53^3 Jacobi /
-// Chebyshev passes were 3.9% / 4.0% slower than the 32 x 4 x 2 tile's
-// without, +0.3% / -2.3% with, on an H100); a level's launch loads them
-// after the stream, since the two registers more halve its co-resident
-// blocks at f64 r = 3 (130 registers) and take the 33^3 level out of one
-// launch.
-template <class T, int R, int NF, int STAGE, bool EARLY>
-__device__ __forceinline__ void march(
-    const T* __restrict__ C, const T* x, const T* __restrict__ b,
-    const T* __restrict__ binv, T* d, T omega0, T s0, T s1, T* y, int pass,
-    const Geom& g, int run, int i, T* sm) {
-  constexpr int M = 2 * R + 1;
-  constexpr int M3 = M * M * M;
-  const int per = g.rows * g.width;
-  T* red = sm + M * NF * per;
-  const int s = threadIdx.x / g.tp;
-  const int pl = threadIdx.x - s * g.tp;
-  const int q0 = run * g.tp;
-  const int q = q0 + pl;
-  const bool valid = q < g.npl;
-  const int jf = q0 / g.nz;
-  const int j = q / g.nz;
-  const int k = q - j * g.nz;
-  const int wr = j - jf;
-  const int64_t plane = g.plane;
-  const int64_t p = (int64_t)i * g.npl + q;
-  const int row0 = threadIdx.x / g.width;
-  const int col0 = threadIdx.x - row0 * g.width;
-  T b1 = T(0), i1 = T(0), d1 = T(0);
-  auto point_operands = [&] {
-    if (pass != kApply) b1 = __ldg(b + p);
-    if (pass == kSweep || pass == kCheb) i1 = __ldg(binv + p);
-    if (pass == kCheb && x != nullptr && s1 != T(0)) d1 = d[p];
-  };
-  if (EARLY && NF == 1 && s == 0 && valid) point_operands();
-
-  // planes i - r .. i + r in slots 0 .. 2r
-  for (int oi = 0; oi < M; ++oi) {
-    stage_plane<T, R, NF, STAGE>(sm + oi * NF * per, g, i + oi - R, jf - R,
-                                 row0, col0, x, binv, b, omega0);
-  }
-  if (STAGE == kCopy) cp_async_wait();
-  __syncthreads();
-
-  T acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = T(0);
-  if (valid) {
-#pragma unroll 1
-    for (int t = s; t < NF * M; t += trips<T, R, NF>() * g.split) {
-#pragma unroll
-      for (int u = 0; u < trips<T, R, NF>(); ++u) {
-        const int tu = t + u * g.split;
-        if (tu < NF * M) {
-          const int f2 = tu / M;
-          const int oi = tu - f2 * M;
-          const T* xw = sm + (oi * NF + f2) * per + wr * g.width + k;
-          trip<T, R, NF>(C + (int64_t)(f2 * M3 + oi * M * M) * plane + p,
-                         plane, xw, g.width, acc);
-        }
-      }
-    }
-  }
-  if (g.split > 1) {
-    // the other splits' partial sums, added by split 0 in split order
-    if (s > 0) {
-#pragma unroll
-      for (int f = 0; f < NF; ++f) red[(s * NF + f) * g.tp + pl] = acc[f];
-    }
-    __syncthreads();
-    if (s == 0) {
-      for (int s2 = 1; s2 < g.split; ++s2) {
-#pragma unroll
-        for (int f = 0; f < NF; ++f) acc[f] += red[(s2 * NF + f) * g.tp + pl];
-      }
-    }
-  }
-  if (s != 0 || !valid) return;
-  if (!EARLY && NF == 1) point_operands();
-  const T* xc = sm + R * NF * per + (wr + R) * g.width + k + R;
-  if (pass == kApply) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
-  } else if (pass == kResidual && NF == 1) {
-    y[p] = b1 - acc[0];
-  } else if (pass == kResidual) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) y[f * plane + p] = b[f * plane + p] - acc[f];
-  } else if (pass == kSweep && NF == 1) {
-    y[p] = xc[0] + s0 * (i1 * (b1 - acc[0]));
-  } else if (pass == kSweep) {
-    T res[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) res[f] = b[f * plane + p] - acc[f];
-#pragma unroll
-    for (int f1 = 0; f1 < NF; ++f1) {
-      T v = T(0);
-#pragma unroll
-      for (int f2 = 0; f2 < NF; ++f2) {
-        v = fma_t(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], v);
-      }
-      y[f1 * plane + p] = xc[f1 * per] + s0 * v;
-    }
-  } else if (pass == kCheb) {
-    const T res = i1 * (b1 - acc[0]);
-    const T dprev = x == nullptr ? xc[0] : s1 != T(0) ? d1 : T(0);
-    const T dn = s1 != T(0) ? fma_t(s0, res, s1 * dprev) : s0 * res;
-    d[p] = dn;
-    y[p] = xc[0] + dn;
-  }
-}
-
-// One pass, one block per (run, i-plane).
-template <class T, int R, int NF>
-__global__ void __launch_bounds__(kMarch, march_blocks<T, R, NF>())
-march_kernel(const T* __restrict__ C, const T* x, const T* __restrict__ b,
-             const T* __restrict__ binv, T* d, T s0, T s1, T* y, int pass,
-             Geom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  march<T, R, NF, kCopy, true>(C, x, b, binv, d, T(0), s0, s1, y, pass,
-                               g, blockIdx.x % g.runs, blockIdx.x / g.runs,
-                               reinterpret_cast<T*>(smem_raw));
-}
-
-// y = omega Binv b: one sweep from zero, one thread per point; d, when not
-// null, gets the same values (the first Chebyshev direction).
-template <class T, int NF>
-__global__ void march_zero_kernel(const T* __restrict__ binv,
-                                  const T* __restrict__ b, T omega, T* y,
-                                  T* d, int64_t plane) {
-  const int64_t p = (int64_t)blockIdx.x * kMarch + threadIdx.x;
-  if (p >= plane) return;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const T v = from_zero<T, NF>(binv, b, omega, plane, p, f);
-    y[f * plane + p] = v;
-    if (d != nullptr) d[f * plane + p] = v;
-  }
-}
-
-// The coefficients of a level's smoothing steps: step s is a sweep with
-// omega = s0[s], or a Chebyshev step with (s0, s1)[s] (s1[0] = 0).
-struct Steps {
-  double s0[kMaxSteps], s1[kMaxSteps];
-};
-
-// A level's smoothing call in one cooperative launch, one block per (run,
-// i-plane): `sweeps` steps from x (x null: from zero; the first step is
-// then omega0 = s0[0] Binv b, folded into the next pass's staging, and with
-// sweeps == 1 written to out), the last written to out, the others
-// ping-ponged between tmp and out; then res = b - A out when res is not
-// null. A grid barrier separates passes. The pass sequence is the one the
-// per-pass route launches.
-template <class T, int R, int NF>
-__global__ void __launch_bounds__(kMarch, march_blocks<T, R, NF>(56))
-march_level_kernel(const T* __restrict__ C, const T* __restrict__ binv,
-                   const T* __restrict__ b, const T* x, T* d, T* out, T* tmp,
-                   T* res, int sweeps, int cheb, Steps st, Geom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int run = blockIdx.x % g.runs;
-  const int i = blockIdx.x / g.runs;
-  const int pass = cheb ? kCheb : kSweep;
-  const T omega0 = (T)st.s0[0];
-  const T* cur = x;
-  int k = 0;
-  if (x == nullptr) {
-    const int q = run * g.tp + threadIdx.x;
-    if (sweeps == 1 && threadIdx.x < g.tp && q < g.npl) {
-      const int64_t p = (int64_t)i * g.npl + q;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        out[f * g.plane + p] =
-            from_zero<T, NF>(binv, b, omega0, g.plane, p, f);
-      }
-    }
-    k = 1;
-  }
-  for (; k < sweeps; ++k) {
-    T* dst = ((sweeps - 1 - k) & 1) ? tmp : out;
-    if (cur == nullptr) {
-      march<T, R, NF, kFromZero, false>(C, cur, b, binv, d, omega0,
-                                        (T)st.s0[k], (T)st.s1[k], dst, pass,
-                                        g, run, i, sm);
-    } else {
-      march<T, R, NF, kCopy, false>(C, cur, b, binv, d, omega0, (T)st.s0[k],
-                                    (T)st.s1[k], dst, pass, g, run, i, sm);
-    }
-    cur = dst;
-    if (k + 1 < sweeps || res != nullptr) cg::this_grid().sync();
-  }
-  if (res != nullptr) {
-    if (cur == nullptr) {
-      march<T, R, NF, kFromZero, false>(C, cur, b, binv, nullptr, omega0,
-                                        T(0), T(0), res, kResidual, g, run,
-                                        i, sm);
-    } else {
-      march<T, R, NF, kCopy, false>(C, cur, b, binv, nullptr, omega0, T(0),
-                                    T(0), res, kResidual, g, run, i, sm);
-    }
-  }
-}
-
-// Per instance: the dynamic shared memory limit raised once, and the
-// resident blocks per SM of each kernel at a given shared memory size.
-template <class T, int R, int NF>
-cudaError_t prepare() {
-  static cudaError_t done = cudaErrorNotReady;
-  if (done == cudaErrorNotReady) {
-    int dev = 0, optin = 0;
-    done = cudaGetDevice(&dev);
-    if (done == cudaSuccess) {
-      done = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
-    if (done == cudaSuccess) {
-      done = cudaFuncSetAttribute(march_kernel<T, R, NF>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  optin);
-    }
-    if (done == cudaSuccess) {
-      done = cudaFuncSetAttribute(march_level_kernel<T, R, NF>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  optin);
-    }
-  }
-  return done;
-}
-
-template <class T, int R, int NF>
-cudaError_t blocks_per_sm(bool level, size_t smem, int* out) {
-  cudaError_t e = prepare<T, R, NF>();
-  if (e != cudaSuccess) return e;
-  return level ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     out, march_level_kernel<T, R, NF>, kMarch, smem)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     out, march_kernel<T, R, NF>, kMarch, smem);
-}
-
-int device_attribute(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&value, attr, dev) != cudaSuccess) {
-    return 0;
-  }
-  return value;
-}
-
-int sm_count() {
-  static const int sms = device_attribute(cudaDevAttrMultiProcessorCount);
-  return sms;
-}
-
-// One resident block per SM for the instances whose point streams at least
-// 1,000 coefficient planes (nF = 3, r = 2: 1,125), on levels whose blocks
-// make three waves of one: at two blocks per SM the 3 x 97^3 passes ran at
-// 1.550 ms, at one 1.441 (H100); the 3 x 25^3 level, one wave, ran slower
-// at one. The launch asks for more than half an SM's shared memory.
-template <class T, int R, int NF>
-bool one_block_per_sm(int64_t blocks) {
-  return NF * NF * (2 * R + 1) * (2 * R + 1) * (2 * R + 1) >= 1000 &&
-         blocks >= 3 * (int64_t)sm_count();
-}
-
-size_t one_block_smem() {
-  static const size_t bytes =
-      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerMultiprocessor) /
-          2 + 1;
-  return bytes;
-}
-
-// The plan of one level shape (out[0..2]): split, whether the level's
-// smoothing call is one launch (1) or one launch per pass (0), and the
-// co-resident blocks of the level launch. From the sweep of every split at
-// the 3D paths' level shapes on an H100 (tests/compare_stencil3d.py
-// --sweep):
-// * split: the smallest power of two whose (run, plane) blocks fill half
-//   the card's resident blocks, and at most what leaves each thread
-//   `trips` trips (a thread with fewer in flight only adds a reduction):
-//   3 x 13^3 took 0.0061 ms at split 8 against 0.0094 at 16 and 0.0144 at
-//   1, 17^3 f64 0.0069 at 4 against 0.0073 at 8;
-// * a level launch, which needs every block co-resident, where the blocks
-//   fit, and not for the scalar f32 r <= 2 instances: their passes are
-//   short, and on a card kept busy (a CUDA graph) one launch a pass was
-//   faster (27^3 post-smoothing 0.0115 ms against 0.0139 in one launch,
-//   on an H100). Blocks that walked two planes to make a larger level fit
-//   were slower than one launch a pass (f64 r = 3 at 33^3: 0.0916 ms
-//   against 0.0808), so a block takes one plane.
-template <class T, int R, int NF>
-int plan(int nx, int ny, int nz, int* out) {
-  const int sms = sm_count();
-  if (sms == 0) return -1;
-  const int per_thread = cdiv(NF * (2 * R + 1), trips<T, R, NF>());
-  int split = 1;
-  for (;;) {
-    const Geom g = make_geom<R>(nx, ny, nz, split);
-    int per_sm = 0;
-    if (blocks_per_sm<T, R, NF>(false, smem_bytes<T, R, NF>(g), &per_sm) !=
-            cudaSuccess ||
-        per_sm == 0) {
-      return -1;
-    }
-    if (2 * (int64_t)g.runs * nx >= (int64_t)sms * per_sm ||
-        2 * split > per_thread || split == 16) {
-      break;
-    }
-    split *= 2;
-  }
-  const Geom g = make_geom<R>(nx, ny, nz, split);
-  int level_sm = 0;
-  if (blocks_per_sm<T, R, NF>(true, smem_bytes<T, R, NF>(g), &level_sm) !=
-      cudaSuccess) {
-    return -1;
-  }
-  const int level_cap = sms * level_sm;
-  out[0] = split;
-  out[1] = !scalar_r2<T, R, NF>() && (int64_t)g.runs * nx <= level_cap;
-  out[2] = level_cap;
-  return 0;
-}
-
-bool valid_split(int split) {
-  return split == 1 || split == 2 || split == 4 || split == 8 ||
-         split == 16;
-}
-
-template <class T, int R, int NF>
-int launch_pass(const void* C, const void* x, const void* b,
-                const void* binv, void* d, double omega0, double s0,
-                double s1, void* y, int nx, int ny, int nz, int pass,
-                int split, cudaStream_t stream) {
-  if (pass == kZero) {
-    const int64_t n = (int64_t)nx * ny * nz;
-    march_zero_kernel<T, NF>
-        <<<(unsigned)((n + kMarch - 1) / kMarch), kMarch, 0, stream>>>(
-            (const T*)binv, (const T*)b, (T)omega0, (T*)y, (T*)d, n);
-    return (int)cudaGetLastError();
-  }
-  if (!valid_split(split) || pass < kApply || pass > kCheb ||
-      (pass == kCheb && NF != 1) || x == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Geom g = make_geom<R>(nx, ny, nz, split);
-  cudaError_t e = prepare<T, R, NF>();
-  if (e != cudaSuccess) return (int)e;
-  const int64_t blocks = (int64_t)g.runs * nx;
-  size_t smem = smem_bytes<T, R, NF>(g);
-  if (one_block_per_sm<T, R, NF>(blocks) && smem < one_block_smem()) {
-    smem = one_block_smem();
-  }
-  march_kernel<T, R, NF><<<(unsigned)blocks, kMarch, smem, stream>>>(
-      (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
-      (T)s1, (T*)y, pass, g);
-  return (int)cudaGetLastError();
-}
-
-template <class T, int R, int NF>
-int launch_level(const void* C, const void* binv, const void* b,
-                 const void* x, void* d, void* out, void* tmp, void* res,
-                 const double* s0, const double* s1, int sweeps, int cheb,
-                 int nx, int ny, int nz, int split, cudaStream_t stream) {
-  if (!valid_split(split) || sweeps < 1 ||
-      sweeps > kMaxSteps || (cheb && NF != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Geom g = make_geom<R>(nx, ny, nz, split);
-  const size_t smem = smem_bytes<T, R, NF>(g);
-  int per_sm = 0;
-  cudaError_t e = blocks_per_sm<T, R, NF>(true, smem, &per_sm);
-  if (e != cudaSuccess) return (int)e;
-  if ((int64_t)g.runs * nx > (int64_t)sm_count() * per_sm) {
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  }
-  Steps st = {};
-  for (int s = 0; s < sweeps; ++s) {
-    st.s0[s] = s0[s];
-    st.s1[s] = s1[s];
-  }
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(g.runs * nx);
-  cfg.blockDim = dim3(kMarch);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  return (int)cudaLaunchKernelEx(
-      &cfg, march_level_kernel<T, R, NF>, (const T*)C, (const T*)binv,
-      (const T*)b, (const T*)x, (T*)d, (T*)out, (T*)tmp, (T*)res, sweeps,
-      cheb, st, g);
-}
-
-}  // namespace
-
-// The marching instances, by (f64, radius, fields): CALL(T, R, NF) for each.
-#define DISPATCH3(f64, radius, nf, CALL)                         \
-  switch ((f64) * 100 + (radius) * 10 + (nf)) {                  \
-    case 11: return CALL(float, 1, 1);                           \
-    case 12: return CALL(float, 1, 2);                           \
-    case 13: return CALL(float, 1, 3);                           \
-    case 21: return CALL(float, 2, 1);                           \
-    case 22: return CALL(float, 2, 2);                           \
-    case 23: return CALL(float, 2, 3);                           \
-    case 31: return CALL(float, 3, 1);                           \
-    case 131: return CALL(double, 3, 1);                         \
-    default: return (int)cudaErrorInvalidValue;                  \
-  }
+#include "stencil3d.cuh"
 
 extern "C" {
 
-// y = A x on scalar planes; f32 at r = 1, 2, 3 and f64 at r = 3.
+// y = A x on scalar planes; f32 and f64 at r = 1, 2, 3.
 int stencil3d_mv(const void* C, const void* x, void* y, int nx, int ny,
                  int nz, int radius, int f64, void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (f64 * 10 + radius) {
-    case 1: return launch_mv<float, 1>(C, x, y, nx, ny, nz, s);
-    case 2: return launch_mv<float, 2>(C, x, y, nx, ny, nz, s);
-    case 3: return launch_mv<float, 3>(C, x, y, nx, ny, nz, s);
-    case 13: return launch_mv<double, 3>(C, x, y, nx, ny, nz, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (f64 == 1) return stencil3d_mv_f64(C, x, y, nx, ny, nz, radius, stream);
+  if (f64 != 0) return (int)cudaErrorInvalidValue;
+  return mv_entry<float>(C, x, y, nx, ny, nz, radius, stream);
 }
 
 // The plan of a level shape for an instance: out[0] split, out[1] 1 where
@@ -824,10 +20,9 @@ int stencil3d_mv(const void* C, const void* x, void* y, int nx, int ny,
 // failed.
 int stencil3d_plan(int nx, int ny, int nz, int radius, int nf, int f64,
                    int* out) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return -1;
-#define CALL(T, R, NF) plan<T, R, NF>(nx, ny, nz, out)
-  DISPATCH3(f64, radius, nf, CALL)
-#undef CALL
+  if (f64 == 1) return stencil3d_plan_f64(nx, ny, nz, radius, nf, out);
+  if (f64 != 0) return -1;
+  return plan_entry<float>(nx, ny, nz, radius, nf, out);
 }
 
 // One pass on nF fields: pass 0 y = A x, 1 y = b - A x, 2 y = x + s0 Binv
@@ -839,12 +34,13 @@ int stencil3d_pass(const void* C, const void* x, const void* b,
                    const void* binv, void* d, double omega0, double s0,
                    double s1, void* y, int nx, int ny, int nz, int radius,
                    int nf, int f64, int pass, int split, void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
-#define CALL(T, R, NF)                                                      \
-  launch_pass<T, R, NF>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,    \
-                        pass, split, (cudaStream_t)stream)
-  DISPATCH3(f64, radius, nf, CALL)
-#undef CALL
+  if (f64 == 1) {
+    return stencil3d_pass_f64(C, x, b, binv, d, omega0, s0, s1, y, nx, ny,
+                              nz, radius, nf, pass, split, stream);
+  }
+  if (f64 != 0) return (int)cudaErrorInvalidValue;
+  return pass_entry<float>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,
+                           radius, nf, pass, split, stream);
 }
 
 // A level's smoothing call in ONE cooperative launch: `sweeps` (1 to 8)
@@ -859,12 +55,14 @@ int stencil3d_level(const void* C, const void* binv, const void* b,
                     const double* s0, const double* s1, int sweeps, int cheb,
                     int nx, int ny, int nz, int radius, int nf, int f64,
                     int split, void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
-#define CALL(T, R, NF)                                                       \
-  launch_level<T, R, NF>(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps,    \
-                         cheb, nx, ny, nz, split, (cudaStream_t)stream)
-  DISPATCH3(f64, radius, nf, CALL)
-#undef CALL
+  if (f64 == 1) {
+    return stencil3d_level_f64(C, binv, b, x, d, out, tmp, res, s0, s1,
+                               sweeps, cheb, nx, ny, nz, radius, nf, split,
+                               stream);
+  }
+  if (f64 != 0) return (int)cudaErrorInvalidValue;
+  return level_entry<float>(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps,
+                            cheb, nx, ny, nz, radius, nf, split, stream);
 }
 
 }  // extern "C"

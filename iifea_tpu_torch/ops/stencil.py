@@ -14,9 +14,8 @@ reference has no counterpart here.
 
 Applies and sweeps on a card go through the hand-written kernels of
 ``ops/stencil_kernels.py`` (a block apply is one launch, a level's
-smoothing call one launch on the small 2D and 3D lattices): f32, and f64
-for scalar 2D operators and for radius-3 scalar 3D ones; another dtype or
-radius raises there. On the CPU the f32 operators
+smoothing call one launch on the small 2D and 3D lattices): f32 and f64 at
+radius 1–3; another dtype or radius raises there. On the CPU the f32 operators
 go through the same wrappers (their plain versions) and the others use the
 plain shifted-slice form ``mv_ref``.
 
@@ -209,9 +208,9 @@ class StencilOperator3D:
         return self.device.type == "cuda" or self.dtype == torch.float32
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A_b x: the stencil_mv3 kernel on a card (f32 at radius 1–3,
-        f64 at radius 3) and for f32 on the CPU (its plain version),
-        ``mv_ref`` otherwise."""
+        """y = A_b x: the stencil_mv3 kernel on a card (f32 or f64 at radius
+        1–3) and for f32 on the CPU (its plain version), ``mv_ref``
+        otherwise."""
         if self._kernels():
             return sk.stencil_mv3(self.coeffs, x, self.shape, self.radius)
         return self.mv_ref(x)
@@ -370,9 +369,8 @@ class StencilOperatorBlock2D(_StencilOperatorBlock):
     dim = 2
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x: on a card one launch of the stencil_mv_block kernel (a
-        non-f32 operator raises, the kernels are f32 only), on the CPU the
-        plain ``mv_ref``."""
+        """y = A x: on a card one launch of the stencil_mv_block kernel (f32
+        or f64), on the CPU the plain ``mv_ref``."""
         if self.device.type == "cuda":
             return sk.stencil_mv_block(self.coeffs, x, self.shape,
                                        self.radius)
@@ -399,8 +397,8 @@ class StencilOperatorBlock3D(_StencilOperatorBlock):
     """Block (multi-field) stencil operator on an (nx1, ny1, nz1) lattice,
     for 3D vector problems; coefficients (nF, nF, (2r+1)³, nx1, ny1, nz1).
     On a card every apply is one launch of the ``stencil3d_block`` kernel
-    and a level's smoothing call goes through ``smooth3`` (a non-f32
-    operator raises there); on the CPU the plain versions."""
+    and a level's smoothing call goes through ``smooth3`` (f32 or f64); on
+    the CPU the plain versions."""
 
     dim = 3
 

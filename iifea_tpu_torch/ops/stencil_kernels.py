@@ -2,22 +2,25 @@
 smoothing sweeps.
 
 Port of the Pallas TPU kernels of ``iifea_tpu/ops/pallas_stencil.py`` to
-Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cu``, which also
+Hopper: ``stencil_mv``/``jacobi_smooth`` (``csrc/stencil2d.cuh``, which also
 holds the two entries built on them for block operators and small lattices:
 ``stencil_mv_block``, a block (multi-field) apply or residual b − A x in
 one launch, and ``smooth``, a multigrid level's ν sweeps and trailing
 residual in one launch) and
-``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cu``: ``stencil_mv3``
+``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cuh``: ``stencil_mv3``
 on its own kernel, and one marching kernel behind ``jacobi_smooth3``, the
 fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother and
 ``stencil3d_block``, the 3D block apply, residual and point-block sweep in
 one launch; ``smooth3``, a 3D level's whole smoothing call, is one
-cooperative launch of it on the small levels). Every
-``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` at first use
-(one nvcc per source, run together, then one link) into one shared library
-in ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
-loaded with ``ctypes``), keyed by a hash of all sources and the flags, so a
-fresh checkout builds everything it runs.
+cooperative launch of it on the small levels). The kernels live in the
+two headers; each scalar type's instances are compiled from a source of
+their own (``stencil2d.cu`` and ``stencil3d.cu``: the f32 instances and the
+entries; ``stencil2d_f64.cu``, ``stencil3d_f64.cu``). Every ``csrc/*.cu``
+source is compiled with ``nvcc`` for ``sm_90a`` at first use (one nvcc per
+source, run together, then one link) into one shared library in
+``build/iifea_tpu_torch/`` at the repository root (a plain C interface
+loaded with ``ctypes``), keyed by a hash of all sources, the headers and
+the flags, so a fresh checkout builds everything it runs.
 
 Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version
 in this module; a CUDA tensor always launches the kernel (or raises).
@@ -30,13 +33,11 @@ of the 3D marching entry ``stencil3d_pass`` under the name of its pass and
 instance, ``PASS3_NAMES`` (``jacobi_smooth3``, ``cheb_step3``,
 ``stencil3d_block``, …), whichever wrapper made it.
 
-Instances: the 2D kernels take f32 at r = 1, 2 for 1 to 3 fields and at
-r = 3 (the biharmonic's 49 taps) for one field, and f64 at r = 1, 2, 3 for
-one field (``INSTANCES_2D``); the scalar 3D kernels f32 at r = 1, 2, 3
-and f64 at r = 3 (``INSTANCES_3D``: r = 3 is the 3D biharmonic's 343
-taps), the 3D block kernel f32 at r = 1, 2. The operands of one call
-share one dtype; their scalars (omega, alpha, beta) are passed in
-double.
+Instances (``INSTANCES``): every kernel, 2D and 3D, takes f32 and f64 at
+r = 1, 2, 3 (r = 3: a quadratic B-spline background's 49 and 343 taps)
+for 1 to 3 fields: every configuration of the multigrid routes. The
+operands of one call share one dtype; their scalars (omega, alpha, beta)
+are passed in double.
 
 Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous planes
 with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
@@ -244,9 +245,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the shared library for the current sources and flags lives."""
+    """Where the shared library for the current sources (the ``.cu`` files
+    and the headers they include) and flags lives."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sorted((_PKG / "csrc").glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -317,58 +319,31 @@ def _lib() -> ctypes.CDLL:
 
 # -- wrappers -------------------------------------------------------------------
 
-# (dtype, radius, fields) of the 2D kernels' instances (csrc/stencil2d.cu)
-INSTANCES_2D = frozenset(
-    [(torch.float32, r, nf) for r in (1, 2) for nf in (1, 2, 3)]
-    + [(torch.float32, 3, 1)]
-    + [(torch.float64, r, 1) for r in (1, 2, 3)])
-# (dtype, radius) of the scalar 3D kernels' instances (csrc/stencil3d.cu)
-INSTANCES_3D = frozenset(
-    [(torch.float32, r) for r in (1, 2, 3)] + [(torch.float64, 3)])
-# radii of the 3D block kernel (stencil3d_block), f32 for 1 to 3 fields
-BLOCK3_RADII = (1, 2)
+# (dtype, radius, fields) of the kernels' instances, the same in 2D and 3D
+# (csrc/stencil2d.cuh, csrc/stencil3d.cuh)
+INSTANCES = frozenset((dt, r, nf) for dt in (torch.float32, torch.float64)
+                      for r in (1, 2, 3) for nf in (1, 2, 3))
 
 
-def _check_instance(dtype, radius, nF, dim, block3: bool = False):
-    """Refuse operands no kernel instance takes: ValueError for a radius,
-    TypeError for a dtype (the plain versions follow the same rule, so the
-    host runs what the card runs). ``block3``: the 3D block kernel's
-    instances, else the scalar 3D kernels' (``dim`` = 3)."""
-    if dim == 3:
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"stencil kernels take float32 or float64, got "
-                            f"{dtype}")
-        if block3:
-            if radius not in BLOCK3_RADII:
-                raise ValueError(f"the 3D block kernel takes radius 1 or 2, "
-                                 f"got {radius}")
-            if dtype != torch.float32:
-                raise TypeError(f"the 3D block kernel takes float32, got "
-                                f"{dtype}")
-            return
-        if radius not in (1, 2, 3):
-            raise ValueError(f"the 3D kernels take radius 1 to 3, got "
-                             f"{radius}")
-        if (dtype, radius) not in INSTANCES_3D:
-            raise TypeError(f"the 3D float64 kernels take radius 3, got "
-                            f"{radius}")
+def _check_instance(dtype, radius, nF):
+    """Refuse operands no kernel instance takes: TypeError for a dtype,
+    ValueError for a radius or a field count (the plain versions follow
+    the same rule, so the host runs what the card runs)."""
+    if (dtype, radius, nF) in INSTANCES:
         return
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"stencil kernels take float32 or float64, got "
+                        f"{dtype}")
     if radius not in (1, 2, 3):
-        raise ValueError(f"radius must be 1, 2 or 3, got {radius}")
-    if (dtype, radius, nF) not in INSTANCES_2D:
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"stencil kernels take float32 or float64, got "
-                            f"{dtype}")
-        if dtype == torch.float64:
-            raise TypeError(f"the float64 kernels take one field, got {nF}")
-        raise ValueError(f"the radius-{radius} kernels take one field, got "
-                         f"{nF}")
+        raise ValueError(f"the stencil kernels take radius 1 to 3, got "
+                         f"{radius}")
+    raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
 
 
 def _check(C, x, shape, radius, *planes, dim: int = 2) -> str:
     """Validate the operands of a ``dim``-D kernel; returns the device type
     ('cpu' or 'cuda')."""
-    _check_instance(C.dtype, radius, 1, dim)
+    _check_instance(C.dtype, radius, 1)
     shape = tuple(shape)
     if len(shape) != dim:
         raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
@@ -405,7 +380,7 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def stencil_mv(C, x, shape, radius):
-    """y = A x (f32, or f64). CPU: plain version; CUDA: the stencil2d_mv
+    """y = A x (f32 or f64). CPU: plain version; CUDA: the stencil2d_mv
     kernel."""
     if _check(C, x, shape, radius) == "cpu":
         return stencil_mv_plain(C, x, shape, radius)
@@ -434,9 +409,7 @@ def _check_block(C, shape, radius, vectors, binv=None, dim: int = 2):
     type, nF)."""
     block = C.dim() == dim + 3
     nF = C.shape[0] if block else 1
-    if nF not in (1, 2, 3):
-        raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
-    _check_instance(C.dtype, radius, nF, dim, block3=dim == 3)
+    _check_instance(C.dtype, radius, nF)
     shape = tuple(shape)
     if len(shape) != dim:
         raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
@@ -508,18 +481,17 @@ def _apply_cuda(C, x, b, shape, radius, nF):
 
 
 def jacobi_smooth(C, invd, b, x, omega, shape, radius):
-    """y = x + ω·invd·(b − A x) in one pass (f32, or f64), on scalar
-    planes. CPU:
-    plain version; CUDA: the sweep pass of the stencil2d_block kernel."""
+    """y = x + ω·invd·(b − A x) in one pass (f32 or f64), on scalar
+    planes. CPU: plain version; CUDA: the sweep pass of the stencil2d_block
+    kernel."""
     if _check(C, x, shape, radius, invd, b) == "cpu":
         return jacobi_smooth_plain(C, invd, b, x, omega, shape, radius)
     return _sweep_cuda(C, invd, b, x, omega, shape, radius, 1)
 
 
 def stencil_mv_block(C, x, shape, radius, b=None):
-    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32; scalar planes also
-    f64) on field-blocked
-    vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous (or scalar
+    """Block apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2] (f32 or f64) on
+    field-blocked vectors (nF·n,), C (nF, nF, (2r+1)², nx1, ny1) contiguous (or scalar
     planes, nF = 1); with ``b`` the residual b − A x. CPU: plain version;
     CUDA: ONE launch of the stencil2d_block kernel, which stages the x
     tiles of all fields once and keeps nF accumulators per point."""
@@ -585,8 +557,7 @@ def _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius, nF,
 
 
 def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
-    """A multigrid level's smoothing call (f32; scalar planes also f64):
-    ``sweeps`` sweeps
+    """A multigrid level's smoothing call (f32 or f64): ``sweeps`` sweeps
     x ← x + ω·Binv·(b − A x) from x, or from zero when ``x`` is None (the
     first sweep is then ω·Binv·b and reads no coefficient), and with
     ``with_residual`` also r = b − A x_ν; returns x_ν or (x_ν, r). Scalar
@@ -615,8 +586,8 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
 
 
 def stencil_mv3(C, x, shape, radius):
-    """y = A x on a 3D lattice (f32 at r = 1, 2, 3; f64 at r = 3). CPU:
-    plain version; CUDA: the stencil3d_mv kernel instance of the operands'
+    """y = A x on a 3D lattice (f32 or f64, r = 1, 2, 3). CPU: plain
+    version; CUDA: the stencil3d_mv kernel instance of the operands'
     (dtype, radius)."""
     if _check(C, x, shape, radius, dim=3) == "cpu":
         return stencil_mv3_plain(C, x, shape, radius)
@@ -690,8 +661,8 @@ def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
 
 
 def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
-    """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32 at r = 1,
-    2, 3; f64 at r = 3). CPU: plain version; CUDA: the sweep pass of the
+    """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32 or f64,
+    r = 1, 2, 3). CPU: plain version; CUDA: the sweep pass of the
     stencil3d_pass kernel instance."""
     if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
         return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
@@ -699,8 +670,8 @@ def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
 
 
 def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
-    """One Chebyshev smoothing step in one pass on a 3D lattice (f32 at r =
-    1, 2, 3; f64 at r = 3): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
+    """One Chebyshev smoothing step in one pass on a 3D lattice (f32 or
+    f64, r = 1, 2, 3): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
     ``d`` is None on the first step (β must be 0). Returns (x', d'). CPU:
     plain version; CUDA: the Chebyshev pass of the stencil3d_pass kernel
     instance, which writes x' to a new tensor and d' over ``d`` (each point
@@ -720,7 +691,7 @@ def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
 
 
 def stencil3d_block(C, x, shape, radius, b=None, binv=None, omega=1.0):
-    """The 3D block entry (f32) on field-blocked vectors (nF·n,), C
+    """The 3D block entry (f32 or f64) on field-blocked vectors (nF·n,), C
     (nF, nF, (2r+1)³, nx1, ny1, nz1) contiguous (or scalar planes, nF = 1):
 
     * ``b`` None: the apply y[f1] = Σ_f2 C[f1, f2] ⋆ x[f2];

@@ -22,9 +22,10 @@
                   patch solves on the device; ``asm_core``, ``asm_overlap``
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
-Not ported yet, and raising ``NotImplementedError``: on CUDA a stencil
-radius the kernels do not take (3 with several fields: ROADMAP.md item
-14c; no model of the reference runs it).
+Refused on CUDA with ``NotImplementedError``: a stencil radius above 3 (a
+cubic B-spline background, which no demo, test or bench of the reference
+builds; ROADMAP.md). Every other (dimension, 1–3 fields, radius 1–3, f32 or
+f64) MG solve runs on the hand kernels.
 
 The MG route (``_mg_solve``) differs from the JAX package in these ways,
 by design:
@@ -36,9 +37,9 @@ by design:
   CUDA too: the f64 route runs the f64 instances of the hand kernels, the
   JAX package's own arithmetic off a TPU (``MIXED_DEFAULT_MAX_RADIUS``).
   On the CPU it stays off, so an f64 system runs the whole MG-Krylov solve
-  in f64, as JAX does on the CPU. On CUDA an f64 stencil is taken by the
-  2D scalar kernels and, at radius 3 (the 3D biharmonic), by the 3D scalar
-  ones; other 3D and all block operators refuse it.
+  in f64, as JAX does on the CPU. ``mixed=False`` runs that f64 route on
+  the card too, on the f64 instances of every kernel (2D and 3D, scalar
+  and block).
 * In the mixed route each f32 pass solves for the residual less its
   component along the deflation vectors that are also left null vectors
   of A (``_left_null_rows``): no update reduces that component, and a pass
@@ -233,23 +234,12 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def _cuda_mg_refusal(shape, n_fields, radius, dtype) -> Exception | None:
     """Why the card's stencil kernels cannot take this MG solve, or None:
-    2D scalar operators at radius 1–3 in f32 or f64, 3D scalar ones at
-    radius 1, 2 in f32 and at radius 3 in f32 or f64, block operators (2D
-    and 3D) at radius 1, 2 in f32."""
+    they take 2D and 3D operators of 1 to 3 fields at radius 1–3 in f32 or
+    f64."""
     if radius not in (1, 2, 3):
         return NotImplementedError(
             f"stencil_radius={radius}: the CUDA stencil kernels take radius "
-            "1 to 3")
-    if radius == 3 and n_fields > 1:
-        return NotImplementedError(
-            f"stencil_radius=3 with {n_fields} fields: the CUDA kernels take "
-            "radius 3 for scalar operators only (ROADMAP.md item 14c)")
-    if dtype == torch.float64 and (n_fields > 1 or (len(shape) == 3
-                                                    and radius != 3)):
-        return ValueError(
-            "on CUDA pc='mg' runs f64 stencils on 2D scalar operators and on "
-            "radius-3 3D ones only: pass mixed=True (f32 kernels, f64 "
-            "refinement)")
+            "1 to 3 (a cubic B-spline background's radius 4 is not ported)")
     if dtype not in (torch.float32, torch.float64):
         return ValueError(
             f"on CUDA pc='mg' runs f32 or f64 stencil kernels, got {dtype}")

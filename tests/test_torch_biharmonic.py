@@ -155,34 +155,34 @@ def test_torch_biharmonic_demo():
 
 
 def test_torch_biharmonic_card_refusals(monkeypatch):
-    """What the card's kernels do not take is refused before any work, with
-    the ROADMAP item: radius 3 with several fields (14c), f64 stencils on
-    block operators and on 3D ones below radius 3, a radius above 3;
-    solve_ksp raises it for a system on a card (mocked: no operator is
-    touched). Scalar radius-3 operators are taken in 2D and 3D, f32 and
-    f64 (the 3D biharmonic)."""
+    """The card's kernels take every MG configuration of the JAX package:
+    2D and 3D, 1 to 3 fields, radius 1 to 3, f32 and f64. What they do not
+    take is refused before any work: a radius above 3 (a cubic B-spline
+    background) and a dtype other than f32 and f64; solve_ksp raises it
+    for a system on a card (mocked: no operator is touched)."""
     f32, f64 = torch.float32, torch.float64
     monkeypatch.setattr(ksp, "_on_card", lambda t: True)
-    b = torch.zeros(9 ** 3, dtype=f64)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match="radius"):
         solve_ksp(None, torch.zeros(3 * 9 ** 3, dtype=f64), method="gmres",
-                  pc="mg", lattice_shape=(9, 9, 9), stencil_radius=3,
+                  pc="mg", lattice_shape=(9, 9, 9), stencil_radius=4,
                   n_fields=3, monitor=False)
-    with pytest.raises(ValueError, match="f64"):
-        solve_ksp(None, b, method="cg", pc="mg", lattice_shape=(9, 9, 9),
+    with pytest.raises(ValueError, match="float16"):
+        solve_ksp(None, torch.zeros(9 ** 3, dtype=torch.float16),
+                  method="cg", pc="mg", lattice_shape=(9, 9, 9),
                   mixed=False, monitor=False)
-    assert ksp._cuda_mg_refusal((17, 17), 1, 3, f64) is None
-    assert ksp._cuda_mg_refusal((17, 17), 1, 3, f32) is None
-    assert ksp._cuda_mg_refusal((17, 17), 2, 2, f32) is None
-    assert ksp._cuda_mg_refusal((9, 9, 9), 1, 3, f64) is None
-    assert ksp._cuda_mg_refusal((9, 9, 9), 1, 3, f32) is None
-    for args, kind, word in [(((9, 9, 9), 3, 3, f32), NotImplementedError,
-                              "14c"),
-                             (((17, 17), 2, 3, f32), NotImplementedError,
-                              "14c"),
-                             (((17, 17), 1, 4, f64), NotImplementedError,
+    for shape in ((17, 17), (9, 9, 9)):
+        for n_fields in (1, 2, 3):
+            for radius in (1, 2, 3):
+                for dt in (f32, f64):
+                    assert ksp._cuda_mg_refusal(shape, n_fields, radius,
+                                                dt) is None
+    for args, kind, word in [(((17, 17), 1, 4, f64), NotImplementedError,
                               "radius"),
-                             (((9, 9, 9), 1, 2, f64), ValueError, "f64"),
-                             (((17, 17), 2, 2, f64), ValueError, "f64")]:
+                             (((9, 9, 9), 3, 4, f32), NotImplementedError,
+                              "radius"),
+                             (((17, 17), 2, 2, torch.float16), ValueError,
+                              "float16"),
+                             (((9, 9, 9), 1, 3, torch.bfloat16), ValueError,
+                              "bfloat16")]:
         err = ksp._cuda_mg_refusal(*args)
         assert isinstance(err, kind) and word in str(err)

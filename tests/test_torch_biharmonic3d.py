@@ -108,9 +108,9 @@ def test_torch_stencil3d_radius3_plain(dtype, tol):
 def test_torch_stencil3d_routing_refuses(monkeypatch):
     """StencilOperator3D routes by device: on the host an f64 operator at
     radius 2 runs the plain version; on a card (the device check mocked)
-    every apply and sweep goes to the kernel wrappers, which refuse what no
-    instance takes (f64 at radius 1, 2) instead of running the plain
-    version."""
+    every apply and sweep goes to the kernel wrappers, which take f64 at
+    every radius 1–3 (given CPU tensors they run their plain versions) and
+    refuse what no instance takes: another dtype, radius 4."""
     shape = (5, 6, 7)
     rng = np.random.default_rng(4)
     C = torch.from_numpy(rng.standard_normal((125, *shape)))
@@ -120,12 +120,21 @@ def test_torch_stencil3d_routing_refuses(monkeypatch):
     assert torch.equal(S.mv(x), sk.stencil_mv3_plain(C, x, shape, 2))
     monkeypatch.setattr(StencilOperator3D, "device",
                         property(lambda self: torch.device("cuda")))
-    with pytest.raises(TypeError, match="radius 3"):
-        S.mv(x)
-    with pytest.raises(TypeError, match="radius 3"):
-        S.jacobi_smooth(invd, b, x, 0.67)
-    with pytest.raises(TypeError, match="radius 3"):
-        S.smooth(invd, b, x, [(1.0, 0.0)], cheb=True)
+    called = []
+    for name in ("stencil_mv3", "jacobi_smooth3", "smooth3"):
+        monkeypatch.setattr(sk, name, (lambda f, n: lambda *a, **k: (
+            called.append(n), f(*a, **k))[1])(getattr(sk, name), name))
+    assert torch.equal(S.mv(x), sk.stencil_mv3_plain(C, x, shape, 2))
+    assert torch.equal(S.jacobi_smooth(invd, b, x, 0.67),
+                       sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape,
+                                               2))
+    assert torch.equal(S.smooth(invd, b, x, [(1.0, 0.0)], cheb=True),
+                       sk.smooth3_plain(C, invd, b, x, [(1.0, 0.0)], shape,
+                                        2, cheb=True))
+    assert called == ["stencil_mv3", "jacobi_smooth3", "smooth3"]
+    S16 = StencilOperator3D(C.half(), shape, 2)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        S16.mv(x.half())
     with pytest.raises(ValueError, match="radius 1 to 3"):
         sk.stencil_mv3(torch.zeros((729, *shape)), torch.zeros(210), shape,
                        4)

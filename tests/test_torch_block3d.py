@@ -112,7 +112,7 @@ def test_torch_block3d_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError):
         sk.stencil3d_block(S.coeffs, x, S.shape, 1, b=x, binv=binv[0])
     with pytest.raises(TypeError):
-        sk.stencil3d_block(S.coeffs.double(), x.double(), S.shape, 1)
+        sk.stencil3d_block(S.coeffs.half(), x.half(), S.shape, 1)
     with pytest.raises(ValueError):
         StencilOperatorBlock3D(S.coeffs, (5, 4, 7), 1)
     with pytest.raises(ValueError):

@@ -13,6 +13,8 @@ card and no JAX, without the package's conftest:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_kernels_card.py -q
 """
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -118,7 +120,8 @@ def test_torch_stencil_instances_on_card(dtype, radius, shape):
 @pytest.mark.parametrize("shape", [(17, 17), (33, 129), (65, 65)])
 def test_torch_block_apply_on_card(shape):
     """The 2D block apply on the card is one launch of the block kernel and
-    equals the plain block apply; a non-f32 block operator raises there."""
+    equals the plain block apply, in f32 and in f64 (1e-12); a block
+    operator in another dtype raises there."""
     dev = _card()
     rng = np.random.default_rng(9)
     n = shape[0] * shape[1]
@@ -130,8 +133,14 @@ def test_torch_block_apply_on_card(shape):
     assert sk.launches() == {**before, "stencil_mv_block":
                              before["stencil_mv_block"] + 1}
     assert _close(y, sk.stencil_mv_block_plain(C, x, shape, 2))
+    y64 = StencilOperatorBlock2D(C.double(), shape, 2).mv(x.double())
+    torch.cuda.synchronize()
+    assert y64.dtype == torch.float64 and sk.launches()[
+        "stencil_mv_block"] == before["stencil_mv_block"] + 2
+    assert _close(y64, sk.stencil_mv_block_plain(C.double(), x.double(),
+                                                 shape, 2))
     with pytest.raises(TypeError):
-        StencilOperatorBlock2D(C.double(), shape, 2).mv(x.double())
+        StencilOperatorBlock2D(C.half(), shape, 2).mv(x.half())
 
 
 def _operands3(shape, radius, dev, seed, dtype=torch.float32):
@@ -208,9 +217,10 @@ def test_torch_stencil3d_radius3_on_card(shape, dtype):
 
 @pytest.mark.gpu
 def test_torch_stencil3d_refuses_other_instances_on_card():
-    """A CUDA operator no 3D instance takes raises: f64 at radius 1, 2
-    through StencilOperator3D (never the plain version), radius 3 through
-    the block entry."""
+    """A CUDA operator no 3D instance takes raises (another dtype, radius 4;
+    never the plain version); f64 at radius 1, 2 through StencilOperator3D
+    and radius 3 through the block entry, refused before, launch their
+    instances and equal the plain versions."""
     from iifea_tpu_torch.ops.stencil import StencilOperator3D
 
     dev = _card()
@@ -218,20 +228,27 @@ def test_torch_stencil3d_refuses_other_instances_on_card():
         C, x, b, invd, _ = _operands3((9, 9, 9), radius, dev, 3,
                                       torch.float64)
         S = StencilOperator3D(C, (9, 9, 9), radius)
+        n0 = sk.launches()
+        assert _close(S.mv(x), sk.stencil_mv3_plain(C, x, (9, 9, 9), radius))
+        assert _close(S.jacobi_smooth(invd, b, x, 0.67),
+                      sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, (9, 9, 9),
+                                              radius))
+        assert sk.launches()["stencil_mv3"] == n0["stencil_mv3"] + 1
         with pytest.raises(TypeError):
-            S.mv(x)
-        with pytest.raises(TypeError):
-            S.jacobi_smooth(invd, b, x, 0.67)
-        with pytest.raises(TypeError):
-            S.smooth(invd, b, x, [(1.0, 0.0)], cheb=True)
+            StencilOperator3D(C.half(), (9, 9, 9), radius).mv(x.half())
     C, x, *_ = _operands3((9, 9, 9), 3, dev, 3)
+    assert _close(sk.stencil3d_block(C, x, (9, 9, 9), 3),
+                  sk.stencil_mv3_plain(C, x, (9, 9, 9), 3))
+    C4 = torch.zeros((9 ** 3, 9, 9, 9), device=dev)
     with pytest.raises(ValueError):
-        sk.stencil3d_block(C, x, (9, 9, 9), 3)
+        sk.stencil3d_block(C4, x, (9, 9, 9), 4)
 
 
-def _block_operands3(n_fields, radius, shape, dev, seed):
+def _block_operands3(n_fields, radius, shape, dev, seed,
+                     dtype=torch.float32):
     """A diagonally dominant nF-field 3D operator (n_fields = 0: scalar
-    planes and the flat 1/diag), its smoother blocks, b and x on the card."""
+    planes and the flat 1/diag), its smoother blocks, b and x on the card,
+    in ``dtype``."""
     rng = np.random.default_rng(seed)
     m3 = (2 * radius + 1) ** 3
     nF = max(n_fields, 1)
@@ -239,8 +256,8 @@ def _block_operands3(n_fields, radius, shape, dev, seed):
     for f in range(nF):
         C[f, f, m3 // 2] += 4.0
     n = nF * shape[0] * shape[1] * shape[2]
-    C, b, x = (_t(a, dev) for a in (C, rng.standard_normal(n),
-                                    rng.standard_normal(n)))
+    C, b, x = (torch.from_numpy(np.asarray(a)).to(dev, dtype)
+               for a in (C, rng.standard_normal(n), rng.standard_normal(n)))
     if n_fields == 0:
         C = C[0, 0].contiguous()
         return C, (1.0 / C[m3 // 2]).reshape(-1).contiguous(), b, x
@@ -291,8 +308,8 @@ def test_torch_block3d_operator_on_card():
     """StencilOperatorBlock3D on the card: ``mv`` is one launch, ``smooth``
     one ``smooth3`` launch a call where the plan holds the level in one
     launch, else one launch a pass (the sweep from zero, the sweeps, the
-    residual); both equal to the CPU operator's plain versions; a non-f32
-    operator raises."""
+    residual); both equal to the CPU operator's plain versions; an f64
+    operator runs its f64 instances, one in another dtype raises."""
     dev = _card()
     shape = (13, 10, 17)
     C, binv, b, x = _block_operands3(3, 2, shape, dev, 22)
@@ -316,5 +333,74 @@ def test_torch_block3d_operator_on_card():
     assert _close(xs.cpu(), xs_ref) and _close(r.cpu(), r_ref)
     assert _close(xp.cpu(), S_cpu.smooth(binv.cpu(), b.cpu(), x.cpu(), 1.0,
                                          2))
+    assert _close(StencilOperatorBlock3D(C.double(), shape, 2).mv(x.double()),
+                  sk.apply3_block_plain(C.double(), x.double(), shape, 2))
     with pytest.raises(TypeError):
-        StencilOperatorBlock3D(C.double(), shape, 2).mv(x.double())
+        StencilOperatorBlock3D(C.half(), shape, 2).mv(x.half())
+
+
+# the block instances added for the f64 and radius-3 multigrid routes:
+# (dim, fields, radius, dtype) beside the f32 r = 1, 2 ones above
+NEW_BLOCK = ([(d, nf, r, torch.float64) for d in (2, 3) for nf in (2, 3)
+              for r in (1, 2, 3)]
+             + [(d, nf, 3, torch.float32) for d in (2, 3) for nf in (2, 3)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,n_fields,radius,dtype", NEW_BLOCK)
+def test_torch_block_instances_on_card(dim, n_fields, radius, dtype):
+    """The f64 block instances (r = 1–3) and the radius-3 f32 ones, 2D and
+    3D, 2 and 3 fields: the apply, the residual, the sweep and the sweep
+    from zero, one launch each, and a level's smoothing call (two sweeps
+    from zero with the residual) against the plain versions (f32 1e-4, f64
+    1e-12), in the operands' dtype."""
+    dev = _card()
+    shape = (19, 37) if dim == 2 else (11, 9, 14)
+    if dim == 2:
+        rng = np.random.default_rng(radius * 10 + n_fields)
+        m2 = (2 * radius + 1) ** 2
+        C = rng.uniform(-0.1, 0.1, (n_fields, n_fields, m2, *shape))
+        for f in range(n_fields):
+            C[f, f, m2 // 2] += 4.0
+        n = n_fields * shape[0] * shape[1]
+        C, b, x = (torch.from_numpy(np.asarray(a)).to(dev, dtype)
+                   for a in (C, rng.standard_normal(n),
+                             rng.standard_normal(n)))
+        binv = tmg._point_binv(StencilOperatorBlock2D(C, shape, radius))
+        apply = partial(sk.stencil_mv_block, C, x, shape, radius)
+        resid = partial(sk.stencil_mv_block, C, x, shape, radius, b=b)
+        sweep = partial(sk._sweep_cuda, C, binv, b, x, 0.8, shape, radius,
+                        n_fields)
+        zero = partial(sk._sweep_cuda, C, binv, b, None, 0.8, shape, radius,
+                       n_fields, sk._SWEEP_FROM_ZERO)
+        level = partial(sk.smooth, C, binv, b, None, 0.8, 2, shape, radius,
+                        True)
+        level_ref = partial(sk.smooth_plain, C, binv, b, None, 0.8, 2, shape,
+                            radius, True)
+        sweep_ref = sk.sweep_plain(C, binv, b, x, 0.8, shape, radius)
+        zero_ref = sk.smooth_plain(C, binv, b, None, 0.8, 1, shape, radius)
+        y_ref = sk.apply_plain(C, x, shape, radius)
+    else:
+        C, binv, b, x = _block_operands3(n_fields, radius, shape, dev,
+                                         radius * 10 + n_fields, dtype)
+        apply = partial(sk.stencil3d_block, C, x, shape, radius)
+        resid = partial(sk.stencil3d_block, C, x, shape, radius, b=b)
+        sweep = partial(sk.stencil3d_block, C, x, shape, radius, b=b,
+                        binv=binv, omega=0.8)
+        zero = partial(sk.stencil3d_block, C, None, shape, radius, b=b,
+                       binv=binv, omega=0.8)
+        level = partial(sk.smooth3, C, binv, b, None, [(0.8, 0.0)] * 2,
+                        shape, radius, True)
+        level_ref = partial(sk.smooth3_plain, C, binv, b, None,
+                            [(0.8, 0.0)] * 2, shape, radius, True)
+        sweep_ref = sk.sweep3_block_plain(C, binv, b, x, 0.8, shape, radius)
+        zero_ref = sk.sweep3_block_plain(C, binv, b, None, 0.8, shape, radius)
+        y_ref = sk.apply3_block_plain(C, x, shape, radius)
+    before = sum(sk.launches().values())
+    got = (apply(), resid(), sweep(), zero())
+    torch.cuda.synchronize()
+    assert sum(sk.launches().values()) == before + 4
+    for g, ref in zip(got, (y_ref, b - y_ref, sweep_ref, zero_ref)):
+        assert g.dtype == dtype and _close(g, ref)
+    for g, ref in zip(level(), level_ref()):
+        assert g.dtype == dtype and _close(g, ref)

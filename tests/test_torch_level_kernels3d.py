@@ -146,7 +146,9 @@ def test_torch_smooth3_plain_is_its_passes(cheb):
 def test_torch_smooth3_refusals():
     """What no instance takes is refused before any route is chosen: the
     Chebyshev smoother on a block operator, a first Chebyshev step with
-    s1 ≠ 0, f64 at radius 1, 2 on scalar planes, f64 block planes."""
+    s1 ≠ 0, scalar and block planes in a dtype other than f32 and f64, four
+    fields. f64 scalar planes at radius 2 and f64 block planes are taken
+    (their plain versions, given CPU tensors)."""
     shape = (5, 5, 5)
     C, b, x = (torch.from_numpy(a) for a in _planes(0, 2, shape, np.float64,
                                                     61))
@@ -159,8 +161,20 @@ def test_torch_smooth3_refusals():
     with pytest.raises(ValueError, match="s1 = 0"):
         sk.smooth3(C.float(), invd.float(), b.float(), x.float(),
                    [(1.0, 0.5)], shape, 2, cheb=True)
-    with pytest.raises(TypeError, match="radius 3"):
-        sk.smooth3(C, invd, b, x, [(1.0, 0.0)], shape, 2)
-    with pytest.raises(TypeError, match="float32"):
+    assert torch.equal(
+        sk.smooth3(C, invd, b, x, [(1.0, 0.0)], shape, 2),
+        sk.smooth3_plain(C, invd, b, x, [(1.0, 0.0)], shape, 2))
+    assert torch.equal(
         sk.smooth3(Cb.double(), binv.double(), bb.double(), xb.double(),
+                   [(1.0, 0.0)], shape, 1),
+        sk.smooth3_plain(Cb.double(), binv.double(), bb.double(),
+                         xb.double(), [(1.0, 0.0)], shape, 1))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sk.smooth3(C.half(), invd.half(), b.half(), x.half(), [(1.0, 0.0)],
+                   shape, 2)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sk.smooth3(Cb.half(), binv.half(), bb.half(), xb.half(),
                    [(1.0, 0.0)], shape, 1)
+    with pytest.raises(ValueError, match="1 to 3 fields"):
+        sk.stencil3d_block(torch.zeros(4, 4, 27, *shape),
+                           torch.zeros(4 * 125), shape, 1)

@@ -180,12 +180,12 @@ def test_torch_smooth_refuses_a_level_that_does_not_fit():
 SHAPES3 = [(13, 13, 13), (17, 17, 17), (25, 25, 25), (33, 33, 33),
            (13, 10, 17), (11, 19, 37)]
 # (fields, radius, dtype, Chebyshev): the block instances (fields ≥ 1),
-# and the scalar ones (fields 0) with Jacobi sweeps and Chebyshev steps
-INSTANCES3 = ([(nf, r, torch.float32, False) for nf in (1, 2, 3)
-               for r in (1, 2)]
-              + [(0, r, torch.float32, cheb) for r in (1, 2, 3)
-                 for cheb in (False, True)]
-              + [(0, 3, torch.float64, cheb) for cheb in (False, True)])
+# and the scalar ones (fields 0) with Jacobi sweeps and Chebyshev steps,
+# f32 and f64 at radius 1 to 3
+INSTANCES3 = ([(nf, r, dt, False) for dt in (torch.float32, torch.float64)
+               for nf in (1, 2, 3) for r in (1, 2, 3)]
+              + [(0, r, dt, cheb) for dt in (torch.float32, torch.float64)
+                 for r in (1, 2, 3) for cheb in (False, True)])
 STEPS3 = [(0.9, 0.0), (1.2, 0.35), (1.1, 0.5)]
 
 
@@ -368,18 +368,25 @@ def test_torch_plan3_at_path_levels(path):
 @pytest.mark.gpu
 def test_torch_smooth3_refuses_other_instances_on_card():
     """Instances that do not exist raise on the card too: the Chebyshev
-    smoother on block planes, f64 block planes, radius 3 block planes, f64
-    scalar planes at radius 2."""
+    smoother on block planes, planes in another dtype than f32 and f64,
+    radius 4. f64 block planes and f64 scalar planes at radius 2, refused
+    before, run their instances."""
     C, binv, b, x = _card_operands3(2, 1, (9, 9, 9), torch.float32, 5)
     with pytest.raises(ValueError, match="scalar planes"):
         sk.smooth3(C, binv, b, x, STEPS3[:1], (9, 9, 9), 1, cheb=True)
-    with pytest.raises(TypeError, match="float32"):
-        sk.smooth3(C.double(), binv.double(), b.double(), x.double(),
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sk.smooth3(C.half(), binv.half(), b.half(), x.half(),
                    STEPS3[:1], (9, 9, 9), 1)
+    C64, binv64, b64, x64 = (t.double() for t in (C, binv, b, x))
+    assert _err_ok(sk.smooth3(C64, binv64, b64, x64, STEPS3[:1], (9, 9, 9),
+                              1),
+                   sk.smooth3_plain(C64, binv64, b64, x64, STEPS3[:1],
+                                    (9, 9, 9), 1), torch.float64)
     Cs, invd, bs, xs = _card_operands3(0, 2, (9, 9, 9), torch.float64, 6)
-    with pytest.raises(TypeError, match="radius 3"):
-        sk.smooth3(Cs, invd, bs, xs, STEPS3[:1], (9, 9, 9), 2)
+    assert _err_ok(sk.smooth3(Cs, invd, bs, xs, STEPS3[:1], (9, 9, 9), 2),
+                   sk.smooth3_plain(Cs, invd, bs, xs, STEPS3[:1], (9, 9, 9),
+                                    2), torch.float64)
     C3, binv3, b3, x3 = _card_operands3(1, 1, (9, 9, 9), torch.float32, 7)
-    C3 = torch.zeros((1, 1, 343, 9, 9, 9), device=C3.device)
-    with pytest.raises(ValueError, match="radius 1 or 2"):
-        sk.smooth3(C3, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 3)
+    C4 = torch.zeros((1, 1, 729, 9, 9, 9), device=C3.device)
+    with pytest.raises(ValueError, match="radius 1 to 3"):
+        sk.smooth3(C4, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 4)

@@ -100,7 +100,7 @@ def test_torch_stencil3d_wrappers_reject_bad_operands():
     C = torch.zeros(125, 5, 6, 7)
     x = torch.zeros(210)
     with pytest.raises(TypeError):
-        sk.stencil_mv3(C.double(), x.double(), (5, 6, 7), 2)
+        sk.stencil_mv3(C.half(), x.half(), (5, 6, 7), 2)
     with pytest.raises(ValueError):
         sk.stencil_mv3(C, torch.zeros(211), (5, 6, 7), 2)
     with pytest.raises(ValueError):
