@@ -1,8 +1,17 @@
 // The 2D stencil kernels' public entries (plain C, loaded with ctypes) and
-// their f32 instances; the kernels are in csrc/stencil2d.cuh, the f64
-// instances in csrc/stencil2d_f64.cu.
+// their f32 instances at r = 1-3; the kernels are in csrc/stencil2d.cuh,
+// the f64 instances in csrc/stencil2d_f64.cu, the r = 4 ones in
+// csrc/stencil2d_r4.cu and csrc/stencil2d_r4_f64.cu. Each public entry
+// hands its operands to the source that holds their (type, radius).
 
 #include "stencil2d.cuh"
+
+STENCIL2D_ENTRIES(f32, float, 1, 3)
+
+// the typed entry of FN for (f64, radius); null when f64 is neither 0 nor 1
+#define TYPED2D(FN, f64, radius)                                   \
+  ((f64) == 1 ? ((radius) == 4 ? FN##_r4_f64 : FN##_f64)           \
+   : (f64) == 0 ? ((radius) == 4 ? FN##_r4_f32 : FN##_f32) : nullptr)
 
 extern "C" {
 
@@ -14,13 +23,9 @@ extern "C" {
 int stencil2d_block(const void* C, const void* x, const void* b,
                     const void* binv, double omega, void* y, int nx, int ny,
                     int radius, int nf, int mode, int f64, void* stream) {
-  if (f64 == 1) {
-    return stencil2d_block_f64(C, x, b, binv, omega, y, nx, ny, radius, nf,
-                               mode, stream);
-  }
-  if (f64 != 0) return (int)cudaErrorInvalidValue;
-  return block_entry<float>(C, x, b, binv, omega, y, nx, ny, radius, nf, mode,
-                            stream);
+  auto fn = TYPED2D(stencil2d_block, f64, radius);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(C, x, b, binv, omega, y, nx, ny, radius, nf, mode, stream);
 }
 
 // y = A x, scalar operator
@@ -34,9 +39,9 @@ int stencil2d_mv(const void* C, const void* x, void* y, int nx, int ny,
 // (stencil2d_smooth); 0: it takes one launch per pass (stencil2d_block);
 // negative: the occupancy query failed.
 int stencil2d_smooth_plan(int nx, int ny, int radius, int nf, int f64) {
-  if (f64 == 1) return stencil2d_smooth_plan_f64(nx, ny, radius, nf);
-  if (f64 != 0) return -1;
-  return plan_entry<float>(nx, ny, radius, nf);
+  auto fn = TYPED2D(stencil2d_smooth_plan, f64, radius);
+  if (fn == nullptr) return -1;
+  return fn(nx, ny, radius, nf);
 }
 
 // `sweeps` >= 1 sweeps from x (x null: from zero) into out, then
@@ -48,13 +53,10 @@ int stencil2d_smooth(const void* C, const void* binv, const void* b,
                      const void* x, double omega, int sweeps, void* out,
                      void* tmp, void* res, int nx, int ny, int radius,
                      int nf, int f64, void* stream) {
-  if (f64 == 1) {
-    return stencil2d_smooth_f64(C, binv, b, x, omega, sweeps, out, tmp, res,
-                                nx, ny, radius, nf, stream);
-  }
-  if (f64 != 0) return (int)cudaErrorInvalidValue;
-  return level_entry<float>(C, binv, b, x, omega, sweeps, out, tmp, res, nx,
-                            ny, radius, nf, stream);
+  auto fn = TYPED2D(stencil2d_smooth, f64, radius);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(C, binv, b, x, omega, sweeps, out, tmp, res, nx, ny, radius, nf,
+            stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // Variable-coefficient 2D stencil apply, residual and weighted-Jacobi sweeps
 // for Hopper (sm_90a), on scalar and block (multi-field) operators, in f32
 // and f64: the kernel bodies and the entries' dispatch by (radius, fields),
-// shared by csrc/stencil2d.cu (the f32 instances and the public entries)
-// and csrc/stencil2d_f64.cu (the f64 instances), which nvcc compiles in
-// parallel.
+// shared by the four sources that instantiate them, which nvcc compiles in
+// parallel: csrc/stencil2d.cu (the f32 instances at r = 1-3 and the public
+// entries), csrc/stencil2d_f64.cu (f64, r = 1-3), csrc/stencil2d_r4.cu and
+// csrc/stencil2d_r4_f64.cu (r = 4 in f32 and f64).
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv` (body `_mv_kernel`/`_taps`) and `jacobi_smooth` (body
@@ -20,10 +21,11 @@
 //
 // with x zero outside the (nx, ny) lattice; node id = i*ny + j, no padding.
 //
-// Instances (scalar type, radius, fields): f32 and f64 at r = 1, 2, 3 (r = 3:
-// the quadratic B-spline background's 49-tap stencil) for 1 to 3 fields,
-// every configuration the multigrid routes take. Every instance is the same
-// body; only its register plan differs (see pass_blocks, streamed).
+// Instances (scalar type, radius, fields): f32 and f64 at r = 1 to 4 (r = 3:
+// the quadratic B-spline background's 49-tap stencil, r = 4 the cubic one's
+// 81 taps) for 1 to 3 fields, every configuration the multigrid routes
+// take. Every instance is the same body; only its register plan differs
+// (see pass_blocks, streamed).
 //
 // What bounds it: memory traffic on the large lattices (nF*nF*m*m
 // coefficients per point against 2 flops each), and on the small ones the
@@ -39,9 +41,9 @@
 //   device memory;
 // * a point whose nF^2 m^2 coefficients are more than a pass's registers
 //   hold (nF = 3, r = 2: 225 words; every f64 block instance but nF = 2,
-//   r = 1, up to nF = 3, r = 3's 882) streams them in rolled (f2, oi) trips
-//   of nF m loads, one or two in flight (`streamed`, `trips`), so no
-//   instance spills;
+//   r = 1, up to nF = 3, r = 4's 1,458; the f64 scalar r = 4 point's 162)
+//   streams them in rolled (f2, oi) trips of nF m loads, one or two in
+//   flight (`streamed`, `trips`), so no instance spills;
 // * does a whole multigrid level's work in one launch where the level is
 //   small (`stencil2d_smooth`): nu sweeps and, when asked, the trailing
 //   residual, one block per tile. A thread keeps its point's coefficients,
@@ -98,8 +100,8 @@ enum Mode { kApply = 0, kResidual = 1, kSweep = 2, kSweepFromZero = 3 };
 // reread them every pass), and its grid must be co-resident: 3 blocks per
 // SM up to 25 words (the 297 tiles of a scalar f32 r = 2 257 x 257 level),
 // 2 up to 50, else 1 (an f64 r = 3 point's 98 words: 255 registers, 132
-// co-resident tiles); block operators 1 (the 85 tiles of a 2- or 3-field
-// 129 x 129).
+// co-resident tiles; an f32 r = 4 point's 81); block operators 1 (the 85
+// tiles of a 2- or 3-field 129 x 129).
 template <class T, int R, int NF>
 __host__ __device__ constexpr int coef_words() {
   return NF * NF * (2 * R + 1) * (2 * R + 1) * (int)(sizeof(T) / 4);
@@ -124,7 +126,8 @@ __host__ __device__ constexpr int level_blocks() {
 // (f2, then oi, then oj for each output field), so a streamed instance
 // computes what the unrolled one did, bitwise. Two trips in flight, as in
 // csrc/stencil3d.cu's marching kernel, where their loads take at most 64
-// words; one where a trip's alone is more than 32 (f64 nF = 3, r = 3: 42).
+// words; one where a trip's alone is more than 32 (f64 nF = 3, r = 3: 42;
+// f64 nF = 2 and 3 at r = 4: 36, 54).
 template <class T, int R, int NF>
 __host__ __device__ constexpr bool streamed() {
   return coef_words<T, R, NF>() > 128;
@@ -511,25 +514,31 @@ int plan_level(int nx, int ny) {
 }
 
 
-// The entries' bodies for one scalar type T, by (radius, fields): each
-// source that includes this header instantiates them for its own T, so the
-// f32 and the f64 instances compile in parallel (csrc/stencil2d.cu,
-// csrc/stencil2d_f64.cu).
-#define DISPATCH_T(T, radius, nf, CALL)                      \
-  switch ((radius) * 10 + (nf)) {                            \
-    case 11: return (int)(CALL(T, 1, 1));                    \
-    case 12: return (int)(CALL(T, 1, 2));                    \
-    case 13: return (int)(CALL(T, 1, 3));                    \
-    case 21: return (int)(CALL(T, 2, 1));                    \
-    case 22: return (int)(CALL(T, 2, 2));                    \
-    case 23: return (int)(CALL(T, 2, 3));                    \
-    case 31: return (int)(CALL(T, 3, 1));                    \
-    case 32: return (int)(CALL(T, 3, 2));                    \
-    case 33: return (int)(CALL(T, 3, 3));                    \
-    default: return (int)cudaErrorInvalidValue;              \
+// The entries' bodies for one scalar type T and the radii LO..HI, by
+// (radius, fields): each source that includes this header instantiates
+// them for its own type and radii (STENCIL2D_ENTRIES), so the instances
+// compile in parallel; a radius outside LO..HI is refused.
+#define CASE_T(T, LO, HI, R, NF, CALL)                               \
+  if constexpr (LO <= R && R <= HI) return (int)(CALL(T, R, NF));    \
+  else return (int)cudaErrorInvalidValue;
+#define DISPATCH_T(T, LO, HI, radius, nf, CALL)                      \
+  switch ((radius) * 10 + (nf)) {                                    \
+    case 11: { CASE_T(T, LO, HI, 1, 1, CALL) }                       \
+    case 12: { CASE_T(T, LO, HI, 1, 2, CALL) }                       \
+    case 13: { CASE_T(T, LO, HI, 1, 3, CALL) }                       \
+    case 21: { CASE_T(T, LO, HI, 2, 1, CALL) }                       \
+    case 22: { CASE_T(T, LO, HI, 2, 2, CALL) }                       \
+    case 23: { CASE_T(T, LO, HI, 2, 3, CALL) }                       \
+    case 31: { CASE_T(T, LO, HI, 3, 1, CALL) }                       \
+    case 32: { CASE_T(T, LO, HI, 3, 2, CALL) }                       \
+    case 33: { CASE_T(T, LO, HI, 3, 3, CALL) }                       \
+    case 41: { CASE_T(T, LO, HI, 4, 1, CALL) }                       \
+    case 42: { CASE_T(T, LO, HI, 4, 2, CALL) }                       \
+    case 43: { CASE_T(T, LO, HI, 4, 3, CALL) }                       \
+    default: return (int)cudaErrorInvalidValue;                      \
   }
 
-template <class T>
+template <class T, int LO, int HI>
 int block_entry(const void* C, const void* x, const void* b, const void* binv,
                 double omega, void* y, int nx, int ny, int radius, int nf,
                 int mode, void* stream) {
@@ -537,19 +546,19 @@ int block_entry(const void* C, const void* x, const void* b, const void* binv,
 #define CALL(T_, R, NF)                                                    \
   launch_pass_mode<T_, R, NF>(mode, C, x, b, binv, omega, y, nx, ny,       \
                               (cudaStream_t)stream)
-  DISPATCH_T(T, radius, nf, CALL)
+  DISPATCH_T(T, LO, HI, radius, nf, CALL)
 #undef CALL
 }
 
-template <class T>
+template <class T, int LO, int HI>
 int plan_entry(int nx, int ny, int radius, int nf) {
   if (nx <= 0 || ny <= 0) return -1;
 #define CALL(T_, R, NF) plan_level<T_, R, NF>(nx, ny)
-  DISPATCH_T(T, radius, nf, CALL)
+  DISPATCH_T(T, LO, HI, radius, nf, CALL)
 #undef CALL
 }
 
-template <class T>
+template <class T, int LO, int HI>
 int level_entry(const void* C, const void* binv, const void* b, const void* x,
                 double omega, int sweeps, void* out, void* tmp, void* res,
                 int nx, int ny, int radius, int nf, void* stream) {
@@ -557,23 +566,54 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
 #define CALL(T_, R, NF)                                                    \
   launch_level<T_, R, NF>(C, binv, b, x, omega, sweeps, out, tmp, res, nx, \
                           ny, (cudaStream_t)stream)
-  DISPATCH_T(T, radius, nf, CALL)
+  DISPATCH_T(T, LO, HI, radius, nf, CALL)
 #undef CALL
 }
 
 }  // namespace
 
-// The f64 instances' entries (csrc/stencil2d_f64.cu), called by the
-// public entries of csrc/stencil2d.cu for f64 operands.
+// The typed entries of one source: its scalar type T and radii LO..HI,
+// named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4). The public
+// entries of csrc/stencil2d.cu call the source that holds an operand's
+// (type, radius).
+#define STENCIL2D_DECLARE(SUFFIX)                                           \
+  int stencil2d_block_##SUFFIX(const void* C, const void* x, const void* b, \
+                               const void* binv, double omega, void* y,     \
+                               int nx, int ny, int radius, int nf,          \
+                               int mode, void* stream);                     \
+  int stencil2d_smooth_plan_##SUFFIX(int nx, int ny, int radius, int nf);   \
+  int stencil2d_smooth_##SUFFIX(const void* C, const void* binv,            \
+                                const void* b, const void* x, double omega, \
+                                int sweeps, void* out, void* tmp,           \
+                                void* res, int nx, int ny, int radius,      \
+                                int nf, void* stream);
+#define STENCIL2D_ENTRIES(SUFFIX, T, LO, HI)                                \
+  extern "C" {                                                              \
+  int stencil2d_block_##SUFFIX(const void* C, const void* x, const void* b, \
+                               const void* binv, double omega, void* y,     \
+                               int nx, int ny, int radius, int nf,          \
+                               int mode, void* stream) {                    \
+    return block_entry<T, LO, HI>(C, x, b, binv, omega, y, nx, ny, radius,  \
+                                  nf, mode, stream);                        \
+  }                                                                         \
+  int stencil2d_smooth_plan_##SUFFIX(int nx, int ny, int radius, int nf) {  \
+    return plan_entry<T, LO, HI>(nx, ny, radius, nf);                       \
+  }                                                                         \
+  int stencil2d_smooth_##SUFFIX(const void* C, const void* binv,            \
+                                const void* b, const void* x, double omega, \
+                                int sweeps, void* out, void* tmp,           \
+                                void* res, int nx, int ny, int radius,      \
+                                int nf, void* stream) {                     \
+    return level_entry<T, LO, HI>(C, binv, b, x, omega, sweeps, out, tmp,   \
+                                  res, nx, ny, radius, nf, stream);         \
+  }                                                                         \
+  }
+
 extern "C" {
-int stencil2d_block_f64(const void* C, const void* x, const void* b,
-                        const void* binv, double omega, void* y, int nx,
-                        int ny, int radius, int nf, int mode, void* stream);
-int stencil2d_smooth_plan_f64(int nx, int ny, int radius, int nf);
-int stencil2d_smooth_f64(const void* C, const void* binv, const void* b,
-                         const void* x, double omega, int sweeps, void* out,
-                         void* tmp, void* res, int nx, int ny, int radius,
-                         int nf, void* stream);
+STENCIL2D_DECLARE(f32)
+STENCIL2D_DECLARE(f64)
+STENCIL2D_DECLARE(r4_f32)
+STENCIL2D_DECLARE(r4_f64)
 }
 
 #endif  // IIFEA_STENCIL2D_CUH_

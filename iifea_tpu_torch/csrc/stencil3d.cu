@@ -1,28 +1,38 @@
 // The 3D stencil kernels' public entries (plain C, loaded with ctypes) and
-// their f32 instances; the kernels are in csrc/stencil3d.cuh, the f64
-// instances in csrc/stencil3d_f64.cu.
+// their f32 instances at r = 1-3; the kernels are in csrc/stencil3d.cuh,
+// the f64 instances in csrc/stencil3d_f64.cu, the r = 4 ones in
+// csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu. Each public entry
+// hands its operands to the source that holds their (type, radius).
 
 #include "stencil3d.cuh"
 
+STENCIL3D_ENTRIES(f32, float, 1, 3)
+
+// the typed entry of FN for (f64, radius); null when f64 is neither 0 nor 1
+#define TYPED3D(FN, f64, radius)                                   \
+  ((f64) == 1 ? ((radius) == 4 ? FN##_r4_f64 : FN##_f64)           \
+   : (f64) == 0 ? ((radius) == 4 ? FN##_r4_f32 : FN##_f32) : nullptr)
+
 extern "C" {
 
-// y = A x on scalar planes; f32 and f64 at r = 1, 2, 3.
+// y = A x on scalar planes; f32 and f64 at r = 1 to 4.
 int stencil3d_mv(const void* C, const void* x, void* y, int nx, int ny,
                  int nz, int radius, int f64, void* stream) {
-  if (f64 == 1) return stencil3d_mv_f64(C, x, y, nx, ny, nz, radius, stream);
-  if (f64 != 0) return (int)cudaErrorInvalidValue;
-  return mv_entry<float>(C, x, y, nx, ny, nz, radius, stream);
+  auto fn = TYPED3D(stencil3d_mv, f64, radius);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(C, x, y, nx, ny, nz, radius, stream);
 }
 
 // The plan of a level shape for an instance: out[0] split, out[1] 1 where
 // the level's smoothing call is one launch (0: one launch per pass), out[2]
-// the level launch's co-resident blocks. 0 on success, negative if a query
-// failed.
+// the level launch's co-resident blocks. 0 on success; -2 where a block
+// cannot hold the staged x planes of every field (kPlanTooWide), -1 if a
+// query failed.
 int stencil3d_plan(int nx, int ny, int nz, int radius, int nf, int f64,
                    int* out) {
-  if (f64 == 1) return stencil3d_plan_f64(nx, ny, nz, radius, nf, out);
-  if (f64 != 0) return -1;
-  return plan_entry<float>(nx, ny, nz, radius, nf, out);
+  auto fn = TYPED3D(stencil3d_plan, f64, radius);
+  if (fn == nullptr) return -1;
+  return fn(nx, ny, nz, radius, nf, out);
 }
 
 // One pass on nF fields: pass 0 y = A x, 1 y = b - A x, 2 y = x + s0 Binv
@@ -34,13 +44,10 @@ int stencil3d_pass(const void* C, const void* x, const void* b,
                    const void* binv, void* d, double omega0, double s0,
                    double s1, void* y, int nx, int ny, int nz, int radius,
                    int nf, int f64, int pass, int split, void* stream) {
-  if (f64 == 1) {
-    return stencil3d_pass_f64(C, x, b, binv, d, omega0, s0, s1, y, nx, ny,
-                              nz, radius, nf, pass, split, stream);
-  }
-  if (f64 != 0) return (int)cudaErrorInvalidValue;
-  return pass_entry<float>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,
-                           radius, nf, pass, split, stream);
+  auto fn = TYPED3D(stencil3d_pass, f64, radius);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz, radius, nf, pass,
+            split, stream);
 }
 
 // A level's smoothing call in ONE cooperative launch: `sweeps` (1 to 8)
@@ -55,14 +62,10 @@ int stencil3d_level(const void* C, const void* binv, const void* b,
                     const double* s0, const double* s1, int sweeps, int cheb,
                     int nx, int ny, int nz, int radius, int nf, int f64,
                     int split, void* stream) {
-  if (f64 == 1) {
-    return stencil3d_level_f64(C, binv, b, x, d, out, tmp, res, s0, s1,
-                               sweeps, cheb, nx, ny, nz, radius, nf, split,
-                               stream);
-  }
-  if (f64 != 0) return (int)cudaErrorInvalidValue;
-  return level_entry<float>(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps,
-                            cheb, nx, ny, nz, radius, nf, split, stream);
+  auto fn = TYPED3D(stencil3d_level, f64, radius);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps, cheb, nx, ny, nz,
+            radius, nf, split, stream);
 }
 
 }  // extern "C"

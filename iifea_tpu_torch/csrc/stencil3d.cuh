@@ -4,9 +4,10 @@
 // the Chebyshev step, block applies and residuals) and behind a multigrid
 // level's whole smoothing call (`stencil3d_level`, one cooperative launch).
 // This header holds the kernels and the entries' dispatch by (radius,
-// fields), shared by csrc/stencil3d.cu (the f32 instances and the public
-// entries) and csrc/stencil3d_f64.cu (the f64 instances), which nvcc
-// compiles in parallel.
+// fields), shared by the four sources that instantiate them, which nvcc
+// compiles in parallel: csrc/stencil3d.cu (the f32 instances at r = 1-3 and
+// the public entries), csrc/stencil3d_f64.cu (f64, r = 1-3),
+// csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu (r = 4 in f32 and f64).
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
@@ -26,10 +27,10 @@
 //   cheb:      r = invd (b - A x); d' = s0 r + s1 d; y = x + d'   (nF = 1)
 //   zero:      y = omega * Binv b               (a sweep from x = 0)
 //
-// Instances (scalar type, radius, fields): f32 and f64 at r = 1, 2, 3
-// (r = 3: the quadratic B-spline background's 343 taps) for 1 to 3 fields,
-// every configuration the multigrid routes take. `stencil3d_mv` has f32 and
-// f64 at r = 1, 2, 3.
+// Instances (scalar type, radius, fields): f32 and f64 at r = 1 to 4
+// (r = 3: the quadratic B-spline background's 343 taps, r = 4 the cubic
+// one's 729) for 1 to 3 fields, every configuration the multigrid routes
+// take. `stencil3d_mv` has f32 and f64 at r = 1 to 4.
 //
 // What bounds them: memory traffic. A point reads nF^2 m^3 coefficients
 // once (1,125 f32 at nF = 3, r = 2; 3,087 f64 at nF = 3, r = 3) against ~2
@@ -107,10 +108,37 @@ constexpr int kThreads = kTX * kTY * kTZ;
 // At r = 3 a point's 343 coefficients (686 words in f64) would all be
 // hoisted and spilled, so the loop over oi stays rolled and a trip unrolls
 // the m^2 = 49 (oj, ok) taps: 49 words in flight in f32, 98 in f64. The f64
-// instances at r = 1, 2 roll it too (18 and 50 words a trip).
+// instances at r = 1, 2 roll it too (18 and 50 words a trip). At r = 4 a
+// trip unrolls `mv_rows` rows of oj: all 9 in f32 (81 words), 3 in f64 (54
+// words, where all 9 would be 162), the loop over row groups rolled.
 template <class T, int R>
 __host__ __device__ constexpr bool rolled_taps() {
   return R >= 3 || sizeof(T) == 8;
+}
+template <class T, int R>
+__host__ __device__ constexpr int mv_rows() {
+  return (2 * R + 1) * (2 * R + 1) * (int)(sizeof(T) / 4) <= 100
+             ? 2 * R + 1
+             : (2 * R + 1) / 3;
+}
+
+// ROWS rows oj0 .. oj0 + ROWS - 1 of the (oj, ok) taps of plane offset oi
+template <class T, int R, int ROWS>
+__device__ __forceinline__ T tap_rows(const T* __restrict__ Cq, int64_t plane,
+                                      const T (&xs)[kTX + 2 * R][kTY + 2 * R]
+                                                   [kTZ + 2 * R],
+                                      int oi, int oj0, T acc) {
+  constexpr int M = 2 * R + 1;
+#pragma unroll
+  for (int oj = oj0; oj < oj0 + ROWS; ++oj) {
+#pragma unroll
+    for (int ok = 0; ok < M; ++ok) {
+      acc = fma_t(__ldg(Cq + (oj * M + ok) * plane),
+                  xs[threadIdx.z + oi][threadIdx.y + oj][threadIdx.x + ok],
+                  acc);
+    }
+  }
+  return acc;
 }
 
 template <class T, int R>
@@ -120,17 +148,17 @@ __device__ __forceinline__ T taps(const T* __restrict__ Cp, int64_t plane,
   constexpr int M = 2 * R + 1;
   T acc = T(0);
   if constexpr (rolled_taps<T, R>()) {
+    constexpr int ROWS = mv_rows<T, R>();
+    static_assert(M % ROWS == 0, "a trip takes whole rows");
 #pragma unroll 1
     for (int oi = 0; oi < M; ++oi) {
       const T* Cq = Cp + (int64_t)(oi * M * M) * plane;
-#pragma unroll
-      for (int oj = 0; oj < M; ++oj) {
-#pragma unroll
-        for (int ok = 0; ok < M; ++ok) {
-          acc = fma_t(__ldg(Cq + (oj * M + ok) * plane),
-                      xs[threadIdx.z + oi][threadIdx.y + oj]
-                        [threadIdx.x + ok],
-                      acc);
+      if constexpr (ROWS == M) {
+        acc = tap_rows<T, R, M>(Cq, plane, xs, oi, 0, acc);
+      } else {
+#pragma unroll 1
+        for (int oj0 = 0; oj0 < M; oj0 += ROWS) {
+          acc = tap_rows<T, R, ROWS>(Cq, plane, xs, oi, oj0, acc);
         }
       }
     }
@@ -202,14 +230,14 @@ stencil3d_mv_kernel(const float* __restrict__ C, const float* __restrict__ x,
   mv_point<float, R>(C, x, y, nx, ny, nz);
 }
 
-// The rolled instances (r = 3; f64 at every radius): resident blocks per SM
-// asked of the compiler from the 32-bit words of one trip's loads, which
+// The rolled instances (r >= 3; f64 at every radius): resident blocks per
+// SM asked of the compiler from the 32-bit words of one trip's loads, which
 // must fit under the cap (65536 / 256 threads / blocks registers): 3 blocks
 // (85 registers) up to f32 r = 3's 49 words (f64 r = 1: 18), else 2 (128:
-// f64 r = 2's 50, r = 3's 98).
+// f64 r = 2's 50, r = 3's 98, r = 4's 54; f32 r = 4's 81).
 template <class T, int R>
 __host__ __device__ constexpr int rolled_blocks() {
-  return (2 * R + 1) * (2 * R + 1) * (int)(sizeof(T) / 4) <= 49 ? 3 : 2;
+  return mv_rows<T, R>() * (2 * R + 1) * (int)(sizeof(T) / 4) <= 49 ? 3 : 2;
 }
 
 template <class T, int R>
@@ -286,20 +314,26 @@ size_t smem_bytes(const Geom& g) {
 
 // A trip: the loads of one (f2, oi) pair, for `trip_fields` output fields
 // (all nF, or one where nF m^2 words are more than 150: f64 r = 3 with 2 or
-// 3 fields, whose trips then cover one field each). The trips a thread
-// keeps in flight (their loads unrolled together), the words of their
-// coefficient loads, and the resident blocks per SM asked of the compiler
-// so that those loads fit under the register cap (65536 / 256 threads /
-// blocks) beside ~24 of bookkeeping (~32 in f64): two trips at nF = 3, r = 2
+// 3 fields, whose trips then cover one field each; every r = 4 block
+// instance), and for `trip_rows` rows of oj (all m, or a third where one
+// field's m^2 words are more than 150: f64 r = 4, 162 words, whose trips
+// then take 3 rows, 54 words; the sums keep their order f2, oi, oj). The
+// trips a thread keeps in flight (their loads unrolled together), the
+// words of their coefficient loads, and the resident blocks per SM asked
+// of the compiler so that those loads fit under the register cap (65536 /
+// 256 threads / blocks) beside ~24 of bookkeeping (~32 in f64): two trips
+// at nF = 3, r = 2
 // (150 words) and f64 r = 3 (196) take 1 block (255 registers), f32 r = 3
 // (98) and nF = 2, r = 2 (100) 2. The scalar f32 r <= 2 instances (the 3D
 // Poisson cycle) keep one trip in flight: at 53^3 two trips' registers cost
 // a wave (0.0336 ms against 0.0310 on an H100); so does a block instance
 // whose two trips would be more than 150 words (f64 nF = 2, r = 2: 100 in
 // one; f32 r = 3 with 2 or 3 fields: 98, 147; f64 nF = 3, r = 2: 150; f64
-// r = 3 with 2 or 3 fields: 98). A level's launch keeps more live across its
-// passes: ~56 (~64 in f64). At least 1 block, at most 6 (42 registers): at 7
-// the scalar r = 1 body spills.
+// r = 3 with 2 or 3 fields: 98; f32 r = 4 with 2 or 3 fields: 81). At
+// r = 4: f32 scalar two trips of 81 words, 1 block; f64 two trips of 54 (2
+// or 3 fields: one field's rows each), 1 block. A level's launch keeps more
+// live across its passes: ~56 (~64 in f64). At least 1 block, at most 6
+// (42 registers): at 7 the scalar r = 1 body spills.
 template <class T, int R, int NF>
 __host__ __device__ constexpr bool scalar_r2() {
   return NF == 1 && R <= 2 && sizeof(T) == 4;
@@ -312,17 +346,25 @@ template <class T, int R, int NF>
 __host__ __device__ constexpr int trip_fields() {
   return trip_words<T, R>(NF) <= 150 ? NF : 1;
 }
+template <class T, int R>
+__host__ __device__ constexpr int trip_rows() {
+  return trip_words<T, R>(1) <= 150 ? 2 * R + 1 : (2 * R + 1) / 3;
+}
+// the words of one trip's coefficient loads
+template <class T, int R, int NF>
+__host__ __device__ constexpr int load_words() {
+  return trip_words<T, R>(trip_fields<T, R, NF>()) * trip_rows<T, R>() /
+         (2 * R + 1);
+}
 template <class T, int R, int NF>
 __host__ __device__ constexpr int trips() {
   return scalar_r2<T, R, NF>() ? 1
-         : NF == 1 || 2 * trip_words<T, R>(trip_fields<T, R, NF>()) <= 150
-             ? 2
-             : 1;
+         : NF == 1 || 2 * load_words<T, R, NF>() <= 150 ? 2
+                                                         : 1;
 }
 template <class T, int R, int NF>
 __host__ __device__ constexpr int march_blocks(int bookkeeping = 24) {
-  const int regs = trips<T, R, NF>() *
-                       trip_words<T, R>(trip_fields<T, R, NF>()) +
+  const int regs = trips<T, R, NF>() * load_words<T, R, NF>() +
                    bookkeeping + (sizeof(T) == 8 ? 8 : 0);
   return 256 / regs > 6 ? 6 : 256 / regs < 1 ? 1 : 256 / regs;
 }
@@ -401,20 +443,22 @@ __device__ __forceinline__ void stage_plane(T* slot, const Geom& g, int gi,
 // One (f2, oi) trip at a point: acc[f1] += sum_(oj, ok) C[f1, f2, q] *
 // window for every output field f1 (NF m^2 loads), or, where a trip covers
 // one field (trip_fields), for f1 = fg alone (m^2 loads; acc[fg] is picked
-// and put back by selects, so acc stays in registers). Cq: C + (f2 m^3 +
-// oi m^2) plane + p; xw: the window slot of field f2 at the point's (row,
-// column) offset -r.
+// and put back by selects, so acc stays in registers), over the trip's
+// `trip_rows` rows of oj. Cq: C + (f2 m^3 + oi m^2 + oj0 m) plane + p; xw:
+// the window slot of field f2 at the point's (row, column) offset -r, moved
+// down oj0 rows.
 template <class T, int R, int NF>
 __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
                                      const T* xw, int width, T (&acc)[NF],
                                      int fg) {
   constexpr int M = 2 * R + 1;
   constexpr int M3 = M * M * M;
+  constexpr int ROWS = trip_rows<T, R>();
   if constexpr (trip_fields<T, R, NF>() == NF) {
 #pragma unroll
     for (int f1 = 0; f1 < NF; ++f1) {
 #pragma unroll
-      for (int oj = 0; oj < M; ++oj) {
+      for (int oj = 0; oj < ROWS; ++oj) {
 #pragma unroll
         for (int ok = 0; ok < M; ++ok) {
           acc[f1] = fma_t(
@@ -429,7 +473,7 @@ __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
     for (int f1 = 1; f1 < NF; ++f1) a = fg == f1 ? acc[f1] : a;
     const T* Cf = Cq + (int64_t)fg * NF * M3 * plane;
 #pragma unroll
-    for (int oj = 0; oj < M; ++oj) {
+    for (int oj = 0; oj < ROWS; ++oj) {
 #pragma unroll
       for (int ok = 0; ok < M; ++ok) {
         a = fma_t(__ldg(Cf + (int64_t)(oj * M + ok) * plane),
@@ -491,9 +535,13 @@ __device__ __forceinline__ void march(
   if (STAGE == kCopy) cp_async_wait();
   __syncthreads();
 
-  // trip tu = ((f2 M + oi) G + fg): G = NF / trip_fields field groups
+  // trip tu = (((f2 M + oi) RG + rg) G + fg): G = NF / trip_fields field
+  // groups, RG = m / trip_rows row groups
   constexpr int G = NF / trip_fields<T, R, NF>();
-  constexpr int NT = NF * M * G;
+  constexpr int ROWS = trip_rows<T, R>();
+  constexpr int RG = M / ROWS;
+  static_assert(M % ROWS == 0, "a trip takes whole rows");
+  constexpr int NT = NF * M * RG * G;
   T acc[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) acc[f] = T(0);
@@ -505,11 +553,16 @@ __device__ __forceinline__ void march(
         const int tu = t + u * g.split;
         if (tu < NT) {
           const int fg = tu % G;
-          const int f2 = tu / G / M;
-          const int oi = tu / G - f2 * M;
-          const T* xw = sm + (oi * NF + f2) * per + wr * g.width + k;
-          trip<T, R, NF>(C + (int64_t)(f2 * M3 + oi * M * M) * plane + p,
-                         plane, xw, g.width, acc, fg);
+          const int rg = tu / G % RG;
+          const int fo = tu / G / RG;
+          const int f2 = fo / M;
+          const int oi = fo - f2 * M;
+          const int oj0 = rg * ROWS;
+          const T* xw =
+              sm + (oi * NF + f2) * per + (wr + oj0) * g.width + k;
+          trip<T, R, NF>(
+              C + (int64_t)(f2 * M3 + oi * M * M + oj0 * M) * plane + p,
+              plane, xw, g.width, acc, fg);
         }
       }
     }
@@ -722,6 +775,11 @@ size_t one_block_smem() {
   return bytes;
 }
 
+// plan's answer where a block cannot stage the 2r+1 x planes of every field
+// at split 1 (f64 r = 4 with 3 fields from a 97-point row on: 272 KB
+// against an H100's 227 KB a block); larger splits stage fewer rows
+constexpr int kPlanTooWide = -2;
+
 // The plan of one level shape (out[0..2]): split, whether the level's
 // smoothing call is one launch (1) or one launch per pass (0), and the
 // co-resident blocks of the level launch. From the sweep of every split at
@@ -744,8 +802,13 @@ int plan(int nx, int ny, int nz, int* out) {
   const int sms = sm_count();
   if (sms == 0) return -1;
   const int per_thread =
-      cdiv(NF * (2 * R + 1) * (NF / trip_fields<T, R, NF>()),
+      cdiv(NF * (2 * R + 1) * (NF / trip_fields<T, R, NF>()) *
+               ((2 * R + 1) / trip_rows<T, R>()),
            trips<T, R, NF>());
+  if (smem_bytes<T, R, NF>(make_geom<R>(nx, ny, nz, 1)) >
+      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin)) {
+    return kPlanTooWide;
+  }
   int split = 1;
   for (;;) {
     const Geom g = make_geom<R>(nx, ny, nz, split);
@@ -848,45 +911,49 @@ int launch_level(const void* C, const void* binv, const void* b,
 }
 
 
-// The entries' bodies for one scalar type T: each source that includes
-// this header instantiates them for its own T, so the f32 and the f64
-// instances compile in parallel (csrc/stencil3d.cu, csrc/stencil3d_f64.cu).
-#define DISPATCH3_T(T, radius, nf, CALL)                     \
-  switch ((radius) * 10 + (nf)) {                            \
-    case 11: return CALL(T, 1, 1);                           \
-    case 12: return CALL(T, 1, 2);                           \
-    case 13: return CALL(T, 1, 3);                           \
-    case 21: return CALL(T, 2, 1);                           \
-    case 22: return CALL(T, 2, 2);                           \
-    case 23: return CALL(T, 2, 3);                           \
-    case 31: return CALL(T, 3, 1);                           \
-    case 32: return CALL(T, 3, 2);                           \
-    case 33: return CALL(T, 3, 3);                           \
-    default: return (int)cudaErrorInvalidValue;              \
+// The entries' bodies for one scalar type T and the radii LO..HI, by
+// (radius, fields): each source that includes this header instantiates
+// them for its own type and radii (STENCIL3D_ENTRIES), so the instances
+// compile in parallel; a radius outside LO..HI is refused.
+#define CASE3_T(T, LO, HI, R, NF, CALL)                              \
+  if constexpr (LO <= R && R <= HI) return CALL(T, R, NF);           \
+  else return (int)cudaErrorInvalidValue;
+#define DISPATCH3_T(T, LO, HI, radius, nf, CALL)                     \
+  switch ((radius) * 10 + (nf)) {                                    \
+    case 11: { CASE3_T(T, LO, HI, 1, 1, CALL) }                      \
+    case 12: { CASE3_T(T, LO, HI, 1, 2, CALL) }                      \
+    case 13: { CASE3_T(T, LO, HI, 1, 3, CALL) }                      \
+    case 21: { CASE3_T(T, LO, HI, 2, 1, CALL) }                      \
+    case 22: { CASE3_T(T, LO, HI, 2, 2, CALL) }                      \
+    case 23: { CASE3_T(T, LO, HI, 2, 3, CALL) }                      \
+    case 31: { CASE3_T(T, LO, HI, 3, 1, CALL) }                      \
+    case 32: { CASE3_T(T, LO, HI, 3, 2, CALL) }                      \
+    case 33: { CASE3_T(T, LO, HI, 3, 3, CALL) }                      \
+    case 41: { CASE3_T(T, LO, HI, 4, 1, CALL) }                      \
+    case 42: { CASE3_T(T, LO, HI, 4, 2, CALL) }                      \
+    case 43: { CASE3_T(T, LO, HI, 4, 3, CALL) }                      \
+    default: return (int)cudaErrorInvalidValue;                      \
   }
 
-template <class T>
+template <class T, int LO, int HI>
 int mv_entry(const void* C, const void* x, void* y, int nx, int ny, int nz,
              int radius, void* stream) {
   if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (radius) {
-    case 1: return launch_mv<T, 1>(C, x, y, nx, ny, nz, s);
-    case 2: return launch_mv<T, 2>(C, x, y, nx, ny, nz, s);
-    case 3: return launch_mv<T, 3>(C, x, y, nx, ny, nz, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <class T>
-int plan_entry(int nx, int ny, int nz, int radius, int nf, int* out) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return -1;
-#define CALL(T_, R, NF) plan<T_, R, NF>(nx, ny, nz, out)
-  DISPATCH3_T(T, radius, nf, CALL)
+#define CALL(T_, R, NF)                                                     \
+  launch_mv<T_, R>(C, x, y, nx, ny, nz, (cudaStream_t)stream)
+  DISPATCH3_T(T, LO, HI, radius, 1, CALL)
 #undef CALL
 }
 
-template <class T>
+template <class T, int LO, int HI>
+int plan_entry(int nx, int ny, int nz, int radius, int nf, int* out) {
+  if (nx <= 0 || ny <= 0 || nz <= 0) return -1;
+#define CALL(T_, R, NF) plan<T_, R, NF>(nx, ny, nz, out)
+  DISPATCH3_T(T, LO, HI, radius, nf, CALL)
+#undef CALL
+}
+
+template <class T, int LO, int HI>
 int pass_entry(const void* C, const void* x, const void* b, const void* binv,
                void* d, double omega0, double s0, double s1, void* y, int nx,
                int ny, int nz, int radius, int nf, int pass, int split,
@@ -895,11 +962,11 @@ int pass_entry(const void* C, const void* x, const void* b, const void* binv,
 #define CALL(T_, R, NF)                                                     \
   launch_pass<T_, R, NF>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,   \
                          pass, split, (cudaStream_t)stream)
-  DISPATCH3_T(T, radius, nf, CALL)
+  DISPATCH3_T(T, LO, HI, radius, nf, CALL)
 #undef CALL
 }
 
-template <class T>
+template <class T, int LO, int HI>
 int level_entry(const void* C, const void* binv, const void* b, const void* x,
                 void* d, void* out, void* tmp, void* res, const double* s0,
                 const double* s1, int sweeps, int cheb, int nx, int ny, int nz,
@@ -908,27 +975,68 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
 #define CALL(T_, R, NF)                                                      \
   launch_level<T_, R, NF>(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps,   \
                           cheb, nx, ny, nz, split, (cudaStream_t)stream)
-  DISPATCH3_T(T, radius, nf, CALL)
+  DISPATCH3_T(T, LO, HI, radius, nf, CALL)
 #undef CALL
 }
 
 }  // namespace
 
-// The f64 instances' entries (csrc/stencil3d_f64.cu), called by the
-// public entries of csrc/stencil3d.cu for f64 operands.
+// The typed entries of one source: its scalar type T and radii LO..HI,
+// named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4). The public
+// entries of csrc/stencil3d.cu call the source that holds an operand's
+// (type, radius).
+#define STENCIL3D_DECLARE(SUFFIX)                                            \
+  int stencil3d_mv_##SUFFIX(const void* C, const void* x, void* y, int nx,   \
+                            int ny, int nz, int radius, void* stream);       \
+  int stencil3d_plan_##SUFFIX(int nx, int ny, int nz, int radius, int nf,    \
+                              int* out);                                     \
+  int stencil3d_pass_##SUFFIX(const void* C, const void* x, const void* b,   \
+                              const void* binv, void* d, double omega0,      \
+                              double s0, double s1, void* y, int nx, int ny, \
+                              int nz, int radius, int nf, int pass,          \
+                              int split, void* stream);                      \
+  int stencil3d_level_##SUFFIX(const void* C, const void* binv,              \
+                               const void* b, const void* x, void* d,        \
+                               void* out, void* tmp, void* res,              \
+                               const double* s0, const double* s1,           \
+                               int sweeps, int cheb, int nx, int ny, int nz, \
+                               int radius, int nf, int split, void* stream);
+#define STENCIL3D_ENTRIES(SUFFIX, T, LO, HI)                                 \
+  extern "C" {                                                               \
+  int stencil3d_mv_##SUFFIX(const void* C, const void* x, void* y, int nx,   \
+                            int ny, int nz, int radius, void* stream) {      \
+    return mv_entry<T, LO, HI>(C, x, y, nx, ny, nz, radius, stream);         \
+  }                                                                          \
+  int stencil3d_plan_##SUFFIX(int nx, int ny, int nz, int radius, int nf,    \
+                              int* out) {                                    \
+    return plan_entry<T, LO, HI>(nx, ny, nz, radius, nf, out);               \
+  }                                                                          \
+  int stencil3d_pass_##SUFFIX(const void* C, const void* x, const void* b,   \
+                              const void* binv, void* d, double omega0,      \
+                              double s0, double s1, void* y, int nx, int ny, \
+                              int nz, int radius, int nf, int pass,          \
+                              int split, void* stream) {                     \
+    return pass_entry<T, LO, HI>(C, x, b, binv, d, omega0, s0, s1, y, nx,    \
+                                 ny, nz, radius, nf, pass, split, stream);   \
+  }                                                                          \
+  int stencil3d_level_##SUFFIX(const void* C, const void* binv,              \
+                               const void* b, const void* x, void* d,        \
+                               void* out, void* tmp, void* res,              \
+                               const double* s0, const double* s1,           \
+                               int sweeps, int cheb, int nx, int ny, int nz, \
+                               int radius, int nf, int split,                \
+                               void* stream) {                               \
+    return level_entry<T, LO, HI>(C, binv, b, x, d, out, tmp, res, s0, s1,   \
+                                  sweeps, cheb, nx, ny, nz, radius, nf,      \
+                                  split, stream);                            \
+  }                                                                          \
+  }
+
 extern "C" {
-int stencil3d_mv_f64(const void* C, const void* x, void* y, int nx, int ny,
-                     int nz, int radius, void* stream);
-int stencil3d_plan_f64(int nx, int ny, int nz, int radius, int nf, int* out);
-int stencil3d_pass_f64(const void* C, const void* x, const void* b,
-                       const void* binv, void* d, double omega0, double s0,
-                       double s1, void* y, int nx, int ny, int nz, int radius,
-                       int nf, int pass, int split, void* stream);
-int stencil3d_level_f64(const void* C, const void* binv, const void* b,
-                        const void* x, void* d, void* out, void* tmp,
-                        void* res, const double* s0, const double* s1,
-                        int sweeps, int cheb, int nx, int ny, int nz,
-                        int radius, int nf, int split, void* stream);
+STENCIL3D_DECLARE(f32)
+STENCIL3D_DECLARE(f64)
+STENCIL3D_DECLARE(r4_f32)
+STENCIL3D_DECLARE(r4_f64)
 }
 
 #endif  // IIFEA_STENCIL3D_CUH_

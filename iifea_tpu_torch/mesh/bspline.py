@@ -140,7 +140,9 @@ def _transfer_matrix(space, points, n_fields, tol, dtype, device):
     numpy; their tensor products, the drop and the compaction run in torch
     on ``device`` (the 3D biharmonic's 437 M weights took 48 s in numpy on
     one host core), each value the same product in the same order as the
-    numpy form's, so M is bitwise the same on every device."""
+    numpy form's, so M is bitwise the same on every device. M takes the
+    arrays as they lie: its device copy is transposed there, and its host
+    copy made only if asked for."""
     points = np.asarray(points, dtype=np.float64)
     npts, dim = points.shape[0], len(space.ncp)
     p = space.degree
@@ -184,7 +186,5 @@ def _transfer_matrix(space, points, n_fields, tol, dtype, device):
             idx[rows][f::n_fields] = torch.where(live, cols + f * nbg,
                                                  0).to(torch.int32)
             val[rows][f::n_fields] = w
-    idx, val = idx[:, :kmax].cpu().numpy(), val[:, :kmax].cpu().numpy()
-    return ExtractionOperator(np.ascontiguousarray(idx),
-                              np.ascontiguousarray(val), nbg * n_fields,
+    return ExtractionOperator(idx[:, :kmax], val[:, :kmax], nbg * n_fields,
                               device)

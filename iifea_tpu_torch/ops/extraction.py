@@ -2,7 +2,9 @@
 
 Port of ``iifea_tpu/ops/extraction.py``. The host copy is row-major ELL
 (``idx_np``/``val_np``, (n_fg, kmax)); the device copy is slot-major
-(kmax, n_fg). ``mv`` is a gather and weighted slot sum; ``rmv`` is the
+(kmax, n_fg). Built from tensors (the B-spline extraction's, made on the
+device), M transposes them where they lie and makes its host copy only
+when asked for it. ``mv`` is a gather and weighted slot sum; ``rmv`` is the
 transpose's fixed-order sum (``ops/segment.SegmentSum``, built on first
 use: each background dof's entries sorted once), so its f64 result is the
 same on every run. The ``*_multi`` variants take stacked (k, n) vectors, the
@@ -26,20 +28,37 @@ class ExtractionOperator:
     """Sparse M of shape (n_fg_dofs, n_bg_dofs) in ELL form."""
 
     def __init__(self, idx, val, n_bg_dofs: int, device="cuda"):
-        self.idx_np = np.asarray(idx)
-        self.val_np = np.asarray(val)
+        """``idx``, ``val``: the (n_fg, kmax) ELL arrays, numpy or torch."""
         self.n_bg_dofs = int(n_bg_dofs)
-        self.n_fg_dofs = int(self.idx_np.shape[0])
+        self.n_fg_dofs = int(idx.shape[0])
         self.device = torch.device(device)
-        self.idxT = torch.as_tensor(
-            np.ascontiguousarray(self.idx_np.T), dtype=torch.int64,
-            device=self.device,
-        )
-        self.valT = torch.as_tensor(
-            np.ascontiguousarray(self.val_np.T), device=self.device
-        )
+        # numpy inputs are kept as given for the host views below
+        on_host = not isinstance(idx, torch.Tensor)
+        self._idx_np = np.asarray(idx) if on_host else None
+        self._val_np = np.asarray(val) if on_host else None
+        if on_host:
+            idx = torch.from_numpy(np.ascontiguousarray(self._idx_np))
+            val = torch.from_numpy(np.ascontiguousarray(self._val_np))
+        self._idx_dtype = idx.dtype
+        self.idxT = idx.T.to(self.device, torch.int64).contiguous()
+        self.valT = val.T.to(self.device).contiguous()
         self._tsum = None
         self._scipy = None
+
+    @property
+    def idx_np(self) -> np.ndarray:
+        """Host (n_fg, kmax) column ids, in the dtype M was built with."""
+        if self._idx_np is None:
+            self._idx_np = np.ascontiguousarray(
+                self.idxT.T.to(self._idx_dtype).cpu().numpy())
+        return self._idx_np
+
+    @property
+    def val_np(self) -> np.ndarray:
+        """Host (n_fg, kmax) weights."""
+        if self._val_np is None:
+            self._val_np = np.ascontiguousarray(self.valT.T.cpu().numpy())
+        return self._val_np
 
     @classmethod
     def from_triples(cls, fg_nodes, bg_nodes, weights, n_fg_nodes: int,

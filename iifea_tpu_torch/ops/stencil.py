@@ -15,7 +15,7 @@ reference has no counterpart here.
 Applies and sweeps on a card go through the hand-written kernels of
 ``ops/stencil_kernels.py`` (a block apply is one launch, a level's
 smoothing call one launch on the small 2D and 3D lattices): f32 and f64 at
-radius 1–3; another dtype or radius raises there. On the CPU the f32 operators
+radius 1–4; another dtype or radius raises there. On the CPU the f32 operators
 go through the same wrappers (their plain versions) and the others use the
 plain shifted-slice form ``mv_ref``.
 

@@ -13,9 +13,10 @@ fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother and
 ``stencil3d_block``, the 3D block apply, residual and point-block sweep in
 one launch; ``smooth3``, a 3D level's whole smoothing call, is one
 cooperative launch of it on the small levels). The kernels live in the
-two headers; each scalar type's instances are compiled from a source of
-their own (``stencil2d.cu`` and ``stencil3d.cu``: the f32 instances and the
-entries; ``stencil2d_f64.cu``, ``stencil3d_f64.cu``). Every ``csrc/*.cu``
+two headers; each scalar type's instances are compiled from sources of
+their own, the radius-4 ones apart (``stencil2d.cu`` and ``stencil3d.cu``:
+the f32 instances at r = 1–3 and the entries; ``stencil2d_f64.cu``,
+``stencil3d_f64.cu``; ``stencil{2d,3d}_r4{,_f64}.cu``). Every ``csrc/*.cu``
 source is compiled with ``nvcc`` for ``sm_90a`` at first use (one nvcc per
 source, run together, then one link) into one shared library in
 ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
@@ -34,8 +35,9 @@ instance, ``PASS3_NAMES`` (``jacobi_smooth3``, ``cheb_step3``,
 ``stencil3d_block``, …), whichever wrapper made it.
 
 Instances (``INSTANCES``): every kernel, 2D and 3D, takes f32 and f64 at
-r = 1, 2, 3 (r = 3: a quadratic B-spline background's 49 and 343 taps)
-for 1 to 3 fields: every configuration of the multigrid routes. The
+r = 1 to 4 (r = 3: a quadratic B-spline background's 49 and 343 taps,
+r = 4 a cubic one's 81 and 729) for 1 to 3 fields: every configuration of
+the multigrid routes. The
 operands of one call share one dtype; their scalars (omega, alpha, beta)
 are passed in double.
 
@@ -321,8 +323,9 @@ def _lib() -> ctypes.CDLL:
 
 # (dtype, radius, fields) of the kernels' instances, the same in 2D and 3D
 # (csrc/stencil2d.cuh, csrc/stencil3d.cuh)
+RADII = (1, 2, 3, 4)
 INSTANCES = frozenset((dt, r, nf) for dt in (torch.float32, torch.float64)
-                      for r in (1, 2, 3) for nf in (1, 2, 3))
+                      for r in RADII for nf in (1, 2, 3))
 
 
 def _check_instance(dtype, radius, nF):
@@ -334,9 +337,11 @@ def _check_instance(dtype, radius, nF):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"stencil kernels take float32 or float64, got "
                         f"{dtype}")
-    if radius not in (1, 2, 3):
-        raise ValueError(f"the stencil kernels take radius 1 to 3, got "
-                         f"{radius}")
+    if radius not in RADII:
+        raise ValueError(
+            f"the stencil kernels take radius 1 to 4 (up to a cubic B-spline "
+            f"background), got {radius}: a quartic background's radius 5 "
+            f"and above has no instance")
     raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
 
 
@@ -586,7 +591,7 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
 
 
 def stencil_mv3(C, x, shape, radius):
-    """y = A x on a 3D lattice (f32 or f64, r = 1, 2, 3). CPU: plain
+    """y = A x on a 3D lattice (f32 or f64, r = 1 to 4). CPU: plain
     version; CUDA: the stencil3d_mv kernel instance of the operands'
     (dtype, radius)."""
     if _check(C, x, shape, radius, dim=3) == "cpu":
@@ -618,6 +623,8 @@ PASS3_NAMES = {
 _pass3_launches = dict.fromkeys(PASS3_NAMES.values(), 0)
 # the most steps a level's smoothing launch takes (kMaxSteps)
 MAX_LEVEL_STEPS3 = 8
+# stencil3d_plan's answer where a block cannot stage the planes (kPlanTooWide)
+_PLAN_TOO_WIDE = -2
 
 
 @functools.cache
@@ -627,13 +634,30 @@ def _plan3(shape, radius, nF, device_index, f64: bool = False):
     threads per point, whether a smoothing call there is one launch (1) or
     one launch per pass (0), and the blocks the card holds of a level's
     launch. The library decides from the run count and occupancy queries
-    of the instance."""
+    of the instance. A shape whose staged x planes do not fit a block's
+    shared memory (f64, r = 4, 3 fields from a 97-point row on) raises
+    ValueError."""
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device_index):
         rc = _lib().stencil3d_plan(*shape, radius, nF, int(f64), out)
+    if rc == _PLAN_TOO_WIDE:
+        raise ValueError(
+            f"the 3D kernels cannot stage the {2 * radius + 1} x planes of "
+            f"{nF} field(s) of a {shape} lattice in one block's shared memory "
+            f"({'f64' if f64 else 'f32'}, r = {radius})")
     if rc != 0:
         raise RuntimeError(f"stencil3d_plan failed: {rc}")
     return tuple(out)
+
+
+def check_plan3(shape, radius, nF, device_index, f64: bool = False):
+    """The ValueError of ``_plan3`` for a 3D lattice whose staged x planes
+    a block cannot hold, or None where the plan takes it."""
+    try:
+        _plan3(tuple(shape), radius, nF, device_index, f64)
+    except ValueError as e:
+        return e
+    return None
 
 
 def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
@@ -662,7 +686,7 @@ def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
 
 def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
     """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32 or f64,
-    r = 1, 2, 3). CPU: plain version; CUDA: the sweep pass of the
+    r = 1 to 4). CPU: plain version; CUDA: the sweep pass of the
     stencil3d_pass kernel instance."""
     if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
         return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
@@ -671,7 +695,7 @@ def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
 
 def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
     """One Chebyshev smoothing step in one pass on a 3D lattice (f32 or
-    f64, r = 1, 2, 3): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
+    f64, r = 1 to 4): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
     ``d`` is None on the first step (β must be 0). Returns (x', d'). CPU:
     plain version; CUDA: the Chebyshev pass of the stencil3d_pass kernel
     instance, which writes x' to a new tensor and d' over ``d`` (each point

@@ -22,9 +22,11 @@
                   patch solves on the device; ``asm_core``, ``asm_overlap``
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
-Refused on CUDA with ``NotImplementedError``: a stencil radius above 3 (a
-cubic B-spline background, which no demo, test or bench of the reference
-builds; ROADMAP.md). Every other (dimension, 1–3 fields, radius 1–3, f32 or
+Refused on CUDA with ``NotImplementedError``: a stencil radius above 4 (a
+quartic or higher B-spline background, which no model of the repository
+builds; ROADMAP.md); with ``ValueError`` a 3D lattice whose staged x planes
+do not fit a block's shared memory (f64, radius 4, three fields from a
+97-point row on). Every other (dimension, 1–3 fields, radius 1–4, f32 or
 f64) MG solve runs on the hand kernels.
 
 The MG route (``_mg_solve``) differs from the JAX package in these ways,
@@ -33,8 +35,9 @@ by design:
 * ``mixed`` (f32 probe, MG and Krylov, refined against the exact f64
   operator until the f64 relative residual meets rtol) turns on by default
   for f64 systems on CUDA at radius 1 and 2; JAX turns it on for f64
-  systems on a TPU. At radius 3 (the biharmonic, κ ~ h⁻⁴) it stays off on
-  CUDA too: the f64 route runs the f64 instances of the hand kernels, the
+  systems on a TPU. At radius 3 and 4 (the biharmonic on the quadratic and
+  cubic nets, κ ~ h⁻⁴) it stays off on CUDA too: the f64 route runs the
+  f64 instances of the hand kernels, the
   JAX package's own arithmetic off a TPU (``MIXED_DEFAULT_MAX_RADIUS``).
   On the CPU it stays off, so an f64 system runs the whole MG-Krylov solve
   in f64, as JAX does on the CPU. ``mixed=False`` runs that f64 route on
@@ -232,17 +235,26 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _cuda_mg_refusal(shape, n_fields, radius, dtype) -> Exception | None:
+def _cuda_mg_refusal(shape, n_fields, radius, dtype,
+                     device_index=None) -> Exception | None:
     """Why the card's stencil kernels cannot take this MG solve, or None:
-    they take 2D and 3D operators of 1 to 3 fields at radius 1–3 in f32 or
-    f64."""
-    if radius not in (1, 2, 3):
+    they take 2D and 3D operators of 1 to 3 fields at radius 1–4 in f32 or
+    f64. Given the card's ``device_index``, a 3D lattice is also asked of
+    the finest level's plan (the coarser levels stage less), which refuses
+    x planes a block cannot stage."""
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    if radius not in sk.RADII:
         return NotImplementedError(
             f"stencil_radius={radius}: the CUDA stencil kernels take radius "
-            "1 to 3 (a cubic B-spline background's radius 4 is not ported)")
+            "1 to 4, up to a cubic B-spline background (a quartic "
+            "background's radius 5 and above is not ported)")
     if dtype not in (torch.float32, torch.float64):
         return ValueError(
             f"on CUDA pc='mg' runs f32 or f64 stencil kernels, got {dtype}")
+    if device_index is not None and len(shape) == 3:
+        return sk.check_plan3(shape, radius, n_fields, device_index,
+                              dtype == torch.float64)
     return None
 
 
@@ -266,7 +278,8 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
                  and stencil_radius <= MIXED_DEFAULT_MAX_RADIUS)
     sdt = torch.float32 if mixed else b.dtype
     if on_card:
-        err = _cuda_mg_refusal(shape, n_fields, stencil_radius, sdt)
+        err = _cuda_mg_refusal(shape, n_fields, stencil_radius, sdt,
+                               b.device.index or 0)
         if err is not None:
             raise err
     full_f32()

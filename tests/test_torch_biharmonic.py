@@ -155,16 +155,17 @@ def test_torch_biharmonic_demo():
 
 
 def test_torch_biharmonic_card_refusals(monkeypatch):
-    """The card's kernels take every MG configuration of the JAX package:
-    2D and 3D, 1 to 3 fields, radius 1 to 3, f32 and f64. What they do not
-    take is refused before any work: a radius above 3 (a cubic B-spline
-    background) and a dtype other than f32 and f64; solve_ksp raises it
-    for a system on a card (mocked: no operator is touched)."""
+    """The card's kernels take every MG configuration of the JAX package's
+    models: 2D and 3D, 1 to 3 fields, radius 1 to 4, f32 and f64. What they
+    do not take is refused before any work: a radius above 4 (a quartic or
+    higher B-spline background) and a dtype other than f32 and f64;
+    solve_ksp raises it for a system on a card (mocked: no operator is
+    touched)."""
     f32, f64 = torch.float32, torch.float64
     monkeypatch.setattr(ksp, "_on_card", lambda t: True)
     with pytest.raises(NotImplementedError, match="radius"):
         solve_ksp(None, torch.zeros(3 * 9 ** 3, dtype=f64), method="gmres",
-                  pc="mg", lattice_shape=(9, 9, 9), stencil_radius=4,
+                  pc="mg", lattice_shape=(9, 9, 9), stencil_radius=5,
                   n_fields=3, monitor=False)
     with pytest.raises(ValueError, match="float16"):
         solve_ksp(None, torch.zeros(9 ** 3, dtype=torch.float16),
@@ -172,13 +173,13 @@ def test_torch_biharmonic_card_refusals(monkeypatch):
                   mixed=False, monitor=False)
     for shape in ((17, 17), (9, 9, 9)):
         for n_fields in (1, 2, 3):
-            for radius in (1, 2, 3):
+            for radius in (1, 2, 3, 4):
                 for dt in (f32, f64):
                     assert ksp._cuda_mg_refusal(shape, n_fields, radius,
                                                 dt) is None
-    for args, kind, word in [(((17, 17), 1, 4, f64), NotImplementedError,
+    for args, kind, word in [(((17, 17), 1, 5, f64), NotImplementedError,
                               "radius"),
-                             (((9, 9, 9), 3, 4, f32), NotImplementedError,
+                             (((9, 9, 9), 3, 5, f32), NotImplementedError,
                               "radius"),
                              (((17, 17), 2, 2, torch.float16), ValueError,
                               "float16"),

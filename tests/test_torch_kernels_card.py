@@ -73,10 +73,13 @@ def test_torch_stencil_kernels_on_card(shape, radius):
 @pytest.mark.parametrize("dtype,radius", [(torch.float32, 3),
                                           (torch.float64, 1),
                                           (torch.float64, 2),
-                                          (torch.float64, 3)])
+                                          (torch.float64, 3),
+                                          (torch.float32, 4),
+                                          (torch.float64, 4)])
 def test_torch_stencil_instances_on_card(dtype, radius, shape):
-    """The radius-3 and f64 instances of the 2D scalar entries (the
-    biharmonic's): stencil_mv, jacobi_smooth, the residual of
+    """The radius-3, radius-4 and f64 instances of the 2D scalar entries
+    (the biharmonic's on the quadratic and cubic nets): stencil_mv,
+    jacobi_smooth, the residual of
     stencil_mv_block and smooth (two sweeps from zero with the residual,
     two from x) against their plain versions, 1e-4 in f32 and 1e-12 in
     f64, in the operands' dtype."""
@@ -180,44 +183,46 @@ def test_torch_stencil3d_kernels_on_card(shape, radius):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("radius", [3, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(9, 11, 13), (13, 10, 17), (17, 17, 17),
                                    (33, 33, 33), (65, 65, 65)])
-def test_torch_stencil3d_radius3_on_card(shape, dtype):
-    """The radius-3 (343-tap) instances of stencil_mv3, jacobi_smooth3 and
-    cheb_step3 (β = 0 and β ≠ 0), f32 and f64, at odd shapes and at the
-    levels of the 3D biharmonic's 65³ hierarchy, vs their plain versions
-    (f32 1e-4, f64 1e-12 of max|y|), one launch each; StencilOperator3D on
-    the card goes through them."""
+def test_torch_stencil3d_radius3_on_card(shape, dtype, radius):
+    """The radius-3 (343-tap) and radius-4 (729-tap) instances of
+    stencil_mv3, jacobi_smooth3 and cheb_step3 (β = 0 and β ≠ 0), f32 and
+    f64, at odd shapes and at the levels of the 3D biharmonic's 65³
+    hierarchy, vs their plain versions (f32 1e-4, f64 1e-12 of max|y|), one
+    launch each; StencilOperator3D on the card goes through them."""
     from iifea_tpu_torch.ops.stencil import StencilOperator3D
 
     dev = _card()
-    C, x, b, invd, d = _operands3(shape, 3, dev, 11, dtype)
+    r = radius
+    C, x, b, invd, d = _operands3(shape, r, dev, 11, dtype)
     n0 = sk.launches()
-    y = sk.stencil_mv3(C, x, shape, 3)
-    s = sk.jacobi_smooth3(C, invd, b, x, 0.67, shape, 3)
-    c0, dc0 = sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, shape, 3)
-    c, dc = sk.cheb_step3(C, invd, b, x, d.clone(), 1.3, 0.45, shape, 3)
+    y = sk.stencil_mv3(C, x, shape, r)
+    s = sk.jacobi_smooth3(C, invd, b, x, 0.67, shape, r)
+    c0, dc0 = sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, shape, r)
+    c, dc = sk.cheb_step3(C, invd, b, x, d.clone(), 1.3, 0.45, shape, r)
     torch.cuda.synchronize()
     n1 = sk.launches()
     assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
         "stencil_mv3": 1, "jacobi_smooth3": 1, "cheb_step3": 2}
-    assert _close(y, sk.stencil_mv3_plain(C, x, shape, 3))
-    assert _close(s, sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape, 3))
+    assert _close(y, sk.stencil_mv3_plain(C, x, shape, r))
+    assert _close(s, sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, shape, r))
     for (got, dgot), beta, d_in in (((c0, dc0), 0.0, None),
                                     ((c, dc), 0.45, d)):
         ref, dref = sk.cheb_step3_plain(C, invd, b, x, d_in,
                                         1.7 if d_in is None else 1.3, beta,
-                                        shape, 3)
+                                        shape, r)
         assert _close(got, ref) and _close(dgot, dref)
-    S = StencilOperator3D(C, shape, 3)
+    S = StencilOperator3D(C, shape, r)
     assert _close(S.mv(x), y) and sk.launches()["stencil_mv3"] == \
         n1["stencil_mv3"] + 1
 
 
 @pytest.mark.gpu
 def test_torch_stencil3d_refuses_other_instances_on_card():
-    """A CUDA operator no 3D instance takes raises (another dtype, radius 4;
+    """A CUDA operator no 3D instance takes raises (another dtype, radius 5;
     never the plain version); f64 at radius 1, 2 through StencilOperator3D
     and radius 3 through the block entry, refused before, launch their
     instances and equal the plain versions."""
@@ -239,9 +244,9 @@ def test_torch_stencil3d_refuses_other_instances_on_card():
     C, x, *_ = _operands3((9, 9, 9), 3, dev, 3)
     assert _close(sk.stencil3d_block(C, x, (9, 9, 9), 3),
                   sk.stencil_mv3_plain(C, x, (9, 9, 9), 3))
-    C4 = torch.zeros((9 ** 3, 9, 9, 9), device=dev)
-    with pytest.raises(ValueError):
-        sk.stencil3d_block(C4, x, (9, 9, 9), 4)
+    C5 = torch.zeros((11 ** 3, 9, 9, 9), device=dev)
+    with pytest.raises(ValueError, match="quartic"):
+        sk.stencil3d_block(C5, x, (9, 9, 9), 5)
 
 
 def _block_operands3(n_fields, radius, shape, dev, seed,
@@ -339,18 +344,19 @@ def test_torch_block3d_operator_on_card():
         StencilOperatorBlock3D(C.half(), shape, 2).mv(x.half())
 
 
-# the block instances added for the f64 and radius-3 multigrid routes:
-# (dim, fields, radius, dtype) beside the f32 r = 1, 2 ones above
+# the block instances added for the f64, radius-3 and radius-4 multigrid
+# routes: (dim, fields, radius, dtype) beside the f32 r = 1, 2 ones above
 NEW_BLOCK = ([(d, nf, r, torch.float64) for d in (2, 3) for nf in (2, 3)
-              for r in (1, 2, 3)]
-             + [(d, nf, 3, torch.float32) for d in (2, 3) for nf in (2, 3)])
+              for r in (1, 2, 3, 4)]
+             + [(d, nf, r, torch.float32) for d in (2, 3) for nf in (2, 3)
+                for r in (3, 4)])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dim,n_fields,radius,dtype", NEW_BLOCK)
 def test_torch_block_instances_on_card(dim, n_fields, radius, dtype):
-    """The f64 block instances (r = 1–3) and the radius-3 f32 ones, 2D and
-    3D, 2 and 3 fields: the apply, the residual, the sweep and the sweep
+    """The f64 block instances (r = 1–4) and the radius-3 and radius-4 f32
+    ones, 2D and 3D, 2 and 3 fields: the apply, the residual, the sweep and the sweep
     from zero, one launch each, and a level's smoothing call (two sweeps
     from zero with the residual) against the plain versions (f32 1e-4, f64
     1e-12), in the operands' dtype."""

@@ -181,11 +181,11 @@ SHAPES3 = [(13, 13, 13), (17, 17, 17), (25, 25, 25), (33, 33, 33),
            (13, 10, 17), (11, 19, 37)]
 # (fields, radius, dtype, Chebyshev): the block instances (fields ≥ 1),
 # and the scalar ones (fields 0) with Jacobi sweeps and Chebyshev steps,
-# f32 and f64 at radius 1 to 3
+# f32 and f64 at radius 1 to 4
 INSTANCES3 = ([(nf, r, dt, False) for dt in (torch.float32, torch.float64)
-               for nf in (1, 2, 3) for r in (1, 2, 3)]
+               for nf in (1, 2, 3) for r in (1, 2, 3, 4)]
               + [(0, r, dt, cheb) for dt in (torch.float32, torch.float64)
-                 for r in (1, 2, 3) for cheb in (False, True)])
+                 for r in (1, 2, 3, 4) for cheb in (False, True)])
 STEPS3 = [(0.9, 0.0), (1.2, 0.35), (1.1, 0.5)]
 
 
@@ -369,7 +369,7 @@ def test_torch_plan3_at_path_levels(path):
 def test_torch_smooth3_refuses_other_instances_on_card():
     """Instances that do not exist raise on the card too: the Chebyshev
     smoother on block planes, planes in another dtype than f32 and f64,
-    radius 4. f64 block planes and f64 scalar planes at radius 2, refused
+    radius 5. f64 block planes and f64 scalar planes at radius 2, refused
     before, run their instances."""
     C, binv, b, x = _card_operands3(2, 1, (9, 9, 9), torch.float32, 5)
     with pytest.raises(ValueError, match="scalar planes"):
@@ -387,6 +387,6 @@ def test_torch_smooth3_refuses_other_instances_on_card():
                    sk.smooth3_plain(Cs, invd, bs, xs, STEPS3[:1], (9, 9, 9),
                                     2), torch.float64)
     C3, binv3, b3, x3 = _card_operands3(1, 1, (9, 9, 9), torch.float32, 7)
-    C4 = torch.zeros((1, 1, 729, 9, 9, 9), device=C3.device)
-    with pytest.raises(ValueError, match="radius 1 to 3"):
-        sk.smooth3(C4, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 4)
+    C5 = torch.zeros((1, 1, 11 ** 3, 9, 9, 9), device=C3.device)
+    with pytest.raises(ValueError, match="radius 1 to 4"):
+        sk.smooth3(C5, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 5)
