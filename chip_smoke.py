@@ -12,8 +12,9 @@ non-zero:
   1. build: compiles every iifea_tpu_torch/csrc/*.cu (stencil2d.cu,
      stencil2d_f64.cu, stencil3d.cu, stencil3d_f64.cu: each scalar type's
      instances at r = 1-3 of the kernels in stencil2d.cuh and
-     stencil3d.cuh; stencil{2d,3d}_r4{,_f64}.cu: the r = 4 ones) with nvcc
-     (sm_90a), one nvcc per source in parallel.
+     stencil3d.cuh; stencil{2d,3d}_r4{,_f64}.cu: the r = 4 ones;
+     stencil{2d,3d}_rn.cu: the runtime-radius ones of stencil_rn.cuh, every
+     radius from 5) with nvcc (sm_90a), one nvcc per source in parallel.
   2. kernels: stencil_mv, jacobi_smooth, stencil_mv_block (the block
      apply and residual in one launch) and smooth (a level's ν sweeps and
      trailing residual, by each route: one launch per pass, and one
@@ -231,9 +232,24 @@ non-zero:
      L2_rel below the 257² net's, the outer ring's share of its planes;
      card against host on the 17² net; the cubic elasticity (two fields)
      on the 513² net by both routes; the 3D biharmonic on the 9³ net card
-     against host and on the 33³ net by both routes, the three-field 3D
+     against host and on the 33³ net by both routes (the f32 mixed one
+     capped at the other routes' cap), the three-field 3D
      elasticity on the 9³ net against host SuperLU and on the 17³ net,
      each 3D solve capped (the 3D cycles are weak at radius 4).
+  29. quartic (after cubic): radius 5, the quartic B-spline background,
+     on the runtime-radius instances. The biharmonic on the 513² quartic
+     net (n_bg = 509, ``solve_ksp(gmres, pc='mg', stencil_radius=5)``, f64)
+     counted, staged, profiled, below 1e-10 in at most 1,800 iterations
+     (the quartic cycle is weak, the JAX package's as the port's), its
+     L2_rel below the 257² net's, the outer ring's (offset 5) share of its
+     planes; card against host on the 17² net (to 1e-12); the 3D biharmonic
+     on the 9³ net card against host (both capped) and on the 33³ net by
+     both routes, capped, each residual reached below 2e-7.
+  30. elasticity3_wide (last): the three-field cubic 3D elasticity on the
+     73³ net (n_fg = n_bg = 70; 3 × 73³ dofs), whose finest level's
+     marching passes stage one field's x planes at a time (the plan's
+     per-field staging), counted, peak memory, 30 capped GMRES iterations
+     whose residual must never rise.
 
 Phases 22, 23, 25 and 26 (shells, poisson_unfitted, sharded, mesh_files,
 ``CHILD_PHASES``) run in a child process (``--child``), started once
@@ -246,9 +262,20 @@ Phase 2 also holds the radius-3 (f32, f64) and f64 (r = 1, 2) instances of
 the 2D entries against their plain versions (f64 to 1e-12) at odd shapes
 and at every level of the 513² hierarchy, and times the radius-3 ones there;
 then the radius-4 instances (f32, f64; scalar, 2 and 3 fields) at odd shapes
-and at the cubic paths' levels, timed where those paths run them. Phase 3
-does the same for the 3D radius-4 instances (33³, 17³; three fields at 17³,
-9³).
+and at the cubic paths' levels, timed where those paths run them; then the
+runtime-radius instances at r = 5 likewise (the quartic net's levels; no
+spill). Phase 3 does the same for the 3D radius-4 instances (33³, 17³;
+three fields at 17³, 9³) and the r = 5 ones (33³, 17³), and holds the
+per-field staging (f64, r = 4, three fields) bitwise equal to the
+all-field staging at 65³ and three odd shapes, every pass and a level's
+smoothing call by one launch a pass (a level's one launch refuses it),
+timed with its library call at 3 × 65³, and each pass against its plain
+version at 3 × 97³, timed at 3 × 73³.
+Each apply and residual row timed with its plain version (and the per-field
+ones at 3 × 65³) also times one
+PyTorch call that computes the same function, ``library_ms``: ``torch.mv``
+(``torch.addmv`` for b − A x) on the planes' operator as a CSR tensor with
+int32 indices (cuSPARSE SpMV), built untimed; nothing in the port calls it.
 
 Then ``kernel_shapes``: every timed (kernel, shape) with its launches in the
 main-path solves (2D, 3D and elasticity, added) and launches × (device ms
@@ -266,7 +293,10 @@ timed with its plain version, at a main-path shape where that kernel runs
 (``smooth3``: a level the plan gives one launch). The f64_routes phase adds
 rows tagged by instance and field count (``/f64/nf2``, ``/r3/nf2``, …),
 their launches from the f64 route runs; the cubic phase adds the radius-4
-rows (``/r4``, ``/r4/f64``, ``/r4/f64/nf2``, …), their launches from its runs.
+rows (``/r4``, ``/r4/f64``, ``/r4/f64/nf2``, …), their launches from its runs;
+the quartic phase the radius-5 rows (``/r5/f64``, ``/r5``; source
+stencil_rn.cuh); elasticity3_wide the per-field staging's rows
+(``/r4/f64/nf3/pf``: the launches at its 73³ level).
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -287,6 +317,8 @@ sys.path.insert(0, HERE)
 
 SOURCE2, SOURCE3 = ("iifea_tpu_torch/csrc/stencil2d.cuh",
                     "iifea_tpu_torch/csrc/stencil3d.cuh")
+# the runtime-radius instances of every kernel (r >= 5)
+SOURCE_RN = "iifea_tpu_torch/csrc/stencil_rn.cuh"
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "stencil_mv": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:127"),
     "jacobi_smooth": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:136"),
@@ -317,6 +349,27 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     # jacobi_smooth3 for a whole 3D level: ν sweeps or Chebyshev steps and
     # the residual in one launch (a cooperative grid)
     "smooth3": (SOURCE3, "iifea_tpu/ops/pallas_stencil.py:332"),
+}
+# The rows of the summary's kernels line, by instance (a row's
+# "instance"; "": the f32 radius-1-2 instances): each must be there with
+# launches from a full-width path, so that a row cannot drop out of the
+# line unseen when a phase stops running the route that launches it
+_P2 = ("jacobi_smooth", "stencil_mv_block", "smooth")
+_P3 = ("stencil_mv3", "cheb_step3", "residual3", "zero3")
+_B3 = ("stencil3d_block", "residual3_block", "sweep3_block", "zero3_block")
+SUMMARY_ROWS = {
+    "": tuple(KERNELS),
+    "f64": _P3 + ("smooth3",), "f64 nf2": _P2, "f64 nf3": _P2 + _B3
+    + ("smooth3",), "nf3": _P2,
+    "r3": ("stencil_mv",) + _P2 + _P3 + ("smooth3",),
+    "r3 f64": ("stencil_mv",) + _P2 + _P3 + ("smooth3",),
+    "r3 f64 nf2": _P2, "r3 nf2": _P2,
+    "r4": _P3 + ("smooth3",),
+    "r4 f64": ("stencil_mv",) + _P2 + ("stencil_mv3", "smooth3"),
+    "r4 f64 nf2": _P2, "r4 nf2": _P2,
+    "r4 f64 nf3": _B3 + ("smooth3",), "r4 f64 nf3 pf": _B3,
+    "r5": _P3, "r5 f64": ("stencil_mv", "jacobi_smooth",
+                          "stencil_mv_block") + _P3,
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
 TOL64 = 1e-12       # the same for the f64 instances (fma against mul + add)
@@ -441,22 +494,125 @@ def instance_tag(radius: int = 2, f64: bool = False, n_fields: int = 1,
 
 def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
                 radius: int = 2, f64: bool = False, n_fields: int = 1,
-                dim: int = 2, **kv) -> dict:
-    """One ``kernel_time`` line: device ms, call ms and bound at ``shape``
-    (and the plain version's device ms where ``plain`` is given), with
-    the ``instance`` tag. ``bound_`` is (ms, by) where the row is not
-    one launch of ``name``."""
+                dim: int = 2, library=None, graph_launches=GRAPH_LAUNCHES,
+                **kv) -> dict:
+    """One ``kernel_time`` line: device ms (a graph of ``graph_launches``
+    calls), call ms and bound at ``shape`` (and the plain version's device
+    ms where ``plain`` is given, the library call's where ``library`` is:
+    ``library_ms``), with the ``instance`` tag. ``bound_`` is (ms, by)
+    where the row is not one launch of ``name``."""
     b_ms, by = bound_ or bound(name, shape, radius, f64)
     row = {"kernel": name, "shape": list(shape), "radius": radius,
            "dtype": "f64" if f64 else "f32",
            "instance": instance_tag(radius, f64, n_fields, dim), **kv,
-           "device_ms": device_ms(fn), "call_ms": call_ms(fn),
+           "device_ms": device_ms(fn, launches=graph_launches),
+           "call_ms": call_ms(fn, reps=5 if graph_launches < 10 else 20),
            "bound_ms": b_ms, "bound_by": by}
     if plain is not None:
         row["plain_ms"] = device_ms(plain, launches=plain_launches, reps=3)
+    if library is not None:
+        row["library_ms"] = library_ms(library())
     row["share_of_bound"] = b_ms / row["device_ms"]
     phase("kernel_time", **row)
     return row
+
+
+def planes_csr(C, shape, radius: int, chunks: int = 64):
+    """The operator of stencil planes ``C`` (scalar (m^d, *shape) or block
+    (nF, nF, m^d, *shape)) as a CSR tensor on C's device, with int32
+    indices where its nonzeros allow (int64 past 2³¹): row (f1, node)
+    holds, for each f2 and each tap whose x lies in the lattice, the column
+    f2·n + node + offset, in the planes' order (ascending columns). Taps
+    outside the lattice, which multiply the zero padding, are left out;
+    every other coefficient is kept. Built in ``chunks`` runs of nodes,
+    each written in place (a 1.6 G-nonzero operator in one masked select
+    held 48 GiB of indices)."""
+    import itertools
+
+    import torch
+
+    dim, dev = len(shape), C.device
+    nF = C.shape[0] if C.dim() == dim + 3 else 1
+    m = 2 * radius + 1
+    n = math.prod(shape)
+    taps = torch.tensor(list(itertools.product(range(-radius, radius + 1),
+                                               repeat=dim)), device=dev)
+    node = torch.arange(n, device=dev)
+    valid = torch.ones((n, m ** dim), dtype=torch.bool, device=dev)
+    delta = torch.zeros(m ** dim, dtype=torch.int64, device=dev)
+    stride = n
+    for a, side in enumerate(shape):
+        stride //= side
+        at = (node // stride % side)[:, None] + taps[None, :, a]
+        valid &= (at >= 0) & (at < side)
+        delta += taps[:, a] * stride
+    start = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    start[1:] = valid.sum(dim=1).cumsum(0)
+    nv = int(start[-1])
+    index = torch.int32 if nF * nF * nv < 2 ** 31 else torch.int64
+    vals = torch.empty(nF * nF * nv, dtype=C.dtype, device=dev)
+    cols = torch.empty(nF * nF * nv, dtype=index, device=dev)
+    planes = C.reshape(nF, nF, m ** dim, n)
+    field = n * torch.arange(nF, device=dev)
+    step = -(-n // chunks)
+    for a in range(0, n, step):
+        b = min(n, a + step)
+        k0, k1 = int(start[a]), int(start[b])
+        mask = valid[a:b]
+        # (f1, node, f2, tap) and (node, f2, tap) in row-major order
+        v = planes[..., a:b].permute(0, 3, 1, 2).masked_select(
+            mask[None, :, None, :]).view(nF, nF * (k1 - k0))
+        c = (node[a:b, None, None] + delta[None, None, :]
+             + field[None, :, None]).masked_select(mask[:, None, :])
+        for f1 in range(nF):
+            at = f1 * nF * nv + nF * k0
+            vals[at:at + nF * (k1 - k0)] = v[f1]
+            cols[at:at + nF * (k1 - k0)] = c
+        del v, c
+    crow = torch.zeros(nF * n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = (nF * (start[1:] - start[:-1])).repeat(nF).cumsum(0)
+    return torch.sparse_csr_tensor(crow.to(index), cols, vals,
+                                   (nF * n, nF * n))
+
+
+def csr_call(C, shape, radius: int, x, b=None):
+    """A function that builds the CSR form of the planes (``planes_csr``,
+    untimed) and returns one PyTorch call that computes what the apply (b
+    None: ``torch.mv``, cuSPARSE SpMV on a card) or the residual (b − A x:
+    ``torch.addmv``) computes on the same operands. Timed beside the
+    kernels as their library yardstick; no path of the port calls it."""
+    import torch
+
+    def make():
+        A = planes_csr(C, shape, radius)
+        if b is None:
+            return partial(torch.mv, A, x)
+        return partial(torch.addmv, b, A, x, beta=1.0, alpha=-1.0)
+    return make
+
+
+def library_ms(fn, launches: int = 20) -> float:
+    """Device milliseconds per call of a library call: one CUDA event pair
+    around ``launches`` calls enqueued back to back (no graph: a library
+    call may allocate its workspace), after three warm calls; the median
+    of three such runs."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    times.sort()
+    return times[1]
 
 
 def _bound_ms(words: float, flops: float, n: int,
@@ -770,7 +926,8 @@ def time_level(rng, shape, n_fields, dev, main_block, main_smooth,
         "stencil_mv_block", key, partial(sk.stencil_mv_block, C, x, shape, r),
         partial(sk.apply_plain, C, x, shape, r) if main_block else None,
         bound_=bound_passes(shape, nF, ["apply"], r, f64), radius=r,
-        f64=f64, **tag)]
+        f64=f64, library=csr_call(C, shape, r, x) if main_block else None,
+        **tag)]
     if main_block and (nF == 3 or (nF > 1 and (f64 or r >= 3))):
         # the sweep pass, counted as jacobi_smooth
         rows.append(time_kernel(
@@ -882,7 +1039,8 @@ def phase_kernels():
 
         rows.append(time_kernel(
             "stencil_mv", shape, mv,
-            partial(mv, f=sk.stencil_mv_plain) if main else None))
+            partial(mv, f=sk.stencil_mv_plain) if main else None,
+            library=csr_call(C, shape, 2, x) if main else None))
         rows.append(time_kernel(
             "jacobi_smooth", shape, jac,
             partial(jac, f=sk.jacobi_smooth_plain) if main else None))
@@ -913,8 +1071,9 @@ def phase_kernels():
                             and shape == BLOCK_SMOOTHED[0]),
                 main_smooth=(n_fields, shape) in ((0, fused[0]),
                                                   (N_FIELDS_NS, fused3[0])))
-    return worst, rows + kernels_r3(worst, rng, dev) + kernels_r4(worst, rng,
-                                                                 dev)
+    return worst, (rows + kernels_r3(worst, rng, dev)
+                   + kernels_r4(worst, rng, dev)
+                   + kernels_r5(worst, rng, dev))
 
 
 def built_instances(prefixes) -> list:
@@ -991,7 +1150,8 @@ def kernels_r3(worst, rng, dev):
             rows.append(time_kernel(
                 "stencil_mv", shape, partial(sk.stencil_mv, C, x, shape, 3),
                 partial(sk.stencil_mv_plain, C, x, shape, 3) if main
-                else None, radius=3, f64=f64))
+                else None, radius=3, f64=f64,
+                library=csr_call(C, shape, 3, x) if main else None))
             rows.append(time_kernel(
                 "jacobi_smooth", shape,
                 partial(sk.jacobi_smooth, C, binv, b, x, 0.67, shape, 3),
@@ -1061,7 +1221,8 @@ def kernels_r4(worst, rng, dev):
     C, binv, b, x = level_operands(rng, top, 4, 0, dev, f64)
     rows.append(time_kernel(
         "stencil_mv", top, partial(sk.stencil_mv, C, x, top, 4),
-        partial(sk.stencil_mv_plain, C, x, top, 4), radius=4, f64=True))
+        partial(sk.stencil_mv_plain, C, x, top, 4), radius=4, f64=True,
+        library=csr_call(C, top, 4, x)))
     rows.append(time_kernel(
         "jacobi_smooth", top,
         partial(sk.jacobi_smooth, C, binv, b, x, 0.67, top, 4),
@@ -1085,6 +1246,78 @@ def kernels_r4(worst, rng, dev):
             rows += time_level(rng, fused[0], nF, dev, main_block=False,
                                main_smooth=True, radius=4, dtype=dt)
         torch.cuda.empty_cache()
+    return rows
+
+
+# -- radius 5 and above: the runtime-radius instances ------------------------
+
+# the quartic 2D biharmonic's hierarchy (513² … 65² smoothed, 33² dense)
+# and its 3D counterpart's on the 33³ net (33³, 17³ smoothed, 9³ dense)
+LEVELS_QUARTIC3 = [(s_,) * 3 for s_ in (33, 17)]
+
+
+def check_no_spill_rn():
+    """Every runtime-radius instance (csrc/stencil_rn.cuh: the 2D pass
+    kernel, f32 and f64 x 1-3 fields x apply, residual, sweep; the 3D one,
+    the same and the scalar Chebyshev step) built without spill."""
+    instances = built_instances(("pass2d_kernel", "pass3d_kernel"))
+    phase("kernel_check", kernel="runtime-radius instances",
+          ptxas=instances)
+    if len(instances) != 38 or any(
+            r["spill_stores"] or r["spill_loads"] for r in instances):
+        fail(f"the runtime-radius instances are not all built without "
+             f"spill: {instances}")
+
+
+def kernels_r5(worst, rng, dev):
+    """The 2D runtime-radius instances at r = 5 (121 taps), f32 and f64, on
+    scalar planes and 2 and 3 fields: stencil_mv, jacobi_smooth,
+    stencil_mv_block and smooth (one launch a pass: the fused launch must be
+    refused) against their plain versions (f32 TOL, f64 TOL64) at odd
+    shapes (ν = 1, 3, every form) and, f64, at every level of the quartic
+    biharmonic's cycle in the V-cycle's two forms (513² … 65² and the dense
+    33²); then device, call, bound, plain and library times of each kernel
+    the quartic 2D path launches, at its finest level. Returns the
+    ``kernel_time`` rows."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    check_no_spill_rn()
+    f32, f64 = torch.float32, torch.float64
+    all_forms = [(z, w) for z in (False, True) for w in (False, True)]
+    for dt in (f32, f64):
+        for sh in ODD_SHAPES:
+            for n_fields in (0, 2, 3):
+                check_level_entries(worst, rng, sh, 5, n_fields, dev, (1, 3),
+                                    all_forms, dt)
+            C, binv, b, x = level_operands(rng, sh, 5, 0, dev, dt)
+            _check(worst, "stencil_mv", sk.stencil_mv(C, x, sh, 5),
+                   sk.stencil_mv_plain(C, x, sh, 5), sh, 5, quiet=True)
+            _check(worst, "jacobi_smooth",
+                   sk.jacobi_smooth(C, binv, b, x, 0.67, sh, 5),
+                   sk.jacobi_smooth_plain(C, binv, b, x, 0.67, sh, 5), sh,
+                   5, quiet=True)
+    for sh in LEVELS_BH + [DENSE_BH]:
+        check_level_entries(worst, rng, sh, 5, 0, dev, (NU,),
+                            list(FORMS.values()), f64)
+    phase("kernel_check", kernel="radius 5 instances",
+          worst={k: v for k, v in worst.items() if "/r5" in k})
+
+    top = LEVELS_BH[0]
+    C, binv, b, x = level_operands(rng, top, 5, 0, dev, f64)
+    rows = [time_kernel(
+        "stencil_mv", top, partial(sk.stencil_mv, C, x, top, 5),
+        partial(sk.stencil_mv_plain, C, x, top, 5), radius=5, f64=True,
+        library=csr_call(C, top, 5, x)), time_kernel(
+        "jacobi_smooth", top,
+        partial(sk.jacobi_smooth, C, binv, b, x, 0.67, top, 5),
+        partial(sk.jacobi_smooth_plain, C, binv, b, x, 0.67, top, 5),
+        radius=5, f64=True)]
+    del C, binv, b, x
+    rows += time_level(rng, top, 0, dev, main_block=True, main_smooth=False,
+                       radius=5, dtype=f64)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1197,14 +1430,18 @@ def phase_kernels3():
                 ("stencil_mv3", mv, sk.stencil_mv3_plain),
                 ("jacobi_smooth3", jac, sk.jacobi_smooth3_plain),
                 ("cheb_step3", cheb, sk.cheb_step3_plain)):
-            rows.append(time_kernel(name, sh, fn,
-                                    partial(fn, f=plain) if main else None))
+            rows.append(time_kernel(
+                name, sh, fn, partial(fn, f=plain) if main else None,
+                library=(csr_call(C, sh, 2, x)
+                         if main and name == "stencil_mv3" else None)))
         del C, x, b, invd, d
     torch.cuda.empty_cache()
     rows += kernels3_block(worst, dev)
     rows += kernels3_r3(worst, dev)
     rows += kernels3_smooth(worst, dev)
     rows += kernels3_r4(worst, dev)
+    rows += kernels3_r5(worst, dev)
+    rows += kernels3_staging(worst, dev)
     return worst, rows
 
 
@@ -1258,6 +1495,24 @@ def block3_calls(C, binv, b, x, shape, radius, omega=0.8, plain=False):
                          omega=omega),
         "zero": partial(sk.stencil3d_block, C, None, *a, b=b, binv=binv,
                         omega=omega)}
+
+
+def block3_library(C, b, x, shape, radius, mode, held):
+    """The library yardstick of a block pass (as ``csr_call``'s): the apply
+    and the residual have one, on one CSR form kept in ``held`` (a list
+    the caller drops with the operands); the sweeps none (None)."""
+    import torch
+
+    if mode not in ("apply", "residual"):
+        return None
+
+    def make():
+        if not held:
+            held.append(planes_csr(C, shape, radius))
+        if mode == "apply":
+            return partial(torch.mv, held[0], x)
+        return partial(torch.addmv, b, held[0], x, beta=1.0, alpha=-1.0)
+    return make
 
 
 def check_block3(worst, gen, shape, radius, n_fields, dev, dtype=None):
@@ -1355,13 +1610,16 @@ def kernels3_block(worst, dev):
             calls = block3_calls(C, binv, b, x, sh, 2, omega=1.0)
             plain = block3_calls(C, binv, b, x, sh, 2, omega=1.0, plain=True)
             main = (n_fields, sh) == (N_FIELDS_EL3, BLOCK3_SMOOTHED[0])
+            held = []
             for mode in BLOCK3_MODES:
                 rows.append(time_kernel(
                     sk.PASS3_NAMES[mode, True], [n_fields, *sh],
                     calls[mode], plain[mode] if main else None,
                     bound_=bound_passes(sh, n_fields, [mode]),
-                    plain_launches=2))
-            del C, binv, b, x, calls, plain
+                    plain_launches=2,
+                    library=block3_library(C, b, x, sh, 2, mode, held)
+                    if main else None))
+            del C, binv, b, x, calls, plain, held
             torch.cuda.empty_cache()
     return rows
 
@@ -1531,7 +1789,8 @@ def kernels3_smooth(worst, dev, paths=None, timed=True):
                     partial(sk.residual3_block_plain, C, b, x, sh, r)
                     if top else None,
                     bound_=bound_passes(sh, 1, ["residual"], r, f64),
-                    plain_launches=2, radius=r, f64=f64))
+                    plain_launches=2, radius=r, f64=f64,
+                    library=csr_call(C, sh, r, x, b) if top else None))
             del C, binv, b, x
             torch.cuda.empty_cache()
     return rows
@@ -3272,14 +3531,15 @@ def kernels3_r3(worst, dev):
     torch.cuda.empty_cache()
 
     # every 3D kernel instance: stencil3d_mv (8: f32 and f64, r = 1-4), the
-    # marching pass and level kernels (24 each) and the zero kernel (6, in
+    # marching pass and level kernels (24 each), the pass kernel's
+    # per-field staging (16: 2 and 3 fields) and the zero kernel (6, in
     # each of the r = 1-3 and the r = 4 sources: 12)
     instances = built_instances(("stencil3d_mv", "march"))
     phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
           ptxas=instances)
-    if len(instances) != 68 or any(
+    if len(instances) != 84 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the 3D instances are not all built without spill: "
              f"{instances}")
@@ -3307,7 +3567,9 @@ def kernels3_r3(worst, dev):
                     ("cheb_step3", cheb, sk.cheb_step3_plain)):
                 rows.append(time_kernel(
                     name, sh, fn, partial(fn, f=plain) if main else None,
-                    radius=3, f64=f64))
+                    radius=3, f64=f64,
+                    library=(csr_call(C, sh, 3, x)
+                             if main and name == "stencil_mv3" else None)))
             del C, x, b, invd, d
     torch.cuda.empty_cache()
     return rows
@@ -3385,7 +3647,8 @@ def kernels3_r4(worst, dev):
             rows.append(time_kernel(
                 "stencil_mv3", sh, partial(sk.stencil_mv3, C, x, sh, 4),
                 partial(sk.stencil_mv3_plain, C, x, sh, 4) if main else None,
-                plain_launches=2, radius=4, f64=is64))
+                plain_launches=2, radius=4, f64=is64,
+                library=csr_call(C, sh, 4, x) if main else None))
             rows.append(time_kernel(
                 "cheb_step3", sh,
                 partial(sk.cheb_step3, C, invd, b, x, d, 1.3, 0.45, sh, 4),
@@ -3397,12 +3660,234 @@ def kernels3_r4(worst, dev):
     C, binv, b, x = block3_operands(gen, sh, 4, N_FIELDS_EL3, dev, f64)
     calls = block3_calls(C, binv, b, x, sh, 4, omega=1.0)
     plain = block3_calls(C, binv, b, x, sh, 4, omega=1.0, plain=True)
+    held = []
     for mode in BLOCK3_MODES:
         rows.append(time_kernel(
             sk.PASS3_NAMES[mode, True], [N_FIELDS_EL3, *sh], calls[mode],
             plain[mode], bound_=bound_passes(sh, N_FIELDS_EL3, [mode], 4, True),
             plain_launches=2, radius=4, f64=True, n_fields=N_FIELDS_EL3,
-            dim=3))
+            dim=3, library=block3_library(C, b, x, sh, 4, mode, held)))
+    del C, binv, b, x, calls, plain, held
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernels3_r5(worst, dev):
+    """The 3D runtime-radius instances at r = 5 (1,331 taps), f32 and f64:
+    stencil_mv3, jacobi_smooth3 and cheb_step3 (β = 0 and β ≠ 0) against
+    their plain versions at odd shapes and at the quartic 33³ cycle's
+    levels, one launch a call; stencil3d_block's four passes on scalar
+    planes and 1–3 fields at an odd shape and, three fields in f64, at
+    17³; smooth3 at the quartic cycle's levels (one launch a pass, the
+    fused launch refused: ``kernels3_smooth``, which also times the
+    cycle's step from zero and residual pass at 33³). Then device, call,
+    bound, plain and library times of the quartic 3D path's apply and
+    Chebyshev step at 33³. Returns the ``kernel_time`` rows."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    f32, f64 = torch.float32, torch.float64
+    for dt in (f32, f64):
+        for sh in ODD_SHAPES3 + LEVELS_QUARTIC3:
+            C, invd, b, x = scalar3_operands(gen, sh, 5, dt, dev)
+            d = torch.randn(b.shape, generator=gen, device=dev, dtype=dt)
+            before = sk.launches()
+            y = sk.stencil_mv3(C, x, sh, 5)
+            j = sk.jacobi_smooth3(C, invd, b, x, 0.67, sh, 5)
+            c0, d0 = sk.cheb_step3(C, invd, b, x, None, 1.7, 0.0, sh, 5)
+            c1, d1 = sk.cheb_step3(C, invd, b, x, d.clone(), 1.3, 0.45, sh, 5)
+            after = sk.launches()
+            made = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            if made != {"stencil_mv3": 1, "jacobi_smooth3": 1,
+                        "cheb_step3": 2}:
+                fail(f"radius-5 3D calls at {sh} made launches {made}")
+            _check(worst, "stencil_mv3", y, sk.stencil_mv3_plain(C, x, sh, 5),
+                   sh, 5, quiet=True)
+            _check(worst, "jacobi_smooth3", j,
+                   sk.jacobi_smooth3_plain(C, invd, b, x, 0.67, sh, 5), sh, 5,
+                   quiet=True)
+            for (cx, cd), d_in, alpha, beta in (((c0, d0), None, 1.7, 0.0),
+                                                ((c1, d1), d, 1.3, 0.45)):
+                rx, rd = sk.cheb_step3_plain(C, invd, b, x, d_in, alpha,
+                                             beta, sh, 5)
+                _check(worst, "cheb_step3", cx, rx, sh, 5, quiet=True)
+                _check(worst, "cheb_step3", cd, rd, sh, 5, quiet=True)
+            del C, invd, b, x, d
+        for n_fields in (0, 1, 2, 3):
+            check_block3(worst, gen, ODD_SHAPES3[1], 5, n_fields, dev, dt)
+    check_block3(worst, gen, LEVELS_QUARTIC3[1], 5, N_FIELDS_EL3, dev, f64)
+    torch.cuda.empty_cache()
+    rows = kernels3_smooth(worst, dev, [
+        ("quartic3_f64", 0, 5, f64, True, LEVELS_QUARTIC3, "fused"),
+        ("quartic3_f32", 0, 5, f32, True, LEVELS_QUARTIC3, "fused")])
+    phase("kernel_check", kernel="radius 5 3D instances",
+          worst={k: v for k, v in worst.items()
+                 if "/r5" in k and "3" in k.split("/")[0]})
+    sh = LEVELS_QUARTIC3[0]
+    for dt in (f32, f64):
+        is64 = dt == f64
+        C, invd, b, x = scalar3_operands(gen, sh, 5, dt, dev)
+        d = torch.randn(b.shape, generator=gen, device=dev, dtype=dt)
+        rows.append(time_kernel(
+            "stencil_mv3", sh, partial(sk.stencil_mv3, C, x, sh, 5),
+            partial(sk.stencil_mv3_plain, C, x, sh, 5), plain_launches=2,
+            radius=5, f64=is64, library=csr_call(C, sh, 5, x)))
+        rows.append(time_kernel(
+            "cheb_step3", sh,
+            partial(sk.cheb_step3, C, invd, b, x, d, 1.3, 0.45, sh, 5),
+            partial(sk.cheb_step3_plain, C, invd, b, x, d, 1.3, 0.45, sh, 5),
+            plain_launches=2, radius=5, f64=is64))
+        del C, invd, b, x, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the per-field staging (f64, r = 4, three fields): the shapes where a
+# block holds every field's planes, at which both stagings must agree
+# bitwise (the 3D elasticity's 65³, where the apply and the residual are
+# also timed by both stagings and against the library call, and odd
+# shapes, two levels the plan gives one launch); the 3D elasticity cell's
+# width, 97³, where each per-field pass is held to its plain version; and
+# the 73³ cubic net of the elasticity3_wide phase, where the passes are
+# timed
+STAGING_BOTH = [(65, 65, 65), (13, 10, 17), (17, 17, 17), (9, 9, 9)]
+SHAPE_PF_CHECK = (97, 97, 97)
+SHAPE_EL3_WIDE = (73, 73, 73)
+# the tag of the per-field staging's summary rows and launches
+PF_TAG = instance_tag(4, True, N_FIELDS_EL3) + "/pf"
+
+
+def wide3_operands(gen, shape, dev):
+    """``block3_operands``' three-field f64 r = 4 operator, b and x, with
+    the inverse of each node's centre block as its smoother blocks (the
+    multigrid's l1 blocks sum |C|, a copy of the planes: 48 GB at 97³)."""
+    import torch
+
+    nF, m3 = N_FIELDS_EL3, 9 ** 3
+    C = torch.rand((nF, nF, m3, *shape), generator=gen, device=dev,
+                   dtype=torch.float64).sub_(0.5).mul_(0.2)
+    for f in range(nF):
+        C[f, f, m3 // 2] += 4.0
+    binv = torch.linalg.inv(C[:, :, m3 // 2].reshape(nF, nF, -1).permute(
+        2, 0, 1)).permute(1, 2, 0).contiguous()
+    n = nF * math.prod(shape)
+    b, x = (torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+            for _ in range(2))
+    return C, binv, b, x
+
+
+def kernels3_staging(worst, dev):
+    """The marching kernels' per-field staging, f64, r = 4, three fields:
+    at the STAGING_BOTH shapes every pass of stencil3d_block (apply,
+    residual, sweep, sweep from zero) at the plan's split with one field's
+    x planes staged at a time equals the all-field staging bitwise, and so
+    does a level's smoothing call (two sweeps from zero with the residual)
+    by one launch a pass; the plan stages every field there, and a level's
+    one launch, which stages every field, refuses the per-field staging. At
+    3 × 65³ the apply and the residual by both stagings are timed with
+    their library call (``block3_library``: the CSR form holds 1.6 G
+    nonzeros there, within int32 indices), beside the per-field rows. At
+    3 × 97³, where the plan stages one field at a time, each pass against
+    its plain version (TOL64); at 3 × 73³ (the elasticity3_wide phase's
+    finest level) device, call, bound and plain times of each pass (the
+    summary's ``…/pf`` rows). Returns the ``kernel_time`` rows."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    f64, nF, idx = torch.float64, N_FIELDS_EL3, dev.index or 0
+    bitwise, plans, grid_refused, rows = True, {}, True, []
+    for sh in STAGING_BOTH:
+        C, binv, b, x = block3_operands(gen, sh, 4, nF, dev, f64)
+        plan = sk._plan3(sh, 4, nF, idx, True)
+        plans["x".join(map(str, sh))] = list(plan)
+        if plan[3] != sk.ALL_FIELDS:
+            fail(f"the plan stages one field at a time at {sh}: {plan}")
+        for pass_, start, bi in ((sk._APPLY, x, None),
+                                 (sk._RESIDUAL, x, None),
+                                 (sk._SWEEP, x, binv),
+                                 (sk._ZERO, None, binv)):
+            got = [sk._pass3(pass_, C, start, b, bi, sh, 4, nF, omega0=0.8,
+                             s0=0.8, split=plan[0], staging=st)
+                   for st in (sk.ALL_FIELDS, sk.PER_FIELD)]
+            bitwise &= bool(torch.equal(*got))
+
+        def smooth(route, st):
+            return sk._smooth3_cuda(route, C, binv, b, None,
+                                    [(0.8, 0.0)] * NU, sh, 4, nF, True, False,
+                                    split=plan[0], staging=st)
+
+        got = [smooth(sk.PER_PASS, st)
+               for st in (sk.ALL_FIELDS, sk.PER_FIELD)]
+        bitwise &= all(bool(torch.equal(a, c)) for a, c in zip(*got))
+        if plan[1]:
+            try:
+                smooth(sk.GRID, sk.PER_FIELD)
+                grid_refused = False
+            except ValueError:
+                pass
+        if sh == STAGING_BOTH[0]:
+            held = []
+            for mode, pass_ in (("apply", sk._APPLY),
+                                ("residual", sk._RESIDUAL)):
+                for st, label in ((sk.ALL_FIELDS, "all_fields"),
+                                  (sk.PER_FIELD, "per_field")):
+                    rows.append(time_kernel(
+                        sk.PASS3_NAMES[mode, True], [nF, *sh],
+                        partial(sk._pass3, pass_, C, x, b, None, sh, 4, nF,
+                                split=plan[0], staging=st),
+                        bound_=bound_passes(sh, nF, [mode], 4, True),
+                        radius=4, f64=True, n_fields=nF, dim=3,
+                        instance=PF_TAG if st == sk.PER_FIELD
+                        else instance_tag(4, True, nF),
+                        staging=label, graph_launches=5,
+                        library=block3_library(C, b, x, sh, 4, mode, held)
+                        if st == sk.PER_FIELD else None))
+            del held
+        del C, binv, b, x
+        torch.cuda.empty_cache()
+    sh = SHAPE_PF_CHECK
+    for side in (73, 81, 97):
+        plans[f"{side}x{side}x{side}"] = list(
+            sk._plan3((side,) * 3, 4, nF, idx, True))
+    phase("kernel_check", kernel="per-field staging", shapes=STAGING_BOTH,
+          plans=plans, per_field_level_launch_refused=grid_refused,
+          per_field_bitwise_equal_all_fields=bitwise)
+    if not bitwise:
+        fail("the per-field staging differs from the all-field staging")
+    if not grid_refused:
+        fail("a level's one launch took the per-field staging")
+    if any(plans[f"{s_}x{s_}x{s_}"][3] != sk.PER_FIELD for s_ in (73, 97)):
+        fail(f"the plan does not stage one field at a time from 73³: {plans}")
+    torch.cuda.reset_peak_memory_stats()
+    C, binv, b, x = wide3_operands(gen, sh, dev)
+    calls = block3_calls(C, binv, b, x, sh, 4, omega=1.0)
+    plain = block3_calls(C, binv, b, x, sh, 4, omega=1.0, plain=True)
+    errs = {}
+    for mode in BLOCK3_MODES:
+        name = sk.PASS3_NAMES[mode, True]
+        errs[mode] = _check(worst, name, calls[mode](), plain[mode](), sh, 4,
+                            quiet=True, n_fields=nF, what=mode)
+        worst[name + PF_TAG] = errs[mode]
+    phase("kernel_check", kernel="stencil3d_block, per-field staging",
+          shape=[nF, *sh], radius=4, dtype="float64", max_abs_err=errs,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del C, binv, b, x, calls, plain
+    torch.cuda.empty_cache()
+    sh = SHAPE_EL3_WIDE
+    C, binv, b, x = wide3_operands(gen, sh, dev)
+    calls = block3_calls(C, binv, b, x, sh, 4, omega=1.0)
+    plain = block3_calls(C, binv, b, x, sh, 4, omega=1.0, plain=True)
+    for mode in BLOCK3_MODES:
+        rows.append(time_kernel(
+            sk.PASS3_NAMES[mode, True], [nF, *sh], calls[mode], plain[mode],
+            bound_=bound_passes(sh, nF, [mode], 4, True), plain_launches=1,
+            radius=4, f64=True, n_fields=nF, dim=3, instance=PF_TAG,
+            staging="per_field", graph_launches=5))
     del C, binv, b, x, calls, plain
     torch.cuda.empty_cache()
     return rows
@@ -3592,8 +4077,10 @@ def phase_biharmonic3():
     Krylov), a profiled one, peak device memory; f64 residual < 1e-10 and
     L2_rel, H1_rel, H2_rel within JAX_ROW_REL of the JAX package's ref-3
     row. Then the route not taken (f32 mixed), counted and capped at
-    OTHER_ROUTE_MAX_IT iterations, with its outcome. Returns {instance
-    tag: (launches by kernel, launches by shape)}."""
+    OTHER_ROUTE_MAX_IT iterations, with its outcome: the only full-width
+    run of the f32 radius-3 3D instances, whose launches the summary
+    reports. Returns {instance tag: (launches by kernel, launches by
+    shape)}."""
     import torch
 
     from iifea_tpu_torch.api import l2_norm
@@ -3675,7 +4162,11 @@ def phase_biharmonic3():
            "hierarchy": stages["StencilMultigrid3D"],
            "krylov": t_w - sum(stages.values()), "iters": info_w.iters}
     phase("biharmonic3_stages", setup=setup, warm=run)
-    profile_solve(lambda: bh_solve(A, b, shape), "biharmonic3_profile")
+    # profiled over one GMRES(100) cycle of the solve (its probe and
+    # hierarchy whole): the profiler's bookkeeping of all 520 iterations'
+    # 59 k launches took the phase's largest share after the host set-up
+    profile_solve(lambda: bh_solve(A, b, shape, gmres_restart=100, max_it=0),
+                  "biharmonic3_profile")
 
     other = "mixed" if route == "f64" else "f64"
     torch.cuda.reset_peak_memory_stats()
@@ -4960,14 +5451,15 @@ def kernels_f64(worst, dev):
         C, binv, b, x = block3_operands(gen, sh, r, N_FIELDS_EL3, dev, f64)
         calls = block3_calls(C, binv, b, x, sh, r, omega=1.0)
         plain = block3_calls(C, binv, b, x, sh, r, omega=1.0, plain=True)
+        held = []
         for mode in BLOCK3_MODES:
             rows.append(time_kernel(
                 sk.PASS3_NAMES[mode, True], [N_FIELDS_EL3, *sh],
                 calls[mode], plain[mode],
                 bound_=bound_passes(sh, N_FIELDS_EL3, [mode], r, True),
                 plain_launches=2, radius=r, f64=True, n_fields=N_FIELDS_EL3,
-                dim=3))
-        del C, binv, b, x, calls, plain
+                dim=3, library=block3_library(C, b, x, sh, r, mode, held)))
+        del C, binv, b, x, calls, plain, held
         torch.cuda.empty_cache()
     rows += kernels3_smooth(worst, dev, [
         ("bspline_el3_f64", N_FIELDS_EL3, 3, f64, False, [LEVELS_BH3[-1]],
@@ -4977,7 +5469,7 @@ def kernels_f64(worst, dev):
     rows.append(time_kernel(
         "stencil_mv3", SHAPE3, partial(sk.stencil_mv3, C, x, SHAPE3, 2),
         partial(sk.stencil_mv3_plain, C, x, SHAPE3, 2), plain_launches=2,
-        f64=True))
+        f64=True, library=csr_call(C, SHAPE3, 2, x)))
     rows.append(time_kernel(
         "cheb_step3", SHAPE3,
         partial(sk.cheb_step3, C, invd, b, x, d, 1.3, 0.45, SHAPE3, 2),
@@ -4988,12 +5480,14 @@ def kernels_f64(worst, dev):
     return rows
 
 
-def bspline_elasticity(n_bg: int, device, dim: int = 2, bg_degree: int = 2):
+def bspline_elasticity(n_bg: int, device, dim: int = 2, bg_degree: int = 2,
+                       n_fg: int | None = None):
     """Vector elasticity (k = 2) on the quadratic B-spline background
     (``bg_degree`` 3: the cubic one):
     ``immersed_square_bspline_problem(n_fg=2·n_bg, n_bg, n_fields=2)`` or
     its cube (three fields), ImmersedElasticityProblem(k=2), assembled at
-    u = 0. Returns (prob, M, lattice shape, A, b, set-up seconds)."""
+    u = 0 (``n_fg`` another multiple of n_bg). Returns (prob, M, lattice
+    shape, A, b, set-up seconds)."""
     import torch
 
     from iifea_tpu_torch.mesh import generators
@@ -5003,8 +5497,8 @@ def bspline_elasticity(n_bg: int, device, dim: int = 2, bg_degree: int = 2):
     t0 = time.perf_counter()
     gen = (generators.immersed_square_bspline_problem if dim == 2
            else generators.immersed_cube_bspline_problem)
-    mesh, M, shape = gen(n_fg=2 * n_bg, n_bg=n_bg, bg_degree=bg_degree,
-                         n_fields=dim, device=device)
+    mesh, M, shape = gen(n_fg=n_fg or 2 * n_bg, n_bg=n_bg,
+                         bg_degree=bg_degree, n_fields=dim, device=device)
     prob = ImmersedElasticityProblem(mesh, k=2, device=device)
     u0 = torch.zeros(prob.space.n_dofs, dtype=torch.float64, device=device)
     A, b = assemble_background_system(prob.form, u0, M)
@@ -5021,10 +5515,11 @@ def bspline_el_solve(A, b, shape, dim: int = 2, radius: int = 3, **kw):
                          n_fields=dim, monitor=False, **kw)
 
 
-def card_against_host(tag, build, solve, field_rel=F64_FIELD_REL):
+def card_against_host(tag, build, solve, field_rel=F64_FIELD_REL,
+                      iters_diff=MAX_ITERS_DIFF_HOST):
     """One system built (``build(device)`` = (A, b, (prob, M) or None)) and
     solved (``solve(A, b)``) on the card and on the host: both converged,
-    the same iterations within MAX_ITERS_DIFF_HOST and, where the problem
+    the same iterations within ``iters_diff`` and, where the problem
     is given, the card's foreground field within ``field_rel`` of the
     host's (L2 over the host's cell domain; the error norms recorded).
     Prints and returns the phase line's fields."""
@@ -5055,7 +5550,7 @@ def card_against_host(tag, build, solve, field_rel=F64_FIELD_REL):
     phase(tag, **row)
     if not (card["on_card"] and card["converged"] and host["converged"]):
         fail(f"{tag}: not converged on the card or the host: {row}")
-    if not abs(card["iters"] - host["iters"]) <= MAX_ITERS_DIFF_HOST:
+    if not abs(card["iters"] - host["iters"]) <= iters_diff:
         fail(f"{tag}: {card['iters']} iterations on the card, "
              f"{host['iters']} on the host")
     if pm is not None and not row["field_rel_diff"] <= field_rel:
@@ -5279,13 +5774,15 @@ def phase_cubic():
     below 1e-10, the foreground field within F64_FIELD_REL between them.
     3D: the biharmonic card against host on the 9³ cubic net (one dense
     level: field and norms within CUBIC3_HOST_FIELD_REL, CUBIC3_HOST_REL),
-    then on the 33³ net (n_bg = 30) by both routes, counted; the
-    three-field elasticity on the 9³ net against host SuperLU (field
+    then on the 33³ net (n_bg = 30) by both routes, counted (the f32 mixed
+    route, the route not taken, capped at OTHER_ROUTE_MAX_IT with its
+    outcome recorded: the only full-width run of the f32 r = 4 3D
+    instances);
+    the three-field elasticity on the 9³ net against host SuperLU (field
     within CUBIC_EL3_LU_FIELD_REL) and on the 17³ net, counted. The 3D
-    solves are capped (CUBIC3_MAX_IT, CUBIC_EL3_MAX_IT; the mixed route at
-    OTHER_ROUTE_MAX_IT, its outcome recorded) and the others' residuals
-    held below CUBIC3_MAX_REL (the biharmonic's L2 error below the 9³
-    net's). Returns {instance tag: (launches by kernel, by shape)}."""
+    solves are capped (CUBIC3_MAX_IT, CUBIC_EL3_MAX_IT) and their
+    residuals held below CUBIC3_MAX_REL (the biharmonic's L2 error below
+    the 9³ net's). Returns {instance tag: (launches by kernel, by shape)}."""
     import torch
 
     from iifea_tpu_torch.ops import multigrid
@@ -5395,7 +5892,7 @@ def phase_cubic():
     seconds["elasticity"] = time.perf_counter() - t0
 
     # 3D: the biharmonic on the 9³ cubic net card against host, then on
-    # the 33³ net by both routes, each capped at CUBIC3_MAX_IT iterations
+    # the 33³ net by both routes, each capped
     t0 = time.perf_counter()
     small3 = (N_BG_CUBIC3_SMALL + 3,) * 3
     row3 = card_against_host(
@@ -5460,13 +5957,301 @@ def phase_cubic():
     return booked
 
 
+N_BG_QUARTIC = 509         # 2⁹ − 4 + 1 spans: a 513² quartic net, 263,169 dofs
+N_BG_QUARTIC_RATE = 253    # a 257² net, whose L2_rel the 513²'s must be below
+N_BG_QUARTIC_SMALL = 13    # a 17² net: card against host
+# The 2D quartic cycle is weak too: on an H100 the 513² net took 900 GMRES
+# iterations to 1e-10 (three restart cycles); the JAX package's own cycle,
+# run on the CPU on the same planes, takes 15 / 20 / 160 / 205 iterations on
+# the 17² / 33² / 65² / 129² nets, the port 16 / 20 / 160 / 208 (its count
+# rounded up to its check granularity of 4; tests/compare_quartic_jax.py).
+# The bound, twice the 900 measured, catches a cycle that stops
+# contracting
+MAX_GMRES_ITERS_QUARTIC = 1800
+# a 9³ net: card against host, capped (one dense level; at 17³ the host's
+# plain r = 5 passes and 1,331-column probe took 133 s of a 139 s check on
+# the card's machine, for 60 GMRES iterations, the card 1.6 s)
+N_BG_QUARTIC3_SMALL = 5
+N_BG_QUARTIC3 = 29         # a 33³ quartic net (35,937 dofs; n_fg = 58)
+# The 17² net's single dense level leaves a 1e-10 residual fixing the
+# solution only to ~5e-2 in L2_rel (16 iterations on the host; 36 reach
+# 1e-12, within 1.1e-6 of host SuperLU: tests/test_torch_quartic.py), so
+# card and host are held to each other at 1e-12. There the roundings part
+# the two GMRES runs by a check of 4 iterations (on an H100 32 against the
+# host's 36) and their fields by 2.3e-10 (L2 over the cell domain), which
+# the error norms, 1.9e-4 of the solution, show as 1.2e-6: iterations are
+# held within 4, the field within 1e-8, the norms within 1e-5
+QUARTIC_SMALL_RTOL = 1e-12
+QUARTIC_SMALL_ITERS_DIFF = 4
+QUARTIC_SMALL_FIELD_REL = 1e-8
+QUARTIC_SMALL_NORMS_REL = 1e-5
+# the 9³ net's 3D cycle at r = 5 (the JAX package's, R11; the host's: a
+# relative residual of 4e-5 after 724 iterations): both sides run two
+# GMRES(20) cycles (max_it 20: GMRES stops after max_it // restart + 1
+# cycles), and the card's relative residual and field are held to the
+# host's
+QUARTIC3_SMALL_RESTART = 20
+QUARTIC3_SMALL_MAX_IT = 20
+QUARTIC3_SMALL_REL = 1e-5
+# the 33³ f64 solve's cap: on an H100 it stood at 4.9e-9 after 3,300
+# iterations (the cubic 3D cap) and falls by a factor ~1.5 a thousand
+QUARTIC3_MAX_IT = 1000
+# the 3D quartic cycle does not converge in useful time: on the host the
+# 9³ net's single dense level leaves a relative residual of 4e-5 after 724
+# GMRES iterations; the 33³ solves are capped (the f64 route at
+# QUARTIC3_MAX_IT, the mixed one at OTHER_ROUTE_MAX_IT) and each residual
+# reached is held below QUARTIC3_MAX_REL, about ten times the largest
+# measured (on an H100 1.55e-8 f64 after 1,200 iterations, 2.29e-8 mixed
+# after 1,032)
+QUARTIC3_MAX_REL = 2e-7
+
+
+
+def phase_quartic():
+    """Radius 5, the quartic B-spline background, on the card's
+    runtime-radius instances. 2D: the biharmonic on the 513² quartic net
+    (n_bg = 509, ``solve_ksp(gmres, pc='mg', stencil_radius=5)``, the f64
+    default route) with host set-up per stage, counted per kernel and
+    shape, a warm solve staged, profiled (idle share), peak memory, the
+    outer ring's (offset 5) share of its planes; below 1e-10 in at most
+    MAX_GMRES_ITERS_QUARTIC iterations (the JAX package's cycle is as
+    slow) with its L2_rel below n_bg = 253's;
+    card against host at n_bg = 13 to QUARTIC_SMALL_RTOL (iterations within
+    QUARTIC_SMALL_ITERS_DIFF, field within QUARTIC_SMALL_FIELD_REL, norms
+    within QUARTIC_SMALL_NORMS_REL). 3D: the biharmonic on the 9³ quartic
+    net card against host, each capped at two GMRES(20) cycles (relative
+    residual and field within QUARTIC3_SMALL_REL), then on the
+    33³ net by both routes, counted and capped (QUARTIC3_MAX_IT; the mixed
+    route at OTHER_ROUTE_MAX_IT), the residual reached recorded and held
+    below QUARTIC3_MAX_REL (the 3D quartic cycle does not reach 1e-10 in
+    useful time). Returns {instance tag: (launches by kernel, by
+    shape)}."""
+    import torch
+
+    from iifea_tpu_torch.api import l2_norm
+    from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.solvers import ksp
+
+    gpu = torch.device("cuda", 0)
+    seconds, booked = {}, {}
+
+    def book(tag, rec):
+        counts, shapes = booked.setdefault(tag, (Counter(), Counter()))
+        counts.update(rec["launches"])
+        shapes.update(rec["launches_by_shape"])
+
+    t0 = time.perf_counter()
+    p, M_, sh_, A_, b_, _ = build_biharmonic(N_BG_QUARTIC_RATE, gpu, 4)
+    u_, info_ = bh_solve(A_, b_, sh_, radius=5)
+    n_rate = p.error_norms(M_.mv(u_))
+    del p, M_, A_, b_, u_
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob, M, shape, A, b, setup = build_biharmonic(N_BG_QUARTIC, gpu, 4)
+    phase("quartic_setup", n_bg=N_BG_QUARTIC, n_fg=2 * N_BG_QUARTIC,
+          lattice=list(shape), n_bg_dofs=M.n_bg_dofs,
+          n_fg_nodes=prob.space.n_nodes, n_block_cells=prob.cell_dom.n_elem,
+          extraction_entries=M.valT.numel(), seconds=setup,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    names2 = ("stencil_mv", "jacobi_smooth", "stencil_mv_block")
+    tag = instance_tag(5, True)
+    u, info, rec = cubic_counted("quartic", lambda: bh_solve(A, b, shape,
+                                                             radius=5),
+                                 A, b, names2, MAX_GMRES_ITERS_QUARTIC)
+    book(tag, rec)
+    norms = prob.error_norms(M.mv(u))
+    missing = [s_ for s_ in LEVELS_BH if not any(
+        rec["launches_by_shape"].get(f"{k}@{s_[0]}x{s_[1]}{tag}", 0) > 0
+        for k in names2)]
+    stages = Counter()
+    with timed_calls([(ksp, "_probe_general"),
+                      (multigrid, "StencilMultigrid")], stages):
+        (_, info_w), t_w = sync_time(lambda: bh_solve(A, b, shape, radius=5))
+    warm = {"solve_ksp": t_w, "probe": stages["_probe_general"],
+            "hierarchy": stages["StencilMultigrid"],
+            "krylov": t_w - sum(stages.values()), "iters": info_w.iters}
+    # profiled over one GMRES(100) cycle: the whole solve's 80 k launches
+    # make the profiler's own bookkeeping the phase's largest cost
+    profile = profile_stats(lambda: bh_solve(A, b, shape, radius=5,
+                                             gmres_restart=100, max_it=0))
+    S = ksp._probe_general(A, shape, 5, torch.float64)
+    ring = ring_share(S.coeffs, 5)
+    del S
+    phase("quartic", n_bg=N_BG_QUARTIC, route="f64", error_norms=norms,
+          error_norms_n_bg253=n_rate, iters_n_bg253=int(info_.iters),
+          stages=warm, profile=profile, outer_ring_share=ring, **rec)
+    if missing:
+        fail(f"quartic: no stencil launch at the smoothed shapes {missing}")
+    if not norms["L2_rel"] < n_rate["L2_rel"]:
+        fail(f"quartic: L2_rel {norms['L2_rel']} not below n_bg="
+             f"{N_BG_QUARTIC_RATE}'s {n_rate['L2_rel']}")
+    del prob, M, A, b, u
+    torch.cuda.empty_cache()
+    seconds["biharmonic"] = time.perf_counter() - t0
+
+    def bh_build(n_bg, dim):
+        def build(device):
+            if dim == 2:
+                prob, M, _, A, b, _ = build_biharmonic(n_bg, device, 4)
+            else:
+                prob, M, _, A, b, _, _ = build_biharmonic3(n_bg, device, 4)
+            return A, b, (prob, M)
+        return build
+
+    t0 = time.perf_counter()
+    small = (N_BG_QUARTIC_SMALL + 4,) * 2
+    row = card_against_host(
+        "quartic_small", bh_build(N_BG_QUARTIC_SMALL, 2),
+        lambda A, b: bh_solve(A, b, small, radius=5,
+                              rtol=QUARTIC_SMALL_RTOL),
+        QUARTIC_SMALL_FIELD_REL, QUARTIC_SMALL_ITERS_DIFF)
+    worst_rel = max(row["norms_rel_diff"].values())
+    if not worst_rel <= QUARTIC_SMALL_NORMS_REL:
+        fail(f"quartic_small: the card's norms are {worst_rel} from the "
+             "host's")
+    seconds["biharmonic_small"] = time.perf_counter() - t0
+
+    # 3D: the 9³ net card against host, both capped
+    t0 = time.perf_counter()
+    small3 = (N_BG_QUARTIC3_SMALL + 4,) * 3
+    out = {}
+    for dev in ("cuda", "cpu"):
+        A3, b3, (p3, M3) = bh_build(N_BG_QUARTIC3_SMALL, 3)(dev)
+        (u3, i3), dt = sync_time(lambda: bh_solve(
+            A3, b3, small3, radius=5, max_it=QUARTIC3_SMALL_MAX_IT,
+            gmres_restart=QUARTIC3_SMALL_RESTART))
+        out[dev] = (u3.cpu(), {"iters": int(i3.iters), "seconds": dt,
+                               "rel_residual": rel_residual(A3, b3, u3),
+                               "history": [float(h) for h in i3.history],
+                               "error_norms": p3.error_norms(M3.mv(u3))})
+    (u_c, card), (u_h, host) = out["cuda"], out["cpu"]
+    field_rel = (l2_norm(M3.mv(u_c - u_h), p3.cell_dom)
+                 / l2_norm(M3.mv(u_h), p3.cell_dom))
+    res_rel = abs(card["rel_residual"] - host["rel_residual"]) / \
+        host["rel_residual"]
+    phase("quartic3_small", card=card, host=host, field_rel_diff=field_rel,
+          rel_residual_rel_diff=res_rel)
+    if not (abs(card["iters"] - host["iters"]) <= MAX_ITERS_DIFF_HOST
+            and field_rel <= QUARTIC3_SMALL_REL
+            and res_rel <= QUARTIC3_SMALL_REL):
+        fail(f"quartic3_small: card {card} against host {host}, field "
+             f"{field_rel}")
+    del A3, b3, p3, M3
+    seconds["biharmonic3_small"] = time.perf_counter() - t0
+
+    # 3D: the 33³ net by both routes, capped
+    t0 = time.perf_counter()
+    prob, M, shape, A, b, setup3, mem = build_biharmonic3(N_BG_QUARTIC3, gpu,
+                                                          4)
+    phase("quartic3_setup", n_bg=N_BG_QUARTIC3, lattice=list(shape),
+          n_bg_dofs=M.n_bg_dofs, n_fg_nodes=prob.space.n_nodes,
+          extraction_entries=M.valT.numel(), seconds=setup3, **mem)
+    for name, is64 in (("quartic3", True), ("quartic3_mixed", False)):
+        u, info, rec = cubic_counted(
+            name, lambda: bh_solve(A, b, shape, radius=5, mixed=not is64,
+                                   max_it=QUARTIC3_MAX_IT if is64
+                                   else OTHER_ROUTE_MAX_IT),
+            A, b, names3(LEVELS_QUARTIC3, 5, is64), gate=False)
+        book(instance_tag(5, is64), rec)
+        norms3 = prob.error_norms(M.mv(u))
+        phase(name, n_bg=N_BG_QUARTIC3, error_norms=norms3,
+              converged=rec["rel_residual"] < 1e-10, **rec)
+        if not rec["rel_residual"] < QUARTIC3_MAX_REL:
+            fail(f"{name}: residual {rec['rel_residual']} after "
+                 f"{info.iters} iterations, norms {norms3}")
+    del prob, M, A, b, u
+    torch.cuda.empty_cache()
+    seconds["biharmonic3"] = time.perf_counter() - t0
+    phase("quartic_seconds", **seconds)
+    return booked
+
+
+# The cubic three-field 3D elasticity where a block no longer holds every
+# field's staged planes (from 73³): a 73³ cubic net (n_bg = 70; 3 × 73³ =
+# 1,167,051 dofs) on a foreground of n_fg = n_bg (n_fg = 2 n_bg, the other
+# cubic phases' nesting, would hold 8 times the P2 nodes), on the per-field
+# staging of the f64 r = 4 three-field marching kernels. Wider nets do not
+# fit the card: the block probe holds its 2,187 responses beside the planes
+# (2 × 28 GB at 81³, 2 × 48 GB at the 3D elasticity cell's 97³), and at
+# 81³ the planes' allocation ran out of memory on an H100 with 60 GiB held.
+# GMRES(10) capped at 30 iterations (the 3D cubic cycle is weak: R11), its
+# residual history recorded
+N_BG_EL3_WIDE = 70
+EL3_WIDE_RESTART = 10
+EL3_WIDE_MAX_IT = 20       # three GMRES(10) cycles: 30 iterations
+
+
+def phase_elasticity3_wide():
+    """The cubic three-field 3D elasticity on the 73³ net
+    (``immersed_cube_bspline_problem(n_fg=70, n_bg=70, bg_degree=3,
+    n_fields=3)`` + ``ImmersedElasticityProblem(k=2)``) through
+    ``solve_ksp(gmres, pc='mg', stencil_radius=4, n_fields=3)`` on the f64
+    default route, counted per kernel and shape (the 73³ level's passes
+    stage one field's x planes at a time: the plan's staging, checked),
+    capped at 30 iterations: set-up seconds, peak device memory (below
+    PEAK_GIB), the residual after each restart cycle, which must never
+    rise. Returns {instance tag: (launches by kernel, by shape)}: the 73³
+    level's launches under PF_TAG, the others under the instance's."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob, M, shape, A, b, setup = bspline_elasticity(
+        N_BG_EL3_WIDE, "cuda", 3, 3, n_fg=N_BG_EL3_WIDE)
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = sk._plan3(tuple(shape), 4, N_FIELDS_EL3, 0, True)
+    if tuple(shape) != SHAPE_EL3_WIDE or plan[3] != sk.PER_FIELD:
+        fail(f"elasticity3_wide: lattice {shape}, plan {plan}")
+    names = block_names(3, [SHAPE_EL3_WIDE], 4, N_FIELDS_EL3, True)
+    u, info, rec = cubic_counted(
+        "elasticity3_wide",
+        lambda: bspline_el_solve(A, b, shape, 3, radius=4,
+                                 gmres_restart=EL3_WIDE_RESTART,
+                                 max_it=EL3_WIDE_MAX_IT),
+        A, b, names, gate=False)
+    history = [float(h) / float(torch.linalg.vector_norm(b))
+               for h in info.history]
+    key = "x".join(map(str, (N_FIELDS_EL3, *shape))) + instance_tag(4, True)
+    wide = {k: n for k, n in rec["launches_by_shape"].items()
+            if k.split("@")[1] == key}
+    tag = instance_tag(4, True, N_FIELDS_EL3)
+    rest = dict(rec, launches={k: n - wide.get(f"{k}@{key}", 0)
+                               for k, n in rec["launches"].items()},
+                launches_by_shape={k: n for k, n in
+                                   rec["launches_by_shape"].items()
+                                   if k not in wide})
+    pf = {"launches": {k.split("@")[0]: n for k, n in wide.items()},
+          "launches_by_shape": {k + "/pf": n for k, n in wide.items()}}
+    phase("elasticity3_wide", n_bg=N_BG_EL3_WIDE, n_fg=N_BG_EL3_WIDE,
+          lattice=list(shape), n_bg_dofs=M.n_bg_dofs,
+          n_fg_nodes=prob.space.n_nodes, setup_seconds=setup,
+          setup_peak_gib=setup_peak, plan=list(plan),
+          rel_residual_history=history,
+          error_norms=prob.error_norms(M.mv(u)), **rec)
+    if not rec["peak_gib"] < PEAK_GIB:
+        fail(f"elasticity3_wide: peak {rec['peak_gib']} GiB")
+    if any(h1 > h0 for h0, h1 in zip(history, history[1:])):
+        fail(f"elasticity3_wide: the residual rose: {history}")
+    if min(pf["launches"].get(k, 0) for k in names) <= 0:
+        fail(f"elasticity3_wide: a pass did not launch at {shape}: {pf}")
+    del prob, M, A, b, u
+    torch.cuda.empty_cache()
+    return {tag: (Counter(rest["launches"]),
+                  Counter(rest["launches_by_shape"])),
+            PF_TAG: (Counter(pf["launches"]),
+                     Counter(pf["launches_by_shape"]))}
+
+
 PHASES = ("device", "build", "kernels", "kernels3", "small_reference",
           "small_reference3", "main_path", "main_path3", "demo",
           "elasticity", "demo_elasticity", "elasticity3", "newton", "asm",
           "small_reference_biharmonic", "biharmonic", "demo_biharmonic",
           "demo_p2", "small_reference_biharmonic3", "biharmonic3",
           "demo_biharmonic3", "navier_stokes", "shells", "poisson_unfitted",
-          "determinism", "mesh_files", "f64_routes", "cubic", "sharded")
+          "determinism", "mesh_files", "f64_routes", "cubic", "quartic",
+          "elasticity3_wide", "sharded")
 
 
 def kernel_shapes(timing, by_shape):
@@ -5478,6 +6263,8 @@ def kernel_shapes(timing, by_shape):
     def key(r):
         form = f":{r['form']}" if "form" in r else ""
         tag = instance_tag(r["radius"], r["dtype"] == "f64")
+        if r.get("staging") == "per_field":
+            tag += "/pf"
         return (f"{r['kernel']}@{'x'.join(map(str, r['shape']))}{tag}"
                 f"{form}")
 
@@ -5649,24 +6436,23 @@ def main() -> None:
         timing += t
         for _, shapes in f64_tags.values():
             by_shape.update(shapes)
-    # {instance tag: (launches by kernel, by shape)} of the 2D and the 3D
-    # biharmonic: their kernels differ, so one tag's counts merge
+    # {instance tag: (launches by kernel, by shape)}, added up over the
+    # phases that launch an instance: the 2D and the 3D biharmonic (radius
+    # 3), the cubic paths (radius 4), the quartic paths' runtime-radius
+    # instances (radius 5) and the per-field staging's elasticity
+    # (elasticity3_wide, last: it takes most of the card), whose levels
+    # below its widest one launch the cubic elasticity's instance
     bh = {}
     for name, fn in (("biharmonic", phase_biharmonic),
-                     ("biharmonic3", phase_biharmonic3)):
+                     ("biharmonic3", phase_biharmonic3),
+                     ("cubic", phase_cubic), ("quartic", phase_quartic),
+                     ("elasticity3_wide", phase_elasticity3_wide)):
         if name in run:
             for tag, (counts, shapes) in run_phase(name, fn).items():
-                merged = bh.setdefault(tag, ({}, Counter()))
+                merged = bh.setdefault(tag, (Counter(), Counter()))
                 merged[0].update(counts)
                 merged[1].update(shapes)
                 by_shape.update(shapes)
-    # radius 4: the cubic paths' instances, by tag
-    if "cubic" in run:
-        for tag, (counts, shapes) in run_phase("cubic", phase_cubic).items():
-            merged = bh.setdefault(tag, ({}, Counter()))
-            merged[0].update(counts)
-            merged[1].update(shapes)
-            by_shape.update(shapes)
     import torch
 
     kernel_shapes(timing, by_shape)
@@ -5696,14 +6482,24 @@ def main() -> None:
                 fail(f"{name}{tag}: the summary needs one row timed with "
                      f"its plain version by its own kernel, got {found}")
             t = found[0]
-            row = {"name": name, "route": "cuda", "source": source,
+            row = {"name": name, "route": "cuda",
+                   "source": SOURCE_RN if t["radius"] > 4 else source,
                    "replaces": replaces, "launches": counts[name],
                    "max_abs_err": worst[name + tag], "ms": t["device_ms"],
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                   "bound_by": t["bound_by"], "library_ms": None}
+                   "bound_by": t["bound_by"],
+                   "library_ms": t.get("library_ms")}
             if tag:
                 row["instance"] = tag.strip("/").replace("/", " ")
             rows.append(row)
+    listed = {(r["name"], r.get("instance", "")) for r in rows}
+    missing = [(name, tag) for tag, names in SUMMARY_ROWS.items()
+               for name in names if (name, tag) not in listed]
+    unlaunched = [(r["name"], r.get("instance", "")) for r in rows
+                  if r["launches"] <= 0]
+    if missing or unlaunched:
+        fail(f"the kernels line lacks the rows {missing}, and holds rows no "
+             f"path launched: {unlaunched}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

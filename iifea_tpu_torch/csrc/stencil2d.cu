@@ -1,17 +1,24 @@
 // The 2D stencil kernels' public entries (plain C, loaded with ctypes) and
 // their f32 instances at r = 1-3; the kernels are in csrc/stencil2d.cuh,
 // the f64 instances in csrc/stencil2d_f64.cu, the r = 4 ones in
-// csrc/stencil2d_r4.cu and csrc/stencil2d_r4_f64.cu. Each public entry
-// hands its operands to the source that holds their (type, radius).
+// csrc/stencil2d_r4.cu and csrc/stencil2d_r4_f64.cu, and those of every
+// radius from 5 (the radius a kernel argument; csrc/stencil_rn.cuh) in
+// csrc/stencil2d_rn.cu. Each public entry hands its operands to the source
+// that holds their (type, radius).
 
 #include "stencil2d.cuh"
 
 STENCIL2D_ENTRIES(f32, float, 1, 3)
 
 // the typed entry of FN for (f64, radius); null when f64 is neither 0 nor 1
-#define TYPED2D(FN, f64, radius)                                   \
-  ((f64) == 1 ? ((radius) == 4 ? FN##_r4_f64 : FN##_f64)           \
-   : (f64) == 0 ? ((radius) == 4 ? FN##_r4_f32 : FN##_f32) : nullptr)
+#define TYPED2D(FN, f64, radius)                                          \
+  ((f64) == 1 ? ((radius) >= 5   ? FN##_rn_f64                            \
+                 : (radius) == 4 ? FN##_r4_f64                            \
+                                 : FN##_f64)                              \
+   : (f64) == 0 ? ((radius) >= 5   ? FN##_rn_f32                          \
+                   : (radius) == 4 ? FN##_r4_f32                          \
+                                   : FN##_f32)                            \
+                : nullptr)
 
 extern "C" {
 
@@ -36,8 +43,8 @@ int stencil2d_mv(const void* C, const void* x, void* y, int nx, int ny,
 }
 
 // 1: the level's smoothing call fits one cooperative launch
-// (stencil2d_smooth); 0: it takes one launch per pass (stencil2d_block);
-// negative: the occupancy query failed.
+// (stencil2d_smooth); 0: it takes one launch per pass (stencil2d_block;
+// always at r >= 5); negative: the occupancy query failed.
 int stencil2d_smooth_plan(int nx, int ny, int radius, int nf, int f64) {
   auto fn = TYPED2D(stencil2d_smooth_plan, f64, radius);
   if (fn == nullptr) return -1;

@@ -4,7 +4,9 @@
 // shared by the four sources that instantiate them, which nvcc compiles in
 // parallel: csrc/stencil2d.cu (the f32 instances at r = 1-3 and the public
 // entries), csrc/stencil2d_f64.cu (f64, r = 1-3), csrc/stencil2d_r4.cu and
-// csrc/stencil2d_r4_f64.cu (r = 4 in f32 and f64).
+// csrc/stencil2d_r4_f64.cu (r = 4 in f32 and f64). Every radius from 5
+// runs the runtime-radius instances of csrc/stencil_rn.cuh
+// (csrc/stencil2d_rn.cu).
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv` (body `_mv_kernel`/`_taps`) and `jacobi_smooth` (body
@@ -573,9 +575,10 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
 }  // namespace
 
 // The typed entries of one source: its scalar type T and radii LO..HI,
-// named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4). The public
-// entries of csrc/stencil2d.cu call the source that holds an operand's
-// (type, radius).
+// named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4; rn_f32,
+// rn_f64: every radius from 5, csrc/stencil2d_rn.cu). The public entries of
+// csrc/stencil2d.cu call the source that holds an operand's (type,
+// radius).
 #define STENCIL2D_DECLARE(SUFFIX)                                           \
   int stencil2d_block_##SUFFIX(const void* C, const void* x, const void* b, \
                                const void* binv, double omega, void* y,     \
@@ -614,6 +617,8 @@ STENCIL2D_DECLARE(f32)
 STENCIL2D_DECLARE(f64)
 STENCIL2D_DECLARE(r4_f32)
 STENCIL2D_DECLARE(r4_f64)
+STENCIL2D_DECLARE(rn_f32)
+STENCIL2D_DECLARE(rn_f64)
 }
 
 #endif  // IIFEA_STENCIL2D_CUH_

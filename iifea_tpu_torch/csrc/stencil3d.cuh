@@ -8,6 +8,8 @@
 // compiles in parallel: csrc/stencil3d.cu (the f32 instances at r = 1-3 and
 // the public entries), csrc/stencil3d_f64.cu (f64, r = 1-3),
 // csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu (r = 4 in f32 and f64).
+// Every radius from 5 runs the runtime-radius instances of
+// csrc/stencil_rn.cuh (csrc/stencil3d_rn.cu).
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
@@ -47,7 +49,11 @@
 //   k tile), and the coefficient reads of a run are one contiguous,
 //   coalesced stretch of each plane in the planes' own layout;
 // * the 2r+1 x planes the run needs, each with r rows of halo in j and k,
-//   are copied into shared memory with cp.async; a block takes one i-plane
+//   are copied into shared memory with cp.async (where a block cannot hold
+//   those of every field, f64 r = 4 with three fields from a 73-point row,
+//   one field's at a time: the plan's per-field staging, whose trips keep
+//   each thread's order of sums, so it equals the all-field staging
+//   bitwise; one launch a pass); a block takes one i-plane
 //   (blocks that walked along i through several planes, copying the next
 //   while the current one's coefficients streamed, were no faster at any
 //   level shape on an H100: 3 x 97^3 1.434 ms at 1 plane, 1.452 at 4);
@@ -305,10 +311,11 @@ Geom make_geom(int nx, int ny, int nz, int split) {
   return g;
 }
 
-// the 2r+1 staged x planes of every field, then the split's partial sums
+// the 2r+1 staged x planes of every field (of one field at a time where
+// `staged` is 1: the per-field staging), then the split's partial sums
 template <class T, int R, int NF>
-size_t smem_bytes(const Geom& g) {
-  return ((size_t)(2 * R + 1) * NF * g.rows * g.width
+size_t smem_bytes(const Geom& g, int staged = NF) {
+  return ((size_t)(2 * R + 1) * staged * g.rows * g.width
           + (size_t)NF * kMarch) * sizeof(T);
 }
 
@@ -440,6 +447,31 @@ __device__ __forceinline__ void stage_plane(T* slot, const Geom& g, int gi,
   }
 }
 
+// Copy x plane gi of field f alone into `slot` ([rows][width]), as
+// stage_plane does for every field: the per-field staging's copy.
+template <class T, int R>
+__device__ __forceinline__ void stage_field(T* slot, const Geom& g, int gi,
+                                            int j0, int row0, int col0,
+                                            int f, const T* x) {
+  const int per = g.rows * g.width;
+  const bool plane_in = gi >= 0 && gi < g.nx;
+  int row = row0, col = col0;
+  for (int e = threadIdx.x; e < per; e += kMarch) {
+    const int gj = j0 + row;
+    const int gk = col - R;
+    const bool in =
+        plane_in && gj >= 0 && gj < g.ny && gk >= 0 && gk < g.nz;
+    const int64_t p = ((int64_t)gi * g.ny + gj) * g.nz + gk;
+    cp_async(slot + e, in ? x + f * g.plane + p : x, in);
+    row += g.drow;
+    col += g.dcol;
+    if (col >= g.width) {
+      col -= g.width;
+      ++row;
+    }
+  }
+}
+
 // One (f2, oi) trip at a point: acc[f1] += sum_(oj, ok) C[f1, f2, q] *
 // window for every output field f1 (NF m^2 loads), or, where a trip covers
 // one field (trip_fields), for f1 = fg alone (m^2 loads; acc[fg] is picked
@@ -496,16 +528,25 @@ __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
 // without, +0.3% / -2.3% with, on an H100); a level's launch loads them
 // after the stream, since the two registers more halve its co-resident
 // blocks at f64 r = 3 (130 registers) and take the 33^3 level out of one
-// launch.
-template <class T, int R, int NF, int STAGE, bool EARLY>
+// launch. PF (2-3 fields): the per-field staging, for lattices whose
+// planes of every field a block cannot hold: field f2's 2r+1 planes are
+// staged, then that field's trips run, then the next field's planes
+// replace them; each thread runs the same trips in the same order as with
+// every field staged, so the sums are bitwise the same. The epilogue reads
+// x at the point from memory. A pass launch alone takes it (STAGE kCopy):
+// the level launch, whose blocks must all be co-resident, stages every
+// field.
+template <class T, int R, int NF, int STAGE, bool EARLY, bool PF = false>
 __device__ __forceinline__ void march(
     const T* __restrict__ C, const T* x, const T* __restrict__ b,
     const T* __restrict__ binv, T* d, T omega0, T s0, T s1, T* y, int pass,
     const Geom& g, int run, int i, T* sm) {
   constexpr int M = 2 * R + 1;
   constexpr int M3 = M * M * M;
+  static_assert(!PF || NF > 1, "one field's planes are all of them");
+  static_assert(!PF || STAGE == kCopy, "the per-field staging copies x");
   const int per = g.rows * g.width;
-  T* red = sm + M * NF * per;
+  T* red = sm + M * (PF ? 1 : NF) * per;
   const int s = threadIdx.x / g.tp;
   const int pl = threadIdx.x - s * g.tp;
   const int q0 = run * g.tp;
@@ -527,14 +568,6 @@ __device__ __forceinline__ void march(
   };
   if (EARLY && NF == 1 && s == 0 && valid) point_operands();
 
-  // planes i - r .. i + r in slots 0 .. 2r
-  for (int oi = 0; oi < M; ++oi) {
-    stage_plane<T, R, NF, STAGE>(sm + oi * NF * per, g, i + oi - R, jf - R,
-                                 row0, col0, x, binv, b, omega0);
-  }
-  if (STAGE == kCopy) cp_async_wait();
-  __syncthreads();
-
   // trip tu = (((f2 M + oi) RG + rg) G + fg): G = NF / trip_fields field
   // groups, RG = m / trip_rows row groups
   constexpr int G = NF / trip_fields<T, R, NF>();
@@ -543,28 +576,69 @@ __device__ __forceinline__ void march(
   static_assert(M % ROWS == 0, "a trip takes whole rows");
   constexpr int NT = NF * M * RG * G;
   T acc[NF];
+  // trip tu at the point, on its x window in the staged slots (every
+  // field: field f2's plane oi at slot oi*NF + f2; per field: at slot oi)
+  auto run_trip = [&](int tu) {
+    const int fg = tu % G;
+    const int rg = tu / G % RG;
+    const int fo = tu / G / RG;
+    const int f2 = fo / M;
+    const int oi = fo - f2 * M;
+    const int oj0 = rg * ROWS;
+    const T* xw = sm + (PF ? oi : oi * NF + f2) * per +
+                  (wr + oj0) * g.width + k;
+    trip<T, R, NF>(C + (int64_t)(f2 * M3 + oi * M * M + oj0 * M) * plane + p,
+                   plane, xw, g.width, acc, fg);
+  };
+  if constexpr (!PF) {
+    // planes i - r .. i + r in slots 0 .. 2r
+    for (int oi = 0; oi < M; ++oi) {
+      stage_plane<T, R, NF, STAGE>(sm + oi * NF * per, g, i + oi - R,
+                                   jf - R, row0, col0, x, binv, b, omega0);
+    }
+    if (STAGE == kCopy) cp_async_wait();
+    __syncthreads();
 #pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = T(0);
-  if (valid) {
+    for (int f = 0; f < NF; ++f) acc[f] = T(0);
+    if (valid) {
 #pragma unroll 1
-    for (int t = s; t < NT; t += trips<T, R, NF>() * g.split) {
+      for (int t = s; t < NT; t += trips<T, R, NF>() * g.split) {
 #pragma unroll
-      for (int u = 0; u < trips<T, R, NF>(); ++u) {
-        const int tu = t + u * g.split;
-        if (tu < NT) {
-          const int fg = tu % G;
-          const int rg = tu / G % RG;
-          const int fo = tu / G / RG;
-          const int f2 = fo / M;
-          const int oi = fo - f2 * M;
-          const int oj0 = rg * ROWS;
-          const T* xw =
-              sm + (oi * NF + f2) * per + (wr + oj0) * g.width + k;
-          trip<T, R, NF>(
-              C + (int64_t)(f2 * M3 + oi * M * M + oj0 * M) * plane + p,
-              plane, xw, g.width, acc, fg);
+        for (int u = 0; u < trips<T, R, NF>(); ++u) {
+          const int tu = t + u * g.split;
+          if (tu < NT) run_trip(tu);
         }
       }
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[f] = T(0);
+    // field f2's trips are NT / NF consecutive ones; thread s takes those
+    // equal to s modulo split, as with every field staged
+    constexpr int NTF = NT / NF;
+#pragma unroll 1
+    for (int f2 = 0; f2 < NF; ++f2) {
+      for (int oi = 0; oi < M; ++oi) {
+        stage_field<T, R>(sm + oi * per, g, i + oi - R, jf - R, row0, col0,
+                          f2, x);
+      }
+      cp_async_wait();
+      __syncthreads();
+      if (valid) {
+        const int end = (f2 + 1) * NTF;
+#pragma unroll 1
+        for (int t = f2 * NTF + (s - f2 * NTF % g.split + g.split) % g.split;
+             t < end; t += trips<T, R, NF>() * g.split) {
+#pragma unroll
+          for (int u = 0; u < trips<T, R, NF>(); ++u) {
+            const int tu = t + u * g.split;
+            if (tu < end) run_trip(tu);
+          }
+        }
+      }
+      // every thread is done with field f2's planes before they are
+      // replaced
+      __syncthreads();
     }
   }
   if (g.split > 1) {
@@ -584,6 +658,14 @@ __device__ __forceinline__ void march(
   if (s != 0 || !valid) return;
   if (!EARLY && NF == 1) point_operands();
   const T* xc = sm + R * NF * per + (wr + R) * g.width + k + R;
+  // x of field f at the point: staged, or (per field) from memory
+  auto xat = [&](int f) -> T {
+    if constexpr (!PF) {
+      return xc[f * per];
+    } else {
+      return __ldcg(x + f * plane + p);
+    }
+  };
   if (pass == kApply) {
 #pragma unroll
     for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
@@ -593,7 +675,7 @@ __device__ __forceinline__ void march(
 #pragma unroll
     for (int f = 0; f < NF; ++f) y[f * plane + p] = b[f * plane + p] - acc[f];
   } else if (pass == kSweep && NF == 1) {
-    y[p] = xc[0] + s0 * (i1 * (b1 - acc[0]));
+    y[p] = xat(0) + s0 * (i1 * (b1 - acc[0]));
   } else if (pass == kSweep) {
     T res[NF];
 #pragma unroll
@@ -605,14 +687,14 @@ __device__ __forceinline__ void march(
       for (int f2 = 0; f2 < NF; ++f2) {
         v = fma_t(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], v);
       }
-      y[f1 * plane + p] = xc[f1 * per] + s0 * v;
+      y[f1 * plane + p] = xat(f1) + s0 * v;
     }
   } else if (pass == kCheb) {
     const T res = i1 * (b1 - acc[0]);
-    const T dprev = x == nullptr ? xc[0] : s1 != T(0) ? d1 : T(0);
+    const T dprev = x == nullptr ? xat(0) : s1 != T(0) ? d1 : T(0);
     const T dn = s1 != T(0) ? fma_t(s0, res, s1 * dprev) : s0 * res;
     d[p] = dn;
-    y[p] = xc[0] + dn;
+    y[p] = xat(0) + dn;
   }
 }
 
@@ -626,6 +708,19 @@ march_kernel(const T* __restrict__ C, const T* x, const T* __restrict__ b,
   march<T, R, NF, kCopy, true>(C, x, b, binv, d, T(0), s0, s1, y, pass,
                                g, blockIdx.x % g.runs, blockIdx.x / g.runs,
                                reinterpret_cast<T*>(smem_raw));
+}
+
+// The same pass with the per-field staging (2-3 fields).
+template <class T, int R, int NF>
+__global__ void __launch_bounds__(kMarch, march_blocks<T, R, NF>())
+march_pf_kernel(const T* __restrict__ C, const T* x, const T* __restrict__ b,
+                const T* __restrict__ binv, T* d, T s0, T s1, T* y, int pass,
+                Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  march<T, R, NF, kCopy, true, true>(C, x, b, binv, d, T(0), s0, s1, y, pass,
+                                     g, blockIdx.x % g.runs,
+                                     blockIdx.x / g.runs,
+                                     reinterpret_cast<T*>(smem_raw));
 }
 
 // y = omega Binv b: one sweep from zero, one thread per point; d, when not
@@ -729,14 +824,33 @@ cudaError_t prepare() {
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   optin);
     }
+    if constexpr (NF > 1) {
+      if (done == cudaSuccess) {
+        done = cudaFuncSetAttribute(
+            march_pf_kernel<T, R, NF>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      }
+    }
   }
   return done;
 }
 
+// how a block stages the x planes: every field at once, or one field at a
+// time (the plan's out[3]; 2-3 fields)
+enum Staging { kAllFields = 0, kPerField = 1 };
+
+// (the level launch stages every field)
 template <class T, int R, int NF>
-cudaError_t blocks_per_sm(bool level, size_t smem, int* out) {
+cudaError_t blocks_per_sm(bool level, size_t smem, int* out,
+                          int staging = kAllFields) {
   cudaError_t e = prepare<T, R, NF>();
   if (e != cudaSuccess) return e;
+  if constexpr (NF > 1) {
+    if (staging == kPerField && !level) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, march_pf_kernel<T, R, NF>, kMarch, smem);
+    }
+  }
   return level ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      out, march_level_kernel<T, R, NF>, kMarch, smem)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -775,14 +889,21 @@ size_t one_block_smem() {
   return bytes;
 }
 
-// plan's answer where a block cannot stage the 2r+1 x planes of every field
-// at split 1 (f64 r = 4 with 3 fields from a 97-point row on: 272 KB
-// against an H100's 227 KB a block); larger splits stage fewer rows
+// plan's answer where a block cannot stage the 2r+1 x planes of even one
+// field at split 1 (f64 r = 4 with one field from about 313 points a row,
+// where the planes alone would be 179 GB); larger splits stage fewer rows
 constexpr int kPlanTooWide = -2;
 
-// The plan of one level shape (out[0..2]): split, whether the level's
-// smoothing call is one launch (1) or one launch per pass (0), and the
-// co-resident blocks of the level launch. From the sweep of every split at
+// The plan of one level shape (out[0..3]): split, whether the level's
+// smoothing call is one launch (1) or one launch per pass (0), the
+// co-resident blocks of the level launch, and the staging (kAllFields, or
+// kPerField where a block cannot hold the 2r+1 planes of every field at
+// split 1: f64 r = 4 with three fields from 73 points a row on, two fields
+// from about 125; f64 r = 3 with three fields from about 144; on an H100's
+// 227 KB a block). A per-field lattice takes one launch a pass: its
+// (run, plane) blocks outnumber by far those the card holds at once, which
+// a level launch needs (and the level launch stages every field). From
+// the sweep of every split at
 // the 3D paths' level shapes on an H100 (tests/compare_stencil3d.py
 // --sweep):
 // * split: the smallest power of two whose (run, plane) blocks fill half
@@ -805,16 +926,21 @@ int plan(int nx, int ny, int nz, int* out) {
       cdiv(NF * (2 * R + 1) * (NF / trip_fields<T, R, NF>()) *
                ((2 * R + 1) / trip_rows<T, R>()),
            trips<T, R, NF>());
-  if (smem_bytes<T, R, NF>(make_geom<R>(nx, ny, nz, 1)) >
-      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin)) {
-    return kPlanTooWide;
+  const size_t optin =
+      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  const Geom g1 = make_geom<R>(nx, ny, nz, 1);
+  int staging = kAllFields;
+  if (smem_bytes<T, R, NF>(g1) > optin) {
+    if (NF == 1 || smem_bytes<T, R, NF>(g1, 1) > optin) return kPlanTooWide;
+    staging = kPerField;
   }
+  const int staged = staging == kPerField ? 1 : NF;
   int split = 1;
   for (;;) {
     const Geom g = make_geom<R>(nx, ny, nz, split);
     int per_sm = 0;
-    if (blocks_per_sm<T, R, NF>(false, smem_bytes<T, R, NF>(g), &per_sm) !=
-            cudaSuccess ||
+    if (blocks_per_sm<T, R, NF>(false, smem_bytes<T, R, NF>(g, staged),
+                                &per_sm, staging) != cudaSuccess ||
         per_sm == 0) {
       return -1;
     }
@@ -826,15 +952,21 @@ int plan(int nx, int ny, int nz, int* out) {
   }
   const Geom g = make_geom<R>(nx, ny, nz, split);
   int level_sm = 0;
-  if (blocks_per_sm<T, R, NF>(true, smem_bytes<T, R, NF>(g), &level_sm) !=
-      cudaSuccess) {
+  if (staging == kAllFields &&
+      blocks_per_sm<T, R, NF>(true, smem_bytes<T, R, NF>(g), &level_sm) !=
+          cudaSuccess) {
     return -1;
   }
   const int level_cap = sms * level_sm;
   out[0] = split;
   out[1] = !scalar_r2<T, R, NF>() && (int64_t)g.runs * nx <= level_cap;
   out[2] = level_cap;
+  out[3] = staging;
   return 0;
+}
+
+bool valid_staging(int staging, int nf) {
+  return staging == kAllFields || (staging == kPerField && nf > 1);
 }
 
 bool valid_split(int split) {
@@ -846,7 +978,7 @@ template <class T, int R, int NF>
 int launch_pass(const void* C, const void* x, const void* b,
                 const void* binv, void* d, double omega0, double s0,
                 double s1, void* y, int nx, int ny, int nz, int pass,
-                int split, cudaStream_t stream) {
+                int split, int staging, cudaStream_t stream) {
   if (pass == kZero) {
     const int64_t n = (int64_t)nx * ny * nz;
     march_zero_kernel<T, NF>
@@ -854,17 +986,25 @@ int launch_pass(const void* C, const void* x, const void* b,
             (const T*)binv, (const T*)b, (T)omega0, (T*)y, (T*)d, n);
     return (int)cudaGetLastError();
   }
-  if (!valid_split(split) || pass < kApply || pass > kCheb ||
-      (pass == kCheb && NF != 1) || x == nullptr) {
+  if (!valid_split(split) || !valid_staging(staging, NF) || pass < kApply ||
+      pass > kCheb || (pass == kCheb && NF != 1) || x == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const Geom g = make_geom<R>(nx, ny, nz, split);
   cudaError_t e = prepare<T, R, NF>();
   if (e != cudaSuccess) return (int)e;
   const int64_t blocks = (int64_t)g.runs * nx;
-  size_t smem = smem_bytes<T, R, NF>(g);
+  size_t smem = smem_bytes<T, R, NF>(g, staging == kPerField ? 1 : NF);
   if (one_block_per_sm<T, R, NF>(blocks) && smem < one_block_smem()) {
     smem = one_block_smem();
+  }
+  if constexpr (NF > 1) {
+    if (staging == kPerField) {
+      march_pf_kernel<T, R, NF><<<(unsigned)blocks, kMarch, smem, stream>>>(
+          (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d,
+          (T)s0, (T)s1, (T*)y, pass, g);
+      return (int)cudaGetLastError();
+    }
   }
   march_kernel<T, R, NF><<<(unsigned)blocks, kMarch, smem, stream>>>(
       (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
@@ -877,8 +1017,8 @@ int launch_level(const void* C, const void* binv, const void* b,
                  const void* x, void* d, void* out, void* tmp, void* res,
                  const double* s0, const double* s1, int sweeps, int cheb,
                  int nx, int ny, int nz, int split, cudaStream_t stream) {
-  if (!valid_split(split) || sweeps < 1 ||
-      sweeps > kMaxSteps || (cheb && NF != 1)) {
+  if (!valid_split(split) || sweeps < 1 || sweeps > kMaxSteps ||
+      (cheb && NF != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const Geom g = make_geom<R>(nx, ny, nz, split);
@@ -957,11 +1097,11 @@ template <class T, int LO, int HI>
 int pass_entry(const void* C, const void* x, const void* b, const void* binv,
                void* d, double omega0, double s0, double s1, void* y, int nx,
                int ny, int nz, int radius, int nf, int pass, int split,
-               void* stream) {
+               int staging, void* stream) {
   if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
 #define CALL(T_, R, NF)                                                     \
   launch_pass<T_, R, NF>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,   \
-                         pass, split, (cudaStream_t)stream)
+                         pass, split, staging, (cudaStream_t)stream)
   DISPATCH3_T(T, LO, HI, radius, nf, CALL)
 #undef CALL
 }
@@ -982,9 +1122,10 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
 }  // namespace
 
 // The typed entries of one source: its scalar type T and radii LO..HI,
-// named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4). The public
-// entries of csrc/stencil3d.cu call the source that holds an operand's
-// (type, radius).
+// named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4; rn_f32,
+// rn_f64: every radius from 5, csrc/stencil3d_rn.cu). The public entries of
+// csrc/stencil3d.cu call the source that holds an operand's (type,
+// radius).
 #define STENCIL3D_DECLARE(SUFFIX)                                            \
   int stencil3d_mv_##SUFFIX(const void* C, const void* x, void* y, int nx,   \
                             int ny, int nz, int radius, void* stream);       \
@@ -994,7 +1135,7 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
                               const void* binv, void* d, double omega0,      \
                               double s0, double s1, void* y, int nx, int ny, \
                               int nz, int radius, int nf, int pass,          \
-                              int split, void* stream);                      \
+                              int split, int staging, void* stream);         \
   int stencil3d_level_##SUFFIX(const void* C, const void* binv,              \
                                const void* b, const void* x, void* d,        \
                                void* out, void* tmp, void* res,              \
@@ -1015,9 +1156,10 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
                               const void* binv, void* d, double omega0,      \
                               double s0, double s1, void* y, int nx, int ny, \
                               int nz, int radius, int nf, int pass,          \
-                              int split, void* stream) {                     \
+                              int split, int staging, void* stream) {        \
     return pass_entry<T, LO, HI>(C, x, b, binv, d, omega0, s0, s1, y, nx,    \
-                                 ny, nz, radius, nf, pass, split, stream);   \
+                                 ny, nz, radius, nf, pass, split, staging,   \
+                                 stream);                                    \
   }                                                                          \
   int stencil3d_level_##SUFFIX(const void* C, const void* binv,              \
                                const void* b, const void* x, void* d,        \
@@ -1037,6 +1179,8 @@ STENCIL3D_DECLARE(f32)
 STENCIL3D_DECLARE(f64)
 STENCIL3D_DECLARE(r4_f32)
 STENCIL3D_DECLARE(r4_f64)
+STENCIL3D_DECLARE(rn_f32)
+STENCIL3D_DECLARE(rn_f64)
 }
 
 #endif  // IIFEA_STENCIL3D_CUH_

@@ -15,9 +15,11 @@ reference has no counterpart here.
 Applies and sweeps on a card go through the hand-written kernels of
 ``ops/stencil_kernels.py`` (a block apply is one launch, a level's
 smoothing call one launch on the small 2D and 3D lattices): f32 and f64 at
-radius 1–4; another dtype or radius raises there. On the CPU the f32 operators
-go through the same wrappers (their plain versions) and the others use the
-plain shifted-slice form ``mv_ref``.
+every radius (fixed-radius instances at 1–4, runtime-radius ones above; a
+2D radius up to what a block can stage); another dtype raises there. On
+the CPU the f32 operators go through the same wrappers (their plain
+versions, any radius) and the others use the plain shifted-slice form
+``mv_ref``.
 
 ``probe_multi`` extracts the planes from any operator given only its
 stacked application (k, n) -> (k, n), by coloured probing: the (2r+1)^dim
@@ -208,8 +210,8 @@ class StencilOperator3D:
         return self.device.type == "cuda" or self.dtype == torch.float32
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A_b x: the stencil_mv3 kernel on a card (f32 or f64 at radius
-        1–3) and for f32 on the CPU (its plain version), ``mv_ref``
+        """y = A_b x: the stencil_mv3 kernel on a card (f32 or f64, any
+        radius) and for f32 on the CPU (its plain version), ``mv_ref``
         otherwise."""
         if self._kernels():
             return sk.stencil_mv3(self.coeffs, x, self.shape, self.radius)

@@ -16,7 +16,9 @@ cooperative launch of it on the small levels). The kernels live in the
 two headers; each scalar type's instances are compiled from sources of
 their own, the radius-4 ones apart (``stencil2d.cu`` and ``stencil3d.cu``:
 the f32 instances at r = 1–3 and the entries; ``stencil2d_f64.cu``,
-``stencil3d_f64.cu``; ``stencil{2d,3d}_r4{,_f64}.cu``). Every ``csrc/*.cu``
+``stencil3d_f64.cu``; ``stencil{2d,3d}_r4{,_f64}.cu``); every radius from 5
+runs the runtime-radius instances of ``csrc/stencil_rn.cuh``
+(``stencil{2d,3d}_rn.cu``: the radius a kernel argument). Every ``csrc/*.cu``
 source is compiled with ``nvcc`` for ``sm_90a`` at first use (one nvcc per
 source, run together, then one link) into one shared library in
 ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
@@ -34,12 +36,18 @@ of the 3D marching entry ``stencil3d_pass`` under the name of its pass and
 instance, ``PASS3_NAMES`` (``jacobi_smooth3``, ``cheb_step3``,
 ``stencil3d_block``, …), whichever wrapper made it.
 
-Instances (``INSTANCES``): every kernel, 2D and 3D, takes f32 and f64 at
-r = 1 to 4 (r = 3: a quadratic B-spline background's 49 and 343 taps,
-r = 4 a cubic one's 81 and 729) for 1 to 3 fields: every configuration of
-the multigrid routes. The
-operands of one call share one dtype; their scalars (omega, alpha, beta)
-are passed in double.
+Instances (``_check_instance``): every kernel, 2D and 3D, takes f32 and
+f64 for 1 to 3 fields at every radius from 1 (r = 3: a quadratic B-spline
+background's 49 and 343 taps, r = 4 a cubic one's 81 and 729, r = 5 a
+quartic one's 121 and 1,331): fixed-radius instances at r = 1 to 4, the
+runtime-radius ones above. On the card a 2D radius is limited by the
+staged tile of the runtime-radius instances (``max_radius2d``: 41 in f64
+with three fields); the plain versions take any. At r ≥ 5 a level's
+smoothing call takes one launch per pass. The 3D marching passes stage
+the x planes of one field at a time where a block cannot hold those of
+every field (the plan's staging, f64 at r = 4 with three fields from a
+73-point row; one launch per pass there too). The operands of one call
+share one dtype; their scalars (omega, alpha, beta) are passed in double.
 
 Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous planes
 with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
@@ -55,6 +63,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
+import operator
 import os
 import subprocess
 from pathlib import Path
@@ -308,7 +318,7 @@ def _lib() -> ctypes.CDLL:
     lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.stencil3d_plan.argtypes = [i, i, i, i, i, i, p]
     lib.stencil3d_pass.argtypes = [p, p, p, p, p, d, d, d, p, i, i, i, i, i,
-                                   i, i, i, p]
+                                   i, i, i, i, p]
     lib.stencil3d_level.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                     i, i, i, i, i, i, p]
     for fn in (lib.stencil2d_mv, lib.stencil2d_block,
@@ -321,34 +331,49 @@ def _lib() -> ctypes.CDLL:
 
 # -- wrappers -------------------------------------------------------------------
 
-# (dtype, radius, fields) of the kernels' instances, the same in 2D and 3D
-# (csrc/stencil2d.cuh, csrc/stencil3d.cuh)
-RADII = (1, 2, 3, 4)
-INSTANCES = frozenset((dt, r, nf) for dt in (torch.float32, torch.float64)
-                      for r in RADII for nf in (1, 2, 3))
+# the runtime-radius 2D instances (csrc/stencil_rn.cuh, r >= 5) stage an
+# RN_TILE² tile of x with its 2r halo, every field, in one block's shared
+# memory: at most the H100's opt-in limit a block, 227 KB
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, which the kernels' launch asks
+# of the card: optin_bytes in csrc/stencil_rn.cuh)
+RN_TILE = 16
+H100_SMEM_OPTIN_BYTES = 232448
 
 
-def _check_instance(dtype, radius, nF):
+def max_radius2d(dtype, nF: int) -> int:
+    """The largest radius whose 2D tile a block can stage on an H100:
+    nF·(16 + 2r)² values of ``dtype`` in H100_SMEM_OPTIN_BYTES (f64: 77
+    with one field, 41 with three; f32: 112, 61)."""
+    side = math.isqrt(H100_SMEM_OPTIN_BYTES
+                      // (nF * torch.finfo(dtype).bits // 8))
+    return (side - RN_TILE) // 2
+
+
+def _check_instance(dtype, radius, nF, dim: int = 2, device: str = "cuda"):
     """Refuse operands no kernel instance takes: TypeError for a dtype,
-    ValueError for a radius or a field count (the plain versions follow
-    the same rule, so the host runs what the card runs)."""
-    if (dtype, radius, nF) in INSTANCES:
-        return
+    ValueError for a field count or a radius below 1 or, for the card's 2D
+    kernels (``device`` "cuda"), above ``max_radius2d``. The plain versions
+    (``device`` "cpu") take any radius, as the JAX package does."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"stencil kernels take float32 or float64, got "
                         f"{dtype}")
-    if radius not in RADII:
+    if nF not in (1, 2, 3):
+        raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
+    if operator.index(radius) < 1:
+        raise ValueError(f"stencil radius must be >= 1, got {radius}")
+    if device == "cuda" and dim == 2 and radius > max_radius2d(dtype, nF):
         raise ValueError(
-            f"the stencil kernels take radius 1 to 4 (up to a cubic B-spline "
-            f"background), got {radius}: a quartic background's radius 5 "
-            f"and above has no instance")
-    raise ValueError(f"block kernels take 1 to 3 fields, got {nF}")
+            f"the 2D stencil kernels take radius 1 to "
+            f"{max_radius2d(dtype, nF)} for {nF} field(s) in {dtype}, got "
+            f"{radius}: a {RN_TILE} x {RN_TILE} tile of x with its 2r halo "
+            f"must fit one block's {H100_SMEM_OPTIN_BYTES} bytes of shared "
+            f"memory")
 
 
 def _check(C, x, shape, radius, *planes, dim: int = 2) -> str:
     """Validate the operands of a ``dim``-D kernel; returns the device type
     ('cpu' or 'cuda')."""
-    _check_instance(C.dtype, radius, 1)
+    _check_instance(C.dtype, radius, 1, dim, x.device.type)
     shape = tuple(shape)
     if len(shape) != dim:
         raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
@@ -414,7 +439,7 @@ def _check_block(C, shape, radius, vectors, binv=None, dim: int = 2):
     type, nF)."""
     block = C.dim() == dim + 3
     nF = C.shape[0] if block else 1
-    _check_instance(C.dtype, radius, nF)
+    _check_instance(C.dtype, radius, nF, dim, vectors[0].device.type)
     shape = tuple(shape)
     if len(shape) != dim:
         raise ValueError(f"a {dim}D kernel got the lattice shape {shape}")
@@ -591,7 +616,7 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
 
 
 def stencil_mv3(C, x, shape, radius):
-    """y = A x on a 3D lattice (f32 or f64, r = 1 to 4). CPU: plain
+    """y = A x on a 3D lattice (f32 or f64, any radius). CPU: plain
     version; CUDA: the stencil3d_mv kernel instance of the operands'
     (dtype, radius)."""
     if _check(C, x, shape, radius, dim=3) == "cpu":
@@ -623,27 +648,32 @@ PASS3_NAMES = {
 _pass3_launches = dict.fromkeys(PASS3_NAMES.values(), 0)
 # the most steps a level's smoothing launch takes (kMaxSteps)
 MAX_LEVEL_STEPS3 = 8
-# stencil3d_plan's answer where a block cannot stage the planes (kPlanTooWide)
+# stencil3d_plan's answer where a block cannot stage the planes of even one
+# field (kPlanTooWide)
 _PLAN_TOO_WIDE = -2
+# the marching passes' staging (the plan's out[3]): every field's x planes
+# at once, or one field's at a time
+ALL_FIELDS, PER_FIELD = range(2)
 
 
 @functools.cache
 def _plan3(shape, radius, nF, device_index, f64: bool = False):
-    """(split, level, level_blocks) of a 3D level shape, asked of the
-    library once per (lattice, radius, fields, device, scalar type):
+    """(split, level, level_blocks, staging) of a 3D level shape, asked of
+    the library once per (lattice, radius, fields, device, scalar type):
     threads per point, whether a smoothing call there is one launch (1) or
-    one launch per pass (0), and the blocks the card holds of a level's
-    launch. The library decides from the run count and occupancy queries
-    of the instance. A shape whose staged x planes do not fit a block's
-    shared memory (f64, r = 4, 3 fields from a 97-point row on) raises
-    ValueError."""
-    out = (ctypes.c_int * 3)()
+    one launch per pass (0), the blocks the card holds of a level's launch,
+    and ALL_FIELDS or PER_FIELD (where a block cannot hold the staged x
+    planes of every field: f64, r = 4, three fields from a 73-point row
+    on). The library decides from the run count and occupancy queries of
+    the instance. A shape where a block cannot hold even one field's
+    planes (f64, r = 4 from about a 313-point row) raises ValueError."""
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         rc = _lib().stencil3d_plan(*shape, radius, nF, int(f64), out)
     if rc == _PLAN_TOO_WIDE:
         raise ValueError(
             f"the 3D kernels cannot stage the {2 * radius + 1} x planes of "
-            f"{nF} field(s) of a {shape} lattice in one block's shared memory "
+            f"one field of a {shape} lattice in one block's shared memory "
             f"({'f64' if f64 else 'f32'}, r = {radius})")
     if rc != 0:
         raise RuntimeError(f"stencil3d_plan failed: {rc}")
@@ -651,8 +681,9 @@ def _plan3(shape, radius, nF, device_index, f64: bool = False):
 
 
 def check_plan3(shape, radius, nF, device_index, f64: bool = False):
-    """The ValueError of ``_plan3`` for a 3D lattice whose staged x planes
-    a block cannot hold, or None where the plan takes it."""
+    """The ValueError of ``_plan3`` for a 3D lattice where a block cannot
+    hold even one field's staged x planes, or None where the plan takes
+    it."""
     try:
         _plan3(tuple(shape), radius, nF, device_index, f64)
     except ValueError as e:
@@ -661,24 +692,26 @@ def check_plan3(shape, radius, nF, device_index, f64: bool = False):
 
 
 def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
-           s1=0.0, d=None, y=None, split=None):
+           s1=0.0, d=None, y=None, split=None, staging=None):
     """One stencil3d_pass launch of ``pass_`` on checked CUDA operands into
     ``y`` (new when None), which it returns, counted under its
-    ``PASS3_NAMES`` entry; ``split`` overrides the plan's. The _ZERO pass
-    is omega0·Binv·b (also into ``d`` when given)."""
+    ``PASS3_NAMES`` entry; ``split`` and ``staging`` override the plan's.
+    The _ZERO pass is omega0·Binv·b (also into ``d`` when given)."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     if y is None:
         y = torch.empty_like(b if b is not None else x)
     with torch.cuda.device(y.device):
-        if split is None:
-            split = _plan3(tuple(shape), radius, nF, y.device.index or 0,
-                           y.dtype == torch.float64)[0]
+        if split is None or staging is None:
+            plan = _plan3(tuple(shape), radius, nF, y.device.index or 0,
+                          y.dtype == torch.float64)
+            split = plan[0] if split is None else split
+            staging = plan[3] if staging is None else staging
         rc = _lib().stencil3d_pass(
             ptr(C), ptr(x), ptr(b), ptr(binv), ptr(d), float(omega0),
             float(s0), float(s1), y.data_ptr(), *shape, radius, nF, _f64(y),
-            pass_, split, torch.cuda.current_stream().cuda_stream)
+            pass_, split, staging, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "stencil3d_pass")
     _pass3_launches[PASS3_NAMES[_PASSES[pass_], nF > 1]] += 1
     return y
@@ -686,7 +719,7 @@ def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
 
 def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
     """y = x + ω·invd·(b − A x) in one pass on a 3D lattice (f32 or f64,
-    r = 1 to 4). CPU: plain version; CUDA: the sweep pass of the
+    any radius). CPU: plain version; CUDA: the sweep pass of the
     stencil3d_pass kernel instance."""
     if _check(C, x, shape, radius, invd, b, dim=3) == "cpu":
         return jacobi_smooth3_plain(C, invd, b, x, omega, shape, radius)
@@ -695,7 +728,7 @@ def jacobi_smooth3(C, invd, b, x, omega, shape, radius):
 
 def cheb_step3(C, invd, b, x, d, alpha, beta, shape, radius):
     """One Chebyshev smoothing step in one pass on a 3D lattice (f32 or
-    f64, r = 1 to 4): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
+    f64, any radius): r = invd·(b − A x), d' = α·r + β·d, x' = x + d'.
     ``d`` is None on the first step (β must be 0). Returns (x', d'). CPU:
     plain version; CUDA: the Chebyshev pass of the stencil3d_pass kernel
     instance, which writes x' to a new tensor and d' over ``d`` (each point
@@ -768,20 +801,27 @@ def _smooth3_route(shape, radius, nF, device_index, f64, sweeps, from_zero,
 
 
 def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
-                  with_residual, cheb, split=None):
+                  with_residual, cheb, split=None, staging=None):
     """``smooth3`` on checked CUDA operands by ``route``. PER_PASS launches
     ``passes3``, each counted by ``_pass3``. GRID is one stencil3d_level
     launch (counted as ``smooth3``; the step from zero folded into the
     next pass's staging), refused (this raises) where the level's blocks
-    are not all co-resident. ``split`` overrides the plan's."""
+    are not all co-resident; it stages every field's x planes (ValueError
+    for PER_FIELD). ``split`` and ``staging`` override the plan's."""
     sweeps = len(steps)
     s0 = [float(a) for a, _ in steps]
     s1 = [float(c) for _, c in steps]
-    if split is None:
-        split = _plan3(tuple(shape), radius, nF, b.device.index or 0,
-                       b.dtype == torch.float64)[0]
+    if split is None or staging is None:
+        plan = _plan3(tuple(shape), radius, nF, b.device.index or 0,
+                      b.dtype == torch.float64)
+        split = plan[0] if split is None else split
+        staging = plan[3] if staging is None else staging
     d = torch.empty_like(b) if cheb and sweeps >= 1 else None
     if route == GRID:
+        if staging != ALL_FIELDS:
+            raise ValueError("a level's one launch stages every field's x "
+                             "planes: a per-field lattice takes one launch "
+                             "a pass")
         out = torch.empty_like(b)
         res = torch.empty_like(b) if with_residual else None
         tmp = torch.empty_like(b) if sweeps - (x is None) >= 2 else None
@@ -804,14 +844,15 @@ def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
     for p in passes3(sweeps, x is None, with_residual):
         if p == "residual":
             r = _pass3(_RESIDUAL, C, out, b, binv, shape, radius, nF,
-                       split=split)
+                       split=split, staging=staging)
         elif p == "zero":
             out = _pass3(_ZERO, C, None, b, binv, shape, radius, nF,
-                         omega0=s0[0], d=d, split=split)
+                         omega0=s0[0], d=d, split=split, staging=staging)
         else:
             k = p[1]
             out = _pass3(_CHEB if cheb else _SWEEP, C, out, b, binv, shape,
-                         radius, nF, s0=s0[k], s1=s1[k], d=d, split=split)
+                         radius, nF, s0=s0[k], s1=s1[k], d=d, split=split,
+                         staging=staging)
     return (out, r) if with_residual else out
 
 

@@ -22,12 +22,14 @@
                   patch solves on the device; ``asm_core``, ``asm_overlap``
          'ICC' | 'ILU' | 'ILUT' degrade to 'jacobi' with a warning.
 
-Refused on CUDA with ``NotImplementedError``: a stencil radius above 4 (a
-quartic or higher B-spline background, which no model of the repository
-builds; ROADMAP.md); with ``ValueError`` a 3D lattice whose staged x planes
-do not fit a block's shared memory (f64, radius 4, three fields from a
-97-point row on). Every other (dimension, 1–3 fields, radius 1–4, f32 or
-f64) MG solve runs on the hand kernels.
+Every (dimension, 1–3 fields, radius, f32 or f64) MG solve runs on the
+hand kernels on CUDA: fixed-radius instances at radius 1–4, the
+runtime-radius ones from 5 (a quartic or higher B-spline background).
+Refused with ``ValueError``: a 2D radius whose staged tile a block cannot
+hold (above 41 in f64 with three fields; ``stencil_kernels.max_radius2d``)
+and a 3D lattice where a block cannot hold even one field's staged x
+planes (f64, radius 4 from about a 313-point row; three fields from a
+73-point row are staged one field at a time).
 
 The MG route (``_mg_solve``) differs from the JAX package in these ways,
 by design:
@@ -35,8 +37,8 @@ by design:
 * ``mixed`` (f32 probe, MG and Krylov, refined against the exact f64
   operator until the f64 relative residual meets rtol) turns on by default
   for f64 systems on CUDA at radius 1 and 2; JAX turns it on for f64
-  systems on a TPU. At radius 3 and 4 (the biharmonic on the quadratic and
-  cubic nets, κ ~ h⁻⁴) it stays off on CUDA too: the f64 route runs the
+  systems on a TPU. From radius 3 (the biharmonic on the quadratic, cubic
+  and quartic nets, κ ~ h⁻⁴) it stays off on CUDA too: the f64 route runs the
   f64 instances of the hand kernels, the
   JAX package's own arithmetic off a TPU (``MIXED_DEFAULT_MAX_RADIUS``).
   On the CPU it stays off, so an f64 system runs the whole MG-Krylov solve
@@ -238,20 +240,21 @@ def _on_card(t: torch.Tensor) -> bool:
 def _cuda_mg_refusal(shape, n_fields, radius, dtype,
                      device_index=None) -> Exception | None:
     """Why the card's stencil kernels cannot take this MG solve, or None:
-    they take 2D and 3D operators of 1 to 3 fields at radius 1–4 in f32 or
-    f64. Given the card's ``device_index``, a 3D lattice is also asked of
-    the finest level's plan (the coarser levels stage less), which refuses
-    x planes a block cannot stage."""
+    they take 2D and 3D operators of 1 to 3 fields at every radius in f32
+    or f64, up to the 2D radius a block can stage
+    (``stencil_kernels._check_instance``). Given the card's
+    ``device_index``, a 3D lattice is also asked of the finest level's plan
+    (the coarser levels stage less), which refuses x planes a block cannot
+    stage one field at a time."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
-    if radius not in sk.RADII:
-        return NotImplementedError(
-            f"stencil_radius={radius}: the CUDA stencil kernels take radius "
-            "1 to 4, up to a cubic B-spline background (a quartic "
-            "background's radius 5 and above is not ported)")
     if dtype not in (torch.float32, torch.float64):
         return ValueError(
             f"on CUDA pc='mg' runs f32 or f64 stencil kernels, got {dtype}")
+    try:
+        sk._check_instance(dtype, radius, n_fields, len(shape))
+    except ValueError as e:
+        return e
     if device_index is not None and len(shape) == 3:
         return sk.check_plan3(shape, radius, n_fields, device_index,
                               dtype == torch.float64)

@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Registers, stack and spills of every CUDA kernel of the port, as the
+compiler reports them (``-Xptxas -v``), built from each of several
+checkouts, and the kernels whose figures differ between them.
+
+Run on a machine with nvcc, from the repository root:
+
+    python3 tests/compare_ptxas.py --trees build/parent,.
+
+(each tree a checkout, e.g. a ``git archive`` of another commit unpacked
+into a git-ignored directory). Prints one JSON line per tree (its kernel
+count, the spilling kernels) and one with the kernels of the first tree
+whose registers, stack or spills differ in another, and the kernels only
+one tree has. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+
+BUILD = ("from iifea_tpu_torch.ops import stencil_kernels as sk; "
+         "print(sk.build().with_suffix('.log'))")
+
+
+def report(tree: Path) -> dict:
+    """{kernel: (registers, stack, spill stores, spill loads)} of the
+    library built from ``tree``'s sources."""
+    from chip_smoke import ptxas_report
+
+    log = subprocess.run([sys.executable, "-c", BUILD], cwd=tree,
+                         capture_output=True, text=True, check=True)
+    rows = ptxas_report(Path(tree, log.stdout.strip()).read_text())
+    return {r["kernel"]: (r.get("registers"), r.get("stack"),
+                          r.get("spill_stores"), r.get("spill_loads"))
+            for r in rows}
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    if args[:1] != ["--trees"] or len(args) != 2:
+        sys.exit("usage: compare_ptxas.py --trees DIR,DIR[,...]")
+    trees = [Path(t).resolve() for t in args[1].split(",")]
+    reports = [report(t) for t in trees]
+    for t, rep in zip(trees, reports):
+        print(json.dumps({"tree": str(t), "kernels": len(rep),
+                          "spilling": [k for k, v in rep.items()
+                                       if v[2] or v[3]]}), flush=True)
+    first = reports[0]
+    print(json.dumps({
+        "differ": {k: [rep.get(k) for rep in reports] for k in first
+                   if any(k in rep and rep[k] != first[k]
+                          for rep in reports[1:])},
+        "only_in": {str(t): sorted(set(rep) - set(first))
+                    for t, rep in zip(trees[1:], reports[1:])},
+        "missing_from": {str(t): sorted(set(first) - set(rep))
+                         for t, rep in zip(trees[1:], reports[1:])}}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

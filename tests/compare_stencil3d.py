@@ -259,7 +259,7 @@ def vcycle_ms(label, nf, side, r, what, reps: int = 20) -> dict:
     out = {"planned": timed()}
     if hasattr(sk, "_plan3"):
         planned = sk._plan3
-        sk._plan3 = lambda *a: (planned(*a)[0], 0, planned(*a)[2])
+        sk._plan3 = lambda *a: (planned(*a)[0], 0, *planned(*a)[2:])
         try:
             out["per_pass_only"] = timed()
         finally:

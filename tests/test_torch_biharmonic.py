@@ -156,16 +156,17 @@ def test_torch_biharmonic_demo():
 
 def test_torch_biharmonic_card_refusals(monkeypatch):
     """The card's kernels take every MG configuration of the JAX package's
-    models: 2D and 3D, 1 to 3 fields, radius 1 to 4, f32 and f64. What they
-    do not take is refused before any work: a radius above 4 (a quartic or
-    higher B-spline background) and a dtype other than f32 and f64;
-    solve_ksp raises it for a system on a card (mocked: no operator is
-    touched)."""
+    models: 2D and 3D, 1 to 3 fields, every radius (the runtime-radius
+    instances from 5, a quartic or higher B-spline background), f32 and
+    f64. What they do not take is refused before any work: a 2D radius
+    past the tile a block can stage (41 in f64 with three fields), a
+    radius below 1 and a dtype other than f32 and f64; solve_ksp raises it
+    for a system on a card (mocked: no operator is touched)."""
     f32, f64 = torch.float32, torch.float64
     monkeypatch.setattr(ksp, "_on_card", lambda t: True)
-    with pytest.raises(NotImplementedError, match="radius"):
-        solve_ksp(None, torch.zeros(3 * 9 ** 3, dtype=f64), method="gmres",
-                  pc="mg", lattice_shape=(9, 9, 9), stencil_radius=5,
+    with pytest.raises(ValueError, match="radius 1 to 41"):
+        solve_ksp(None, torch.zeros(3 * 17 ** 2, dtype=f64), method="gmres",
+                  pc="mg", lattice_shape=(17, 17), stencil_radius=42,
                   n_fields=3, monitor=False)
     with pytest.raises(ValueError, match="float16"):
         solve_ksp(None, torch.zeros(9 ** 3, dtype=torch.float16),
@@ -173,14 +174,14 @@ def test_torch_biharmonic_card_refusals(monkeypatch):
                   mixed=False, monitor=False)
     for shape in ((17, 17), (9, 9, 9)):
         for n_fields in (1, 2, 3):
-            for radius in (1, 2, 3, 4):
+            for radius in (1, 2, 3, 4, 5, 6):
                 for dt in (f32, f64):
                     assert ksp._cuda_mg_refusal(shape, n_fields, radius,
                                                 dt) is None
-    for args, kind, word in [(((17, 17), 1, 5, f64), NotImplementedError,
-                              "radius"),
-                             (((9, 9, 9), 3, 5, f32), NotImplementedError,
-                              "radius"),
+    for args, kind, word in [(((17, 17), 1, 78, f64), ValueError,
+                              "radius 1 to 77"),
+                             (((9, 9, 9), 3, 0, f32), ValueError,
+                              ">= 1"),
                              (((17, 17), 2, 2, torch.float16), ValueError,
                               "float16"),
                              (((9, 9, 9), 1, 3, torch.bfloat16), ValueError,

@@ -109,8 +109,9 @@ def test_torch_stencil3d_routing_refuses(monkeypatch):
     """StencilOperator3D routes by device: on the host an f64 operator at
     radius 2 runs the plain version; on a card (the device check mocked)
     every apply and sweep goes to the kernel wrappers, which take f64 at
-    every radius 1–4 (given CPU tensors they run their plain versions) and
-    refuse what no instance takes: another dtype, radius 5."""
+    every radius from 1 (given CPU tensors they run their plain versions;
+    radius 5 the runtime-radius instances' plain version) and refuse what
+    no instance takes: another dtype, radius 0."""
     shape = (5, 6, 7)
     rng = np.random.default_rng(4)
     C = torch.from_numpy(rng.standard_normal((125, *shape)))
@@ -135,9 +136,11 @@ def test_torch_stencil3d_routing_refuses(monkeypatch):
     S16 = StencilOperator3D(C.half(), shape, 2)
     with pytest.raises(TypeError, match="float32 or float64"):
         S16.mv(x.half())
-    with pytest.raises(ValueError, match="radius 1 to 4"):
-        sk.stencil_mv3(torch.zeros((1331, *shape)), torch.zeros(210), shape,
-                       5)
+    C5 = torch.from_numpy(rng.standard_normal((1331, *shape)))
+    assert torch.equal(sk.stencil_mv3(C5, x, shape, 5),
+                       sk.stencil_mv3_plain(C5, x, shape, 5))
+    with pytest.raises(ValueError, match=">= 1"):
+        sk.stencil_mv3(torch.zeros((1, *shape)), torch.zeros(210), shape, 0)
 
 
 def test_torch_biharmonic3d_probe(pair):

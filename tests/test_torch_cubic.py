@@ -140,15 +140,40 @@ def test_torch_radius4_instances_match_jax(dim, n_fields, dtype):
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_torch_radius5_refused(dim):
-    """Radius 5 and above (a quartic or higher background) has no kernel
-    instance: the wrappers refuse it on the host too, naming the quartic
-    background."""
+    """Radius 5 (a quartic background) is no longer refused: the wrapper
+    takes it on the host too (the runtime-radius instances' plain version),
+    equal to JAX's operator there. What is refused is a radius no instance
+    takes, by the ValueError that names the limit: for the card's 2D
+    kernels one past the tile a block can stage (``max_radius2d``), which
+    the host's plain version still computes, equal to the dense operator;
+    in 3D a radius below 1."""
     shape = SHAPES[dim]
-    m = 11 ** dim
     n = int(np.prod(shape))
+    rng = np.random.default_rng(50 + dim)
+    C, x = rng.standard_normal((11 ** dim, *shape)), rng.standard_normal(n)
     mv = sk.stencil_mv if dim == 2 else sk.stencil_mv3
-    with pytest.raises(ValueError, match="quartic"):
-        mv(torch.zeros((m, *shape)), torch.zeros(n), shape, 5)
+    S_j = (JStencil2 if dim == 2 else JStencil3)(jnp.asarray(C), shape, 5)
+    assert _close(mv(torch.from_numpy(C), torch.from_numpy(x), shape, 5),
+                  S_j.mv_ref(jnp.asarray(x)), np.float64)
+    f64 = torch.float64
+    if dim == 2:
+        r = sk.max_radius2d(f64, 1) + 1
+        with pytest.raises(ValueError, match=f"radius 1 to {r - 1}"):
+            sk._check_instance(f64, r, 1, 2)
+        m = 2 * r + 1
+        C = rng.standard_normal((m * m, *shape))
+        # the dense operator: node (i, j) reads node (i2, j2) through tap
+        # (i2 - i + r) m + (j2 - j + r) of its own planes
+        i, j = np.divmod(np.arange(n), shape[1])
+        tap = ((i[None, :] - i[:, None] + r) * m
+               + (j[None, :] - j[:, None] + r))
+        dense = C.reshape(m * m, n)[tap, np.arange(n)[:, None]]
+        assert _close(mv(torch.from_numpy(C), torch.from_numpy(x), shape, r),
+                      dense @ x, np.float64)
+    else:
+        with pytest.raises(ValueError, match=">= 1"):
+            mv(torch.zeros((1, *shape), dtype=f64),
+               torch.zeros(n, dtype=f64), shape, 0)
 
 
 def _solve_opts(shape, n_fields=1):

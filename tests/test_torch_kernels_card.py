@@ -75,10 +75,14 @@ def test_torch_stencil_kernels_on_card(shape, radius):
                                           (torch.float64, 2),
                                           (torch.float64, 3),
                                           (torch.float32, 4),
-                                          (torch.float64, 4)])
+                                          (torch.float64, 4),
+                                          (torch.float32, 5),
+                                          (torch.float64, 5)])
 def test_torch_stencil_instances_on_card(dtype, radius, shape):
-    """The radius-3, radius-4 and f64 instances of the 2D scalar entries
-    (the biharmonic's on the quadratic and cubic nets): stencil_mv,
+    """The radius-3, radius-4, radius-5 (runtime-radius) and f64 instances
+    of the 2D scalar entries (the biharmonic's on the quadratic, cubic and
+    quartic nets; at r = 5 a smoothing call is one launch a pass):
+    stencil_mv,
     jacobi_smooth, the residual of
     stencil_mv_block and smooth (two sweeps from zero with the residual,
     two from x) against their plain versions, 1e-4 in f32 and 1e-12 in
@@ -183,12 +187,13 @@ def test_torch_stencil3d_kernels_on_card(shape, radius):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("radius", [3, 4, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(9, 11, 13), (13, 10, 17), (17, 17, 17),
                                    (33, 33, 33), (65, 65, 65)])
 def test_torch_stencil3d_radius3_on_card(shape, dtype, radius):
-    """The radius-3 (343-tap) and radius-4 (729-tap) instances of
+    """The radius-3 (343-tap), radius-4 (729-tap) and radius-5 (1,331-tap,
+    runtime-radius) instances of
     stencil_mv3, jacobi_smooth3 and cheb_step3 (β = 0 and β ≠ 0), f32 and
     f64, at odd shapes and at the levels of the 3D biharmonic's 65³
     hierarchy, vs their plain versions (f32 1e-4, f64 1e-12 of max|y|), one
@@ -222,10 +227,10 @@ def test_torch_stencil3d_radius3_on_card(shape, dtype, radius):
 
 @pytest.mark.gpu
 def test_torch_stencil3d_refuses_other_instances_on_card():
-    """A CUDA operator no 3D instance takes raises (another dtype, radius 5;
+    """A CUDA operator no 3D instance takes raises (another dtype, radius 0;
     never the plain version); f64 at radius 1, 2 through StencilOperator3D
-    and radius 3 through the block entry, refused before, launch their
-    instances and equal the plain versions."""
+    and radius 3 and 5 through the block entry, refused before, launch
+    their instances and equal the plain versions."""
     from iifea_tpu_torch.ops.stencil import StencilOperator3D
 
     dev = _card()
@@ -244,9 +249,11 @@ def test_torch_stencil3d_refuses_other_instances_on_card():
     C, x, *_ = _operands3((9, 9, 9), 3, dev, 3)
     assert _close(sk.stencil3d_block(C, x, (9, 9, 9), 3),
                   sk.stencil_mv3_plain(C, x, (9, 9, 9), 3))
-    C5 = torch.zeros((11 ** 3, 9, 9, 9), device=dev)
-    with pytest.raises(ValueError, match="quartic"):
-        sk.stencil3d_block(C5, x, (9, 9, 9), 5)
+    C5, x5, *_ = _operands3((9, 9, 9), 5, dev, 3)
+    assert _close(sk.stencil3d_block(C5, x5, (9, 9, 9), 5),
+                  sk.stencil_mv3_plain(C5, x5, (9, 9, 9), 5))
+    with pytest.raises(ValueError, match=">= 1"):
+        sk.stencil3d_block(C5[:1], x5, (9, 9, 9), 0)
 
 
 def _block_operands3(n_fields, radius, shape, dev, seed,
@@ -344,18 +351,19 @@ def test_torch_block3d_operator_on_card():
         StencilOperatorBlock3D(C.half(), shape, 2).mv(x.half())
 
 
-# the block instances added for the f64, radius-3 and radius-4 multigrid
-# routes: (dim, fields, radius, dtype) beside the f32 r = 1, 2 ones above
+# the block instances added for the f64, radius-3, radius-4 and radius-5
+# (runtime-radius) multigrid routes: (dim, fields, radius, dtype) beside the
+# f32 r = 1, 2 ones above
 NEW_BLOCK = ([(d, nf, r, torch.float64) for d in (2, 3) for nf in (2, 3)
-              for r in (1, 2, 3, 4)]
+              for r in (1, 2, 3, 4, 5)]
              + [(d, nf, r, torch.float32) for d in (2, 3) for nf in (2, 3)
-                for r in (3, 4)])
+                for r in (3, 4, 5)])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dim,n_fields,radius,dtype", NEW_BLOCK)
 def test_torch_block_instances_on_card(dim, n_fields, radius, dtype):
-    """The f64 block instances (r = 1–4) and the radius-3 and radius-4 f32
+    """The f64 block instances (r = 1–5) and the radius-3 to radius-5 f32
     ones, 2D and 3D, 2 and 3 fields: the apply, the residual, the sweep and the sweep
     from zero, one launch each, and a level's smoothing call (two sweeps
     from zero with the residual) against the plain versions (f32 1e-4, f64

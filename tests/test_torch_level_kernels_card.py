@@ -181,11 +181,12 @@ SHAPES3 = [(13, 13, 13), (17, 17, 17), (25, 25, 25), (33, 33, 33),
            (13, 10, 17), (11, 19, 37)]
 # (fields, radius, dtype, Chebyshev): the block instances (fields ≥ 1),
 # and the scalar ones (fields 0) with Jacobi sweeps and Chebyshev steps,
-# f32 and f64 at radius 1 to 4
+# f32 and f64 at radius 1 to 4 and at radius 5 (the runtime-radius
+# instances, one launch a pass)
 INSTANCES3 = ([(nf, r, dt, False) for dt in (torch.float32, torch.float64)
-               for nf in (1, 2, 3) for r in (1, 2, 3, 4)]
+               for nf in (1, 2, 3) for r in (1, 2, 3, 4, 5)]
               + [(0, r, dt, cheb) for dt in (torch.float32, torch.float64)
-                 for r in (1, 2, 3, 4) for cheb in (False, True)])
+                 for r in (1, 2, 3, 4, 5) for cheb in (False, True)])
 STEPS3 = [(0.9, 0.0), (1.2, 0.35), (1.1, 0.5)]
 
 
@@ -234,8 +235,8 @@ def test_torch_smooth3_entry_on_card(n_fields, radius, dtype, cheb, shape):
     C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
                                     7 * radius + n_fields)
     nF = max(n_fields, 1)
-    split, _, level_blocks = sk._plan3(shape, radius, nF, 0,
-                                       dtype == torch.float64)
+    split, _, level_blocks, _ = sk._plan3(shape, radius, nF, 0,
+                                          dtype == torch.float64)
     runs = -(-shape[1] * shape[2] // (256 // split))
     fits = runs * shape[0] <= level_blocks
     for sweeps in (1, 2, 3):
@@ -343,8 +344,9 @@ def test_torch_plan3_at_path_levels(path):
         pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
     nF, radius, f64, shapes = PATH_LEVELS3[path]
     plans = [sk._plan3(sh, radius, nF, 0, f64) for sh in shapes]
-    for sh, (split, level, level_blocks) in zip(shapes, plans):
+    for sh, (split, level, level_blocks, staging) in zip(shapes, plans):
         assert split in (1, 2, 4, 8, 16) and level in (0, 1)
+        assert staging == sk.ALL_FIELDS
         runs = -(-sh[1] * sh[2] // (256 // split))
         assert level_blocks > 0
         if level:
@@ -369,8 +371,9 @@ def test_torch_plan3_at_path_levels(path):
 def test_torch_smooth3_refuses_other_instances_on_card():
     """Instances that do not exist raise on the card too: the Chebyshev
     smoother on block planes, planes in another dtype than f32 and f64,
-    radius 5. f64 block planes and f64 scalar planes at radius 2, refused
-    before, run their instances."""
+    radius 0. f64 block planes and f64 scalar planes at radius 2, and
+    radius 5 (the runtime-radius instances), refused before, run their
+    instances."""
     C, binv, b, x = _card_operands3(2, 1, (9, 9, 9), torch.float32, 5)
     with pytest.raises(ValueError, match="scalar planes"):
         sk.smooth3(C, binv, b, x, STEPS3[:1], (9, 9, 9), 1, cheb=True)
@@ -387,6 +390,71 @@ def test_torch_smooth3_refuses_other_instances_on_card():
                    sk.smooth3_plain(Cs, invd, bs, xs, STEPS3[:1], (9, 9, 9),
                                     2), torch.float64)
     C3, binv3, b3, x3 = _card_operands3(1, 1, (9, 9, 9), torch.float32, 7)
-    C5 = torch.zeros((1, 1, 11 ** 3, 9, 9, 9), device=C3.device)
-    with pytest.raises(ValueError, match="radius 1 to 4"):
-        sk.smooth3(C5, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 5)
+    with pytest.raises(ValueError, match=">= 1"):
+        sk.smooth3(C3, binv3, b3, x3, STEPS3[:1], (9, 9, 9), 0)
+    C5, binv5, b5, x5 = _card_operands3(1, 5, (9, 9, 9), torch.float32, 8)
+    assert _err_ok(sk.smooth3(C5, binv5, b5, x5, STEPS3[:2], (9, 9, 9), 5),
+                   sk.smooth3_plain(C5, binv5, b5, x5, STEPS3[:2], (9, 9, 9),
+                                    5), torch.float32)
+
+
+# -- 3D: the per-field staging (f64, r = 4, 2 and 3 fields) -----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fields,shape", [(3, (65, 65, 65)),
+                                            (3, (13, 10, 17)),
+                                            (2, (11, 19, 37)),
+                                            (3, (17, 17, 17)),
+                                            (3, (9, 9, 9))])
+def test_torch_stencil3d_per_field_staging_bitwise(n_fields, shape):
+    """f64, r = 4, where a block holds every field's x planes: each pass of
+    stencil3d_block (apply, residual, sweep, sweep from zero) with one
+    field's planes staged at a time equals the all-field staging bitwise at
+    the plan's split, as does a level's smoothing call (two sweeps from
+    zero with the residual) by one launch a pass. A level's one launch
+    stages every field: where the plan gives the level one, it equals the
+    per-pass route, and asking it for the per-field staging is refused."""
+    C, binv, b, x = _card_operands3(n_fields, 4, shape, torch.float64,
+                                    40 + n_fields)
+    split, level, _, staging = sk._plan3(shape, 4, n_fields, 0, True)
+    assert staging == sk.ALL_FIELDS
+    passes = [(sk._APPLY, x, None), (sk._RESIDUAL, x, None),
+              (sk._SWEEP, x, binv), (sk._ZERO, None, binv)]
+    for pass_, start, bi in passes:
+        got = [sk._pass3(pass_, C, start, b, bi, shape, 4, n_fields,
+                         omega0=0.8, s0=0.8, split=split, staging=st)
+               for st in (sk.ALL_FIELDS, sk.PER_FIELD)]
+        assert torch.equal(got[0], got[1]), pass_
+    steps = [(0.8, 0.0)] * 2
+    ref = sk.smooth3_plain(C, binv, b, None, steps, shape, 4, True)
+
+    def smooth(route, st):
+        return sk._smooth3_cuda(route, C, binv, b, None, steps, shape, 4,
+                                n_fields, True, False, split=split,
+                                staging=st)
+
+    per_pass = [smooth(sk.PER_PASS, st)
+                for st in (sk.ALL_FIELDS, sk.PER_FIELD)]
+    for a, a_pf, a_ref, scale in zip(*per_pass, ref, (None, b)):
+        assert torch.equal(a, a_pf)
+        assert _err_ok(a_pf, a_ref, torch.float64, scale)
+    if level:
+        for a, a_grid in zip(per_pass[0], smooth(sk.GRID, sk.ALL_FIELDS)):
+            assert torch.equal(a, a_grid)
+    with pytest.raises(ValueError, match="every field"):
+        smooth(sk.GRID, sk.PER_FIELD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side,staging", [(65, 0), (73, 1), (97, 1)])
+def test_torch_plan3_per_field_from_73(side, staging):
+    """f64, r = 4, three fields: the plan stages every field's x planes at
+    65³ and one field's at a time from 73³ on (3 × 97³: the cubic 3D
+    elasticity at the 3D elasticity cell's width), where it answered
+    "too wide" before; check_plan3 takes every one of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    shape = (side,) * 3
+    assert sk.check_plan3(shape, 4, 3, 0, True) is None
+    assert sk._plan3(shape, 4, 3, 0, True)[3] == staging

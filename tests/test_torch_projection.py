@@ -225,6 +225,7 @@ def test_torch_port_front_end_imports_no_jax():
     files += sorted((root / "tests").glob("test_torch_*_card.py"))
     files.append(root / "tests" / "compare_coarse_pinv.py")
     files.append(root / "tests" / "compare_determinism.py")
+    files.append(root / "tests" / "compare_ptxas.py")
     files.append(root / "tests" / "torch_parallel_ranks.py")
     for name in ("ksp.py", "newton.py", "precond.py", "logging.py",
                  "sharding.py", "stencil.py", "multigrid.py",
