@@ -13,8 +13,11 @@ non-zero:
      stencil2d_f64.cu, stencil3d.cu, stencil3d_f64.cu: each scalar type's
      instances at r = 1-3 of the kernels in stencil2d.cuh and
      stencil3d.cuh; stencil{2d,3d}_r4{,_f64}.cu: the r = 4 ones;
-     stencil{2d,3d}_rn.cu: the runtime-radius ones of stencil_rn.cuh, every
-     radius from 5) with nvcc (sm_90a), one nvcc per source in parallel.
+     stencil2d_rn.cu: the runtime-radius ones of stencil_rn.cuh, every
+     radius from 5; stencil3d_rn.cu: those of stencil3d.cuh's
+     runtime-radius marching kernel, every radius from 5 and the unstaged
+     route at r = 1-4) with nvcc (sm_90a), one nvcc per source in
+     parallel.
   2. kernels: stencil_mv, jacobi_smooth, stencil_mv_block (the block
      apply and residual in one launch) and smooth (a level's ν sweeps and
      trailing residual, by each route: one launch per pass, and one
@@ -265,8 +268,13 @@ then the radius-4 instances (f32, f64; scalar, 2 and 3 fields) at odd shapes
 and at the cubic paths' levels, timed where those paths run them; then the
 runtime-radius instances at r = 5 likewise (the quartic net's levels; no
 spill). Phase 3 does the same for the 3D radius-4 instances (33³, 17³;
-three fields at 17³, 9³) and the r = 5 ones (33³, 17³), and holds the
-per-field staging (f64, r = 4, three fields) bitwise equal to the
+three fields at 17³, 9³) and the r = 5 ones (33³, 17³); holds the 3D
+marching passes by the plan's staging and the runtime-radius kernel's
+unstaged route (x read through the read-only cache), bitwise equal to one
+another at r = 5, 6, 7, against their plain versions, 1–3 fields, at odd
+shapes, the quartic levels and a long-k lattice only the unstaged route
+takes (also at r = 4), and times the r = 5 three-field f64 passes at
+3 × 17³; and holds the per-field staging (f64, r = 4, three fields) bitwise equal to the
 all-field staging at 65³ and three odd shapes, every pass and a level's
 smoothing call by one launch a pass (a level's one launch refuses it),
 timed with its library call at 3 × 65³, and each pass against its plain
@@ -295,8 +303,8 @@ rows tagged by instance and field count (``/f64/nf2``, ``/r3/nf2``, …),
 their launches from the f64 route runs; the cubic phase adds the radius-4
 rows (``/r4``, ``/r4/f64``, ``/r4/f64/nf2``, …), their launches from its runs;
 the quartic phase the radius-5 rows (``/r5/f64``, ``/r5``; source
-stencil_rn.cuh); elasticity3_wide the per-field staging's rows
-(``/r4/f64/nf3/pf``: the launches at its 73³ level).
+stencil_rn.cuh in 2D, stencil3d.cuh in 3D); elasticity3_wide the per-field
+staging's rows (``/r4/f64/nf3/pf``: the launches at its 73³ level).
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -317,7 +325,8 @@ sys.path.insert(0, HERE)
 
 SOURCE2, SOURCE3 = ("iifea_tpu_torch/csrc/stencil2d.cuh",
                     "iifea_tpu_torch/csrc/stencil3d.cuh")
-# the runtime-radius instances of every kernel (r >= 5)
+# the runtime-radius instances of the 2D kernels (r >= 5; the 3D ones are
+# stencil3d.cuh's march_rn_kernel)
 SOURCE_RN = "iifea_tpu_torch/csrc/stencil_rn.cuh"
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "stencil_mv": (SOURCE2, "iifea_tpu/ops/pallas_stencil.py:127"),
@@ -778,6 +787,9 @@ def _check(worst, name, y, y_ref, shape, radius, quiet=False, scale=None,
 
 
 ROUTES = ("per_pass", "grid")                 # sk.PER_PASS, sk.GRID
+# the 3D marching passes' stagings (sk.ALL_FIELDS, sk.PER_FIELD,
+# sk.UNSTAGED)
+STAGINGS = ("all_fields", "per_field", "unstaged")
 
 
 def level_operands(rng, shape, radius, n_fields, dev, dtype=None):
@@ -1257,13 +1269,14 @@ LEVELS_QUARTIC3 = [(s_,) * 3 for s_ in (33, 17)]
 
 
 def check_no_spill_rn():
-    """Every runtime-radius instance (csrc/stencil_rn.cuh: the 2D pass
-    kernel, f32 and f64 x 1-3 fields x apply, residual, sweep; the 3D one,
-    the same and the scalar Chebyshev step) built without spill."""
-    instances = built_instances(("pass2d_kernel", "pass3d_kernel"))
+    """Every runtime-radius instance built without spill: the 2D pass kernel
+    (csrc/stencil_rn.cuh: f32 and f64 x 1-3 fields x apply, residual,
+    sweep: 18) and the 3D marching kernel (csrc/stencil3d.cuh
+    march_rn_kernel: f32 and f64 x 1-3 fields x staged, unstaged: 12)."""
+    instances = built_instances(("pass2d_kernel", "march_rn"))
     phase("kernel_check", kernel="runtime-radius instances",
           ptxas=instances)
-    if len(instances) != 38 or any(
+    if len(instances) != 30 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the runtime-radius instances are not all built without "
              f"spill: {instances}")
@@ -3530,16 +3543,17 @@ def kernels3_r3(worst, dev):
     del soak
     torch.cuda.empty_cache()
 
-    # every 3D kernel instance: stencil3d_mv (8: f32 and f64, r = 1-4), the
-    # marching pass and level kernels (24 each), the pass kernel's
-    # per-field staging (16: 2 and 3 fields) and the zero kernel (6, in
-    # each of the r = 1-3 and the r = 4 sources: 12)
-    instances = built_instances(("stencil3d_mv", "march"))
+    # every 3D kernel instance: the marching pass and level kernels (24
+    # each: f32 and f64, r = 1-4, 1-3 fields), the pass kernel's per-field
+    # staging (16: 2 and 3 fields), the runtime-radius marching kernel (12)
+    # and the zero kernel (6 in each of the r = 1-3, the r = 4 and the
+    # runtime-radius sources: 18)
+    instances = built_instances(("march",))
     phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
           ptxas=instances)
-    if len(instances) != 84 or any(
+    if len(instances) != 94 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the 3D instances are not all built without spill: "
              f"{instances}")
@@ -3672,17 +3686,97 @@ def kernels3_r4(worst, dev):
     return rows
 
 
+# the 3D marching passes by staging (``check_rn3``): radius, shapes. A
+# (5, 6, 700) lattice's x planes no block can stage at r >= 4 in f64 (nor
+# at r = 5 in f32): only the unstaged route takes it
+SHAPE_LONG_K = (5, 6, 700)
+RN3_CHECKS = ((2, [ODD_SHAPES3[1]]), (4, [ODD_SHAPES3[1], SHAPE_LONG_K]),
+              (5, ODD_SHAPES3 + LEVELS_QUARTIC3 + [SHAPE_LONG_K]),
+              (6, [ODD_SHAPES3[1], SHAPE_LONG_K]),
+              (7, [ODD_SHAPES3[1], SHAPE_LONG_K]))
+
+
+def check_rn3(worst, gen, shape, radius, n_fields, dev, dtype):
+    """The 3D marching passes at ``shape`` on an nF-field operator (0:
+    scalar planes): apply, residual, sweep, sweep from zero and (scalar)
+    the Chebyshev step, by the plan's staging and by the unstaged route of
+    the runtime-radius kernel (at r = 1-4 also by the fixed-radius
+    kernel's other staging where a block holds it), at the plan's split,
+    each against its plain version (TOL, TOL64); at r >= 5 (one kernel,
+    whose trips sum alike whatever travels together) both routes bitwise
+    equal, at r = 1-4 the staged ones (the fixed-radius kernels). Returns
+    (the plan, whether the stagings agreed bitwise)."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    C, binv, b, x = block3_operands(gen, shape, radius, n_fields, dev, dtype)
+    nF, r = max(n_fields, 1), radius
+    plan = sk._plan3(tuple(shape), r, nF, dev.index or 0,
+                     dtype == torch.float64)
+    # the runtime-radius kernel's routes: its staging (one field's planes
+    # at a time) and the unstaged one; at r = 1-4 the fixed-radius
+    # kernel's, and the runtime-radius unstaged route
+    staged = ([sk.ALL_FIELDS] + [sk.PER_FIELD] * (nF > 1)
+              if plan[3] == sk.ALL_FIELDS and r <= 4 else [plan[3]])
+    stagings = [st for st in staged if st != sk.UNSTAGED] + [sk.UNSTAGED]
+    # the plain versions' arithmetic on one plain apply (that of
+    # sweep3_block_plain and cheb_step3_plain after their b - A x)
+    y_ref = sk.apply3_block_plain(C, x, shape, r)
+    res_ref = b - y_ref
+
+    def binv_of(v):
+        if n_fields == 0:
+            return binv * v
+        return (binv * v.reshape(1, nF, -1)).sum(dim=1).reshape(-1)
+
+    refs = {sk._APPLY: y_ref, sk._RESIDUAL: res_ref,
+            sk._SWEEP: x + 0.8 * binv_of(res_ref),
+            sk._ZERO: 0.8 * binv_of(b)}
+    d = None
+    if n_fields == 0:
+        d = torch.randn(b.shape, generator=gen, device=dev, dtype=dtype)
+        dn = 1.3 * binv * res_ref + 0.45 * d
+        refs[sk._CHEB] = (x + dn, dn)
+    bitwise = True
+    for pass_, ref in refs.items():
+        name = sk.PASS3_NAMES[sk._PASSES[pass_], nF > 1]
+        got = []
+        for st in stagings:
+            dd = None if d is None else d.clone()
+            y = sk._pass3(pass_, C, None if pass_ == sk._ZERO else x, b,
+                          binv, shape, r, nF, omega0=0.8,
+                          s0=1.3 if pass_ == sk._CHEB else 0.8,
+                          s1=0.45 if pass_ == sk._CHEB else 0.0, d=dd,
+                          split=plan[0], staging=st)
+            outs = (y, dd) if pass_ == sk._CHEB else (y,)
+            for v, v_ref in zip(outs, ref if pass_ == sk._CHEB else (ref,)):
+                _check(worst, name, v, v_ref, shape, r, quiet=True,
+                       n_fields=n_fields, staging=st)
+            got.append((st, outs))
+        same = [o for st, o in got if r >= 5 or st != sk.UNSTAGED]
+        bitwise &= all(torch.equal(a, c) for o in same[1:]
+                       for a, c in zip(same[0], o))
+    del C, binv, b, x, d, refs
+    return plan, bitwise
+
+
 def kernels3_r5(worst, dev):
     """The 3D runtime-radius instances at r = 5 (1,331 taps), f32 and f64:
     stencil_mv3, jacobi_smooth3 and cheb_step3 (β = 0 and β ≠ 0) against
     their plain versions at odd shapes and at the quartic 33³ cycle's
     levels, one launch a call; stencil3d_block's four passes on scalar
     planes and 1–3 fields at an odd shape and, three fields in f64, at
-    17³; smooth3 at the quartic cycle's levels (one launch a pass, the
-    fused launch refused: ``kernels3_smooth``, which also times the
-    cycle's step from zero and residual pass at 33³). Then device, call,
-    bound, plain and library times of the quartic 3D path's apply and
-    Chebyshev step at 33³. Returns the ``kernel_time`` rows."""
+    17³; every pass by its staged and its unstaged route (``check_rn3``) at
+    r = 5, 6, 7, and the unstaged route at r = 2, 4, 1–3 fields, at the
+    ``RN3_CHECKS`` shapes, the long-k lattice only by the unstaged route;
+    smooth3 at the quartic cycle's levels (one launch a pass, the fused
+    launch refused: ``kernels3_smooth``, which also times the cycle's step
+    from zero and residual pass at 33³). Then device, call, bound, plain
+    and library times of the quartic 3D path's apply and Chebyshev step at
+    33³ (the apply also by the route the plan does not take there), and of
+    the three-field f64 r = 5 passes at 3 × 17³. Returns the
+    ``kernel_time`` rows."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
@@ -3720,6 +3814,34 @@ def kernels3_r5(worst, dev):
             check_block3(worst, gen, ODD_SHAPES3[1], 5, n_fields, dev, dt)
     check_block3(worst, gen, LEVELS_QUARTIC3[1], 5, N_FIELDS_EL3, dev, f64)
     torch.cuda.empty_cache()
+    # the errors by staging, booked apart: at r = 2 and 4 the unstaged
+    # route is not the plan's where a block stages; from r = 5 they join
+    # their instances' worst errors
+    plans, bitwise, seen = {}, True, {}
+    for r, shapes in RN3_CHECKS:
+        for dt in (f32, f64):
+            for sh in shapes:
+                for n_fields in (0, 2, 3):
+                    plan, same = check_rn3(seen, gen, sh, r, n_fields, dev,
+                                           dt)
+                    bitwise &= same
+                    plans[f"r{r} {'f64' if dt == f64 else 'f32'} nf"
+                          f"{max(n_fields, 1)} {'x'.join(map(str, sh))}"] = \
+                        list(plan)
+                torch.cuda.empty_cache()
+    long_k = [k for k in plans if k.endswith("x".join(map(str, SHAPE_LONG_K)))
+              and (" f64 " in k and not k.startswith("r2")
+                   or k.startswith("r5 f32"))]
+    for k, v in seen.items():
+        if re.search(r"/r[5-9]", k):
+            worst[k] = max(worst.get(k, 0.0), v)
+    phase("kernel_check", kernel="3D marching passes by staging",
+          plans=plans, stagings_bitwise_equal=bitwise, worst=seen)
+    if not bitwise:
+        fail("the 3D runtime-radius passes differ between stagings")
+    if any(plans[k][3] != sk.UNSTAGED for k in long_k):
+        fail(f"a block stages the x planes of {SHAPE_LONG_K}: "
+             f"{ {k: plans[k] for k in long_k} }")
     rows = kernels3_smooth(worst, dev, [
         ("quartic3_f64", 0, 5, f64, True, LEVELS_QUARTIC3, "fused"),
         ("quartic3_f32", 0, 5, f32, True, LEVELS_QUARTIC3, "fused")])
@@ -3731,16 +3853,40 @@ def kernels3_r5(worst, dev):
         is64 = dt == f64
         C, invd, b, x = scalar3_operands(gen, sh, 5, dt, dev)
         d = torch.randn(b.shape, generator=gen, device=dev, dtype=dt)
+        plan = sk._plan3(sh, 5, 1, dev.index or 0, is64)
         rows.append(time_kernel(
             "stencil_mv3", sh, partial(sk.stencil_mv3, C, x, sh, 5),
             partial(sk.stencil_mv3_plain, C, x, sh, 5), plain_launches=2,
-            radius=5, f64=is64, library=csr_call(C, sh, 5, x)))
+            radius=5, f64=is64, library=csr_call(C, sh, 5, x),
+            split=plan[0], staging=STAGINGS[plan[3]]))
+        other = sk.UNSTAGED if plan[3] != sk.UNSTAGED else sk.ALL_FIELDS
+        rows.append(time_kernel(
+            "apply3", sh, partial(sk._pass3, sk._APPLY, C, x, None, None, sh,
+                                  5, 1, split=plan[0], staging=other),
+            bound_=bound_passes(sh, 1, ["apply"], 5, is64), radius=5,
+            f64=is64, split=plan[0], staging=STAGINGS[other]))
         rows.append(time_kernel(
             "cheb_step3", sh,
             partial(sk.cheb_step3, C, invd, b, x, d, 1.3, 0.45, sh, 5),
             partial(sk.cheb_step3_plain, C, invd, b, x, d, 1.3, 0.45, sh, 5),
             plain_launches=2, radius=5, f64=is64))
         del C, invd, b, x, d
+    torch.cuda.empty_cache()
+    sh = LEVELS_QUARTIC3[1]
+    C, binv, b, x = block3_operands(gen, sh, 5, N_FIELDS_EL3, dev, f64)
+    calls = block3_calls(C, binv, b, x, sh, 5, omega=1.0)
+    plain = block3_calls(C, binv, b, x, sh, 5, omega=1.0, plain=True)
+    plan = sk._plan3(sh, 5, N_FIELDS_EL3, dev.index or 0, True)
+    held = []
+    for mode in BLOCK3_MODES:
+        rows.append(time_kernel(
+            sk.PASS3_NAMES[mode, True], [N_FIELDS_EL3, *sh], calls[mode],
+            plain[mode], bound_=bound_passes(sh, N_FIELDS_EL3, [mode], 5,
+                                             True),
+            plain_launches=1, radius=5, f64=True, n_fields=N_FIELDS_EL3,
+            dim=3, library=block3_library(C, b, x, sh, 5, mode, held),
+            split=plan[0], staging=STAGINGS[plan[3]]))
+    del C, binv, b, x, calls, plain, held
     torch.cuda.empty_cache()
     return rows
 
@@ -6483,7 +6629,8 @@ def main() -> None:
                      f"its plain version by its own kernel, got {found}")
             t = found[0]
             row = {"name": name, "route": "cuda",
-                   "source": SOURCE_RN if t["radius"] > 4 else source,
+                   "source": (SOURCE_RN if t["radius"] > 4
+                              and source == SOURCE2 else source),
                    "replaces": replaces, "launches": counts[name],
                    "max_abs_err": worst[name + tag], "ms": t["device_ms"],
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,60 +1,60 @@
 // The 3D stencil kernels' public entries (plain C, loaded with ctypes) and
 // their f32 instances at r = 1-3; the kernels are in csrc/stencil3d.cuh,
 // the f64 instances in csrc/stencil3d_f64.cu, the r = 4 ones in
-// csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu, and those of every
-// radius from 5 (the radius a kernel argument; csrc/stencil_rn.cuh) in
-// csrc/stencil3d_rn.cu. Each public entry hands its operands to the source
-// that holds their (type, radius).
+// csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu, and those of the
+// runtime-radius marching kernel (every radius from 5, and the unstaged
+// route at r = 1-4) in csrc/stencil3d_rn.cu. Each public entry hands its
+// operands to the source that holds their (type, radius, staging).
 
 #include "stencil3d.cuh"
 
 STENCIL3D_ENTRIES(f32, float, 1, 3)
 
-// the typed entry of FN for (f64, radius); null when f64 is neither 0 nor 1
-#define TYPED3D(FN, f64, radius)                                          \
-  ((f64) == 1 ? ((radius) >= 5   ? FN##_rn_f64                            \
+// the typed entry of FN for (f64, radius; rn: the runtime-radius
+// instances); null when f64 is neither 0 nor 1
+#define TYPED3D(FN, f64, radius, rn)                                      \
+  ((f64) == 1 ? ((rn)            ? FN##_rn_f64                            \
                  : (radius) == 4 ? FN##_r4_f64                            \
                                  : FN##_f64)                              \
-   : (f64) == 0 ? ((radius) >= 5   ? FN##_rn_f32                          \
+   : (f64) == 0 ? ((rn)            ? FN##_rn_f32                          \
                    : (radius) == 4 ? FN##_r4_f32                          \
                                    : FN##_f32)                            \
                 : nullptr)
 
 extern "C" {
 
-// y = A x on scalar planes; f32 and f64 at every radius from 1.
-int stencil3d_mv(const void* C, const void* x, void* y, int nx, int ny,
-                 int nz, int radius, int f64, void* stream) {
-  auto fn = TYPED3D(stencil3d_mv, f64, radius);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(C, x, y, nx, ny, nz, radius, stream);
-}
-
 // The plan of a level shape for an instance: out[0] split, out[1] 1 where
 // the level's smoothing call is one launch (0: one launch per pass; always
-// at r >= 5 and with the per-field staging), out[2] the level launch's
-// co-resident blocks, out[3] the staging (0: every field's x planes at
-// once; 1: one field's at a time, where a block cannot hold them all). 0
-// on success; -2 where a block cannot hold even one field's planes
-// (kPlanTooWide), -1 if a query failed.
+// at r >= 5 and where the planes are not all staged at once), out[2] the
+// level launch's co-resident blocks, out[3] the staging (0: every field's
+// x planes at once; 1: one field's at a time, at r = 1-4 where a block
+// cannot hold them all, at r >= 5 for 2-3 fields; 2: none, x read through
+// the read-only cache, where a block cannot hold one field's: the
+// runtime-radius kernel's route at every radius). 0 on success, -1 if a
+// query failed; every lattice has a plan.
 int stencil3d_plan(int nx, int ny, int nz, int radius, int nf, int f64,
                    int* out) {
-  auto fn = TYPED3D(stencil3d_plan, f64, radius);
+  auto fn = TYPED3D(stencil3d_plan, f64, radius, radius >= 5);
   if (fn == nullptr) return -1;
-  return fn(nx, ny, nz, radius, nf, out);
+  const int rc = fn(nx, ny, nz, radius, nf, out);
+  if (rc != kPlanTooWide) return rc;
+  return TYPED3D(stencil3d_plan, f64, radius, true)(nx, ny, nz, radius, nf,
+                                                    out);
 }
 
 // One pass on nF fields: pass 0 y = A x, 1 y = b - A x, 2 y = x + s0 Binv
 // (b - A x), 3 (nF = 1) the Chebyshev step with (s0, s1) and d, 4 y =
 // omega0 Binv b (the sweep from zero; d, when not null, gets the same
-// values). `split` and `staging` are the plan's. Operands a pass does not
-// read may be null; y must not alias x, d or b.
+// values). `split` and `staging` are the plan's (staging 2, and every
+// staging at r >= 5, runs the runtime-radius kernel). Operands a pass
+// does not read may be null; y must not alias x, d or b.
 int stencil3d_pass(const void* C, const void* x, const void* b,
                    const void* binv, void* d, double omega0, double s0,
                    double s1, void* y, int nx, int ny, int nz, int radius,
                    int nf, int f64, int pass, int split, int staging,
                    void* stream) {
-  auto fn = TYPED3D(stencil3d_pass, f64, radius);
+  auto fn = TYPED3D(stencil3d_pass, f64, radius,
+                    radius >= 5 || staging == kUnstaged);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz, radius, nf, pass,
             split, staging, stream);
@@ -67,14 +67,14 @@ int stencil3d_pass(const void* C, const void* x, const void* b,
 // the Chebyshev direction (cheb, unless one step from zero). None of out,
 // tmp, res, d may alias x or each other. Every block of the plan must be
 // co-resident, else the launch is refused (always at r >= 5). It stages
-// every field's x planes (a lattice the plan stages one field at a time
-// takes one launch a pass).
+// every field's x planes (a lattice the plan stages otherwise takes one
+// launch a pass).
 int stencil3d_level(const void* C, const void* binv, const void* b,
                     const void* x, void* d, void* out, void* tmp, void* res,
                     const double* s0, const double* s1, int sweeps, int cheb,
                     int nx, int ny, int nz, int radius, int nf, int f64,
                     int split, void* stream) {
-  auto fn = TYPED3D(stencil3d_level, f64, radius);
+  auto fn = TYPED3D(stencil3d_level, f64, radius, radius >= 5);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps, cheb, nx, ny, nz,
             radius, nf, split, stream);

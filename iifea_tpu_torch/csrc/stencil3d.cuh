@@ -1,15 +1,17 @@
 // Variable-coefficient 3D stencil kernels for Hopper (sm_90a), in f32 and
-// f64: the apply `stencil3d_mv`, and the marching kernels behind every 3D
-// smoothing pass (`stencil3d_pass`: weighted-Jacobi and point-block sweeps,
-// the Chebyshev step, block applies and residuals) and behind a multigrid
+// f64: the marching kernels behind every 3D pass (`stencil3d_pass`: the
+// apply, which `stencil_mv3` launches, weighted-Jacobi and point-block
+// sweeps, the Chebyshev step, block residuals) and behind a multigrid
 // level's whole smoothing call (`stencil3d_level`, one cooperative launch).
 // This header holds the kernels and the entries' dispatch by (radius,
-// fields), shared by the four sources that instantiate them, which nvcc
+// fields), shared by the sources that instantiate them, which nvcc
 // compiles in parallel: csrc/stencil3d.cu (the f32 instances at r = 1-3 and
 // the public entries), csrc/stencil3d_f64.cu (f64, r = 1-3),
-// csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu (r = 4 in f32 and f64).
-// Every radius from 5 runs the runtime-radius instances of
-// csrc/stencil_rn.cuh (csrc/stencil3d_rn.cu).
+// csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu (r = 4 in f32 and f64),
+// and csrc/stencil3d_rn.cu: the runtime-radius marching kernel
+// (`march_rn_kernel`, the radius a kernel argument), which runs every
+// radius from 5 and, at r = 1-4, the lattices whose x planes a block
+// cannot stage.
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
@@ -32,7 +34,8 @@
 // Instances (scalar type, radius, fields): f32 and f64 at r = 1 to 4
 // (r = 3: the quadratic B-spline background's 343 taps, r = 4 the cubic
 // one's 729) for 1 to 3 fields, every configuration the multigrid routes
-// take. `stencil3d_mv` has f32 and f64 at r = 1 to 4.
+// take; from r = 5 (the quartic background's 1,331 taps) the runtime-radius
+// instances, f32 and f64, 1 to 3 fields.
 //
 // What bounds them: memory traffic. A point reads nF^2 m^3 coefficients
 // once (1,125 f32 at nF = 3, r = 2; 3,087 f64 at nF = 3, r = 3) against ~2
@@ -98,178 +101,6 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// -- stencil3d_mv: one 32x4x2 tile a block --------------------------------
-//
-// Each coefficient is read once, coalesced along k (threadIdx.x runs along
-// k, the contiguous axis); the x tile with its r-wide halo (2r+2 x 2r+4 x
-// 2r+32 values) is staged in shared memory so the m^3 shifted reads of x
-// hit shared memory. The halo is zero outside the lattice.
-
-constexpr int kTZ = 32;  // output points along k per block (blockDim.x)
-constexpr int kTY = 4;   // along j (blockDim.y)
-constexpr int kTX = 2;   // along i (blockDim.z)
-constexpr int kThreads = kTX * kTY * kTZ;
-
-// The tap loop. At r <= 2 in f32 all m^3 taps are unrolled into one trip.
-// At r = 3 a point's 343 coefficients (686 words in f64) would all be
-// hoisted and spilled, so the loop over oi stays rolled and a trip unrolls
-// the m^2 = 49 (oj, ok) taps: 49 words in flight in f32, 98 in f64. The f64
-// instances at r = 1, 2 roll it too (18 and 50 words a trip). At r = 4 a
-// trip unrolls `mv_rows` rows of oj: all 9 in f32 (81 words), 3 in f64 (54
-// words, where all 9 would be 162), the loop over row groups rolled.
-template <class T, int R>
-__host__ __device__ constexpr bool rolled_taps() {
-  return R >= 3 || sizeof(T) == 8;
-}
-template <class T, int R>
-__host__ __device__ constexpr int mv_rows() {
-  return (2 * R + 1) * (2 * R + 1) * (int)(sizeof(T) / 4) <= 100
-             ? 2 * R + 1
-             : (2 * R + 1) / 3;
-}
-
-// ROWS rows oj0 .. oj0 + ROWS - 1 of the (oj, ok) taps of plane offset oi
-template <class T, int R, int ROWS>
-__device__ __forceinline__ T tap_rows(const T* __restrict__ Cq, int64_t plane,
-                                      const T (&xs)[kTX + 2 * R][kTY + 2 * R]
-                                                   [kTZ + 2 * R],
-                                      int oi, int oj0, T acc) {
-  constexpr int M = 2 * R + 1;
-#pragma unroll
-  for (int oj = oj0; oj < oj0 + ROWS; ++oj) {
-#pragma unroll
-    for (int ok = 0; ok < M; ++ok) {
-      acc = fma_t(__ldg(Cq + (oj * M + ok) * plane),
-                  xs[threadIdx.z + oi][threadIdx.y + oj][threadIdx.x + ok],
-                  acc);
-    }
-  }
-  return acc;
-}
-
-template <class T, int R>
-__device__ __forceinline__ T taps(const T* __restrict__ Cp, int64_t plane,
-                                  const T (&xs)[kTX + 2 * R][kTY + 2 * R]
-                                               [kTZ + 2 * R]) {
-  constexpr int M = 2 * R + 1;
-  T acc = T(0);
-  if constexpr (rolled_taps<T, R>()) {
-    constexpr int ROWS = mv_rows<T, R>();
-    static_assert(M % ROWS == 0, "a trip takes whole rows");
-#pragma unroll 1
-    for (int oi = 0; oi < M; ++oi) {
-      const T* Cq = Cp + (int64_t)(oi * M * M) * plane;
-      if constexpr (ROWS == M) {
-        acc = tap_rows<T, R, M>(Cq, plane, xs, oi, 0, acc);
-      } else {
-#pragma unroll 1
-        for (int oj0 = 0; oj0 < M; oj0 += ROWS) {
-          acc = tap_rows<T, R, ROWS>(Cq, plane, xs, oi, oj0, acc);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int oi = 0; oi < M; ++oi) {
-#pragma unroll
-      for (int oj = 0; oj < M; ++oj) {
-#pragma unroll
-        for (int ok = 0; ok < M; ++ok) {
-          const int q = (oi * M + oj) * M + ok;
-          acc = fma_t(__ldg(Cp + q * plane),
-                      xs[threadIdx.z + oi][threadIdx.y + oj]
-                        [threadIdx.x + ok],
-                      acc);
-        }
-      }
-    }
-  }
-  return acc;
-}
-
-template <class T, int R>
-__device__ __forceinline__ void mv_point(const T* __restrict__ C,
-                                         const T* __restrict__ x,
-                                         T* __restrict__ y, int nx, int ny,
-                                         int nz) {
-  constexpr int SX = kTX + 2 * R;
-  constexpr int SY = kTY + 2 * R;
-  constexpr int SZ = kTZ + 2 * R;
-  __shared__ T xs[SX][SY][SZ];
-
-  const int i0 = blockIdx.z * kTX;
-  const int j0 = blockIdx.y * kTY;
-  const int k0 = blockIdx.x * kTZ;
-  const int tid = (threadIdx.z * kTY + threadIdx.y) * kTZ + threadIdx.x;
-
-  for (int t = tid; t < SX * SY * SZ; t += kThreads) {
-    const int li = t / (SY * SZ);
-    const int rem = t - li * (SY * SZ);
-    const int lj = rem / SZ;
-    const int lk = rem - lj * SZ;
-    const int gi = i0 + li - R;
-    const int gj = j0 + lj - R;
-    const int gk = k0 + lk - R;
-    T v = T(0);
-    if (gi >= 0 && gi < nx && gj >= 0 && gj < ny && gk >= 0 && gk < nz) {
-      v = x[((int64_t)gi * ny + gj) * nz + gk];
-    }
-    xs[li][lj][lk] = v;
-  }
-  __syncthreads();
-
-  const int i = i0 + threadIdx.z;
-  const int j = j0 + threadIdx.y;
-  const int k = k0 + threadIdx.x;
-  if (i >= nx || j >= ny || k >= nz) return;
-  const int64_t plane = (int64_t)nx * ny * nz;
-  const int64_t p = ((int64_t)i * ny + j) * nz + k;
-  y[p] = taps<T, R>(C + p, plane, xs);
-}
-
-// r = 1, 2 (f32): the compiler's own register plan (32 registers: the
-// loads interleave with the FMAs).
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-stencil3d_mv_kernel(const float* __restrict__ C, const float* __restrict__ x,
-                    float* __restrict__ y, int nx, int ny, int nz) {
-  mv_point<float, R>(C, x, y, nx, ny, nz);
-}
-
-// The rolled instances (r >= 3; f64 at every radius): resident blocks per
-// SM asked of the compiler from the 32-bit words of one trip's loads, which
-// must fit under the cap (65536 / 256 threads / blocks registers): 3 blocks
-// (85 registers) up to f32 r = 3's 49 words (f64 r = 1: 18), else 2 (128:
-// f64 r = 2's 50, r = 3's 98, r = 4's 54; f32 r = 4's 81).
-template <class T, int R>
-__host__ __device__ constexpr int rolled_blocks() {
-  return mv_rows<T, R>() * (2 * R + 1) * (int)(sizeof(T) / 4) <= 49 ? 3 : 2;
-}
-
-template <class T, int R>
-__global__ void __launch_bounds__(kThreads, rolled_blocks<T, R>())
-stencil3d_mv_rolled_kernel(const T* __restrict__ C, const T* __restrict__ x,
-                           T* __restrict__ y, int nx, int ny, int nz) {
-  mv_point<T, R>(C, x, y, nx, ny, nz);
-}
-
-template <class T, int R>
-int launch_mv(const void* C, const void* x, void* y, int nx, int ny, int nz,
-              cudaStream_t stream) {
-  const dim3 block(kTZ, kTY, kTX);
-  const dim3 grid((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY,
-                  (nx + kTX - 1) / kTX);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  if constexpr (rolled_taps<T, R>()) {
-    stencil3d_mv_rolled_kernel<T, R><<<grid, block, 0, stream>>>(
-        (const T*)C, (const T*)x, (T*)y, nx, ny, nz);
-  } else {
-    stencil3d_mv_kernel<R><<<grid, block, 0, stream>>>(
-        (const float*)C, (const float*)x, (float*)y, nx, ny, nz);
-  }
-  return (int)cudaGetLastError();
-}
-
 // -- the marching kernels ----------------------------------------------------
 
 constexpr int kMarch = 256;      // threads per block: tp points x split
@@ -292,8 +123,8 @@ struct Geom {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <int R>
-Geom make_geom(int nx, int ny, int nz, int split) {
+// the geometry of a pass at radius r
+inline Geom make_geom(int nx, int ny, int nz, int split, int r) {
   Geom g;
   g.nx = nx; g.ny = ny; g.nz = nz;
   g.npl = ny * nz;
@@ -304,8 +135,8 @@ Geom make_geom(int nx, int ny, int nz, int split) {
   // a run of tp points starting anywhere in a row spans at most this many
   // rows
   const int run_rows = (nz + g.tp - 2) / nz + 1;
-  g.rows = (run_rows < ny ? run_rows : ny) + 2 * R;
-  g.width = nz + 2 * R;
+  g.rows = (run_rows < ny ? run_rows : ny) + 2 * r;
+  g.width = nz + 2 * r;
   g.drow = kMarch / g.width;
   g.dcol = kMarch - g.drow * g.width;
   return g;
@@ -524,7 +355,7 @@ __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
 // the direction), then written. EARLY (one field): the point's b, Binv and
 // d are loaded before the staging, so their latency overlaps it and the
 // epilogue waits on no load (the 3D Poisson cycle's 53^3 Jacobi /
-// Chebyshev passes were 3.9% / 4.0% slower than the 32 x 4 x 2 tile's
+// Chebyshev passes were 3.9% / 4.0% slower than a 32 x 4 x 2 tile kernel's
 // without, +0.3% / -2.3% with, on an H100); a level's launch loads them
 // after the stream, since the two registers more halve its co-resident
 // blocks at f64 r = 3 (130 registers) and take the 33^3 level out of one
@@ -739,6 +570,16 @@ __global__ void march_zero_kernel(const T* __restrict__ binv,
   }
 }
 
+// the sweep from zero on n points (every radius: it reads no plane)
+template <class T, int NF>
+int launch_zero(const void* binv, const void* b, double omega0, void* y,
+                void* d, int64_t n, cudaStream_t stream) {
+  march_zero_kernel<T, NF>
+      <<<(unsigned)((n + kMarch - 1) / kMarch), kMarch, 0, stream>>>(
+          (const T*)binv, (const T*)b, (T)omega0, (T*)y, (T*)d, n);
+  return (int)cudaGetLastError();
+}
+
 // The coefficients of a level's smoothing steps: step s is a sweep with
 // omega = s0[s], or a Chebyshev step with (s0, s1)[s] (s1[0] = 0).
 struct Steps {
@@ -835,9 +676,11 @@ cudaError_t prepare() {
   return done;
 }
 
-// how a block stages the x planes: every field at once, or one field at a
-// time (the plan's out[3]; 2-3 fields)
-enum Staging { kAllFields = 0, kPerField = 1 };
+// how a block reads the x planes (the plan's out[3]): it stages every
+// field's at once, or one field's at a time (2-3 fields), or none, x read
+// through the read-only cache (kUnstaged: the runtime-radius kernel's route
+// for lattices whose planes a block cannot stage)
+enum Staging { kAllFields = 0, kPerField = 1, kUnstaged = 2 };
 
 // (the level launch stages every field)
 template <class T, int R, int NF>
@@ -891,7 +734,9 @@ size_t one_block_smem() {
 
 // plan's answer where a block cannot stage the 2r+1 x planes of even one
 // field at split 1 (f64 r = 4 with one field from about 313 points a row,
-// where the planes alone would be 179 GB); larger splits stage fewer rows
+// where the planes alone would be 179 GB; a long k row at any radius);
+// larger splits stage fewer rows. The public stencil3d_plan then answers
+// the unstaged route of march_rn_kernel (plan_rn).
 constexpr int kPlanTooWide = -2;
 
 // The plan of one level shape (out[0..3]): split, whether the level's
@@ -928,7 +773,7 @@ int plan(int nx, int ny, int nz, int* out) {
            trips<T, R, NF>());
   const size_t optin =
       (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-  const Geom g1 = make_geom<R>(nx, ny, nz, 1);
+  const Geom g1 = make_geom(nx, ny, nz, 1, R);
   int staging = kAllFields;
   if (smem_bytes<T, R, NF>(g1) > optin) {
     if (NF == 1 || smem_bytes<T, R, NF>(g1, 1) > optin) return kPlanTooWide;
@@ -937,7 +782,7 @@ int plan(int nx, int ny, int nz, int* out) {
   const int staged = staging == kPerField ? 1 : NF;
   int split = 1;
   for (;;) {
-    const Geom g = make_geom<R>(nx, ny, nz, split);
+    const Geom g = make_geom(nx, ny, nz, split, R);
     int per_sm = 0;
     if (blocks_per_sm<T, R, NF>(false, smem_bytes<T, R, NF>(g, staged),
                                 &per_sm, staging) != cudaSuccess ||
@@ -950,7 +795,7 @@ int plan(int nx, int ny, int nz, int* out) {
     }
     split *= 2;
   }
-  const Geom g = make_geom<R>(nx, ny, nz, split);
+  const Geom g = make_geom(nx, ny, nz, split, R);
   int level_sm = 0;
   if (staging == kAllFields &&
       blocks_per_sm<T, R, NF>(true, smem_bytes<T, R, NF>(g), &level_sm) !=
@@ -980,17 +825,14 @@ int launch_pass(const void* C, const void* x, const void* b,
                 double s1, void* y, int nx, int ny, int nz, int pass,
                 int split, int staging, cudaStream_t stream) {
   if (pass == kZero) {
-    const int64_t n = (int64_t)nx * ny * nz;
-    march_zero_kernel<T, NF>
-        <<<(unsigned)((n + kMarch - 1) / kMarch), kMarch, 0, stream>>>(
-            (const T*)binv, (const T*)b, (T)omega0, (T*)y, (T*)d, n);
-    return (int)cudaGetLastError();
+    return launch_zero<T, NF>(binv, b, omega0, y, d,
+                              (int64_t)nx * ny * nz, stream);
   }
   if (!valid_split(split) || !valid_staging(staging, NF) || pass < kApply ||
       pass > kCheb || (pass == kCheb && NF != 1) || x == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const Geom g = make_geom<R>(nx, ny, nz, split);
+  const Geom g = make_geom(nx, ny, nz, split, R);
   cudaError_t e = prepare<T, R, NF>();
   if (e != cudaSuccess) return (int)e;
   const int64_t blocks = (int64_t)g.runs * nx;
@@ -1021,7 +863,7 @@ int launch_level(const void* C, const void* binv, const void* b,
       (cheb && NF != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Geom g = make_geom<R>(nx, ny, nz, split);
+  const Geom g = make_geom(nx, ny, nz, split, R);
   const size_t smem = smem_bytes<T, R, NF>(g);
   int per_sm = 0;
   cudaError_t e = blocks_per_sm<T, R, NF>(true, smem, &per_sm);
@@ -1051,6 +893,441 @@ int launch_level(const void* C, const void* binv, const void* b,
 }
 
 
+// -- the runtime-radius marching kernel ---------------------------------------
+//
+// march_rn_kernel is the marching design with the radius r a kernel
+// argument, instantiated in csrc/stencil3d_rn.cu alone: every pass at every
+// radius from 5 (the quartic background's 1,331 taps and up), and, at
+// r = 1-4, the lattices whose x planes a block cannot stage. It replaced a
+// one-thread-a-point kernel (blocks of 64, two coefficient loads in
+// flight a thread: 0.32 of bound in f64 and 0.17 in f32 at 33^3, r = 5,
+// on an H100, and 2.4-3.0x slower than cuSPARSE's SpMV on the same
+// operator), latency-bound: 35,937 threads at 33^3 keep about 0.6 MB of
+// loads in flight where 3.35 TB/s at the card's memory latency needs about
+// 2 MB. So, as the fixed-radius kernel does:
+//
+// * a block owns a run of tp = 256 / split consecutive points of one
+//   i-plane's flattened (j, k) plane; a run's coefficient reads are one
+//   coalesced stretch of each plane;
+// * a trip is one tap row (f2, oi, oj): its m = 2r+1 taps along ok for
+//   every output field; trip t = (f2 m + oi) m + oj, nF m^2 of them; split
+//   threads share a point, thread s taking the trips t = s mod split;
+// * a thread keeps kRnTrips trips in flight, issuing kRnChunk taps of each
+//   (nF kRnTrips kRnChunk coefficient loads) before their multiply-adds;
+//   a trip sums into its own accumulators from zero and is added to the
+//   point's in trip order, so the sums do not depend on which trips travel
+//   together: the staged and the unstaged route agree bitwise;
+// * the partial sums of a point's split threads meet in shared memory and
+//   split 0 adds them in split order: no atomics, a run repeats bitwise.
+//
+// x: the 2r+1 planes a run needs (each with r rows of halo in j, r columns
+// in k) are staged one field at a time by cp.async into dynamic shared
+// memory, that field's trips run, then the next field's planes replace
+// them (march_pf_kernel's per-field staging; with every field's planes
+// staged at once the fixed-radius passes ran slower, 5.72 ms against 5.03
+// at 3 x 65^3, f64, r = 4, chip_smoke.py on an H100). Staged x is also
+// faster than x read through the read-only cache in f64 (a sweep pass at
+// 33^3, r = 5: 0.142 ms against 0.157 at the best split of each; three
+// fields at 17^3 0.171 against 0.182), not in f32 (0.101 against 0.093;
+// tests/compare_stencil3d.py --sweep quartic64:33 quartic32:33
+// block3r5:17, H100). The staged rows are whole rows of the lattice, so
+// the bytes grow with the row: (2r+1) (run rows + 2r) (nz + 2r) values.
+// In f64 at split 1 r = 5 takes 71.9 KB a block at 33^3, under the H100's
+// 232,448-byte opt-in; at r = 6 the planes stop fitting from 127-point
+// rows (13 planes of 16 x 139 values: 233,344 bytes with the split's
+// partial sums; rows of 128-135 points fit again, a run then spanning one
+// row fewer, and none from 136), and a long k row stops them at any radius
+// ((5, 6, 700) at r = 5: 11 planes of 12 x 710). Such lattices are real:
+// a 136^3 r = 6 f64 operator is 44 GB, which the card holds. There the
+// plan sends the pass to the unstaged route of the same kernel (same split
+// and trips, x read through the read-only cache, its taps outside the
+// lattice read as zero), never to a plain version; at r = 1-4 the
+// fixed-radius plan does the same where it cannot stage one field
+// (kPlanTooWide: f64 r = 4 from about 313-point rows, long k rows at any
+// radius). A level's smoothing call at these radii is one launch a pass
+// (the plan's out[1] = 0).
+
+constexpr int kRnTrips = 2;   // trips a thread keeps in flight
+constexpr int kRnChunk = 4;   // taps of each trip issued together
+
+// Resident blocks per SM asked of the compiler: 3 for one field (at most
+// 85 registers; f64 takes 80, f32 64, so four f32 blocks fit), 2 for 2-3
+// fields (128). Left to itself the compiler spilled a few bytes in some
+// instances to hold a higher occupancy; at 3 the three-field f64
+// instances spill.
+template <int NF>
+__host__ __device__ constexpr int rn_blocks() {
+  return NF == 1 ? 3 : 2;
+}
+
+// Copy x plane gi of one field (xf: that field's planes) into `slot`
+// ([rows][width]): rows j0 .. j0 + rows - 1, columns -r .. nz + r - 1,
+// zero outside the lattice, as stage_field does at a fixed radius.
+template <class T>
+__device__ __forceinline__ void stage_rn(T* slot, const Geom& g, int gi,
+                                         int j0, int row0, int col0,
+                                         const T* xf, int r) {
+  const int per = g.rows * g.width;
+  const bool plane_in = gi >= 0 && gi < g.nx;
+  int row = row0, col = col0;
+  for (int e = threadIdx.x; e < per; e += kMarch) {
+    const int gj = j0 + row;
+    const int gk = col - r;
+    const bool in =
+        plane_in && gj >= 0 && gj < g.ny && gk >= 0 && gk < g.nz;
+    cp_async(slot + e, in ? xf + ((int64_t)gi * g.ny + gj) * g.nz + gk : xf,
+             in);
+    row += g.drow;
+    col += g.dcol;
+    if (col >= g.width) {
+      col -= g.width;
+      ++row;
+    }
+  }
+}
+
+// One pass (apply, residual, sweep, Chebyshev step) at radius r, one
+// block per (run, i-plane); STAGED: x staged one field at a time, else
+// read through the read-only cache. The epilogue is march's.
+template <class T, int NF, bool STAGED>
+__global__ void __launch_bounds__(kMarch, rn_blocks<NF>())
+march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
+                const T* __restrict__ b, const T* __restrict__ binv, T* d,
+                T s0, T s1, T* y, int pass, Geom g, int r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  constexpr int TR = kRnTrips;
+  constexpr int KC = kRnChunk;
+  const int m = 2 * r + 1;
+  const int mm = m * m;
+  const int64_t plane = g.plane;
+  const int64_t m3p = (int64_t)mm * m * plane;   // from f2 to f2 + 1
+  const int run = blockIdx.x % g.runs;
+  const int i = blockIdx.x / g.runs;
+  const int per = g.rows * g.width;
+  T* red = sm + (STAGED ? (int64_t)m * per : 0);
+  const int s = threadIdx.x / g.tp;
+  const int pl = threadIdx.x - s * g.tp;
+  const int q0 = run * g.tp;
+  const int q = q0 + pl;
+  const bool valid = q < g.npl;
+  const int jf = q0 / g.nz;
+  const int j = q / g.nz;
+  const int k = q - j * g.nz;
+  const int wr = j - jf;
+  const int64_t p = (int64_t)i * g.npl + q;
+  const int row0 = threadIdx.x / g.width;
+  const int col0 = threadIdx.x - row0 * g.width;
+  // the point's b, Binv and d, loaded before the staging (march's EARLY)
+  T b1 = T(0), i1 = T(0), d1 = T(0);
+  if (NF == 1 && s == 0 && valid) {
+    if (pass != kApply) b1 = __ldg(b + p);
+    if (pass == kSweep || pass == kCheb) i1 = __ldg(binv + p);
+    if (pass == kCheb && s1 != T(0)) d1 = d[p];
+  }
+
+  T acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = T(0);
+  // the thread's trips t0, t0 + split, ... below end, kRnTrips at a time
+  auto trips = [&](int t0, int end) {
+#pragma unroll 1
+    for (int t = t0; t < end; t += TR * g.split) {
+      const T* cq[TR];
+      const T* xw[TR];
+      bool live[TR], rowin[TR];
+      T a[TR][NF];
+#pragma unroll
+      for (int u = 0; u < TR; ++u) {
+        const int tu = t + u * g.split;
+        live[u] = tu < end;
+        const int tt = live[u] ? tu : t;
+        const int oj = tt % m;
+        const int fo = tt / m;
+        const int oi = fo % m;
+        const int f2 = fo / m;
+        cq[u] = C + f2 * m3p + (int64_t)((oi * m + oj) * m) * plane + p;
+        if constexpr (STAGED) {
+          rowin[u] = live[u];
+          xw[u] = sm + oi * per + (wr + oj) * g.width + k;
+        } else {
+          const int gi = i + oi - r;
+          const int gj = j + oj - r;
+          rowin[u] = live[u] && gi >= 0 && gi < g.nx && gj >= 0 &&
+                     gj < g.ny;
+          xw[u] = x + f2 * plane +
+                  (rowin[u] ? ((int64_t)gi * g.ny + gj) * g.nz + k - r : 0);
+        }
+#pragma unroll
+        for (int f = 0; f < NF; ++f) a[u][f] = T(0);
+      }
+#pragma unroll 1
+      for (int ok0 = 0; ok0 < m; ok0 += KC) {
+        T cv[TR][NF][KC], xv[TR][KC];
+#pragma unroll
+        for (int u = 0; u < TR; ++u) {
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            const int ok = ok0 + c;
+            const bool on = live[u] && ok < m;
+            if constexpr (STAGED) {
+              xv[u][c] = on ? xw[u][ok] : T(0);
+            } else {
+              const bool in =
+                  on && rowin[u] && (unsigned)(k - r + ok) < (unsigned)g.nz;
+              xv[u][c] = in ? __ldg(xw[u] + ok) : T(0);
+            }
+#pragma unroll
+            for (int f1 = 0; f1 < NF; ++f1) {
+              cv[u][f1][c] =
+                  on ? __ldg(cq[u] + f1 * NF * m3p + (int64_t)ok * plane)
+                     : T(0);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < TR; ++u) {
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            if (ok0 + c < m) {
+#pragma unroll
+              for (int f1 = 0; f1 < NF; ++f1) {
+                a[u][f1] = fma_t(cv[u][f1][c], xv[u][c], a[u][f1]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < TR; ++u) {
+        if (live[u]) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f) acc[f] += a[u][f];
+        }
+      }
+    }
+  };
+  if constexpr (STAGED) {
+#pragma unroll 1
+    for (int f2 = 0; f2 < NF; ++f2) {
+      // field f2's plane i + oi - r in slot oi
+      for (int oi = 0; oi < m; ++oi) {
+        stage_rn<T>(sm + oi * per, g, i + oi - r, jf - r, row0, col0,
+                    x + f2 * plane, r);
+      }
+      cp_async_wait();
+      __syncthreads();
+      // field f2's trips are mm consecutive ones; thread s takes those
+      // equal to s modulo split
+      if (valid) {
+        trips(f2 * mm + (s - f2 * mm % g.split + g.split) % g.split,
+              (f2 + 1) * mm);
+      }
+      // every thread is done with field f2's planes before they are
+      // replaced
+      __syncthreads();
+    }
+  } else {
+    if (valid) trips(s, NF * mm);
+  }
+  if (g.split > 1) {
+    // the other splits' partial sums, added by split 0 in split order
+    if (s > 0) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) red[(s * NF + f) * g.tp + pl] = acc[f];
+    }
+    __syncthreads();
+    if (s == 0) {
+      for (int s2 = 1; s2 < g.split; ++s2) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f] += red[(s2 * NF + f) * g.tp + pl];
+      }
+    }
+  }
+  if (s != 0 || !valid) return;
+  if (pass == kApply) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
+  } else if (pass == kResidual && NF == 1) {
+    y[p] = b1 - acc[0];
+  } else if (pass == kResidual) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) y[f * plane + p] = b[f * plane + p] - acc[f];
+  } else if (pass == kSweep && NF == 1) {
+    y[p] = __ldg(x + p) + s0 * (i1 * (b1 - acc[0]));
+  } else if (pass == kSweep) {
+    T res[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) res[f] = b[f * plane + p] - acc[f];
+#pragma unroll
+    for (int f1 = 0; f1 < NF; ++f1) {
+      T v = T(0);
+#pragma unroll
+      for (int f2 = 0; f2 < NF; ++f2) {
+        v = fma_t(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], v);
+      }
+      y[f1 * plane + p] = __ldg(x + f1 * plane + p) + s0 * v;
+    }
+  } else if (pass == kCheb) {
+    const T res = i1 * (b1 - acc[0]);
+    const T dn = s1 != T(0) ? fma_t(s0, res, s1 * d1) : s0 * res;
+    d[p] = dn;
+    y[p] = __ldg(x + p) + dn;
+  }
+}
+
+// the staging value of march_rn_kernel's staged route: every field's
+// planes for one field, one field's at a time for 2-3
+template <int NF>
+constexpr int rn_staged() {
+  return NF == 1 ? kAllFields : kPerField;
+}
+
+// the dynamic shared memory of a march_rn_kernel block: one field's staged
+// planes (none unstaged) and the split's partial sums
+template <class T, int NF>
+size_t smem_rn(const Geom& g, int r, bool staged) {
+  return ((staged ? (size_t)(2 * r + 1) * g.rows * g.width : 0) +
+          (size_t)NF * kMarch) *
+         sizeof(T);
+}
+
+// the instance's dynamic shared memory limit raised once, and its resident
+// blocks per SM at `smem` bytes (out null: the limit alone)
+template <class T, int NF, bool STAGED>
+cudaError_t blocks_rn(size_t smem, int* out) {
+  static cudaError_t done = cudaErrorNotReady;
+  if (done == cudaErrorNotReady) {
+    done = cudaFuncSetAttribute(
+        march_rn_kernel<T, NF, STAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin));
+  }
+  if (done != cudaSuccess || out == nullptr) return done;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, march_rn_kernel<T, NF, STAGED>, kMarch, smem);
+}
+
+template <class T, int NF>
+cudaError_t blocks_rn(bool staged, size_t smem, int* out) {
+  return staged ? blocks_rn<T, NF, true>(smem, out)
+                : blocks_rn<T, NF, false>(smem, out);
+}
+
+// The plan of a level shape at radius r for march_rn_kernel (out[0..3] as
+// plan's): the staged route where a block holds one field's planes at
+// split 1 (at r = 1-4 never: the fixed-radius instances stage there, and
+// this route serves their lattices too wide to stage), else the unstaged
+// one. The split: the smallest whose (run, plane) blocks fill at least
+// kRnFill of whole waves of the card's resident blocks, else the one that
+// fills them best. A sweep pass at r = 5 (tests/compare_stencil3d.py
+// --sweep, H100): at 33^3 split 2 (0.75 of one wave) 0.142 ms in f64
+// against 0.146 at 8 (0.97 of three) and 0.152 at 4 (0.75 of two); in f32
+// 8 (0.73) 0.101 against 0.108 at 16; at 17^3 16 (0.82) 0.026 against
+// 0.032 at 8; three fields at 17^3 8 (0.64) 0.171 against 0.204 at 16
+// (0.61). A level's smoothing call is one launch a pass.
+constexpr double kRnFill = 0.7;
+
+template <class T, int NF>
+int plan_rn(int nx, int ny, int nz, int r, int* out) {
+  const int sms = sm_count();
+  if (sms == 0) return -1;
+  const size_t optin =
+      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  const bool staged =
+      r >= 5 && smem_rn<T, NF>(make_geom(nx, ny, nz, 1, r), r, true) <= optin;
+  int best = 0;
+  double fill = -1.0;
+  for (int split = 1; split <= 16; split *= 2) {
+    const Geom g = make_geom(nx, ny, nz, split, r);
+    int per_sm = 0;
+    if (blocks_rn<T, NF>(staged, smem_rn<T, NF>(g, r, staged), &per_sm) !=
+            cudaSuccess ||
+        per_sm == 0) {
+      return -1;
+    }
+    const int64_t slots = (int64_t)sms * per_sm;
+    const int64_t blocks = (int64_t)g.runs * nx;
+    const double f =
+        (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
+    if (f > fill) {
+      fill = f;
+      best = split;
+    }
+    if (f >= kRnFill) break;
+  }
+  out[0] = best;
+  out[1] = 0;
+  out[2] = 0;
+  out[3] = staged ? rn_staged<NF>() : kUnstaged;
+  return 0;
+}
+
+template <class T, int NF>
+int launch_pass_rn(const void* C, const void* x, const void* b,
+                   const void* binv, void* d, double omega0, double s0,
+                   double s1, void* y, int nx, int ny, int nz, int r,
+                   int pass, int split, int staging, cudaStream_t stream) {
+  if (pass == kZero) {
+    return launch_zero<T, NF>(binv, b, omega0, y, d,
+                              (int64_t)nx * ny * nz, stream);
+  }
+  if (!valid_split(split) || pass < kApply || pass > kCheb ||
+      (pass == kCheb && NF != 1) || x == nullptr ||
+      (staging != kUnstaged && staging != rn_staged<NF>())) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool staged = staging != kUnstaged;
+  const Geom g = make_geom(nx, ny, nz, split, r);
+  const size_t smem = smem_rn<T, NF>(g, r, staged);
+  cudaError_t e = blocks_rn<T, NF>(staged, smem, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((int64_t)g.runs * nx);
+  if (staged) {
+    march_rn_kernel<T, NF, true><<<blocks, kMarch, smem, stream>>>(
+        (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
+        (T)s1, (T*)y, pass, g, r);
+  } else {
+    march_rn_kernel<T, NF, false><<<blocks, kMarch, smem, stream>>>(
+        (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
+        (T)s1, (T*)y, pass, g, r);
+  }
+  return (int)cudaGetLastError();
+}
+
+// stencil3d_plan and stencil3d_pass at a runtime radius r >= 1
+template <class T>
+int plan_entry_rn(int nx, int ny, int nz, int radius, int nf, int* out) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || radius < 1) return -1;
+  switch (nf) {
+    case 1: return plan_rn<T, 1>(nx, ny, nz, radius, out);
+    case 2: return plan_rn<T, 2>(nx, ny, nz, radius, out);
+    case 3: return plan_rn<T, 3>(nx, ny, nz, radius, out);
+  }
+  return -1;
+}
+
+template <class T>
+int pass_entry_rn(const void* C, const void* x, const void* b,
+                  const void* binv, void* d, double omega0, double s0,
+                  double s1, void* y, int nx, int ny, int nz, int radius,
+                  int nf, int pass, int split, int staging, void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || radius < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CALL_RN(NF)                                                          \
+  launch_pass_rn<T, NF>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz,     \
+                        radius, pass, split, staging, st)
+  switch (nf) {
+    case 1: return CALL_RN(1);
+    case 2: return CALL_RN(2);
+    case 3: return CALL_RN(3);
+  }
+#undef CALL_RN
+  return (int)cudaErrorInvalidValue;
+}
+
 // The entries' bodies for one scalar type T and the radii LO..HI, by
 // (radius, fields): each source that includes this header instantiates
 // them for its own type and radii (STENCIL3D_ENTRIES), so the instances
@@ -1074,16 +1351,6 @@ int launch_level(const void* C, const void* binv, const void* b,
     case 43: { CASE3_T(T, LO, HI, 4, 3, CALL) }                      \
     default: return (int)cudaErrorInvalidValue;                      \
   }
-
-template <class T, int LO, int HI>
-int mv_entry(const void* C, const void* x, void* y, int nx, int ny, int nz,
-             int radius, void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
-#define CALL(T_, R, NF)                                                     \
-  launch_mv<T_, R>(C, x, y, nx, ny, nz, (cudaStream_t)stream)
-  DISPATCH3_T(T, LO, HI, radius, 1, CALL)
-#undef CALL
-}
 
 template <class T, int LO, int HI>
 int plan_entry(int nx, int ny, int nz, int radius, int nf, int* out) {
@@ -1123,12 +1390,10 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
 
 // The typed entries of one source: its scalar type T and radii LO..HI,
 // named by SUFFIX (f32, f64: r = 1-3; r4_f32, r4_f64: r = 4; rn_f32,
-// rn_f64: every radius from 5, csrc/stencil3d_rn.cu). The public entries of
+// rn_f64: march_rn_kernel, csrc/stencil3d_rn.cu). The public entries of
 // csrc/stencil3d.cu call the source that holds an operand's (type,
-// radius).
+// radius, staging).
 #define STENCIL3D_DECLARE(SUFFIX)                                            \
-  int stencil3d_mv_##SUFFIX(const void* C, const void* x, void* y, int nx,   \
-                            int ny, int nz, int radius, void* stream);       \
   int stencil3d_plan_##SUFFIX(int nx, int ny, int nz, int radius, int nf,    \
                               int* out);                                     \
   int stencil3d_pass_##SUFFIX(const void* C, const void* x, const void* b,   \
@@ -1144,10 +1409,6 @@ int level_entry(const void* C, const void* binv, const void* b, const void* x,
                                int radius, int nf, int split, void* stream);
 #define STENCIL3D_ENTRIES(SUFFIX, T, LO, HI)                                 \
   extern "C" {                                                               \
-  int stencil3d_mv_##SUFFIX(const void* C, const void* x, void* y, int nx,   \
-                            int ny, int nz, int radius, void* stream) {      \
-    return mv_entry<T, LO, HI>(C, x, y, nx, ny, nz, radius, stream);         \
-  }                                                                          \
   int stencil3d_plan_##SUFFIX(int nx, int ny, int nz, int radius, int nf,    \
                               int* out) {                                    \
     return plan_entry<T, LO, HI>(nx, ny, nz, radius, nf, out);               \

@@ -1,45 +1,39 @@
-// Runtime-radius instances of the 2D and 3D stencil kernels for Hopper
-// (sm_90a): the radius is a kernel argument, so one instance per (scalar
-// type, fields, pass) serves every radius above the fixed-radius ones of
-// csrc/stencil2d.cuh and csrc/stencil3d.cuh (r = 1-4). The public entries
-// of csrc/stencil2d.cu and csrc/stencil3d.cu hand r >= 5 (a quartic or
-// higher B-spline background: 121 and 1,331 taps at r = 5) to the sources
-// that instantiate these, csrc/stencil2d_rn.cu and csrc/stencil3d_rn.cu.
+// Runtime-radius instances of the 2D stencil kernels for Hopper (sm_90a):
+// the radius is a kernel argument, so one instance per (scalar type,
+// fields, pass) serves every radius above the fixed-radius ones of
+// csrc/stencil2d.cuh (r = 1-4). The public entries of csrc/stencil2d.cu
+// hand r >= 5 (a quartic or higher B-spline background: 121 taps at r = 5)
+// to the source that instantiates these, csrc/stencil2d_rn.cu. (The 3D
+// runtime-radius kernel is march_rn_kernel in csrc/stencil3d.cuh.)
 //
 // Replaces, at those radii, the Pallas TPU kernels of
-// iifea_tpu/ops/pallas_stencil.py: `stencil_mv` (`_mv_kernel`),
-// `jacobi_smooth` (`_smooth_kernel`), `stencil_mv3` (`_mv3_kernel`) and
-// `jacobi_smooth3` (`_smooth3_kernel`), which take the radius as a static
+// iifea_tpu/ops/pallas_stencil.py `stencil_mv` (`_mv_kernel`) and
+// `jacobi_smooth` (`_smooth_kernel`), which take the radius as a static
 // argument with no limit; and the port's extensions of them: the block
-// (1-3 field) apply, residual and point-block sweep, in 3D also the
-// Chebyshev step and the sweep from zero. The operands and their layouts
-// are those of the fixed-radius kernels (see their headers):
+// (1-3 field) apply, residual and point-block sweep. The operands and
+// their layouts are those of the fixed-radius kernels (see their headers):
 //
 //   (A x)[f1] = sum_f2 sum_q C[f1, f2, q] * shift_q(x[f2])   (x zero outside)
 //
-// with q = (oi, oj[, ok]) in the planes' order, and every output field
-// summed in the order (f2, oi, oj[, ok]), as the fixed-radius kernels sum.
+// with q = (oi, oj) in the planes' order, and every output field summed in
+// the order (f2, oi, oj), as the fixed-radius kernels sum.
 //
-// What bounds them: memory traffic. A point reads nF^2 (2r+1)^dim
-// coefficients once (r = 5: 121 in 2D, 1,331 in 3D per field pair) against
-// two flops each. The design is the simple one:
+// What bounds them: memory traffic. A point reads nF^2 (2r+1)^2
+// coefficients once (r = 5: 121 per field pair) against two flops each.
+// The design is the simple one:
 //
 // * one thread per output point, all nF output fields in registers; the
 //   coefficient planes are read coalesced in their own plane-major layout
 //   (neighbouring threads on neighbouring points of a plane);
-// * 2D: a 16 x 16 tile of x with its runtime 2r halo, every field, is
-//   staged in dynamic shared memory (26^2 x 3 f64 = 16 KB at r = 5), so
-//   the shifted reads of x hit shared memory; the radius a block can stage
-//   is the limit of the 2D instances (the wrappers refuse a larger one);
-// * 3D: x is read through the read-only cache (a point carries 1,331 nF^2
-//   coefficients against nF values of x at r = 5, so the coefficients set
-//   the pace), taps outside the lattice skipped (their products are zero);
-//   blocks of 64 points, so that a small level still spreads over the SMs;
+// * a 16 x 16 tile of x with its runtime 2r halo, every field, is staged in
+//   dynamic shared memory (26^2 x 3 f64 = 16 KB at r = 5), so the shifted
+//   reads of x hit shared memory; the radius a block can stage is the
+//   limit of the 2D instances (the wrappers refuse a larger one);
 // * a multigrid level's smoothing call runs one launch per pass (the plan
-//   entries answer that route at these radii).
+//   entry answers that route at these radii).
 //
 // Launch contract: PyTorch's current stream, no synchronisation, no
-// allocation; y must not alias x, b or d. Each entry returns the launch's
+// allocation; y must not alias x or b. Each entry returns the launch's
 // cudaError_t.
 
 #ifndef IIFEA_STENCIL_RN_CUH_
@@ -58,9 +52,8 @@ __device__ __forceinline__ double fma_r(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// passes: 2D modes 0-3 as stencil2d_block's, 3D passes 0-4 as
-// stencil3d_pass's
-enum Pass { kApply = 0, kResidual = 1, kSweep = 2, kCheb = 3, kZero = 4 };
+// passes: 2D modes 0-3 as stencil2d_block's
+enum Pass { kApply = 0, kResidual = 1, kSweep = 2 };
 constexpr int kSweepFromZero2 = 3;   // stencil2d_block's mode 3
 
 // x after one sweep from zero at point p, field f1: omega Binv b.
@@ -264,158 +257,6 @@ int block2d_entry(const void* C, const void* x, const void* b,
     case 3:
       return (int)pass2d_mode<T, 3>(mode, C, x, b, binv, omega, y, nx, ny,
                                     radius, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// -- 3D ----------------------------------------------------------------------
-
-constexpr int kBlock3 = 64;   // points per block
-
-// One pass on 3D planes (stencil3d_pass's passes 0-3), one thread per
-// point; taps outside the lattice are skipped.
-template <class T, int NF, int PASS>
-__global__ void __launch_bounds__(kBlock3)
-pass3d_kernel(const T* __restrict__ C, const T* __restrict__ x,
-              const T* __restrict__ b, const T* __restrict__ binv, T* d,
-              T s0, T s1, T* __restrict__ y, int nx, int ny, int nz, int r) {
-  const int64_t plane = (int64_t)nx * ny * nz;
-  const int64_t p = (int64_t)blockIdx.x * kBlock3 + threadIdx.x;
-  if (p >= plane) return;
-  const int k = (int)(p % nz);
-  const int j = (int)(p / nz % ny);
-  const int i = (int)(p / ((int64_t)ny * nz));
-  const int m = 2 * r + 1;
-  const int64_t m2 = (int64_t)m * m, m3 = m2 * m;
-  // the offsets whose x lies in the lattice
-  const int oi0 = max(0, r - i), oi1 = min(m, nx - i + r);
-  const int oj0 = max(0, r - j), oj1 = min(m, ny - j + r);
-  const int ok0 = max(0, r - k), ok1 = min(m, nz - k + r);
-  T acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = T(0);
-#pragma unroll 1
-  for (int f2 = 0; f2 < NF; ++f2) {
-#pragma unroll 1
-    for (int oi = oi0; oi < oi1; ++oi) {
-#pragma unroll 1
-      for (int oj = oj0; oj < oj1; ++oj) {
-        const T* Cq = C + (f2 * m3 + oi * m2 + oj * m) * plane + p;
-        const T* xq = x + f2 * plane +
-                      ((int64_t)(i + oi - r) * ny + (j + oj - r)) * nz +
-                      (k - r);
-        // (unrolled by 8, this pass took 0.53 ms at 33³ f64 against 0.36
-        // unrolled by 2, on an H100)
-#pragma unroll 2
-        for (int ok = ok0; ok < ok1; ++ok) {
-          const T xv = __ldg(xq + ok);
-#pragma unroll
-          for (int f1 = 0; f1 < NF; ++f1) {
-            acc[f1] = fma_r(__ldg(Cq + (f1 * NF * m3 + ok) * plane), xv,
-                            acc[f1]);
-          }
-        }
-      }
-    }
-  }
-  if (PASS == kApply) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) y[f * plane + p] = acc[f];
-  } else if (PASS == kResidual) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) y[f * plane + p] = __ldg(b + f * plane + p)
-                                                     - acc[f];
-  } else if (PASS == kSweep && NF == 1) {
-    y[p] = __ldg(x + p) + s0 * (__ldg(binv + p) * (__ldg(b + p) - acc[0]));
-  } else if (PASS == kSweep) {
-    T res[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) res[f] = __ldg(b + f * plane + p) - acc[f];
-#pragma unroll
-    for (int f1 = 0; f1 < NF; ++f1) {
-      T v = T(0);
-#pragma unroll
-      for (int f2 = 0; f2 < NF; ++f2) {
-        v = fma_r(__ldg(binv + (int64_t)(f1 * NF + f2) * plane + p), res[f2],
-                  v);
-      }
-      y[f1 * plane + p] = __ldg(x + f1 * plane + p) + s0 * v;
-    }
-  } else if (PASS == kCheb) {
-    const T res = __ldg(binv + p) * (__ldg(b + p) - acc[0]);
-    const T dn = s1 != T(0) ? fma_r(s0, res, s1 * d[p]) : s0 * res;
-    d[p] = dn;
-    y[p] = __ldg(x + p) + dn;
-  }
-}
-
-template <class T, int NF, int PASS>
-cudaError_t launch_pass3d(const void* C, const void* x, const void* b,
-                          const void* binv, void* d, double s0, double s1,
-                          void* y, int nx, int ny, int nz, int r,
-                          cudaStream_t stream) {
-  const int64_t n = (int64_t)nx * ny * nz;
-  pass3d_kernel<T, NF, PASS>
-      <<<(unsigned)((n + kBlock3 - 1) / kBlock3), kBlock3, 0, stream>>>(
-          (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d,
-          (T)s0, (T)s1, (T*)y, nx, ny, nz, r);
-  return cudaGetLastError();
-}
-
-template <class T, int NF>
-cudaError_t pass3d_fields(int pass, const void* C, const void* x,
-                          const void* b, const void* binv, void* d,
-                          double omega0, double s0, double s1, void* y,
-                          int nx, int ny, int nz, int r,
-                          cudaStream_t stream) {
-  if (pass == kZero) {
-    return launch_zero<T, NF>(binv, b, omega0, y, d,
-                              (int64_t)nx * ny * nz, stream);
-  }
-  if (x == nullptr) return cudaErrorInvalidValue;
-  switch (pass) {
-    case kApply:
-      return launch_pass3d<T, NF, kApply>(C, x, b, binv, d, s0, s1, y, nx,
-                                          ny, nz, r, stream);
-    case kResidual:
-      return launch_pass3d<T, NF, kResidual>(C, x, b, binv, d, s0, s1, y, nx,
-                                             ny, nz, r, stream);
-    case kSweep:
-      return launch_pass3d<T, NF, kSweep>(C, x, b, binv, d, s0, s1, y, nx,
-                                          ny, nz, r, stream);
-    case kCheb:
-      if constexpr (NF == 1) {
-        return launch_pass3d<T, 1, kCheb>(C, x, b, binv, d, s0, s1, y, nx,
-                                          ny, nz, r, stream);
-      }
-      break;
-  }
-  return cudaErrorInvalidValue;
-}
-
-// stencil3d_pass at a runtime radius r >= 1. These instances stage
-// nothing and give a point one thread: any split of the marching kernels
-// (1-16) is taken and changes nothing; the staging must be all fields'.
-template <class T>
-int pass3d_entry(const void* C, const void* x, const void* b,
-                 const void* binv, void* d, double omega0, double s0,
-                 double s1, void* y, int nx, int ny, int nz, int radius,
-                 int nf, int pass, int split, int staging, void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0 || radius < 1 || split < 1 ||
-      split > 16 || (split & (split - 1)) != 0 || staging != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (nf) {
-    case 1:
-      return (int)pass3d_fields<T, 1>(pass, C, x, b, binv, d, omega0, s0, s1,
-                                      y, nx, ny, nz, radius, s);
-    case 2:
-      return (int)pass3d_fields<T, 2>(pass, C, x, b, binv, d, omega0, s0, s1,
-                                      y, nx, ny, nz, radius, s);
-    case 3:
-      return (int)pass3d_fields<T, 3>(pass, C, x, b, binv, d, omega0, s0, s1,
-                                      y, nx, ny, nz, radius, s);
   }
   return (int)cudaErrorInvalidValue;
 }

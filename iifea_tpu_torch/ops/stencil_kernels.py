@@ -7,8 +7,8 @@ holds the two entries built on them for block operators and small lattices:
 ``stencil_mv_block``, a block (multi-field) apply or residual b − A x in
 one launch, and ``smooth``, a multigrid level's ν sweeps and trailing
 residual in one launch) and
-``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cuh``: ``stencil_mv3``
-on its own kernel, and one marching kernel behind ``jacobi_smooth3``, the
+``stencil_mv3``/``jacobi_smooth3`` (``csrc/stencil3d.cuh``: one marching
+kernel behind ``stencil_mv3`` (its apply pass), ``jacobi_smooth3``, the
 fused Chebyshev step ``cheb_step3`` of the 3D V-cycle smoother and
 ``stencil3d_block``, the 3D block apply, residual and point-block sweep in
 one launch; ``smooth3``, a 3D level's whole smoothing call, is one
@@ -17,8 +17,10 @@ two headers; each scalar type's instances are compiled from sources of
 their own, the radius-4 ones apart (``stencil2d.cu`` and ``stencil3d.cu``:
 the f32 instances at r = 1–3 and the entries; ``stencil2d_f64.cu``,
 ``stencil3d_f64.cu``; ``stencil{2d,3d}_r4{,_f64}.cu``); every radius from 5
-runs the runtime-radius instances of ``csrc/stencil_rn.cuh``
-(``stencil{2d,3d}_rn.cu``: the radius a kernel argument). Every ``csrc/*.cu``
+runs the runtime-radius instances (``stencil2d_rn.cu`` from
+``csrc/stencil_rn.cuh``, ``stencil3d_rn.cu``: the marching kernel with the
+radius a kernel argument, which also takes the 3D lattices whose x planes
+a block cannot stage at r = 1–4). Every ``csrc/*.cu``
 source is compiled with ``nvcc`` for ``sm_90a`` at first use (one nvcc per
 source, run together, then one link) into one shared library in
 ``build/iifea_tpu_torch/`` at the repository root (a plain C interface
@@ -30,10 +32,11 @@ in this module; a CUDA tensor always launches the kernel (or raises).
 Launches are counted where they are made (``launches()``): a 2D wrapper's
 in ``<wrapper>.launches`` (a 2D smoothing call that takes one launch per
 pass counts its sweeps under ``jacobi_smooth`` and its residual under
-``stencil_mv_block``, the functions that launch them); ``stencil_mv3``'s and
-``smooth3``'s (a 3D level's one cooperative launch) likewise; every launch
-of the 3D marching entry ``stencil3d_pass`` under the name of its pass and
-instance, ``PASS3_NAMES`` (``jacobi_smooth3``, ``cheb_step3``,
+``stencil_mv_block``, the functions that launch them); ``stencil_mv3``'s
+(its apply pass of ``stencil3d_pass``, not counted under ``apply3``) and
+``smooth3``'s (a 3D level's one cooperative launch) likewise; every other
+launch of the 3D marching entry ``stencil3d_pass`` under the name of its
+pass and instance, ``PASS3_NAMES`` (``jacobi_smooth3``, ``cheb_step3``,
 ``stencil3d_block``, …), whichever wrapper made it.
 
 Instances (``_check_instance``): every kernel, 2D and 3D, takes f32 and
@@ -46,8 +49,12 @@ with three fields); the plain versions take any. At r ≥ 5 a level's
 smoothing call takes one launch per pass. The 3D marching passes stage
 the x planes of one field at a time where a block cannot hold those of
 every field (the plan's staging, f64 at r = 4 with three fields from a
-73-point row; one launch per pass there too). The operands of one call
-share one dtype; their scalars (omega, alpha, beta) are passed in double.
+73-point row; at r ≥ 5 always), and none where it cannot hold one
+field's (f64 at r = 4 from about a 313-point row, long k rows at any
+radius: the runtime-radius kernel reads x through the read-only cache);
+one launch per pass there too. Every 3D lattice has a plan. The operands
+of one call share one dtype; their scalars (omega, alpha, beta) are
+passed in double.
 
 Layout: 2D coefficients are ``((2r+1)², nx1, ny1)`` contiguous planes
 with plane index k = (oi+r)·m + (oj+r) and node id i·ny1 + j; 3D ones are
@@ -315,7 +322,6 @@ def _lib() -> ctypes.CDLL:
     lib.stencil2d_smooth.argtypes = [p, p, p, p, d, i, p, p, p, i, i, i, i,
                                      i, p]
     lib.stencil2d_smooth_plan.argtypes = [i, i, i, i, i]
-    lib.stencil3d_mv.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.stencil3d_plan.argtypes = [i, i, i, i, i, i, p]
     lib.stencil3d_pass.argtypes = [p, p, p, p, p, d, d, d, p, i, i, i, i, i,
                                    i, i, i, i, p]
@@ -323,7 +329,7 @@ def _lib() -> ctypes.CDLL:
                                     i, i, i, i, i, i, p]
     for fn in (lib.stencil2d_mv, lib.stencil2d_block,
                lib.stencil2d_smooth, lib.stencil2d_smooth_plan,
-               lib.stencil3d_mv, lib.stencil3d_plan, lib.stencil3d_pass,
+               lib.stencil3d_plan, lib.stencil3d_pass,
                lib.stencil3d_level):
         fn.restype = i
     return lib
@@ -617,17 +623,12 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
 
 def stencil_mv3(C, x, shape, radius):
     """y = A x on a 3D lattice (f32 or f64, any radius). CPU: plain
-    version; CUDA: the stencil3d_mv kernel instance of the operands'
-    (dtype, radius)."""
+    version; CUDA: one launch of the marching kernel's apply pass
+    (stencil3d_pass) at the plan's split and staging, counted as
+    ``stencil_mv3``."""
     if _check(C, x, shape, radius, dim=3) == "cpu":
         return stencil_mv3_plain(C, x, shape, radius)
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _lib().stencil3d_mv(
-            C.data_ptr(), x.data_ptr(), y.data_ptr(), *shape, radius,
-            _f64(x), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(rc, "stencil3d_mv")
+    y = _pass3(_APPLY, C, x, None, None, shape, radius, 1, count=False)
     stencil_mv3.launches += 1
     return y
 
@@ -637,7 +638,8 @@ _CHEB, _ZERO = 3, 4
 _PASSES = ("apply", "residual", "sweep", "cheb", "zero")
 # The name a stencil3d_pass launch counts under, by (pass, nF > 1): the
 # passes of march_kernel and the sweep from zero (march_zero_kernel), on
-# one field (scalar planes) or on a block operator's 2 or 3.
+# one field (scalar planes) or on a block operator's 2 or 3
+# (``stencil_mv3``'s apply passes count under its own name).
 PASS3_NAMES = {
     ("apply", False): "apply3", ("residual", False): "residual3",
     ("sweep", False): "jacobi_smooth3", ("cheb", False): "cheb_step3",
@@ -648,12 +650,10 @@ PASS3_NAMES = {
 _pass3_launches = dict.fromkeys(PASS3_NAMES.values(), 0)
 # the most steps a level's smoothing launch takes (kMaxSteps)
 MAX_LEVEL_STEPS3 = 8
-# stencil3d_plan's answer where a block cannot stage the planes of even one
-# field (kPlanTooWide)
-_PLAN_TOO_WIDE = -2
 # the marching passes' staging (the plan's out[3]): every field's x planes
-# at once, or one field's at a time
-ALL_FIELDS, PER_FIELD = range(2)
+# at once, one field's at a time, or none (the runtime-radius kernel reads
+# x through the read-only cache)
+ALL_FIELDS, PER_FIELD, UNSTAGED = range(3)
 
 
 @functools.cache
@@ -662,41 +662,28 @@ def _plan3(shape, radius, nF, device_index, f64: bool = False):
     the library once per (lattice, radius, fields, device, scalar type):
     threads per point, whether a smoothing call there is one launch (1) or
     one launch per pass (0), the blocks the card holds of a level's launch,
-    and ALL_FIELDS or PER_FIELD (where a block cannot hold the staged x
-    planes of every field: f64, r = 4, three fields from a 73-point row
-    on). The library decides from the run count and occupancy queries of
-    the instance. A shape where a block cannot hold even one field's
-    planes (f64, r = 4 from about a 313-point row) raises ValueError."""
+    and ALL_FIELDS, PER_FIELD (at r = 1–4 where a block cannot hold the
+    staged x planes of every field: f64, r = 4, three fields from a
+    73-point row on; at r ≥ 5 for 2–3 fields) or UNSTAGED (where it cannot
+    hold one field's: f64, r = 4 from about a 313-point row, r = 6 from
+    about a 127-point row, long k rows at any radius). The library decides
+    from the run count and occupancy queries of the instance; every
+    lattice has a plan."""
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         rc = _lib().stencil3d_plan(*shape, radius, nF, int(f64), out)
-    if rc == _PLAN_TOO_WIDE:
-        raise ValueError(
-            f"the 3D kernels cannot stage the {2 * radius + 1} x planes of "
-            f"one field of a {shape} lattice in one block's shared memory "
-            f"({'f64' if f64 else 'f32'}, r = {radius})")
     if rc != 0:
         raise RuntimeError(f"stencil3d_plan failed: {rc}")
     return tuple(out)
 
 
-def check_plan3(shape, radius, nF, device_index, f64: bool = False):
-    """The ValueError of ``_plan3`` for a 3D lattice where a block cannot
-    hold even one field's staged x planes, or None where the plan takes
-    it."""
-    try:
-        _plan3(tuple(shape), radius, nF, device_index, f64)
-    except ValueError as e:
-        return e
-    return None
-
-
 def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
-           s1=0.0, d=None, y=None, split=None, staging=None):
+           s1=0.0, d=None, y=None, split=None, staging=None, count=True):
     """One stencil3d_pass launch of ``pass_`` on checked CUDA operands into
     ``y`` (new when None), which it returns, counted under its
-    ``PASS3_NAMES`` entry; ``split`` and ``staging`` override the plan's.
-    The _ZERO pass is omega0·Binv·b (also into ``d`` when given)."""
+    ``PASS3_NAMES`` entry (``count`` False: by the caller); ``split`` and
+    ``staging`` override the plan's. The _ZERO pass is omega0·Binv·b (also
+    into ``d`` when given)."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -713,7 +700,8 @@ def _pass3(pass_, C, x, b, binv, shape, radius, nF, omega0=0.0, s0=0.0,
             float(s0), float(s1), y.data_ptr(), *shape, radius, nF, _f64(y),
             pass_, split, staging, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "stencil3d_pass")
-    _pass3_launches[PASS3_NAMES[_PASSES[pass_], nF > 1]] += 1
+    if count:
+        _pass3_launches[PASS3_NAMES[_PASSES[pass_], nF > 1]] += 1
     return y
 
 
@@ -807,7 +795,8 @@ def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
     launch (counted as ``smooth3``; the step from zero folded into the
     next pass's staging), refused (this raises) where the level's blocks
     are not all co-resident; it stages every field's x planes (ValueError
-    for PER_FIELD). ``split`` and ``staging`` override the plan's."""
+    for PER_FIELD and UNSTAGED). ``split`` and ``staging`` override the
+    plan's."""
     sweeps = len(steps)
     s0 = [float(a) for a, _ in steps]
     s1 = [float(c) for _, c in steps]
@@ -820,8 +809,8 @@ def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
     if route == GRID:
         if staging != ALL_FIELDS:
             raise ValueError("a level's one launch stages every field's x "
-                             "planes: a per-field lattice takes one launch "
-                             "a pass")
+                             "planes: a lattice staged otherwise takes one "
+                             "launch a pass")
         out = torch.empty_like(b)
         res = torch.empty_like(b) if with_residual else None
         tmp = torch.empty_like(b) if sweeps - (x is None) >= 2 else None

@@ -237,15 +237,12 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _cuda_mg_refusal(shape, n_fields, radius, dtype,
-                     device_index=None) -> Exception | None:
+def _cuda_mg_refusal(shape, n_fields, radius, dtype) -> Exception | None:
     """Why the card's stencil kernels cannot take this MG solve, or None:
     they take 2D and 3D operators of 1 to 3 fields at every radius in f32
     or f64, up to the 2D radius a block can stage
-    (``stencil_kernels._check_instance``). Given the card's
-    ``device_index``, a 3D lattice is also asked of the finest level's plan
-    (the coarser levels stage less), which refuses x planes a block cannot
-    stage one field at a time."""
+    (``stencil_kernels._check_instance``); every 3D lattice (one whose x
+    planes a block cannot stage runs the unstaged route)."""
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
     if dtype not in (torch.float32, torch.float64):
@@ -255,9 +252,6 @@ def _cuda_mg_refusal(shape, n_fields, radius, dtype,
         sk._check_instance(dtype, radius, n_fields, len(shape))
     except ValueError as e:
         return e
-    if device_index is not None and len(shape) == 3:
-        return sk.check_plan3(shape, radius, n_fields, device_index,
-                              dtype == torch.float64)
     return None
 
 
@@ -281,8 +275,7 @@ def _mg_solve(A, b, x0, lattice_shape, method, rtol, atol, max_it,
                  and stencil_radius <= MIXED_DEFAULT_MAX_RADIUS)
     sdt = torch.float32 if mixed else b.dtype
     if on_card:
-        err = _cuda_mg_refusal(shape, n_fields, stencil_radius, sdt,
-                               b.device.index or 0)
+        err = _cuda_mg_refusal(shape, n_fields, stencil_radius, sdt)
         if err is not None:
             raise err
     full_f32()

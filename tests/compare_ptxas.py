@@ -16,6 +16,7 @@ one tree has. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -25,6 +26,10 @@ sys.path.insert(0, str(HERE))
 
 BUILD = ("from iifea_tpu_torch.ops import stencil_kernels as sk; "
          "print(sk.build().with_suffix('.log'))")
+# the anonymous namespace of a mangled name carries a hash of its source's
+# contents (_GLOBAL__N__<hash>_15_stencil2d_rn_cu_<hash>): kept to the
+# source's name, so that a kernel whose source changed elsewhere compares
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_[0-9a-f]{8}")
 
 
 def report(tree: Path) -> dict:
@@ -35,9 +40,9 @@ def report(tree: Path) -> dict:
     log = subprocess.run([sys.executable, "-c", BUILD], cwd=tree,
                          capture_output=True, text=True, check=True)
     rows = ptxas_report(Path(tree, log.stdout.strip()).read_text())
-    return {r["kernel"]: (r.get("registers"), r.get("stack"),
-                          r.get("spill_stores"), r.get("spill_loads"))
-            for r in rows}
+    return {ANON.sub(r"\1", r["kernel"]): (
+        r.get("registers"), r.get("stack"), r.get("spill_stores"),
+        r.get("spill_loads")) for r in rows}
 
 
 def main() -> None:

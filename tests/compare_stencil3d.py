@@ -13,6 +13,9 @@ shapes their paths launch them at. Card only; imports no JAX.
     python3 tests/compare_stencil3d.py --trees parent_dir,.
     # the change's split, and its routes, swept at one shape:
     python3 tests/compare_stencil3d.py --sweep block3:25
+    # ... and, at r >= 5, both of the runtime-radius kernel's routes (x
+    # staged one field at a time, or read through the read-only cache):
+    python3 tests/compare_stencil3d.py --sweep quartic64:33 block3r5:17
 
 ``--one CASE`` makes exactly one launch of the case (the first stencil
 kernel of the process), which is what ``--ncu`` profiles.
@@ -49,7 +52,9 @@ NCU_METRICS = (
 GRAPH_LAUNCHES = 50
 
 
-def _operands(kind, what, side, radius, seed=0):
+def _operands(kind, what, side, radius, seed=0, dtype="f32"):
+    """A case's random operands: ``what`` the fields of a block operator
+    (in ``dtype``), or the scalar planes' dtype."""
     import torch
 
     dev = torch.device("cuda")
@@ -59,12 +64,15 @@ def _operands(kind, what, side, radius, seed=0):
     m3 = (2 * radius + 1) ** 3
     if kind == "block":
         nF = what
-        C = torch.rand((nF, nF, m3, *shape), generator=g, device=dev)
+        dt = torch.float64 if dtype == "f64" else torch.float32
+        C = torch.rand((nF, nF, m3, *shape), generator=g, device=dev,
+                       dtype=dt)
         C = C.sub_(0.5).mul_(0.2)
         for f in range(nF):
             C[f, f, m3 // 2] += 4.0
-        binv = torch.rand((nF, nF, n), generator=g, device=dev).mul_(0.1)
-        b, x = (torch.randn(nF * n, generator=g, device=dev)
+        binv = torch.rand((nF, nF, n), generator=g, device=dev,
+                          dtype=dt).mul_(0.1)
+        b, x = (torch.randn(nF * n, generator=g, device=dev, dtype=dt)
                 for _ in range(2))
         return C, binv, b, x, shape
     dt = torch.float64 if what == "f64" else torch.float32
@@ -153,13 +161,20 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-# (label, fields, sides, radius, dtype): the 3D elasticity block V-cycle
-# (97³ … 13³, 3 and 2 fields), the 3D biharmonic (65³ … 17³ f64 r = 3, and
-# its f32 route), the 3D Poisson cycle (105³ … 27³ f32 r = 2)
+# (label, fields or dtype, sides, radius[, block dtype]): the 3D
+# elasticity block V-cycle (97³ … 13³, 3 and 2 fields), the three-field
+# f64 r = 5 passes at 17³, the 3D biharmonic (65³ … 17³ f64 r = 3, and its
+# f32 route), the 3D Poisson cycle (105³ … 27³ f32 r = 2; its f64 route's
+# finest level), the cubic and quartic 3D biharmonic's finest levels
+# (33³, r = 4; 33³ and 17³, r = 5), f64 and f32
 BLOCK = [("block3", 3, (97, 49, 25, 13), 2), ("block2", 2, (97, 49, 25, 13),
-                                              2)]
+                                              2),
+         ("block3r5", 3, (17,), 5, "f64")]
 SCALAR = [("bh64", "f64", (65, 33, 17), 3), ("bh32", "f32", (65, 33, 17), 3),
-          ("poisson", "f32", (105, 53, 27), 2)]
+          ("poisson", "f32", (105, 53, 27), 2),
+          ("poisson64", "f64", (105,), 2), ("cubic64", "f64", (33,), 4),
+          ("cubic32", "f32", (33,), 4), ("quartic64", "f64", (33, 17), 5),
+          ("quartic32", "f32", (33, 17), 5)]
 
 
 def _scalar_mg(C, shape, radius):
@@ -175,7 +190,7 @@ def _scalar_mg(C, shape, radius):
                                   min_size=10 ** 6, coarse_sweeps=0)
 
 
-def _calls(label, what, side, r):
+def _calls(label, what, side, r, *dtype):
     """{row name: fn} of one case on this tree's own API."""
     import inspect
 
@@ -185,7 +200,7 @@ def _calls(label, what, side, r):
     from iifea_tpu_torch.ops.stencil import StencilOperatorBlock3D
 
     if label.startswith("block"):
-        C, binv, b, x, sh = _operands("block", what, side, r)
+        C, binv, b, x, sh = _operands("block", what, side, r, 0, *dtype)
         S = StencilOperatorBlock3D(C, sh, r)
         return {
             "apply": lambda: sk.stencil3d_block(C, x, sh, r),
@@ -278,9 +293,9 @@ def time_tree(tag: str) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    for label, what, sides, r in BLOCK + SCALAR:
+    for label, what, sides, r, *dtype in BLOCK + SCALAR:
         for side in sides:
-            calls = _calls(label, what, side, r)
+            calls = _calls(label, what, side, r, *dtype)
             for row, fn in calls.items():
                 print(json.dumps({"tree": tag, "case": label, "side": side,
                                   "row": row, "ms": device_ms(fn),
@@ -306,7 +321,8 @@ def trees(paths) -> None:
 
 def sweep(target: str) -> None:
     """The change at one shape (``block3:25``, ``bh64:17`` …): a sweep pass
-    at each split, then the V-cycle's two smoothing calls (2 steps from
+    at each split by the plan's staging and, where the plan stages, by the
+    unstaged route, then the V-cycle's two smoothing calls (2 steps from
     zero with the residual; 2 steps from x) by each route that takes the
     level, at the plan's split."""
     import torch
@@ -317,18 +333,23 @@ def sweep(target: str) -> None:
     side = int(side)
     case = next(c for c in BLOCK + SCALAR if c[0] == label)
     kind = "block" if label.startswith("block") else "scalar"
-    C, binv, b, x, sh = _operands(kind, case[1], side, case[3])
+    C, binv, b, x, sh = _operands(kind, case[1], side, case[3], 0,
+                                  *case[4:])
     r = case[3]
     nF = case[1] if kind == "block" else 1
     planned = sk._plan3(sh, r, nF, 0, C.dtype == torch.float64)
     print(json.dumps({"sweep": target, "plan": planned}), flush=True)
-    for split in (1, 2, 4, 8, 16):
-        if split >= 2 * nF * (2 * r + 1):
-            break
-        ms = device_ms(lambda: sk._pass3(sk._SWEEP, C, x, b, binv, sh, r, nF,
-                                         s0=0.9, split=split))
-        print(json.dumps({"sweep": target, "split": split, "pass_ms": ms}),
-              flush=True)
+    stagings = [planned[3]] + [sk.UNSTAGED] * (planned[3] != sk.UNSTAGED)
+    for staging in stagings:
+        for split in (1, 2, 4, 8, 16):
+            if split >= 2 * nF * (2 * r + 1):
+                break
+            ms = device_ms(lambda: sk._pass3(sk._SWEEP, C, x, b, binv, sh, r,
+                                             nF, s0=0.9, split=split,
+                                             staging=staging))
+            print(json.dumps({"sweep": target, "split": split,
+                              "staging": staging, "pass_ms": ms}),
+                  flush=True)
     steps = [(0.9, 0.0), (1.1, 0.3 if kind == "scalar" else 0.0)]
     cheb = kind == "scalar"
     for form, start, res in (("pre", None, True), ("post", x, False)):
@@ -336,7 +357,7 @@ def sweep(target: str) -> None:
             try:
                 ms = device_ms(lambda: sk._smooth3_cuda(
                     route, C, binv, b, start, steps, sh, r, nF, res, cheb))
-            except RuntimeError as e:
+            except (RuntimeError, ValueError) as e:   # the launch refused
                 ms = str(e)
             print(json.dumps({"sweep": target, "form": form,
                               "route": ["per_pass", "grid"][route],

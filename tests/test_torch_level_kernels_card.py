@@ -263,9 +263,12 @@ def test_torch_smooth3_entry_on_card(n_fields, radius, dtype, cheb, shape):
                     assert sk.launches() == {**before, "smooth3":
                                              before["smooth3"] + 1}
                 else:
+                    # the library's refusal (at r >= 5 the plan stages one
+                    # field at a time for 2-3 fields, which the wrapper
+                    # refuses first)
                     with pytest.raises(RuntimeError, match="stencil3d_level"):
                         sk._smooth3_cuda(sk.GRID, *args, nF, with_residual,
-                                         cheb)
+                                         cheb, staging=sk.ALL_FIELDS)
                 torch.cuda.synchronize()
                 for out in got:
                     for a, a_ref, a_pass, scale in zip(
@@ -451,10 +454,114 @@ def test_torch_stencil3d_per_field_staging_bitwise(n_fields, shape):
 def test_torch_plan3_per_field_from_73(side, staging):
     """f64, r = 4, three fields: the plan stages every field's x planes at
     65³ and one field's at a time from 73³ on (3 × 97³: the cubic 3D
-    elasticity at the 3D elasticity cell's width), where it answered
-    "too wide" before; check_plan3 takes every one of them."""
+    elasticity at the 3D elasticity cell's width), where a block cannot
+    hold every field's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
     shape = (side,) * 3
-    assert sk.check_plan3(shape, 4, 3, 0, True) is None
     assert sk._plan3(shape, 4, 3, 0, True)[3] == staging
+
+
+# -- 3D: the runtime-radius marching kernel and its unstaged route ----------
+
+# (radius, shape, fields): r = 5-7 at two odd shapes (the second's (j, k)
+# plane ends in a ragged run), scalar planes and 2-3 fields
+RN3_CASES = [(r, sh, nf) for r in (5, 6, 7)
+             for sh in ((9, 11, 13), (13, 10, 17)) for nf in (0, 2, 3)]
+
+
+def _stagings(plan):
+    """The runtime-radius kernel's routes where the plan chose plan[3]:
+    its staging (one field's x planes at a time), and none."""
+    return [st for st in (plan[3],) if st != sk.UNSTAGED] + [sk.UNSTAGED]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("radius,shape,n_fields", RN3_CASES)
+def test_torch_stencil3d_rn_stagings_on_card(radius, shape, n_fields, dtype):
+    """The runtime-radius marching kernel (r = 5-7): the apply, residual,
+    sweep and (scalar planes) Chebyshev step by its staged route (one
+    field's x planes at a time) and its unstaged one at the plan's split
+    equal their plain versions (f32 1e-4, f64 1e-12) and one another
+    bitwise (a trip sums from zero and joins the point's sum in trip
+    order, whichever trips travel together); the plan stages one field at
+    a time for 2-3 fields and keeps a level's smoothing call at one launch
+    a pass."""
+    C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
+                                    50 + 3 * radius + n_fields)
+    nF = max(n_fields, 1)
+    plan = sk._plan3(shape, radius, nF, 0, dtype == torch.float64)
+    assert plan[1] == 0 and plan[3] in (
+        sk.UNSTAGED, sk.ALL_FIELDS if nF == 1 else sk.PER_FIELD)
+    y_ref = sk.apply3_block_plain(C, x, shape, radius)
+    refs = {sk._APPLY: y_ref, sk._RESIDUAL: b - y_ref,
+            sk._SWEEP: sk.sweep3_block_plain(C, binv, b, x, 0.8, shape,
+                                             radius)}
+    d = torch.randn_like(x)
+    if n_fields == 0:
+        refs[sk._CHEB] = sk.cheb_step3_plain(C, binv, b, x, d, 1.3, 0.45,
+                                             shape, radius)[0]
+    for pass_, ref in refs.items():
+        got = [sk._pass3(pass_, C, x, b, binv, shape, radius, nF,
+                         s0=1.3 if pass_ == sk._CHEB else 0.8, s1=0.45,
+                         d=d.clone(), split=plan[0], staging=st)
+               for st in _stagings(plan)]
+        torch.cuda.synchronize()
+        for y in got:
+            assert _err_ok(y, ref, dtype), pass_
+            assert torch.equal(y, got[0]), pass_
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius,n_fields", [(4, 0), (4, 3), (6, 0),
+                                             (6, 2)])
+def test_torch_stencil3d_unstaged_only_on_card(radius, n_fields):
+    """f64 at (5, 6, 700), a long k row: no block stages even one field's x
+    planes at r = 4 or 6 (at r = 4 the fixed-radius plan answers "too
+    wide"), so the plan gives the runtime-radius kernel's unstaged route,
+    and the apply (stencil_mv3 on scalar planes), residual and sweep equal
+    their plain versions (1e-12); ``solve_ksp``'s refusal takes the
+    lattice."""
+    from iifea_tpu_torch.solvers import ksp
+
+    shape = (5, 6, 700)
+    C, binv, b, x = _card_operands3(n_fields, radius, shape, torch.float64,
+                                    60 + radius + n_fields)
+    nF = max(n_fields, 1)
+    assert sk._plan3(shape, radius, nF, 0, True)[3] == sk.UNSTAGED
+    a = (shape, radius)
+    before = sk.launches()
+    y = (sk.stencil_mv3(C, x, *a) if n_fields == 0
+         else sk.stencil3d_block(C, x, *a))
+    got = {"apply": y, "residual": sk.stencil3d_block(C, x, *a, b=b),
+           "sweep": sk.stencil3d_block(C, x, *a, b=b, binv=binv, omega=0.8)}
+    torch.cuda.synchronize()
+    assert sum(sk.launches().values()) == sum(before.values()) + 3
+    y_ref = sk.apply3_block_plain(C, x, *a)
+    ref = {"apply": y_ref, "residual": b - y_ref,
+           "sweep": sk.sweep3_block_plain(C, binv, b, x, 0.8, *a)}
+    for k in got:
+        assert _err_ok(got[k], ref[k], torch.float64), k
+    assert ksp._cuda_mg_refusal(shape, nF, radius, torch.float64) is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("shape", [(13, 10, 17), (33, 33, 33)])
+def test_torch_stencil_mv3_marching_apply_on_card(shape, radius, dtype):
+    """stencil_mv3 is the marching kernel's apply pass at every radius: one
+    launch, counted under ``stencil_mv3`` and not under ``apply3``, equal
+    to the plain version and bitwise to the apply pass of stencil3d_block
+    on the same scalar planes (counted under ``apply3``)."""
+    C, _, _, x = _card_operands3(0, radius, shape, dtype, 70 + radius)
+    before = sk.launches()
+    y = sk.stencil_mv3(C, x, shape, radius)
+    torch.cuda.synchronize()
+    assert sk.launches() == {**before,
+                             "stencil_mv3": before["stencil_mv3"] + 1}
+    y_block = sk.stencil3d_block(C, x, shape, radius)
+    assert sk.launches()["apply3"] == before["apply3"] + 1
+    assert _err_ok(y, sk.stencil_mv3_plain(C, x, shape, radius), dtype)
+    assert torch.equal(y, y_block)

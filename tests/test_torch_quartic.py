@@ -1,8 +1,8 @@
 """Radius 5, the quartic B-spline background, against the JAX package on the
 CPU from the same numpy inputs:
 
-* the plain versions of the runtime-radius kernels (``csrc/stencil_rn.cuh``:
-  2D and 3D; scalar planes and block operators of 2 and 3 fields; f32 and
+* the plain versions of the runtime-radius kernels (``csrc/stencil_rn.cuh``
+  in 2D, ``csrc/stencil3d.cuh``'s ``march_rn_kernel`` in 3D; scalar planes and block operators of 2 and 3 fields; f32 and
   f64) through their wrappers on CPU tensors: the scalar apply and sweep
   against the JAX package's Pallas kernels in interpret mode and against
   ``mv_ref``; the apply of every instance against JAX's operator and the
