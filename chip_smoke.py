@@ -269,12 +269,13 @@ and at the cubic paths' levels, timed where those paths run them; then the
 runtime-radius instances at r = 5 likewise (the quartic net's levels; no
 spill). Phase 3 does the same for the 3D radius-4 instances (33³, 17³;
 three fields at 17³, 9³) and the r = 5 ones (33³, 17³); holds the 3D
-marching passes by the plan's staging and the runtime-radius kernel's
-unstaged route (x read through the read-only cache), bitwise equal to one
-another at r = 5, 6, 7, against their plain versions, 1–3 fields, at odd
+marching passes by every staging the lattice takes and the runtime-radius
+kernel's unstaged route (x read through the read-only cache, the only
+route at r = 5, 6, 7) against their plain versions, 1–3 fields, at odd
 shapes, the quartic levels and a long-k lattice only the unstaged route
-takes (also at r = 4), and times the r = 5 three-field f64 passes at
-3 × 17³; and holds the per-field staging (f64, r = 4, three fields) bitwise equal to the
+takes (also at r = 4), each route again with NaN in the taps outside the
+lattice (every output bitwise as it was: no kernel reads them), and times
+the r = 5 three-field f64 passes at 3 × 17³; and holds the per-field staging (f64, r = 4, three fields) bitwise equal to the
 all-field staging at 65³ and three odd shapes, every pass and a level's
 smoothing call by one launch a pass (a level's one launch refuses it),
 timed with its library call at 3 × 65³, and each pass against its plain
@@ -522,8 +523,48 @@ def time_kernel(name, shape, fn, plain=None, bound_=None, plain_launches=10,
     if library is not None:
         row["library_ms"] = library_ms(library())
     row["share_of_bound"] = b_ms / row["device_ms"]
+    row["l2_resident"] = l2_resident(b_ms, by)
     phase("kernel_time", **row)
     return row
+
+
+def l2_resident(b_ms: float, by: str) -> bool:
+    """Whether the compulsory bytes of a row bound by bytes fit the card's
+    L2 cache: a graph that replays one call on the same operands then reads
+    them from the L2, which the memory rate does not bound."""
+    import torch
+
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 * 2 ** 20)
+    return by == "bytes" and b_ms * 1e-3 * HBM_BYTES_PER_S <= l2
+
+
+# the most a row's share of its bound may read: a kernel cannot beat the
+# least time the card needs for the same work (rows whose operands the L2
+# holds excepted, ``l2_resident``), so a share above this is a wrong bound
+# or a wrong time
+MAX_SHARE_OF_BOUND = 1.05
+
+
+def check_shares(timing) -> None:
+    """Fails the run where a row not ``l2_resident`` reads above
+    MAX_SHARE_OF_BOUND of its bound; prints the highest shares."""
+    over = [r for r in timing if r["share_of_bound"] > MAX_SHARE_OF_BOUND]
+    held = [r for r in over if not r["l2_resident"]]
+
+    def brief(r):
+        return [r["kernel"], r["shape"], r["instance"], r["share_of_bound"]]
+
+    top = max((r for r in timing if not r["l2_resident"]),
+              key=lambda r: r["share_of_bound"], default=None)
+    phase("bound_check", rows=len(timing), limit=MAX_SHARE_OF_BOUND,
+          highest=None if top is None else brief(top),
+          over_limit=[brief(r) for r in held],
+          l2_resident_over_limit=[brief(r) for r in over
+                                  if r["l2_resident"]])
+    if held:
+        fail(f"rows above {MAX_SHARE_OF_BOUND} of their bound: "
+             f"{[brief(r) for r in held]}")
 
 
 def planes_csr(C, shape, radius: int, chunks: int = 64):
@@ -635,17 +676,32 @@ def _bound_ms(words: float, flops: float, n: int,
                                        else "operations")
 
 
+def lattice_taps(shape, radius: int) -> float:
+    """The taps a point of the lattice ``shape`` (2D or 3D) needs, on
+    average: those whose x lies in the lattice. The others multiply the
+    zero padding, and the function needs neither their coefficients nor
+    their multiply-adds (the nonzeros ``planes_csr`` keeps are these taps,
+    nF² per point and tap). Per axis of n points the offsets in the lattice
+    number n(2r+1) − r(r+1) for n > r, summed exactly below that; the
+    lattice's are the product of its axes'."""
+    total, n = 1, 1
+    for side in shape:
+        total *= sum(min(side - 1, p + radius) - max(0, p - radius) + 1
+                     for p in range(side))
+        n *= side
+    return total / n
+
+
 def bound(name: str, shape, radius: int = 2,
           f64: bool = False) -> tuple[float, str]:
     """Least milliseconds the card needs for one call at ``shape``: the
-    larger of the compulsory bytes (each coefficient plane and vector read
-    or written once) over the memory rate and the f32 multiply-adds over
-    the f32 rate. Returns (ms, "bytes" | "operations")."""
-    n = 1
-    for s_ in shape:
-        n *= s_
-    taps = (2 * radius + 1) ** len(shape)
-    return _bound_ms(taps + VECTORS[name], 2.0 * taps + 4.0, n, f64)
+    larger of the compulsory bytes (each coefficient the function needs,
+    ``lattice_taps`` a point, and each vector read or written once) over
+    the memory rate and the multiply-adds over their type's rate. Returns
+    (ms, "bytes" | "operations")."""
+    taps = lattice_taps(shape, radius)
+    return _bound_ms(taps + VECTORS[name], 2.0 * taps + 4.0,
+                     math.prod(shape), f64)
 
 
 def bound_passes(shape, n_fields: int, passes, radius: int = 2,
@@ -655,12 +711,11 @@ def bound_passes(shape, n_fields: int, passes, radius: int = 2,
     same work whatever launches carry it: per pass every value it needs
     moved once. "apply": nF² plane sets, x read, y written; "residual":
     also b read; "sweep": also the nF² Binv planes; "zero" (the sweep from
-    x = 0): Binv and b read, x written, no plane. nF = 1 gives ``bound``'s
+    x = 0): Binv and b read, x written, no plane. A plane set counts the
+    taps in the lattice (``lattice_taps``). nF = 1 gives ``bound``'s
     stencil_mv and jacobi_smooth."""
-    nF, taps = n_fields, (2 * radius + 1) ** len(shape)
-    n = 1
-    for s_ in shape:
-        n *= s_
+    nF, taps = n_fields, lattice_taps(shape, radius)
+    n = math.prod(shape)
     words = {"apply": nF * nF * taps + 2 * nF,
              "residual": nF * nF * taps + 3 * nF,
              "sweep": nF * nF * (taps + 1) + 3 * nF,
@@ -680,11 +735,10 @@ def bound_call(shape, n_fields: int, sweeps: int, from_zero: bool,
     the nF² Binv planes or 1/diag, b, and x unless from zero) and every
     output written once (x_ν, and r with the residual), whatever passes
     carry it (a Chebyshev direction is scratch, not an operand); the
-    operations are those of its passes, which no fusion saves."""
-    nF, taps = n_fields, (2 * radius + 1) ** len(shape)
-    n = 1
-    for s_ in shape:
-        n *= s_
+    operations are those of its passes, which no fusion saves. A plane set
+    counts the taps in the lattice (``lattice_taps``)."""
+    nF, taps = n_fields, lattice_taps(shape, radius)
+    n = math.prod(shape)
     words = (nF * nF * (taps + 1) + nF + nF * (not from_zero) + nF
              + nF * with_residual)
     sweep, zero = 2.0 * nF * nF * (taps + 1) + 3.0 * nF, 3.0 * nF * nF
@@ -1272,11 +1326,11 @@ def check_no_spill_rn():
     """Every runtime-radius instance built without spill: the 2D pass kernel
     (csrc/stencil_rn.cuh: f32 and f64 x 1-3 fields x apply, residual,
     sweep: 18) and the 3D marching kernel (csrc/stencil3d.cuh
-    march_rn_kernel: f32 and f64 x 1-3 fields x staged, unstaged: 12)."""
+    march_rn_kernel: f32 and f64 x 1-3 fields: 6)."""
     instances = built_instances(("pass2d_kernel", "march_rn"))
     phase("kernel_check", kernel="runtime-radius instances",
           ptxas=instances)
-    if len(instances) != 30 or any(
+    if len(instances) != 24 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the runtime-radius instances are not all built without "
              f"spill: {instances}")
@@ -1722,9 +1776,10 @@ def kernels3_smooth(worst, dev, paths=None, timed=True):
                 outs = [per_pass, routed]
                 before = sk.smooth3.launches
                 try:
+                    # (the level launch stages every field's planes)
                     outs.append(sk._smooth3_cuda(
                         sk.GRID, *args, nF, with_residual, cheb,
-                        split=plan[0]))
+                        split=plan[0], staging=sk.ALL_FIELDS))
                     fused = True
                 except RuntimeError as e:
                     fused, why = False, str(e)
@@ -3545,15 +3600,15 @@ def kernels3_r3(worst, dev):
 
     # every 3D kernel instance: the marching pass and level kernels (24
     # each: f32 and f64, r = 1-4, 1-3 fields), the pass kernel's per-field
-    # staging (16: 2 and 3 fields), the runtime-radius marching kernel (12)
-    # and the zero kernel (6 in each of the r = 1-3, the r = 4 and the
-    # runtime-radius sources: 18)
+    # staging (16: 2 and 3 fields), the runtime-radius marching kernel (6:
+    # f32 and f64, 1-3 fields) and the zero kernel (6 in each of the
+    # r = 1-3, the r = 4 and the runtime-radius sources: 18)
     instances = built_instances(("march",))
     phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
           ptxas=instances)
-    if len(instances) != 94 or any(
+    if len(instances) != 88 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the 3D instances are not all built without spill: "
              f"{instances}")
@@ -3690,7 +3745,8 @@ def kernels3_r4(worst, dev):
 # (5, 6, 700) lattice's x planes no block can stage at r >= 4 in f64 (nor
 # at r = 5 in f32): only the unstaged route takes it
 SHAPE_LONG_K = (5, 6, 700)
-RN3_CHECKS = ((2, [ODD_SHAPES3[1]]), (4, [ODD_SHAPES3[1], SHAPE_LONG_K]),
+RN3_CHECKS = ((2, [ODD_SHAPES3[1]]), (3, [ODD_SHAPES3[1]]),
+              (4, [ODD_SHAPES3[1], LEVELS_CUBIC_EL3[0], SHAPE_LONG_K]),
               (5, ODD_SHAPES3 + LEVELS_QUARTIC3 + [SHAPE_LONG_K]),
               (6, [ODD_SHAPES3[1], SHAPE_LONG_K]),
               (7, [ODD_SHAPES3[1], SHAPE_LONG_K]))
@@ -3698,25 +3754,34 @@ RN3_CHECKS = ((2, [ODD_SHAPES3[1]]), (4, [ODD_SHAPES3[1], SHAPE_LONG_K]),
 
 def check_rn3(worst, gen, shape, radius, n_fields, dev, dtype):
     """The 3D marching passes at ``shape`` on an nF-field operator (0:
-    scalar planes): apply, residual, sweep, sweep from zero and (scalar)
-    the Chebyshev step, by the plan's staging and by the unstaged route of
-    the runtime-radius kernel (at r = 1-4 also by the fixed-radius
-    kernel's other staging where a block holds it), at the plan's split,
-    each against its plain version (TOL, TOL64); at r >= 5 (one kernel,
-    whose trips sum alike whatever travels together) both routes bitwise
-    equal, at r = 1-4 the staged ones (the fixed-radius kernels). Returns
-    (the plan, whether the stagings agreed bitwise)."""
+    scalar planes) with zeros in the taps outside the lattice: apply,
+    residual, sweep, sweep from zero and (scalar) the Chebyshev step, by
+    the plan's staging and by the unstaged route of the runtime-radius
+    kernel (at r = 1-4 also by the fixed-radius kernel's other staging
+    where a block holds it; from r = 5 the unstaged route is the plan's),
+    at the plan's split, each against its plain version (TOL, TOL64); at
+    r = 1-4 the staged ones (the fixed-radius kernels) bitwise equal.
+    Every route, and at r = 1-4 a
+    level's smoothing call in one launch (two steps from zero with the
+    residual, where the launch fits), again with NaN in those taps: no
+    kernel reads them, so each output is bitwise the same. Returns (the
+    plan, whether the stagings agreed bitwise, whether NaN in the padding
+    taps left every output bitwise as it was)."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
 
     C, binv, b, x = block3_operands(gen, shape, radius, n_fields, dev, dtype)
     nF, r = max(n_fields, 1), radius
+    outside = sk.outside_taps(shape, r, dev)
+    C[..., outside] = 0.0
+    C_nan = C.clone()
+    C_nan[..., outside] = float("nan")
     plan = sk._plan3(tuple(shape), r, nF, dev.index or 0,
                      dtype == torch.float64)
-    # the runtime-radius kernel's routes: its staging (one field's planes
-    # at a time) and the unstaged one; at r = 1-4 the fixed-radius
-    # kernel's, and the runtime-radius unstaged route
+    # the runtime-radius kernel's routes: its staging (scalar planes) and
+    # the unstaged one; at r = 1-4 the fixed-radius kernel's, and the
+    # runtime-radius unstaged route
     staged = ([sk.ALL_FIELDS] + [sk.PER_FIELD] * (nF > 1)
               if plan[3] == sk.ALL_FIELDS and r <= 4 else [plan[3]])
     stagings = [st for st in staged if st != sk.UNSTAGED] + [sk.UNSTAGED]
@@ -3738,27 +3803,45 @@ def check_rn3(worst, gen, shape, radius, n_fields, dev, dtype):
         d = torch.randn(b.shape, generator=gen, device=dev, dtype=dtype)
         dn = 1.3 * binv * res_ref + 0.45 * d
         refs[sk._CHEB] = (x + dn, dn)
-    bitwise = True
+    bitwise = nan_equal = True
     for pass_, ref in refs.items():
         name = sk.PASS3_NAMES[sk._PASSES[pass_], nF > 1]
         got = []
         for st in stagings:
-            dd = None if d is None else d.clone()
-            y = sk._pass3(pass_, C, None if pass_ == sk._ZERO else x, b,
-                          binv, shape, r, nF, omega0=0.8,
-                          s0=1.3 if pass_ == sk._CHEB else 0.8,
-                          s1=0.45 if pass_ == sk._CHEB else 0.0, d=dd,
-                          split=plan[0], staging=st)
-            outs = (y, dd) if pass_ == sk._CHEB else (y,)
+            def run(planes):
+                dd = None if d is None else d.clone()
+                y = sk._pass3(pass_, planes, None if pass_ == sk._ZERO else x,
+                              b, binv, shape, r, nF, omega0=0.8,
+                              s0=1.3 if pass_ == sk._CHEB else 0.8,
+                              s1=0.45 if pass_ == sk._CHEB else 0.0, d=dd,
+                              split=plan[0], staging=st)
+                return (y, dd) if pass_ == sk._CHEB else (y,)
+
+            outs = run(C)
             for v, v_ref in zip(outs, ref if pass_ == sk._CHEB else (ref,)):
                 _check(worst, name, v, v_ref, shape, r, quiet=True,
                        n_fields=n_fields, staging=st)
+            nan_equal &= all(torch.equal(a, c)
+                             for a, c in zip(outs, run(C_nan)))
             got.append((st, outs))
-        same = [o for st, o in got if r >= 5 or st != sk.UNSTAGED]
+        same = [o for st, o in got if st != sk.UNSTAGED]
         bitwise &= all(torch.equal(a, c) for o in same[1:]
                        for a, c in zip(same[0], o))
-    del C, binv, b, x, d, refs
-    return plan, bitwise
+    if r <= 4:
+        def level(planes):
+            return sk._smooth3_cuda(sk.GRID, planes, binv, b, None,
+                                    [(0.8, 0.0)] * NU, shape, r, nF, True,
+                                    False, split=plan[0],
+                                    staging=sk.ALL_FIELDS)
+        try:
+            outs = level(C)
+        except RuntimeError:     # the level's blocks are not co-resident
+            outs = None
+        if outs is not None:
+            nan_equal &= all(torch.equal(a, c)
+                             for a, c in zip(outs, level(C_nan)))
+    del C, C_nan, binv, b, x, d, refs
+    return plan, bitwise, nan_equal
 
 
 def kernels3_r5(worst, dev):
@@ -3767,15 +3850,16 @@ def kernels3_r5(worst, dev):
     their plain versions at odd shapes and at the quartic 33³ cycle's
     levels, one launch a call; stencil3d_block's four passes on scalar
     planes and 1–3 fields at an odd shape and, three fields in f64, at
-    17³; every pass by its staged and its unstaged route (``check_rn3``) at
-    r = 5, 6, 7, and the unstaged route at r = 2, 4, 1–3 fields, at the
-    ``RN3_CHECKS`` shapes, the long-k lattice only by the unstaged route;
+    17³; every pass (``check_rn3``) at r = 5, 6, 7 (x read through the
+    read-only cache), and the unstaged route at r = 2, 3, 4, 1–3 fields, at the
+    ``RN3_CHECKS`` shapes, the long-k lattice only by the unstaged route,
+    each route again with NaN in the taps outside the lattice, which must
+    leave every output bitwise as it was (no kernel reads them);
     smooth3 at the quartic cycle's levels (one launch a pass, the fused
     launch refused: ``kernels3_smooth``, which also times the cycle's step
     from zero and residual pass at 33³). Then device, call, bound, plain
     and library times of the quartic 3D path's apply and Chebyshev step at
-    33³ (the apply also by the route the plan does not take there), and of
-    the three-field f64 r = 5 passes at 3 × 17³. Returns the
+    33³, and of the three-field f64 r = 5 passes at 3 × 17³. Returns the
     ``kernel_time`` rows."""
     import torch
 
@@ -3817,14 +3901,15 @@ def kernels3_r5(worst, dev):
     # the errors by staging, booked apart: at r = 2 and 4 the unstaged
     # route is not the plan's where a block stages; from r = 5 they join
     # their instances' worst errors
-    plans, bitwise, seen = {}, True, {}
+    plans, bitwise, nan_equal, seen = {}, True, True, {}
     for r, shapes in RN3_CHECKS:
         for dt in (f32, f64):
             for sh in shapes:
                 for n_fields in (0, 2, 3):
-                    plan, same = check_rn3(seen, gen, sh, r, n_fields, dev,
-                                           dt)
+                    plan, same, nan_same = check_rn3(seen, gen, sh, r,
+                                                     n_fields, dev, dt)
                     bitwise &= same
+                    nan_equal &= nan_same
                     plans[f"r{r} {'f64' if dt == f64 else 'f32'} nf"
                           f"{max(n_fields, 1)} {'x'.join(map(str, sh))}"] = \
                         list(plan)
@@ -3836,9 +3921,13 @@ def kernels3_r5(worst, dev):
         if re.search(r"/r[5-9]", k):
             worst[k] = max(worst.get(k, 0.0), v)
     phase("kernel_check", kernel="3D marching passes by staging",
-          plans=plans, stagings_bitwise_equal=bitwise, worst=seen)
+          plans=plans, stagings_bitwise_equal=bitwise,
+          padding_nan_bitwise_equal=nan_equal, worst=seen)
     if not bitwise:
-        fail("the 3D runtime-radius passes differ between stagings")
+        fail("the 3D marching passes differ between stagings")
+    if not nan_equal:
+        fail("a 3D marching route's output changed with NaN in the taps "
+             "outside the lattice: the kernel read them")
     if any(plans[k][3] != sk.UNSTAGED for k in long_k):
         fail(f"a block stages the x planes of {SHAPE_LONG_K}: "
              f"{ {k: plans[k] for k in long_k} }")
@@ -3859,12 +3948,6 @@ def kernels3_r5(worst, dev):
             partial(sk.stencil_mv3_plain, C, x, sh, 5), plain_launches=2,
             radius=5, f64=is64, library=csr_call(C, sh, 5, x),
             split=plan[0], staging=STAGINGS[plan[3]]))
-        other = sk.UNSTAGED if plan[3] != sk.UNSTAGED else sk.ALL_FIELDS
-        rows.append(time_kernel(
-            "apply3", sh, partial(sk._pass3, sk._APPLY, C, x, None, None, sh,
-                                  5, 1, split=plan[0], staging=other),
-            bound_=bound_passes(sh, 1, ["apply"], 5, is64), radius=5,
-            f64=is64, split=plan[0], staging=STAGINGS[other]))
         rows.append(time_kernel(
             "cheb_step3", sh,
             partial(sk.cheb_step3, C, invd, b, x, d, 1.3, 0.45, sh, 5),
@@ -6602,6 +6685,7 @@ def main() -> None:
     import torch
 
     kernel_shapes(timing, by_shape)
+    check_shares(timing)
     phase("phase_seconds", **seconds)
     phase("elapsed", seconds=time.perf_counter() - t0)
     if run != set(PHASES):

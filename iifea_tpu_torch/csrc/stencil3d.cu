@@ -28,10 +28,10 @@ extern "C" {
 // at r >= 5 and where the planes are not all staged at once), out[2] the
 // level launch's co-resident blocks, out[3] the staging (0: every field's
 // x planes at once; 1: one field's at a time, at r = 1-4 where a block
-// cannot hold them all, at r >= 5 for 2-3 fields; 2: none, x read through
-// the read-only cache, where a block cannot hold one field's: the
-// runtime-radius kernel's route at every radius). 0 on success, -1 if a
-// query failed; every lattice has a plan.
+// cannot hold them all; 2: none, x read through the read-only cache: the
+// runtime-radius kernel's route, at every radius from 5 and where a block
+// cannot hold one field's planes). 0 on success, -1 if a query failed;
+// every lattice has a plan.
 int stencil3d_plan(int nx, int ny, int nz, int radius, int nf, int f64,
                    int* out) {
   auto fn = TYPED3D(stencil3d_plan, f64, radius, radius >= 5);
@@ -45,8 +45,8 @@ int stencil3d_plan(int nx, int ny, int nz, int radius, int nf, int f64,
 // One pass on nF fields: pass 0 y = A x, 1 y = b - A x, 2 y = x + s0 Binv
 // (b - A x), 3 (nF = 1) the Chebyshev step with (s0, s1) and d, 4 y =
 // omega0 Binv b (the sweep from zero; d, when not null, gets the same
-// values). `split` and `staging` are the plan's (staging 2, and every
-// staging at r >= 5, runs the runtime-radius kernel). Operands a pass
+// values). `split` and `staging` are the plan's (staging 2 runs the
+// runtime-radius kernel, which every radius from 5 takes). Operands a pass
 // does not read may be null; y must not alias x, d or b.
 int stencil3d_pass(const void* C, const void* x, const void* b,
                    const void* binv, void* d, double omega0, double s0,

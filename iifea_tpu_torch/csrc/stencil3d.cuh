@@ -37,10 +37,13 @@
 // take; from r = 5 (the quartic background's 1,331 taps) the runtime-radius
 // instances, f32 and f64, 1 to 3 fields.
 //
-// What bounds them: memory traffic. A point reads nF^2 m^3 coefficients
-// once (1,125 f32 at nF = 3, r = 2; 3,087 f64 at nF = 3, r = 3) against ~2
-// flops each. At 3 x 97^3, r = 2 the planes are 4.1 GB in f32, 8.2 GB in
-// f64: 1.23 / 2.46 ms at 3.35 TB/s.
+// What bounds them: memory traffic. A point reads nF^2 coefficients for
+// each of its taps in the lattice once (1,125 f32 at nF = 3, r = 2; 3,087
+// f64 at nF = 3, r = 3, in the interior) against ~2 flops each. At
+// 3 x 97^3, r = 2 the planes are 4.1 GB in f32, 8.2 GB in f64: 1.23 / 2.46
+// ms at 3.35 TB/s. A tap whose x lies outside the lattice multiplies the
+// zero padding: its coefficient is never read (at 3 x 17^3, r = 4, 34% of
+// the taps; r = 5, 41%).
 // The small multigrid levels (3 x 13^3, 17^3) are chains of latencies
 // instead: few points, each with a long list of loads.
 //
@@ -67,10 +70,17 @@
 //   3 fields) a trip covers one output field, nF times as many trips; at
 //   nF^2 m^3 >= 1,000 the large levels run one block per SM (fewer
 //   coefficient planes streamed at once);
+// * the padding skip: a trip whose x plane lies outside the lattice (the
+//   same for the whole block) is skipped and its plane not staged, as is a
+//   trip whose rows lie outside for every point of the run; at the edges a
+//   lane's loads of taps outside are predicated off (ldg_if) and add
+//   c 0 with c = 0, exactly the term they added when read, so every sum,
+//   and every route's output, is bitwise what it was with every tap read;
 // * on small levels `split` > 1 threads share a point: each takes every
 //   split-th trip and the partial sums meet in shared memory in a fixed
 //   order; the plan picks split from the run count and the card's
-//   occupancy so that the grid fills the SMs at every level shape;
+//   occupancy so that the grid fills the SMs at every level shape (splits
+//   above 16 were slower at every small lattice swept, 3 x 17^3 included);
 // * a level's smoothing call (nu sweeps or Chebyshev steps and the trailing
 //   residual) is one cooperative launch where the plan says the level is
 //   small (`stencil3d_level`, `grid.sync()` between passes, x ping-ponged
@@ -226,6 +236,28 @@ __device__ __forceinline__ void cp_async_wait() {
                    : "memory");
 }
 
+// A coefficient read through the read-only cache where `on`, else 0 with
+// no memory access: one predicated load, no branch, so a trip's loads
+// still issue together. The taps whose x lies outside the lattice take
+// on = false: their coefficients multiply the zero padding, and are never
+// read (whatever the planes hold there).
+__device__ __forceinline__ float ldg_if(const float* p, bool on) {
+  float v = 0.0f;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.global.nc.f32 %0, [%1];\n\t}"
+      : "+f"(v)
+      : "l"(p), "r"((int)on));
+  return v;
+}
+__device__ __forceinline__ double ldg_if(const double* p, bool on) {
+  double v = 0.0;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.global.nc.f64 %0, [%1];\n\t}"
+      : "+d"(v)
+      : "l"(p), "r"((int)on));
+  return v;
+}
+
 // x after one sweep from zero at point p, field f1: omega Binv b.
 template <class T, int NF>
 __device__ __forceinline__ T from_zero(const T* __restrict__ binv,
@@ -309,24 +341,32 @@ __device__ __forceinline__ void stage_field(T* slot, const Geom& g, int gi,
 // and put back by selects, so acc stays in registers), over the trip's
 // `trip_rows` rows of oj. Cq: C + (f2 m^3 + oi m^2 + oj0 m) plane + p; xw:
 // the window slot of field f2 at the point's (row, column) offset -r, moved
-// down oj0 rows.
+// down oj0 rows. Bit oj of rm (from oj0) and bit ok of cm say that the
+// tap's row and column lie in the lattice: a tap outside reads no
+// coefficient and adds c 0 with c = 0, the term it added before (x is zero
+// there), so the sums are bitwise those of every tap read. The output
+// fields take a tap's loads one after another (each field's sum keeps its
+// order of taps), so a tap's predicate serves its nF loads and dies.
 template <class T, int R, int NF>
 __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
                                      const T* xw, int width, T (&acc)[NF],
-                                     int fg) {
+                                     int fg, unsigned rm, unsigned cm) {
   constexpr int M = 2 * R + 1;
   constexpr int M3 = M * M * M;
   constexpr int ROWS = trip_rows<T, R>();
   if constexpr (trip_fields<T, R, NF>() == NF) {
 #pragma unroll
-    for (int f1 = 0; f1 < NF; ++f1) {
+    for (int oj = 0; oj < ROWS; ++oj) {
+      const unsigned row = (rm >> oj) & 1u ? cm : 0u;
 #pragma unroll
-      for (int oj = 0; oj < ROWS; ++oj) {
+      for (int ok = 0; ok < M; ++ok) {
+        const bool on = (row >> ok) & 1u;
+        const T xv = xw[oj * width + ok];
 #pragma unroll
-        for (int ok = 0; ok < M; ++ok) {
+        for (int f1 = 0; f1 < NF; ++f1) {
           acc[f1] = fma_t(
-              __ldg(Cq + ((int64_t)f1 * NF * M3 + oj * M + ok) * plane),
-              xw[oj * width + ok], acc[f1]);
+              ldg_if(Cq + ((int64_t)f1 * NF * M3 + oj * M + ok) * plane, on),
+              xv, acc[f1]);
         }
       }
     }
@@ -337,9 +377,11 @@ __device__ __forceinline__ void trip(const T* __restrict__ Cq, int64_t plane,
     const T* Cf = Cq + (int64_t)fg * NF * M3 * plane;
 #pragma unroll
     for (int oj = 0; oj < ROWS; ++oj) {
+      const unsigned row = (rm >> oj) & 1u ? cm : 0u;
 #pragma unroll
       for (int ok = 0; ok < M; ++ok) {
-        a = fma_t(__ldg(Cf + (int64_t)(oj * M + ok) * plane),
+        a = fma_t(ldg_if(Cf + (int64_t)(oj * M + ok) * plane,
+                         (row >> ok) & 1u),
                   xw[oj * width + ok], a);
       }
     }
@@ -406,6 +448,35 @@ __device__ __forceinline__ void march(
   constexpr int RG = M / ROWS;
   static_assert(M % ROWS == 0, "a trip takes whole rows");
   constexpr int NT = NF * M * RG * G;
+  // The taps in the lattice. The x planes i + oi - r in it are the same
+  // for the whole block: a trip of a plane outside is skipped, and the
+  // plane is not staged; so is a trip whose rows lie outside the lattice
+  // for every point of the run (rows jf .. jl). Per point, bit o of rmask
+  // (cmask) says that row j + o - r (column k + o - r) is in it.
+  const int oi_lo = R - i > 0 ? R - i : 0;
+  const int oi_hi = g.nx - 1 - i + R < M - 1 ? g.nx - 1 - i + R : M - 1;
+  const int jl = ((q0 + g.tp < g.npl ? q0 + g.tp : g.npl) - 1) / g.nz;
+  unsigned rmask = 0, cmask = 0;
+#pragma unroll
+  for (int o = 0; o < M; ++o) {
+    rmask |= (unsigned)((unsigned)(j + o - R) < (unsigned)g.ny) << o;
+    cmask |= (unsigned)((unsigned)(k + o - R) < (unsigned)g.nz) << o;
+  }
+  auto live = [&](int tu) {
+    const int fo = tu / G / RG;
+    const int oi = fo % M;
+    if (oi < oi_lo || oi > oi_hi) return false;
+    if constexpr (RG > 1) {
+      const int oj0 = tu / G % RG * ROWS;
+      return jl + oj0 + ROWS - 1 - R >= 0 && jf + oj0 - R < g.ny;
+    }
+    return true;
+  };
+  // the thread's first live trip from t on, stepping by split (end if none)
+  auto next_live = [&](int t, int end) {
+    while (t < end && !live(t)) t += g.split;
+    return t;
+  };
   T acc[NF];
   // trip tu at the point, on its x window in the staged slots (every
   // field: field f2's plane oi at slot oi*NF + f2; per field: at slot oi)
@@ -418,12 +489,35 @@ __device__ __forceinline__ void march(
     const int oj0 = rg * ROWS;
     const T* xw = sm + (PF ? oi : oi * NF + f2) * per +
                   (wr + oj0) * g.width + k;
+    // masks the compiler cannot see through: it computes each trip's
+    // predicates anew instead of holding a trip's across the next (at
+    // 2 x 81 taps, f32 r = 4, 57 registers more)
+    unsigned rm = rmask >> oj0, cm = cmask;
+    asm("" : "+r"(rm), "+r"(cm));
     trip<T, R, NF>(C + (int64_t)(f2 * M3 + oi * M * M + oj0 * M) * plane + p,
-                   plane, xw, g.width, acc, fg);
+                   plane, xw, g.width, acc, fg, rm, cm);
+  };
+  // the thread's live trips among t, t + split, ... below end, in order,
+  // `trips` at a time: the sums of every trip run in the same order
+  auto run_trips = [&](int t, int end) {
+    constexpr int TR = trips<T, R, NF>();
+    t = next_live(t, end);
+#pragma unroll 1
+    while (t < end) {
+      int tu[TR];
+      tu[0] = t;
+#pragma unroll
+      for (int u = 1; u < TR; ++u) tu[u] = next_live(tu[u - 1] + g.split, end);
+#pragma unroll
+      for (int u = 0; u < TR; ++u) {
+        if (tu[u] < end) run_trip(tu[u]);
+      }
+      t = next_live(tu[TR - 1] + g.split, end);
+    }
   };
   if constexpr (!PF) {
-    // planes i - r .. i + r in slots 0 .. 2r
-    for (int oi = 0; oi < M; ++oi) {
+    // planes i - r .. i + r in slots 0 .. 2r (those in the lattice)
+    for (int oi = oi_lo; oi <= oi_hi; ++oi) {
       stage_plane<T, R, NF, STAGE>(sm + oi * NF * per, g, i + oi - R,
                                    jf - R, row0, col0, x, binv, b, omega0);
     }
@@ -431,16 +525,7 @@ __device__ __forceinline__ void march(
     __syncthreads();
 #pragma unroll
     for (int f = 0; f < NF; ++f) acc[f] = T(0);
-    if (valid) {
-#pragma unroll 1
-      for (int t = s; t < NT; t += trips<T, R, NF>() * g.split) {
-#pragma unroll
-        for (int u = 0; u < trips<T, R, NF>(); ++u) {
-          const int tu = t + u * g.split;
-          if (tu < NT) run_trip(tu);
-        }
-      }
-    }
+    if (valid) run_trips(s, NT);
   } else {
 #pragma unroll
     for (int f = 0; f < NF; ++f) acc[f] = T(0);
@@ -449,23 +534,15 @@ __device__ __forceinline__ void march(
     constexpr int NTF = NT / NF;
 #pragma unroll 1
     for (int f2 = 0; f2 < NF; ++f2) {
-      for (int oi = 0; oi < M; ++oi) {
+      for (int oi = oi_lo; oi <= oi_hi; ++oi) {
         stage_field<T, R>(sm + oi * per, g, i + oi - R, jf - R, row0, col0,
                           f2, x);
       }
       cp_async_wait();
       __syncthreads();
       if (valid) {
-        const int end = (f2 + 1) * NTF;
-#pragma unroll 1
-        for (int t = f2 * NTF + (s - f2 * NTF % g.split + g.split) % g.split;
-             t < end; t += trips<T, R, NF>() * g.split) {
-#pragma unroll
-          for (int u = 0; u < trips<T, R, NF>(); ++u) {
-            const int tu = t + u * g.split;
-            if (tu < end) run_trip(tu);
-          }
-        }
+        run_trips(f2 * NTF + (s - f2 * NTF % g.split + g.split) % g.split,
+                  (f2 + 1) * NTF);
       }
       // every thread is done with field f2's planes before they are
       // replaced
@@ -678,8 +755,9 @@ cudaError_t prepare() {
 
 // how a block reads the x planes (the plan's out[3]): it stages every
 // field's at once, or one field's at a time (2-3 fields), or none, x read
-// through the read-only cache (kUnstaged: the runtime-radius kernel's route
-// for lattices whose planes a block cannot stage)
+// through the read-only cache (kUnstaged: the runtime-radius kernel's
+// route, at every radius from 5 and for the lattices whose planes a block
+// cannot stage)
 enum Staging { kAllFields = 0, kPerField = 1, kUnstaged = 2 };
 
 // (the level launch stages every field)
@@ -912,91 +990,60 @@ int launch_level(const void* C, const void* binv, const void* b,
 // * a trip is one tap row (f2, oi, oj): its m = 2r+1 taps along ok for
 //   every output field; trip t = (f2 m + oi) m + oj, nF m^2 of them; split
 //   threads share a point, thread s taking the trips t = s mod split;
-// * a thread keeps kRnTrips trips in flight, issuing kRnChunk taps of each
-//   (nF kRnTrips kRnChunk coefficient loads) before their multiply-adds;
-//   a trip sums into its own accumulators from zero and is added to the
-//   point's in trip order, so the sums do not depend on which trips travel
-//   together: the staged and the unstaged route agree bitwise;
+// * the taps in the lattice alone: a trip whose x plane, or whose row for
+//   every point of the run, lies outside the lattice is skipped, and a tap
+//   outside reads neither its coefficient nor x (march's padding skip);
+// * a thread keeps rn_trips trips in flight, issuing kRnChunk taps of each
+//   (nF rn_trips kRnChunk coefficient loads: a whole row at r <= 5) before
+//   their multiply-adds; a trip sums into its own accumulators from zero
+//   and is added to the point's in trip order, so the sums do not depend on
+//   which trips travel together, nor on the trips skipped (each would add
+//   zeros);
 // * the partial sums of a point's split threads meet in shared memory and
-//   split 0 adds them in split order: no atomics, a run repeats bitwise.
+//   split 0 adds them in split order: no atomics, a run repeats bitwise;
+// * x is read through the read-only cache, not staged: with whole rows of
+//   taps in flight the staged x planes (each field's 2r+1 planes with r
+//   rows and columns of halo, copied by cp.async, a barrier between fields)
+//   ran slower at every shape measured (a sweep pass at r = 5, at the best
+//   split of each: f64 33^3 0.1162 ms against 0.1190 staged, f32 0.0724
+//   against 0.0796, f64 17^3 0.0158 against 0.0180, three fields at
+//   3 x 17^3 0.1302 against 0.1400; tests/compare_stencil3d.py --sweep,
+//   H100), and unstaged a block needs no room for x, so every lattice fits.
 //
-// x: the 2r+1 planes a run needs (each with r rows of halo in j, r columns
-// in k) are staged one field at a time by cp.async into dynamic shared
-// memory, that field's trips run, then the next field's planes replace
-// them (march_pf_kernel's per-field staging; with every field's planes
-// staged at once the fixed-radius passes ran slower, 5.72 ms against 5.03
-// at 3 x 65^3, f64, r = 4, chip_smoke.py on an H100). Staged x is also
-// faster than x read through the read-only cache in f64 (a sweep pass at
-// 33^3, r = 5: 0.142 ms against 0.157 at the best split of each; three
-// fields at 17^3 0.171 against 0.182), not in f32 (0.101 against 0.093;
-// tests/compare_stencil3d.py --sweep quartic64:33 quartic32:33
-// block3r5:17, H100). The staged rows are whole rows of the lattice, so
-// the bytes grow with the row: (2r+1) (run rows + 2r) (nz + 2r) values.
-// In f64 at split 1 r = 5 takes 71.9 KB a block at 33^3, under the H100's
-// 232,448-byte opt-in; at r = 6 the planes stop fitting from 127-point
-// rows (13 planes of 16 x 139 values: 233,344 bytes with the split's
-// partial sums; rows of 128-135 points fit again, a run then spanning one
-// row fewer, and none from 136), and a long k row stops them at any radius
-// ((5, 6, 700) at r = 5: 11 planes of 12 x 710). Such lattices are real:
-// a 136^3 r = 6 f64 operator is 44 GB, which the card holds. There the
-// plan sends the pass to the unstaged route of the same kernel (same split
-// and trips, x read through the read-only cache, its taps outside the
-// lattice read as zero), never to a plain version; at r = 1-4 the
-// fixed-radius plan does the same where it cannot stage one field
-// (kPlanTooWide: f64 r = 4 from about 313-point rows, long k rows at any
-// radius). A level's smoothing call at these radii is one launch a pass
-// (the plan's out[1] = 0).
+// At r = 1-4 the fixed-radius plan sends here the lattices whose x planes
+// a block cannot stage (kPlanTooWide: f64 r = 4 from about 313-point
+// rows, long k rows at any radius), never to a plain version. A level's
+// smoothing call at these radii is one launch a pass (the plan's
+// out[1] = 0).
 
-constexpr int kRnTrips = 2;   // trips a thread keeps in flight
-constexpr int kRnChunk = 4;   // taps of each trip issued together
+constexpr int kRnChunk = 12;  // taps of a trip issued together
 
-// Resident blocks per SM asked of the compiler: 3 for one field (at most
-// 85 registers; f64 takes 80, f32 64, so four f32 blocks fit), 2 for 2-3
-// fields (128). Left to itself the compiler spilled a few bytes in some
-// instances to hold a higher occupancy; at 3 the three-field f64
-// instances spill.
+// Trips a thread keeps in flight, and the resident blocks per SM asked of
+// the compiler: one field, one trip and 3 blocks (at most 85 registers;
+// f64 takes 80); 2-3 fields, two trips and 1 block (the three-field f64
+// instance takes 250 registers). At 3 x 17^3, r = 5, f64 the sweep pass
+// ran 0.1302 ms at split 8 against 0.1346 with one trip and 2 blocks
+// (H100); one field with two trips and one block ran 0.1315 ms at 33^3
+// against 0.1162.
+template <int NF>
+__host__ __device__ constexpr int rn_trips() {
+  return NF == 1 ? 1 : 2;
+}
 template <int NF>
 __host__ __device__ constexpr int rn_blocks() {
-  return NF == 1 ? 3 : 2;
-}
-
-// Copy x plane gi of one field (xf: that field's planes) into `slot`
-// ([rows][width]): rows j0 .. j0 + rows - 1, columns -r .. nz + r - 1,
-// zero outside the lattice, as stage_field does at a fixed radius.
-template <class T>
-__device__ __forceinline__ void stage_rn(T* slot, const Geom& g, int gi,
-                                         int j0, int row0, int col0,
-                                         const T* xf, int r) {
-  const int per = g.rows * g.width;
-  const bool plane_in = gi >= 0 && gi < g.nx;
-  int row = row0, col = col0;
-  for (int e = threadIdx.x; e < per; e += kMarch) {
-    const int gj = j0 + row;
-    const int gk = col - r;
-    const bool in =
-        plane_in && gj >= 0 && gj < g.ny && gk >= 0 && gk < g.nz;
-    cp_async(slot + e, in ? xf + ((int64_t)gi * g.ny + gj) * g.nz + gk : xf,
-             in);
-    row += g.drow;
-    col += g.dcol;
-    if (col >= g.width) {
-      col -= g.width;
-      ++row;
-    }
-  }
+  return NF == 1 ? 3 : 1;
 }
 
 // One pass (apply, residual, sweep, Chebyshev step) at radius r, one
-// block per (run, i-plane); STAGED: x staged one field at a time, else
-// read through the read-only cache. The epilogue is march's.
-template <class T, int NF, bool STAGED>
+// block per (run, i-plane), x read through the read-only cache. The
+// epilogue is march's.
+template <class T, int NF>
 __global__ void __launch_bounds__(kMarch, rn_blocks<NF>())
 march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
                 const T* __restrict__ b, const T* __restrict__ binv, T* d,
                 T s0, T s1, T* y, int pass, Geom g, int r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  constexpr int TR = kRnTrips;
+  __shared__ T red[NF * kMarch];   // the split's partial sums
+  constexpr int TR = rn_trips<NF>();
   constexpr int KC = kRnChunk;
   const int m = 2 * r + 1;
   const int mm = m * m;
@@ -1004,8 +1051,6 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
   const int64_t m3p = (int64_t)mm * m * plane;   // from f2 to f2 + 1
   const int run = blockIdx.x % g.runs;
   const int i = blockIdx.x / g.runs;
-  const int per = g.rows * g.width;
-  T* red = sm + (STAGED ? (int64_t)m * per : 0);
   const int s = threadIdx.x / g.tp;
   const int pl = threadIdx.x - s * g.tp;
   const int q0 = run * g.tp;
@@ -1014,121 +1059,99 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
   const int jf = q0 / g.nz;
   const int j = q / g.nz;
   const int k = q - j * g.nz;
-  const int wr = j - jf;
   const int64_t p = (int64_t)i * g.npl + q;
-  const int row0 = threadIdx.x / g.width;
-  const int col0 = threadIdx.x - row0 * g.width;
-  // the point's b, Binv and d, loaded before the staging (march's EARLY)
+  // the point's b, Binv and d, loaded before the stream (march's EARLY)
   T b1 = T(0), i1 = T(0), d1 = T(0);
   if (NF == 1 && s == 0 && valid) {
     if (pass != kApply) b1 = __ldg(b + p);
     if (pass == kSweep || pass == kCheb) i1 = __ldg(binv + p);
     if (pass == kCheb && s1 != T(0)) d1 = d[p];
   }
+  // the x planes in the lattice, oi_lo .. oi_hi (the same for the block),
+  // and the rows of the run's points, jf .. jl
+  const int oi_lo = r - i > 0 ? r - i : 0;
+  const int oi_hi = g.nx - 1 - i + r < m - 1 ? g.nx - 1 - i + r : m - 1;
+  const int jl = ((q0 + g.tp < g.npl ? q0 + g.tp : g.npl) - 1) / g.nz;
+  auto live = [&](int tu) {
+    const int oj = tu % m;
+    const int oi = tu / m % m;
+    return oi >= oi_lo && oi <= oi_hi && jl + oj - r >= 0 &&
+           jf + oj - r < g.ny;
+  };
+  auto next_live = [&](int t) {
+    while (t < NF * mm && !live(t)) t += g.split;
+    return t;
+  };
 
   T acc[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) acc[f] = T(0);
-  // the thread's trips t0, t0 + split, ... below end, kRnTrips at a time
-  auto trips = [&](int t0, int end) {
+  // the thread's live trips among s, s + split, ..., rn_trips at a time
+  int t = next_live(s);
 #pragma unroll 1
-    for (int t = t0; t < end; t += TR * g.split) {
-      const T* cq[TR];
-      const T* xw[TR];
-      bool live[TR], rowin[TR];
-      T a[TR][NF];
+  while (valid && t < NF * mm) {
+    const T* cq[TR];
+    const T* xw[TR];
+    bool live_u[TR], rowin[TR];
+    T a[TR][NF];
+    int tu = t;
+#pragma unroll
+    for (int u = 0; u < TR; ++u) {
+      if (u > 0) tu = next_live(tu + g.split);
+      live_u[u] = tu < NF * mm;
+      const int tt = live_u[u] ? tu : t;
+      const int oj = tt % m;
+      const int fo = tt / m;
+      const int oi = fo % m;
+      const int f2 = fo / m;
+      const int gj = j + oj - r;
+      rowin[u] = live_u[u] && gj >= 0 && gj < g.ny;
+      cq[u] = C + f2 * m3p + (int64_t)((oi * m + oj) * m) * plane + p;
+      xw[u] = x + f2 * plane +
+              (rowin[u] ? ((int64_t)(i + oi - r) * g.ny + gj) * g.nz + k - r
+                        : 0);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) a[u][f] = T(0);
+    }
+    t = next_live(tu + g.split);
+#pragma unroll 1
+    for (int ok0 = 0; ok0 < m; ok0 += KC) {
+      T cv[TR][NF][KC], xv[TR][KC];
 #pragma unroll
       for (int u = 0; u < TR; ++u) {
-        const int tu = t + u * g.split;
-        live[u] = tu < end;
-        const int tt = live[u] ? tu : t;
-        const int oj = tt % m;
-        const int fo = tt / m;
-        const int oi = fo % m;
-        const int f2 = fo / m;
-        cq[u] = C + f2 * m3p + (int64_t)((oi * m + oj) * m) * plane + p;
-        if constexpr (STAGED) {
-          rowin[u] = live[u];
-          xw[u] = sm + oi * per + (wr + oj) * g.width + k;
-        } else {
-          const int gi = i + oi - r;
-          const int gj = j + oj - r;
-          rowin[u] = live[u] && gi >= 0 && gi < g.nx && gj >= 0 &&
-                     gj < g.ny;
-          xw[u] = x + f2 * plane +
-                  (rowin[u] ? ((int64_t)gi * g.ny + gj) * g.nz + k - r : 0);
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int ok = ok0 + c;
+          const bool in = rowin[u] && ok < m &&
+                          (unsigned)(k - r + ok) < (unsigned)g.nz;
+          xv[u][c] = in ? __ldg(xw[u] + ok) : T(0);
+#pragma unroll
+          for (int f1 = 0; f1 < NF; ++f1) {
+            cv[u][f1][c] =
+                ldg_if(cq[u] + f1 * NF * m3p + (int64_t)ok * plane, in);
+          }
         }
-#pragma unroll
-        for (int f = 0; f < NF; ++f) a[u][f] = T(0);
       }
-#pragma unroll 1
-      for (int ok0 = 0; ok0 < m; ok0 += KC) {
-        T cv[TR][NF][KC], xv[TR][KC];
 #pragma unroll
-        for (int u = 0; u < TR; ++u) {
+      for (int u = 0; u < TR; ++u) {
 #pragma unroll
-          for (int c = 0; c < KC; ++c) {
-            const int ok = ok0 + c;
-            const bool on = live[u] && ok < m;
-            if constexpr (STAGED) {
-              xv[u][c] = on ? xw[u][ok] : T(0);
-            } else {
-              const bool in =
-                  on && rowin[u] && (unsigned)(k - r + ok) < (unsigned)g.nz;
-              xv[u][c] = in ? __ldg(xw[u] + ok) : T(0);
-            }
+        for (int c = 0; c < KC; ++c) {
+          if (ok0 + c < m) {
 #pragma unroll
             for (int f1 = 0; f1 < NF; ++f1) {
-              cv[u][f1][c] =
-                  on ? __ldg(cq[u] + f1 * NF * m3p + (int64_t)ok * plane)
-                     : T(0);
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < TR; ++u) {
-#pragma unroll
-          for (int c = 0; c < KC; ++c) {
-            if (ok0 + c < m) {
-#pragma unroll
-              for (int f1 = 0; f1 < NF; ++f1) {
-                a[u][f1] = fma_t(cv[u][f1][c], xv[u][c], a[u][f1]);
-              }
+              a[u][f1] = fma_t(cv[u][f1][c], xv[u][c], a[u][f1]);
             }
           }
         }
       }
+    }
 #pragma unroll
-      for (int u = 0; u < TR; ++u) {
-        if (live[u]) {
+    for (int u = 0; u < TR; ++u) {
+      if (live_u[u]) {
 #pragma unroll
-          for (int f = 0; f < NF; ++f) acc[f] += a[u][f];
-        }
+        for (int f = 0; f < NF; ++f) acc[f] += a[u][f];
       }
     }
-  };
-  if constexpr (STAGED) {
-#pragma unroll 1
-    for (int f2 = 0; f2 < NF; ++f2) {
-      // field f2's plane i + oi - r in slot oi
-      for (int oi = 0; oi < m; ++oi) {
-        stage_rn<T>(sm + oi * per, g, i + oi - r, jf - r, row0, col0,
-                    x + f2 * plane, r);
-      }
-      cp_async_wait();
-      __syncthreads();
-      // field f2's trips are mm consecutive ones; thread s takes those
-      // equal to s modulo split
-      if (valid) {
-        trips(f2 * mm + (s - f2 * mm % g.split + g.split) % g.split,
-              (f2 + 1) * mm);
-      }
-      // every thread is done with field f2's planes before they are
-      // replaced
-      __syncthreads();
-    }
-  } else {
-    if (valid) trips(s, NF * mm);
   }
   if (g.split > 1) {
     // the other splits' partial sums, added by split 0 in split order
@@ -1176,90 +1199,49 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
   }
 }
 
-// the staging value of march_rn_kernel's staged route: every field's
-// planes for one field, one field's at a time for 2-3
-template <int NF>
-constexpr int rn_staged() {
-  return NF == 1 ? kAllFields : kPerField;
-}
-
-// the dynamic shared memory of a march_rn_kernel block: one field's staged
-// planes (none unstaged) and the split's partial sums
-template <class T, int NF>
-size_t smem_rn(const Geom& g, int r, bool staged) {
-  return ((staged ? (size_t)(2 * r + 1) * g.rows * g.width : 0) +
-          (size_t)NF * kMarch) *
-         sizeof(T);
-}
-
-// the instance's dynamic shared memory limit raised once, and its resident
-// blocks per SM at `smem` bytes (out null: the limit alone)
-template <class T, int NF, bool STAGED>
-cudaError_t blocks_rn(size_t smem, int* out) {
-  static cudaError_t done = cudaErrorNotReady;
-  if (done == cudaErrorNotReady) {
-    done = cudaFuncSetAttribute(
-        march_rn_kernel<T, NF, STAGED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin));
-  }
-  if (done != cudaSuccess || out == nullptr) return done;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, march_rn_kernel<T, NF, STAGED>, kMarch, smem);
-}
-
-template <class T, int NF>
-cudaError_t blocks_rn(bool staged, size_t smem, int* out) {
-  return staged ? blocks_rn<T, NF, true>(smem, out)
-                : blocks_rn<T, NF, false>(smem, out);
-}
-
 // The plan of a level shape at radius r for march_rn_kernel (out[0..3] as
-// plan's): the staged route where a block holds one field's planes at
-// split 1 (at r = 1-4 never: the fixed-radius instances stage there, and
-// this route serves their lattices too wide to stage), else the unstaged
-// one. The split: the smallest whose (run, plane) blocks fill at least
-// kRnFill of whole waves of the card's resident blocks, else the one that
-// fills them best. A sweep pass at r = 5 (tests/compare_stencil3d.py
-// --sweep, H100): at 33^3 split 2 (0.75 of one wave) 0.142 ms in f64
-// against 0.146 at 8 (0.97 of three) and 0.152 at 4 (0.75 of two); in f32
-// 8 (0.73) 0.101 against 0.108 at 16; at 17^3 16 (0.82) 0.026 against
-// 0.032 at 8; three fields at 17^3 8 (0.64) 0.171 against 0.204 at 16
-// (0.61). A level's smoothing call is one launch a pass.
-constexpr double kRnFill = 0.7;
+// plan's; out[3] kUnstaged). The split: the smallest up to 16 whose (run,
+// plane) blocks make kRnWaves waves of the card's resident blocks, else
+// the one up to 16 that fills whole waves best. A sweep pass at r = 5
+// (tests/compare_stencil3d.py --sweep, H100; the plan's split within 3% of
+// the best at each): f64 at 33^3 split 8 (2.9 waves) 0.1162 ms, 0.1291 at
+// 2 (0.75 of one); f32 8 (2.2) 0.0724; 17^3 16 (0.82 of one) 0.0158; three
+// fields (one block an SM) 3 x 17^3 16 (0.82 of three) 0.1343 against
+// 0.1302 at 8, 3 x 33^3 2 (2.25) 1.020 against 1.008 at 8. Splits above
+// 16 ran slower at every shape. A level's smoothing call is one launch a
+// pass.
+constexpr int kRnWaves = 2;
 
 template <class T, int NF>
 int plan_rn(int nx, int ny, int nz, int r, int* out) {
   const int sms = sm_count();
   if (sms == 0) return -1;
-  const size_t optin =
-      (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-  const bool staged =
-      r >= 5 && smem_rn<T, NF>(make_geom(nx, ny, nz, 1, r), r, true) <= optin;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, march_rn_kernel<T, NF>, kMarch, 0) != cudaSuccess ||
+      per_sm == 0) {
+    return -1;
+  }
+  const int64_t slots = (int64_t)sms * per_sm;
   int best = 0;
   double fill = -1.0;
   for (int split = 1; split <= 16; split *= 2) {
-    const Geom g = make_geom(nx, ny, nz, split, r);
-    int per_sm = 0;
-    if (blocks_rn<T, NF>(staged, smem_rn<T, NF>(g, r, staged), &per_sm) !=
-            cudaSuccess ||
-        per_sm == 0) {
-      return -1;
+    const int64_t blocks = (int64_t)make_geom(nx, ny, nz, split, r).runs * nx;
+    if (blocks >= kRnWaves * slots) {
+      best = split;
+      break;
     }
-    const int64_t slots = (int64_t)sms * per_sm;
-    const int64_t blocks = (int64_t)g.runs * nx;
     const double f =
         (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
     if (f > fill) {
       fill = f;
       best = split;
     }
-    if (f >= kRnFill) break;
   }
   out[0] = best;
   out[1] = 0;
   out[2] = 0;
-  out[3] = staged ? rn_staged<NF>() : kUnstaged;
+  out[3] = kUnstaged;
   return 0;
 }
 
@@ -1273,25 +1255,14 @@ int launch_pass_rn(const void* C, const void* x, const void* b,
                               (int64_t)nx * ny * nz, stream);
   }
   if (!valid_split(split) || pass < kApply || pass > kCheb ||
-      (pass == kCheb && NF != 1) || x == nullptr ||
-      (staging != kUnstaged && staging != rn_staged<NF>())) {
+      (pass == kCheb && NF != 1) || x == nullptr || staging != kUnstaged) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool staged = staging != kUnstaged;
   const Geom g = make_geom(nx, ny, nz, split, r);
-  const size_t smem = smem_rn<T, NF>(g, r, staged);
-  cudaError_t e = blocks_rn<T, NF>(staged, smem, nullptr);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((int64_t)g.runs * nx);
-  if (staged) {
-    march_rn_kernel<T, NF, true><<<blocks, kMarch, smem, stream>>>(
-        (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
-        (T)s1, (T*)y, pass, g, r);
-  } else {
-    march_rn_kernel<T, NF, false><<<blocks, kMarch, smem, stream>>>(
-        (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d, (T)s0,
-        (T)s1, (T*)y, pass, g, r);
-  }
+  march_rn_kernel<T, NF>
+      <<<(unsigned)((int64_t)g.runs * nx), kMarch, 0, stream>>>(
+          (const T*)C, (const T*)x, (const T*)b, (const T*)binv, (T*)d,
+          (T)s0, (T)s1, (T*)y, pass, g, r);
   return (int)cudaGetLastError();
 }
 

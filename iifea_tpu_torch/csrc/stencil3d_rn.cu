@@ -1,9 +1,9 @@
 // The runtime-radius instances of the 3D marching kernel (march_rn_kernel
-// in csrc/stencil3d.cuh), f32 and f64, 1-3 fields, every staging: the
-// public entries of csrc/stencil3d.cu call these at r >= 5, and at r = 1-4
-// for the lattices whose x planes a block cannot stage (the unstaged
-// route). A level's smoothing call here is one launch per pass (the fused
-// entry is refused).
+// in csrc/stencil3d.cuh), f32 and f64, 1-3 fields, x read through the
+// read-only cache (the unstaged route): the public entries of
+// csrc/stencil3d.cu call these at r >= 5, and at r = 1-4 for the lattices
+// whose x planes a block cannot stage. A level's smoothing call here is one
+// launch per pass (the fused entry is refused).
 
 #include "stencil3d.cuh"
 

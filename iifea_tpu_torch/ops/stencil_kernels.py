@@ -49,10 +49,12 @@ with three fields); the plain versions take any. At r ≥ 5 a level's
 smoothing call takes one launch per pass. The 3D marching passes stage
 the x planes of one field at a time where a block cannot hold those of
 every field (the plan's staging, f64 at r = 4 with three fields from a
-73-point row; at r ≥ 5 always), and none where it cannot hold one
-field's (f64 at r = 4 from about a 313-point row, long k rows at any
-radius: the runtime-radius kernel reads x through the read-only cache);
-one launch per pass there too. Every 3D lattice has a plan. The operands
+73-point row), and none where it cannot hold one field's (f64 at r = 4
+from about a 313-point row, long k rows at any radius) and at every radius
+from 5: the runtime-radius kernel reads x through the read-only cache; one
+launch per pass there too. No 3D marching pass reads the
+coefficient of a tap whose x lies outside the lattice
+(``outside_taps``). Every 3D lattice has a plan. The operands
 of one call share one dtype; their scalars (omega, alpha, beta) are
 passed in double.
 
@@ -89,6 +91,26 @@ NVCC_FLAGS = (
 
 
 # -- plain PyTorch versions (CPU path and the on-card reference) ---------------
+
+
+def outside_taps(shape, radius, device=None):
+    """The taps of a 2D or 3D lattice (by ``shape``'s rank) whose x lies
+    outside it: a bool tensor ((2r+1)^d, *shape) in the planes' layout,
+    True where the offset takes the point off the lattice. Their
+    coefficients multiply the zero padding, so every result is the same
+    whatever they hold; the 3D marching kernels do not read them."""
+    r, m = radius, 2 * radius + 1
+    out = torch.zeros((m,) * len(shape) + tuple(shape), dtype=torch.bool,
+                      device=device)
+    d = len(shape)
+    for a, n in enumerate(shape):
+        o = torch.arange(m, device=device) - r
+        p = torch.arange(n, device=device)
+        off = (p[None, :] + o[:, None] < 0) | (p[None, :] + o[:, None] >= n)
+        view = [1] * (2 * d)
+        view[a], view[d + a] = m, n
+        out |= off.reshape(view)
+    return out.reshape(m ** d, *shape)
 
 
 def stencil_mv_plain(C, x, shape, radius):
@@ -664,9 +686,9 @@ def _plan3(shape, radius, nF, device_index, f64: bool = False):
     one launch per pass (0), the blocks the card holds of a level's launch,
     and ALL_FIELDS, PER_FIELD (at r = 1–4 where a block cannot hold the
     staged x planes of every field: f64, r = 4, three fields from a
-    73-point row on; at r ≥ 5 for 2–3 fields) or UNSTAGED (where it cannot
-    hold one field's: f64, r = 4 from about a 313-point row, r = 6 from
-    about a 127-point row, long k rows at any radius). The library decides
+    73-point row on) or UNSTAGED (where it cannot hold one field's: f64,
+    r = 4 from about a 313-point row, long k rows; at every radius from
+    5). The library decides
     from the run count and occupancy queries of the instance; every
     lattice has a plan."""
     out = (ctypes.c_int * 4)()

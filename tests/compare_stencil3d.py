@@ -13,9 +13,12 @@ shapes their paths launch them at. Card only; imports no JAX.
     python3 tests/compare_stencil3d.py --trees parent_dir,.
     # the change's split, and its routes, swept at one shape:
     python3 tests/compare_stencil3d.py --sweep block3:25
-    # ... and, at r >= 5, both of the runtime-radius kernel's routes (x
-    # staged one field at a time, or read through the read-only cache):
+    # ... and at r >= 5 (the runtime-radius kernel):
     python3 tests/compare_stencil3d.py --sweep quartic64:33 block3r5:17
+    # every 3D marching route's output at every split, hashed, on two trees
+    # (bitwise equal or not), and on this tree with NaN in the planes' taps
+    # outside the lattice (bitwise equal to zeros there or not):
+    python3 tests/compare_stencil3d.py --digest-trees parent_dir,.
 
 ``--one CASE`` makes exactly one launch of the case (the first stencil
 kernel of the process), which is what ``--ncu`` profiles.
@@ -23,6 +26,7 @@ kernel of the process), which is what ``--ncu`` profiles.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -162,14 +166,17 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
 
 
 # (label, fields or dtype, sides, radius[, block dtype]): the 3D
-# elasticity block V-cycle (97³ … 13³, 3 and 2 fields), the three-field
-# f64 r = 5 passes at 17³, the 3D biharmonic (65³ … 17³ f64 r = 3, and its
+# elasticity block V-cycle (97³ … 13³, 3 and 2 fields), the cubic
+# three-field f64 r = 4 levels (73³, 37³, 19³ of the wide elasticity's
+# hierarchy; 17³ of the cubic elasticity's), the three-field f64 r = 5
+# passes at 17³, the 3D biharmonic (65³ … 17³ f64 r = 3, and its
 # f32 route), the 3D Poisson cycle (105³ … 27³ f32 r = 2; its f64 route's
 # finest level), the cubic and quartic 3D biharmonic's finest levels
 # (33³, r = 4; 33³ and 17³, r = 5), f64 and f32
 BLOCK = [("block3", 3, (97, 49, 25, 13), 2), ("block2", 2, (97, 49, 25, 13),
                                               2),
-         ("block3r5", 3, (17,), 5, "f64")]
+         ("block3r4", 3, (73, 37, 19, 17), 4, "f64"),
+         ("block3r5", 3, (17, 33), 5, "f64")]
 SCALAR = [("bh64", "f64", (65, 33, 17), 3), ("bh32", "f32", (65, 33, 17), 3),
           ("poisson", "f32", (105, 53, 27), 2),
           ("poisson64", "f64", (105,), 2), ("cubic64", "f64", (33,), 4),
@@ -341,7 +348,7 @@ def sweep(target: str) -> None:
     print(json.dumps({"sweep": target, "plan": planned}), flush=True)
     stagings = [planned[3]] + [sk.UNSTAGED] * (planned[3] != sk.UNSTAGED)
     for staging in stagings:
-        for split in (1, 2, 4, 8, 16):
+        for split in SPLITS:
             if split >= 2 * nF * (2 * r + 1):
                 break
             ms = device_ms(lambda: sk._pass3(sk._SWEEP, C, x, b, binv, sh, r,
@@ -364,6 +371,172 @@ def sweep(target: str) -> None:
                               "call_ms": ms}), flush=True)
 
 
+# the splits a marching pass takes (threads per point)
+SPLITS = (1, 2, 4, 8, 16)
+# the digest cases: radius, fields (0: scalar planes), shapes
+DIGEST_SHAPES = ((9, 9, 9), (13, 10, 17), (17, 17, 17))
+DIGEST_RADII = (1, 2, 3, 4, 5, 6, 7)
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def digests(tag: str) -> None:
+    """One JSON line per (radius, fields, dtype, shape, split): the hash of
+    each route's output (every pass by every staging the lattice takes, a
+    level's smoothing call in one launch, from zero with the residual and
+    from x) on seeded operands, "refused" where the tree refuses it; and
+    whether each output with NaN in every tap outside the lattice is
+    bitwise the same (``nan_equal``)."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    sk.build()
+    for r in DIGEST_RADII:
+        for nf in (0, 1, 2, 3):
+            nF = max(nf, 1)
+            for dt in ("f32", "f64"):
+                for sh in DIGEST_SHAPES:
+                    C, binv, b, x = _operands_shape(nf, sh, r, dt)
+                    out = _outside(sh, r, C.device)
+                    Cn = C.clone()
+                    Cn[..., out] = float("nan")
+                    f64 = dt == "f64"
+                    plan = sk._plan3(sh, r, nF, 0, f64)
+                    stagings = ([sk.ALL_FIELDS] + [sk.PER_FIELD] * (nF > 1)
+                                if r <= 4 else [plan[3]]) + [sk.UNSTAGED]
+                    d = torch.ones_like(b)
+                    for split in SPLITS:
+                        row = {"tree": tag, "r": r, "nf": nf, "dtype": dt,
+                               "shape": list(sh), "split": split,
+                               "out": {}, "nan_equal": True}
+                        for st in dict.fromkeys(stagings):
+                            for pass_ in ((sk._APPLY, sk._RESIDUAL,
+                                           sk._SWEEP, sk._ZERO)
+                                          + ((sk._CHEB,) if nf == 0 else ())):
+                                key = f"{sk._PASSES[pass_]}/{st}"
+
+                                def run(C_):
+                                    return sk._pass3(
+                                        pass_, C_,
+                                        None if pass_ == sk._ZERO else x, b,
+                                        binv, sh, r, nF, omega0=0.8, s0=1.1,
+                                        s1=0.3 if pass_ == sk._CHEB else 0.0,
+                                        d=d.clone(), split=split, staging=st,
+                                        count=False)
+                                _record(row, key, run, C, Cn)
+                        if r <= 4:
+                            for start, name in ((None, "pre"), (x, "post")):
+                                def run(C_, start=start):
+                                    return torch.cat(_tuple(sk._smooth3_cuda(
+                                        sk.GRID, C_, binv, b, start,
+                                        [(0.9, 0.0), (1.1, 0.3 * (nf == 0))],
+                                        sh, r, nF, start is None, nf == 0,
+                                        split=split, staging=sk.ALL_FIELDS)))
+                                _record(row, f"level_{name}", run, C, Cn)
+                        print(json.dumps(row), flush=True)
+                    del C, Cn, binv, b, x, d, out
+                    torch.cuda.empty_cache()
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _outside(shape, radius, device):
+    """The taps ((2r+1)³, *shape) whose x lies outside the lattice (as
+    ``stencil_kernels.outside_taps``, which an earlier tree may lack)."""
+    import torch
+
+    m = 2 * radius + 1
+    out = torch.zeros((m,) * 3 + tuple(shape), dtype=torch.bool,
+                      device=device)
+    for a, n in enumerate(shape):
+        o = torch.arange(m, device=device)[:, None] - radius
+        p = torch.arange(n, device=device)[None, :]
+        view = [1] * 6
+        view[a], view[3 + a] = m, n
+        out |= ((p + o < 0) | (p + o >= n)).reshape(view)
+    return out.reshape(m ** 3, *shape)
+
+
+def _operands_shape(nf, shape, radius, dt):
+    """Seeded random operands at any shape: a diagonally dominant nF-field
+    operator (nf = 0: scalar planes and a flat diagonal scaling), smoother
+    blocks, b and x, in f32 or f64 (``dt``)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    dtype = torch.float64 if dt == "f64" else torch.float32
+    nF, n, m3 = max(nf, 1), math.prod(shape), (2 * radius + 1) ** 3
+    C = torch.rand((nF, nF, m3, *shape), generator=g, device=dev,
+                   dtype=dtype).sub_(0.5).mul_(0.2)
+    for f in range(nF):
+        C[f, f, m3 // 2] += 4.0
+    binv = torch.rand((nF, nF, n), generator=g, device=dev,
+                      dtype=dtype).mul_(0.1)
+    b, x = (torch.randn(nF * n, generator=g, device=dev, dtype=dtype)
+            for _ in range(2))
+    if nf == 0:
+        return C[0, 0].contiguous(), binv[0, 0].contiguous(), b, x
+    return C, binv, b, x
+
+
+def _record(row, key, run, C, Cn) -> None:
+    """The hash of run(C) under ``key`` ("refused" where the tree refuses
+    the launch), and whether run(Cn) equals it bitwise."""
+    import torch
+
+    try:
+        y = run(C)
+    except (RuntimeError, ValueError):
+        row["out"][key] = "refused"
+        return
+    row["out"][key] = _digest(y)
+    row["nan_equal"] &= bool(torch.equal(run(Cn), y))
+
+
+def digest_trees(paths) -> None:
+    """``digests`` on each tree (one process each), then one JSON line: the
+    outputs both trees give and how many are bitwise equal, those that
+    differ, those only the last tree gives, and the rows of each tree
+    whose outputs with NaN in the padding taps differ."""
+    rows = []
+    for path in paths:
+        env = {**os.environ, "STENCIL3D_TREE": os.path.abspath(path)}
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--digests", "--tag", path], env=env,
+                             check=True, capture_output=True, text=True)
+        rows.append({(d["r"], d["nf"], d["dtype"], tuple(d["shape"]),
+                      d["split"]): d
+                     for d in map(json.loads, res.stdout.splitlines())})
+    first, last = rows[0], rows[-1]
+    same, differ, only = 0, [], 0
+    for key, d in last.items():
+        for out, h in d["out"].items():
+            h0 = first.get(key, {}).get("out", {}).get(out, "refused")
+            if h == "refused":
+                continue
+            if h0 == "refused":
+                only += 1
+            elif h0 == h:
+                same += 1
+            else:
+                differ.append([*key, out])
+    print(json.dumps({
+        "digest_trees": paths, "both": same + len(differ),
+        "bitwise_equal": same, "differ": differ[:50],
+        "n_differ": len(differ), "only_in_last": only,
+        "nan_not_equal": {p: [list(k) for k, d in t.items()
+                              if not d["nan_equal"]][:20]
+                          for p, t in zip(paths, rows)}}), flush=True)
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
     sys.path.insert(0, os.environ.get("STENCIL3D_TREE", ROOT))
@@ -375,6 +548,10 @@ if __name__ == "__main__":
         time_tree(args[args.index("--tag") + 1] if "--tag" in args else ".")
     elif args[:1] == ["--trees"]:
         trees(args[1].split(","))
+    elif args[:1] == ["--digests"]:
+        digests(args[args.index("--tag") + 1] if "--tag" in args else ".")
+    elif args[:1] == ["--digest-trees"]:
+        digest_trees(args[1].split(","))
     elif args[:1] == ["--sweep"]:
         for target in args[1:]:
             sweep(target)

@@ -470,30 +470,21 @@ RN3_CASES = [(r, sh, nf) for r in (5, 6, 7)
              for sh in ((9, 11, 13), (13, 10, 17)) for nf in (0, 2, 3)]
 
 
-def _stagings(plan):
-    """The runtime-radius kernel's routes where the plan chose plan[3]:
-    its staging (one field's x planes at a time), and none."""
-    return [st for st in (plan[3],) if st != sk.UNSTAGED] + [sk.UNSTAGED]
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("radius,shape,n_fields", RN3_CASES)
 def test_torch_stencil3d_rn_stagings_on_card(radius, shape, n_fields, dtype):
-    """The runtime-radius marching kernel (r = 5-7): the apply, residual,
-    sweep and (scalar planes) Chebyshev step by its staged route (one
-    field's x planes at a time) and its unstaged one at the plan's split
-    equal their plain versions (f32 1e-4, f64 1e-12) and one another
-    bitwise (a trip sums from zero and joins the point's sum in trip
-    order, whichever trips travel together); the plan stages one field at
-    a time for 2-3 fields and keeps a level's smoothing call at one launch
-    a pass."""
+    """The runtime-radius marching kernel (r = 5-7): the plan reads x
+    through the read-only cache (its only route) and keeps a level's
+    smoothing call at one launch a pass; the apply, residual, sweep and
+    (scalar planes) Chebyshev step at the plan's split and at 16 equal
+    their plain versions (f32 1e-4, f64 1e-12), and a second launch
+    repeats each bitwise."""
     C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
                                     50 + 3 * radius + n_fields)
     nF = max(n_fields, 1)
     plan = sk._plan3(shape, radius, nF, 0, dtype == torch.float64)
-    assert plan[1] == 0 and plan[3] in (
-        sk.UNSTAGED, sk.ALL_FIELDS if nF == 1 else sk.PER_FIELD)
+    assert plan[1] == 0 and plan[3] == sk.UNSTAGED
     y_ref = sk.apply3_block_plain(C, x, shape, radius)
     refs = {sk._APPLY: y_ref, sk._RESIDUAL: b - y_ref,
             sk._SWEEP: sk.sweep3_block_plain(C, binv, b, x, 0.8, shape,
@@ -503,14 +494,14 @@ def test_torch_stencil3d_rn_stagings_on_card(radius, shape, n_fields, dtype):
         refs[sk._CHEB] = sk.cheb_step3_plain(C, binv, b, x, d, 1.3, 0.45,
                                              shape, radius)[0]
     for pass_, ref in refs.items():
-        got = [sk._pass3(pass_, C, x, b, binv, shape, radius, nF,
-                         s0=1.3 if pass_ == sk._CHEB else 0.8, s1=0.45,
-                         d=d.clone(), split=plan[0], staging=st)
-               for st in _stagings(plan)]
-        torch.cuda.synchronize()
-        for y in got:
-            assert _err_ok(y, ref, dtype), pass_
-            assert torch.equal(y, got[0]), pass_
+        for split in sorted({plan[0], 16}):
+            got = [sk._pass3(pass_, C, x, b, binv, shape, radius, nF,
+                             s0=1.3 if pass_ == sk._CHEB else 0.8, s1=0.45,
+                             d=d.clone(), split=split)
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            assert _err_ok(got[0], ref, dtype), (pass_, split)
+            assert torch.equal(got[0], got[1]), (pass_, split)
 
 
 @pytest.mark.gpu
@@ -565,3 +556,68 @@ def test_torch_stencil_mv3_marching_apply_on_card(shape, radius, dtype):
     assert sk.launches()["apply3"] == before["apply3"] + 1
     assert _err_ok(y, sk.stencil_mv3_plain(C, x, shape, radius), dtype)
     assert torch.equal(y, y_block)
+
+
+# -- 3D: the taps outside the lattice are never read -------------------------
+
+# (radius, fields): r = 2-7, scalar planes and 2-3 fields (the fixed-radius
+# kernels at r <= 4 with every staging and a level's one launch, the
+# runtime-radius one from 5 and its unstaged route at every radius)
+PADDING_CASES = [(r, nf) for r in (2, 3, 4, 5, 6, 7) for nf in (0, 2, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("radius,n_fields", PADDING_CASES)
+def test_torch_stencil3d_padding_not_read_on_card(radius, n_fields, dtype):
+    """With NaN in every tap whose x lies outside the lattice, each 3D
+    marching route gives bitwise the output it gives with zeros there:
+    every pass (apply, residual, sweep, sweep from zero, the Chebyshev
+    step on scalar planes) staged (every field's planes, one field's at a
+    time) and unstaged, at the plan's split and at 16, and at r <= 4 a
+    level's smoothing call in one launch where it fits; the outputs with
+    zeros there equal the plain versions (f32 1e-4, f64 1e-12)."""
+    shape = (13, 10, 17)
+    C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
+                                    80 + 3 * radius + n_fields)
+    nF = max(n_fields, 1)
+    outside = sk.outside_taps(shape, radius, C.device)
+    C[..., outside] = 0.0
+    C_nan = C.clone()
+    C_nan[..., outside] = float("nan")
+    plan = sk._plan3(shape, radius, nF, 0, dtype == torch.float64)
+    stagings = ([sk.ALL_FIELDS] + [sk.PER_FIELD] * (nF > 1)
+                if radius <= 4 else [plan[3]]) + [sk.UNSTAGED]
+    y_ref = sk.apply3_block_plain(C, x, shape, radius)
+    refs = {sk._APPLY: y_ref, sk._RESIDUAL: b - y_ref,
+            sk._SWEEP: sk.sweep3_block_plain(C, binv, b, x, 0.8, shape,
+                                             radius),
+            sk._ZERO: sk.sweep3_block_plain(C, binv, b, None, 0.8, shape,
+                                            radius)}
+    d = torch.randn_like(x)
+    if n_fields == 0:
+        refs[sk._CHEB] = sk.cheb_step3_plain(C, binv, b, x, d, 1.3, 0.45,
+                                             shape, radius)[0]
+    for split in sorted({plan[0], 16}):
+        for st in dict.fromkeys(stagings):
+            for pass_, ref in refs.items():
+                def run(planes):
+                    return sk._pass3(
+                        pass_, planes, None if pass_ == sk._ZERO else x, b,
+                        binv, shape, radius, nF, omega0=0.8,
+                        s0=1.3 if pass_ == sk._CHEB else 0.8,
+                        s1=0.45 if pass_ == sk._CHEB else 0.0, d=d.clone(),
+                        split=split, staging=st)
+                y = run(C)
+                torch.cuda.synchronize()
+                assert _err_ok(y, ref, dtype), (split, st, pass_)
+                assert torch.equal(run(C_nan), y), (split, st, pass_)
+    if radius <= 4:
+        def level(planes):
+            return sk._smooth3_cuda(sk.GRID, planes, binv, b, None,
+                                    STEPS3[:2], shape, radius, nF, True,
+                                    n_fields == 0, split=plan[0],
+                                    staging=sk.ALL_FIELDS)
+        if plan[1]:
+            for a, a_nan in zip(level(C), level(C_nan)):
+                assert torch.equal(a, a_nan)
