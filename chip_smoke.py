@@ -377,9 +377,11 @@ SUMMARY_ROWS = {
     "r4": _P3 + ("smooth3",),
     "r4 f64": ("stencil_mv",) + _P2 + ("stencil_mv3", "smooth3"),
     "r4 f64 nf2": _P2, "r4 nf2": _P2,
-    "r4 f64 nf3": _B3 + ("smooth3",), "r4 f64 nf3 pf": _B3,
-    "r5": _P3, "r5 f64": ("stencil_mv", "jacobi_smooth",
-                          "stencil_mv_block") + _P3,
+    # (the three-field f64 r = 4 levels, 3 × 17³ and 3 × 19³, hold 169 and
+    # 248 MB of coefficients, past the L2: one launch a pass, level_pays)
+    "r4 f64 nf3": _B3, "r4 f64 nf3 pf": _B3,
+    "r5": _P3 + ("smooth3",), "r5 f64": ("stencil_mv",) + _P2 + _P3
+    + ("smooth3",),
 }
 TOL = 1e-4          # max|y - y_plain| <= TOL * max|y_plain| (f32 sum order)
 TOL64 = 1e-12       # the same for the f64 instances (fma against mul + add)
@@ -872,6 +874,7 @@ def level_operands(rng, shape, radius, n_fields, dev, dtype=None):
 
 
 TILE = (8, 32)     # output rows x columns per block of csrc/stencil2d.cuh
+RN_TILE = 16       # ... and of csrc/stencil_rn.cuh (r >= 5), a side
 
 
 def fitting_routes(C, binv, b, x, shape, radius, nF):
@@ -886,7 +889,8 @@ def fitting_routes(C, binv, b, x, shape, radius, nF):
 
     routed = sk._smooth_route(tuple(shape), radius, nF, b.device.index or 0,
                               b.dtype == torch.float64)
-    tiles = -(-shape[0] // TILE[0]) * -(-shape[1] // TILE[1])
+    tile = TILE if radius < 5 else (RN_TILE, RN_TILE)
+    tiles = -(-shape[0] // tile[0]) * -(-shape[1] // tile[1])
     try:
         sk._smooth_cuda(sk.GRID, C, binv, b, x, 0.8, 1, shape, radius, nF,
                         True)
@@ -1325,12 +1329,14 @@ LEVELS_QUARTIC3 = [(s_,) * 3 for s_ in (33, 17)]
 def check_no_spill_rn():
     """Every runtime-radius instance built without spill: the 2D pass kernel
     (csrc/stencil_rn.cuh: f32 and f64 x 1-3 fields x apply, residual,
-    sweep: 18) and the 3D marching kernel (csrc/stencil3d.cuh
-    march_rn_kernel: f32 and f64 x 1-3 fields: 6)."""
-    instances = built_instances(("pass2d_kernel", "march_rn"))
+    sweep: 18) and level kernel (level2d_kernel: f32 and f64 x 1-3 fields:
+    6), the 3D marching pass and level kernels (csrc/stencil3d.cuh
+    march_rn_kernel, march_rn_level_kernel: f32 and f64 x 1-3 fields: 12)."""
+    instances = built_instances(("pass2d_kernel", "level2d_kernel",
+                                 "march_rn"))
     phase("kernel_check", kernel="runtime-radius instances",
           ptxas=instances)
-    if len(instances) != 24 or any(
+    if len(instances) != 36 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the runtime-radius instances are not all built without "
              f"spill: {instances}")
@@ -1339,13 +1345,16 @@ def check_no_spill_rn():
 def kernels_r5(worst, rng, dev):
     """The 2D runtime-radius instances at r = 5 (121 taps), f32 and f64, on
     scalar planes and 2 and 3 fields: stencil_mv, jacobi_smooth,
-    stencil_mv_block and smooth (one launch a pass: the fused launch must be
-    refused) against their plain versions (f32 TOL, f64 TOL64) at odd
-    shapes (ν = 1, 3, every form) and, f64, at every level of the quartic
-    biharmonic's cycle in the V-cycle's two forms (513² … 65² and the dense
-    33²); then device, call, bound, plain and library times of each kernel
-    the quartic 2D path launches, at its finest level. Returns the
-    ``kernel_time`` rows."""
+    stencil_mv_block and smooth (by one launch a pass and, where the
+    level's tiles are co-resident, by the level kernel's one launch, which
+    must equal the passes bitwise) against their plain versions (f32 TOL,
+    f64 TOL64) at odd shapes (ν = 1, 3, every form) and, f64, at every
+    level of the quartic biharmonic's cycle in the V-cycle's two forms
+    (513² … 65² and the dense 33²); then device, call, bound, plain and
+    library times of each kernel the quartic 2D path launches, at its
+    finest level, and of the V-cycle's smoothing calls by each route at
+    its smaller levels (the plain version at the largest the plan gives
+    one launch). Returns the ``kernel_time`` rows."""
     import torch
 
     from iifea_tpu_torch.ops import stencil_kernels as sk
@@ -1353,11 +1362,12 @@ def kernels_r5(worst, rng, dev):
     check_no_spill_rn()
     f32, f64 = torch.float32, torch.float64
     all_forms = [(z, w) for z in (False, True) for w in (False, True)]
+    bitwise = True
     for dt in (f32, f64):
         for sh in ODD_SHAPES:
             for n_fields in (0, 2, 3):
-                check_level_entries(worst, rng, sh, 5, n_fields, dev, (1, 3),
-                                    all_forms, dt)
+                bitwise &= check_level_entries(worst, rng, sh, 5, n_fields,
+                                               dev, (1, 3), all_forms, dt)
             C, binv, b, x = level_operands(rng, sh, 5, 0, dev, dt)
             _check(worst, "stencil_mv", sk.stencil_mv(C, x, sh, 5),
                    sk.stencil_mv_plain(C, x, sh, 5), sh, 5, quiet=True)
@@ -1366,10 +1376,12 @@ def kernels_r5(worst, rng, dev):
                    sk.jacobi_smooth_plain(C, binv, b, x, 0.67, sh, 5), sh,
                    5, quiet=True)
     for sh in LEVELS_BH + [DENSE_BH]:
-        check_level_entries(worst, rng, sh, 5, 0, dev, (NU,),
-                            list(FORMS.values()), f64)
+        bitwise &= check_level_entries(worst, rng, sh, 5, 0, dev, (NU,),
+                                       list(FORMS.values()), f64)
     phase("kernel_check", kernel="radius 5 instances",
           worst={k: v for k, v in worst.items() if "/r5" in k})
+    if not bitwise:
+        fail("a radius-5 level's one launch differs from its passes")
 
     top = LEVELS_BH[0]
     C, binv, b, x = level_operands(rng, top, 5, 0, dev, f64)
@@ -1384,6 +1396,11 @@ def kernels_r5(worst, rng, dev):
     del C, binv, b, x
     rows += time_level(rng, top, 0, dev, main_block=True, main_smooth=False,
                        radius=5, dtype=f64)
+    fused = [sh for sh in LEVELS_BH[1:]
+             if sk._smooth_route(sh, 5, 1, dev.index or 0, True) == sk.GRID]
+    for sh in LEVELS_BH[1:]:
+        rows += time_level(rng, sh, 0, dev, main_block=False,
+                           main_smooth=sh == fused[0], radius=5, dtype=f64)
     torch.cuda.empty_cache()
     return rows
 
@@ -1776,10 +1793,13 @@ def kernels3_smooth(worst, dev, paths=None, timed=True):
                 outs = [per_pass, routed]
                 before = sk.smooth3.launches
                 try:
-                    # (the level launch stages every field's planes)
+                    # (the level launch stages every field's planes at
+                    # r = 1-4, none from r = 5)
                     outs.append(sk._smooth3_cuda(
                         sk.GRID, *args, nF, with_residual, cheb,
-                        split=plan[0], staging=sk.ALL_FIELDS))
+                        split=plan[0],
+                        staging=sk.UNSTAGED if r >= sk.RN_RADIUS
+                        else sk.ALL_FIELDS))
                     fused = True
                 except RuntimeError as e:
                     fused, why = False, str(e)
@@ -3600,15 +3620,16 @@ def kernels3_r3(worst, dev):
 
     # every 3D kernel instance: the marching pass and level kernels (24
     # each: f32 and f64, r = 1-4, 1-3 fields), the pass kernel's per-field
-    # staging (16: 2 and 3 fields), the runtime-radius marching kernel (6:
-    # f32 and f64, 1-3 fields) and the zero kernel (6 in each of the
-    # r = 1-3, the r = 4 and the runtime-radius sources: 18)
+    # staging (16: 2 and 3 fields), the runtime-radius marching pass and
+    # level kernels (6 each: f32 and f64, 1-3 fields) and the zero kernel
+    # (6 in each of the r = 1-3, the r = 4 and the runtime-radius sources:
+    # 18)
     instances = built_instances(("march",))
     phase("kernel_check", kernel="3D instances",
           worst={k: v for k, v in worst.items()
                  if k.split("/")[0] in NAMES3 and "/r3" in k},
           ptxas=instances)
-    if len(instances) != 88 or any(
+    if len(instances) != 94 or any(
             r["spill_stores"] or r["spill_loads"] for r in instances):
         fail(f"the 3D instances are not all built without spill: "
              f"{instances}")
@@ -3648,6 +3669,7 @@ def kernels3_r3(worst, dev):
 # three-field elasticity's 17³ smoothed (3 × 9³ dense)
 LEVELS_CUBIC3 = [(s_,) * 3 for s_ in (33, 17)]
 LEVELS_CUBIC_EL3 = [(s_,) * 3 for s_ in (17, 9)]
+SHAPE_EL3_WIDE_THIRD = (19, 19, 19)   # the 73³ cubic elasticity's third level
 
 
 def kernels3_r4(worst, dev):
@@ -3725,19 +3747,27 @@ def kernels3_r4(worst, dev):
                         4) if main else None,
                 plain_launches=2, radius=4, f64=is64))
             del C, invd, b, x, d
-    sh = LEVELS_CUBIC_EL3[0]
-    C, binv, b, x = block3_operands(gen, sh, 4, N_FIELDS_EL3, dev, f64)
-    calls = block3_calls(C, binv, b, x, sh, 4, omega=1.0)
-    plain = block3_calls(C, binv, b, x, sh, 4, omega=1.0, plain=True)
-    held = []
-    for mode in BLOCK3_MODES:
-        rows.append(time_kernel(
-            sk.PASS3_NAMES[mode, True], [N_FIELDS_EL3, *sh], calls[mode],
-            plain[mode], bound_=bound_passes(sh, N_FIELDS_EL3, [mode], 4, True),
-            plain_launches=2, radius=4, f64=True, n_fields=N_FIELDS_EL3,
-            dim=3, library=block3_library(C, b, x, sh, 4, mode, held)))
-    del C, binv, b, x, calls, plain, held
-    torch.cuda.empty_cache()
+    # the cubic elasticity's 17³ level and the 73³ path's third, 19³
+    for sh in (LEVELS_CUBIC_EL3[0], SHAPE_EL3_WIDE_THIRD):
+        C, binv, b, x = block3_operands(gen, sh, 4, N_FIELDS_EL3, dev, f64)
+        calls = block3_calls(C, binv, b, x, sh, 4, omega=1.0)
+        plain = block3_calls(C, binv, b, x, sh, 4, omega=1.0, plain=True)
+        held = []
+        main = sh == LEVELS_CUBIC_EL3[0]
+        for mode in BLOCK3_MODES:
+            rows.append(time_kernel(
+                sk.PASS3_NAMES[mode, True], [N_FIELDS_EL3, *sh], calls[mode],
+                plain[mode] if main else None,
+                bound_=bound_passes(sh, N_FIELDS_EL3, [mode], 4, True),
+                plain_launches=2, radius=4, f64=True, n_fields=N_FIELDS_EL3,
+                dim=3, library=block3_library(C, b, x, sh, 4, mode, held)))
+            if not main and mode in ("apply", "sweep"):
+                # (the summary's row is the main shape's)
+                phase("plain_time", kernel=sk.PASS3_NAMES[mode, True],
+                      shape=[N_FIELDS_EL3, *sh], radius=4, dtype="f64",
+                      plain_ms=device_ms(plain[mode], launches=2, reps=3))
+        del C, binv, b, x, calls, plain, held
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3855,9 +3885,11 @@ def kernels3_r5(worst, dev):
     ``RN3_CHECKS`` shapes, the long-k lattice only by the unstaged route,
     each route again with NaN in the taps outside the lattice, which must
     leave every output bitwise as it was (no kernel reads them);
-    smooth3 at the quartic cycle's levels (one launch a pass, the fused
-    launch refused: ``kernels3_smooth``, which also times the cycle's step
-    from zero and residual pass at 33³). Then device, call, bound, plain
+    smooth3 at the quartic cycle's levels (``kernels3_smooth``: one launch
+    a pass, and march_rn_level_kernel's one launch where the level's
+    blocks are co-resident, bitwise equal to the passes, refused where
+    they are not; it also times the cycle's step from zero and residual
+    pass at 33³ and each route's calls). Then device, call, bound, plain
     and library times of the quartic 3D path's apply and Chebyshev step at
     33³, and of the three-field f64 r = 5 passes at 3 × 17³. Returns the
     ``kernel_time`` rows."""
@@ -6197,6 +6229,10 @@ N_BG_QUARTIC_SMALL = 13    # a 17² net: card against host
 # The bound, twice the 900 measured, catches a cycle that stops
 # contracting
 MAX_GMRES_ITERS_QUARTIC = 1800
+# the 513² solve's count on an H100 by one launch a pass (PRs 16-18): a
+# level's one launch is bitwise the same arithmetic, so the count may not
+# move
+QUARTIC_GMRES_ITERS = 900
 # a 9³ net: card against host, capped (one dense level; at 17³ the host's
 # plain r = 5 passes and 1,331-column probe took 133 s of a 139 s check on
 # the card's machine, for 60 GMRES iterations, the card 1.6 s)
@@ -6233,6 +6269,11 @@ QUARTIC3_MAX_IT = 1000
 # measured (on an H100 1.55e-8 f64 after 1,200 iterations, 2.29e-8 mixed
 # after 1,032)
 QUARTIC3_MAX_REL = 2e-7
+# (iterations, relative residual, its significant digits as recorded) of
+# the 33³ f64 and mixed capped solves by one launch a pass on an H100
+# (PRs 17-18): a level's one launch is bitwise the same arithmetic, so
+# neither may move
+QUARTIC3_GOLD = {True: (1200, 1.548e-08, 4), False: (1028, 2.27e-08, 3)}
 
 
 
@@ -6242,9 +6283,10 @@ def phase_quartic():
     (n_bg = 509, ``solve_ksp(gmres, pc='mg', stencil_radius=5)``, the f64
     default route) with host set-up per stage, counted per kernel and
     shape, a warm solve staged, profiled (idle share), peak memory, the
-    outer ring's (offset 5) share of its planes; below 1e-10 in at most
-    MAX_GMRES_ITERS_QUARTIC iterations (the JAX package's cycle is as
-    slow) with its L2_rel below n_bg = 253's;
+    outer ring's (offset 5) share of its planes; below 1e-10 in exactly
+    QUARTIC_GMRES_ITERS iterations (the JAX package's cycle is as slow;
+    the levels the plan gives one launch book ``smooth`` in place of their
+    passes, the same arithmetic) with its L2_rel below n_bg = 253's;
     card against host at n_bg = 13 to QUARTIC_SMALL_RTOL (iterations within
     QUARTIC_SMALL_ITERS_DIFF, field within QUARTIC_SMALL_FIELD_REL, norms
     within QUARTIC_SMALL_NORMS_REL). 3D: the biharmonic on the 9³ quartic
@@ -6253,12 +6295,14 @@ def phase_quartic():
     33³ net by both routes, counted and capped (QUARTIC3_MAX_IT; the mixed
     route at OTHER_ROUTE_MAX_IT), the residual reached recorded and held
     below QUARTIC3_MAX_REL (the 3D quartic cycle does not reach 1e-10 in
-    useful time). Returns {instance tag: (launches by kernel, by
-    shape)}."""
+    useful time), and iterations and residual held to QUARTIC3_GOLD, the
+    levels given one launch booking ``smooth3`` alone. Returns {instance
+    tag: (launches by kernel, by shape)}."""
     import torch
 
     from iifea_tpu_torch.api import l2_norm
     from iifea_tpu_torch.ops import multigrid
+    from iifea_tpu_torch.ops import stencil_kernels as sk
     from iifea_tpu_torch.solvers import ksp
 
     gpu = torch.device("cuda", 0)
@@ -6282,7 +6326,12 @@ def phase_quartic():
           n_fg_nodes=prob.space.n_nodes, n_block_cells=prob.cell_dom.n_elem,
           extraction_entries=M.valT.numel(), seconds=setup,
           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    names2 = ("stencil_mv", "jacobi_smooth", "stencil_mv_block")
+    # the smoothed levels the plan gives one launch book smooth in place of
+    # their passes
+    fused2 = [sh for sh in LEVELS_BH if sk._smooth_route(
+        sh, 5, 1, gpu.index or 0, True) == sk.GRID]
+    names2 = ("stencil_mv", "jacobi_smooth", "stencil_mv_block") + (
+        ("smooth",) if fused2 else ())
     tag = instance_tag(5, True)
     u, info, rec = cubic_counted("quartic", lambda: bh_solve(A, b, shape,
                                                              radius=5),
@@ -6306,11 +6355,24 @@ def phase_quartic():
     S = ksp._probe_general(A, shape, 5, torch.float64)
     ring = ring_share(S.coeffs, 5)
     del S
+    fused_passes = {f"{k}@{s_[0]}x{s_[1]}{tag}": rec["launches_by_shape"].get(
+        f"{k}@{s_[0]}x{s_[1]}{tag}", 0) for s_ in fused2
+        for k in ("jacobi_smooth", "stencil_mv_block", "smooth")}
     phase("quartic", n_bg=N_BG_QUARTIC, route="f64", error_norms=norms,
           error_norms_n_bg253=n_rate, iters_n_bg253=int(info_.iters),
-          stages=warm, profile=profile, outer_ring_share=ring, **rec)
+          stages=warm, profile=profile, outer_ring_share=ring,
+          fused_levels=[list(s_) for s_ in fused2], **rec)
     if missing:
         fail(f"quartic: no stencil launch at the smoothed shapes {missing}")
+    if any(n != 0 for k, n in fused_passes.items()
+           if not k.startswith("smooth@")) or not all(
+               n > 0 for k, n in fused_passes.items()
+               if k.startswith("smooth@")):
+        fail(f"quartic: the levels given one launch {fused2} did not book "
+             f"smooth in place of their passes: {fused_passes}")
+    if info.iters != QUARTIC_GMRES_ITERS:
+        fail(f"quartic: {info.iters} GMRES iterations, not the "
+             f"{QUARTIC_GMRES_ITERS} of the per-pass route")
     if not norms["L2_rel"] < n_rate["L2_rel"]:
         fail(f"quartic: L2_rel {norms['L2_rel']} not below n_bg="
              f"{N_BG_QUARTIC_RATE}'s {n_rate['L2_rel']}")
@@ -6376,6 +6438,8 @@ def phase_quartic():
           n_bg_dofs=M.n_bg_dofs, n_fg_nodes=prob.space.n_nodes,
           extraction_entries=M.valT.numel(), seconds=setup3, **mem)
     for name, is64 in (("quartic3", True), ("quartic3_mixed", False)):
+        fused3 = [sh for sh in LEVELS_QUARTIC3 if sk._plan3(
+            sh, 5, 1, gpu.index or 0, is64)[1]]
         u, info, rec = cubic_counted(
             name, lambda: bh_solve(A, b, shape, radius=5, mixed=not is64,
                                    max_it=QUARTIC3_MAX_IT if is64
@@ -6384,10 +6448,25 @@ def phase_quartic():
         book(instance_tag(5, is64), rec)
         norms3 = prob.error_norms(M.mv(u))
         phase(name, n_bg=N_BG_QUARTIC3, error_norms=norms3,
-              converged=rec["rel_residual"] < 1e-10, **rec)
+              converged=rec["rel_residual"] < 1e-10,
+              fused_levels=[list(s_) for s_ in fused3], **rec)
         if not rec["rel_residual"] < QUARTIC3_MAX_REL:
             fail(f"{name}: residual {rec['rel_residual']} after "
                  f"{info.iters} iterations, norms {norms3}")
+        gold_iters, gold_res, digits = QUARTIC3_GOLD[is64]
+        if (info.iters != gold_iters
+                or float(f"{rec['rel_residual']:.{digits}g}") != gold_res):
+            fail(f"{name}: {info.iters} iterations to "
+                 f"{rec['rel_residual']}, not the per-pass route's "
+                 f"{gold_iters} to {gold_res}")
+        for s_ in fused3:
+            key = "x".join(map(str, s_)) + instance_tag(5, is64)
+            at_level = {k: n for k, n in rec["launches_by_shape"].items()
+                        if k.endswith("@" + key)}
+            if at_level.get(f"smooth3@{key}", 0) <= 0 or any(
+                    at_level.get(f"{k}@{key}", 0) for k in PASSES3):
+                fail(f"{name}: the level {s_} given one launch booked "
+                     f"{at_level}")
     del prob, M, A, b, u
     torch.cuda.empty_cache()
     seconds["biharmonic3"] = time.perf_counter() - t0

@@ -42,9 +42,10 @@ int stencil2d_mv(const void* C, const void* x, void* y, int nx, int ny,
                          kApply, f64, stream);
 }
 
-// 1: the level's smoothing call fits one cooperative launch
-// (stencil2d_smooth); 0: it takes one launch per pass (stencil2d_block;
-// always at r >= 5); negative: the occupancy query failed.
+// 1: the level's smoothing call takes one cooperative launch
+// (stencil2d_smooth: every tile co-resident; the rule's data are at
+// plan_level2d in csrc/stencil_rn.cuh); 0: one launch per pass
+// (stencil2d_block); negative: the occupancy query failed.
 int stencil2d_smooth_plan(int nx, int ny, int radius, int nf, int f64) {
   auto fn = TYPED2D(stencil2d_smooth_plan, f64, radius);
   if (fn == nullptr) return -1;

@@ -1,8 +1,8 @@
 // The runtime-radius instances of the 2D stencil kernels
 // (csrc/stencil_rn.cuh), f32 and f64, 1-3 fields: the public entries of
 // csrc/stencil2d.cu call these at r >= 5. A level's smoothing call takes
-// one launch per pass there: the plan answers 0 and the fused entry is
-// refused.
+// one cooperative launch (level2d_kernel) where the plan says so, else one
+// launch per pass.
 
 #include "stencil2d.cuh"
 #include "stencil_rn.cuh"
@@ -17,12 +17,15 @@
                                 nf, mode, stream);                          \
   }                                                                         \
   int stencil2d_smooth_plan_##SUFFIX(int nx, int ny, int radius, int nf) {  \
-    return nx > 0 && ny > 0 && radius >= 1 && nf >= 1 && nf <= 3 ? 0 : -1;  \
+    return rn::smooth_plan2d_entry<T>(nx, ny, radius, nf);                  \
   }                                                                         \
-  int stencil2d_smooth_##SUFFIX(const void*, const void*, const void*,      \
-                                const void*, double, int, void*, void*,     \
-                                void*, int, int, int, int, void*) {         \
-    return (int)cudaErrorInvalidValue;                                      \
+  int stencil2d_smooth_##SUFFIX(const void* C, const void* binv,           \
+                                const void* b, const void* x, double omega, \
+                                int sweeps, void* out, void* tmp, void* res, \
+                                int nx, int ny, int radius, int nf,         \
+                                void* stream) {                             \
+    return rn::smooth2d_entry<T>(C, binv, b, x, omega, sweeps, out, tmp,    \
+                                 res, nx, ny, radius, nf, stream);          \
   }                                                                         \
   }
 

@@ -24,9 +24,11 @@ STENCIL3D_ENTRIES(f32, float, 1, 3)
 extern "C" {
 
 // The plan of a level shape for an instance: out[0] split, out[1] 1 where
-// the level's smoothing call is one launch (0: one launch per pass; always
-// at r >= 5 and where the planes are not all staged at once), out[2] the
-// level launch's co-resident blocks, out[3] the staging (0: every field's
+// the level's smoothing call is one launch (its blocks all co-resident and
+// the measured rule, level_pays, met; 0: one launch per pass, always where
+// the planes are staged one field at a time or, below r = 5, not at all),
+// out[2] the level launch's co-resident blocks (0 where it has none),
+// out[3] the staging (0: every field's
 // x planes at once; 1: one field's at a time, at r = 1-4 where a block
 // cannot hold them all; 2: none, x read through the read-only cache: the
 // runtime-radius kernel's route, at every radius from 5 and where a block
@@ -63,12 +65,14 @@ int stencil3d_pass(const void* C, const void* x, const void* b,
 // A level's smoothing call in ONE cooperative launch: `sweeps` (1 to 8)
 // sweeps (cheb 0, omega s0[k]) or Chebyshev steps (cheb 1, nF = 1, (s0,
 // s1)[k], s1[0] = 0) from x (x null: from zero) into out, then res = b -
-// A out when res is not null. tmp is the ping-pong buffer (sweeps >= 2), d
-// the Chebyshev direction (cheb, unless one step from zero). None of out,
-// tmp, res, d may alias x or each other. Every block of the plan must be
-// co-resident, else the launch is refused (always at r >= 5). It stages
-// every field's x planes (a lattice the plan stages otherwise takes one
-// launch a pass).
+// A out when res is not null. tmp is the ping-pong buffer (at r = 1-4
+// sweeps - (x null) >= 2, the step from zero folded into the staging; from
+// r = 5 sweeps >= 2, the step from zero written), d the Chebyshev
+// direction (cheb, unless one step from zero). None of out, tmp, res, d
+// may alias x or each other. Every block of the plan must be co-resident,
+// else the launch is refused. At r = 1-4 it stages every field's x planes
+// (a lattice the plan stages otherwise takes one launch a pass); from r = 5
+// it runs march_rn_level_kernel, x unstaged.
 int stencil3d_level(const void* C, const void* binv, const void* b,
                     const void* x, void* d, void* out, void* tmp, void* res,
                     const double* s0, const double* s1, int sweeps, int cheb,

@@ -8,10 +8,10 @@
 // compiles in parallel: csrc/stencil3d.cu (the f32 instances at r = 1-3 and
 // the public entries), csrc/stencil3d_f64.cu (f64, r = 1-3),
 // csrc/stencil3d_r4.cu and csrc/stencil3d_r4_f64.cu (r = 4 in f32 and f64),
-// and csrc/stencil3d_rn.cu: the runtime-radius marching kernel
-// (`march_rn_kernel`, the radius a kernel argument), which runs every
-// radius from 5 and, at r = 1-4, the lattices whose x planes a block
-// cannot stage.
+// and csrc/stencil3d_rn.cu: the runtime-radius marching kernels
+// (`march_rn_kernel` and its level launch `march_rn_level_kernel`, the
+// radius a kernel argument), which run every radius from 5 and, at
+// r = 1-4, the passes of the lattices whose x planes a block cannot stage.
 //
 // Replaces the Pallas TPU kernels iifea_tpu/ops/pallas_stencil.py
 // `stencil_mv3` (body `_mv3_kernel`/`_taps3`) and `jacobi_smooth3` (body
@@ -82,11 +82,13 @@
 //   occupancy so that the grid fills the SMs at every level shape (splits
 //   above 16 were slower at every small lattice swept, 3 x 17^3 included);
 // * a level's smoothing call (nu sweeps or Chebyshev steps and the trailing
-//   residual) is one cooperative launch where the plan says the level is
-//   small (`stencil3d_level`, `grid.sync()` between passes, x ping-ponged
+//   residual) is one cooperative launch where the plan says so
+//   (`stencil3d_level`, `grid.sync()` between passes, x ping-ponged
 //   through the L2; the step from zero folded into the next pass's
-//   staging). Both routes run the same body on the same points with the
-//   same split, so they agree bitwise.
+//   staging, or from r = 5 a phase of its own): at every radius, where
+//   the level's blocks are co-resident and its coefficients fit the L2
+//   (`level_pays`). Both routes run the same body on the same points with
+//   the same split, so they agree bitwise.
 //
 // Launch contract: PyTorch's current stream, no synchronisation, no
 // allocation (the caller allocates outputs and scratch; y must not alias x,
@@ -792,6 +794,44 @@ int sm_count() {
   return sms;
 }
 
+// The measured rule of a level's one launch (the plan's out[1], at every
+// radius, where the level's blocks are all co-resident): the level's
+// coefficients in the lattice (nF^2 words of `word` bytes for each tap
+// whose x lies in it, summed over the points) fit the card's L2. The
+// V-cycle makes its smoothing calls eagerly, and eagerly (host ms a call,
+// back to back, the host's launch work included) the call in one launch
+// was faster than its passes at every level swept whose coefficients fit
+// the L2 (H100, 50 MB; tests/compare_stencil3d.py --calls, the V-cycle's
+// two calls, 2 steps from zero + residual / 2 steps from x): 3 x 13^3 f32
+// r = 2 0.44 / 0.83 of the passes' time, 2 x 25^3 f32 (27 MB) 0.50 / 0.62,
+// 27^3 f32 r = 2 0.36 / 0.38, 33^3 f32 r = 3 (42 MB) 0.54 / 0.91, 17^3 f64
+// r = 4 0.36 / 0.59, 17^3 r = 5 0.73 / 0.94 in f64 and 0.52 / 0.31 in
+// f32 (march_rn_level_kernel); and no faster above it,
+// where the passes stream the planes from memory at every pass either way
+// (3 x 25^3 f32, 61 MB, 0.86 / 1.02; 33^3 f64 r = 3, 84 MB, 0.87 / 1.04;
+// 3 x 25^3 f64 121 MB 1.05 / 1.02; 33^3 f64 r = 4, 170 MB, 1.01 / 1.02;
+// 3 x 17^3 and 3 x 19^3 f64 r = 4 1.05 / 1.01, 1.04 / 1.02). In a CUDA
+// graph (device time alone) the one launch was slower at every shape, by
+// 1-24% at r <= 4 (its barriers, and its occupancy below the pass
+// kernel's) and by 40% at 17^3 f64 r = 5 (3% in f32), so the rule rests on
+// the eager time the V-cycle pays: whole V-cycles made eagerly ran faster
+// planned than with every level one launch a pass on every 3D path
+// (medians of three pairs: 3D elasticity 9.99 against 10.12 ms, Poisson
+// 2.71 / 2.76, biharmonic 3.00 / 3.06, the cubic 33^3 1.29 / 1.41, the
+// quartic 2.41 / 2.64, f32 2.26 / 2.36; --vcycles).
+inline bool level_pays(int nx, int ny, int nz, int r, int nf, int word) {
+  static const int l2 = device_attribute(cudaDevAttrL2CacheSize);
+  // taps of an axis of n points in the lattice, summed over its points
+  auto axis = [r](int n) {
+    double t = 0.0;
+    for (int i = 0; i < n; ++i) {
+      t += (i + r < n - 1 ? i + r : n - 1) - (i - r > 0 ? i - r : 0) + 1;
+    }
+    return t;
+  };
+  return axis(nx) * axis(ny) * axis(nz) * nf * nf * word <= (double)l2;
+}
+
 // One resident block per SM for the instances whose point streams at least
 // 1,000 coefficient planes (nF = 3, r = 2: 1,125), on levels whose blocks
 // make three waves of one: at two blocks per SM the 3 x 97^3 passes ran at
@@ -835,12 +875,12 @@ constexpr int kPlanTooWide = -2;
 //   3 x 13^3 took 0.0061 ms at split 8 against 0.0094 at 16 and 0.0144 at
 //   1, 17^3 f64 0.0069 at 4 against 0.0073 at 8;
 // * a level launch, which needs every block co-resident, where the blocks
-//   fit, and not for the scalar f32 r <= 2 instances: their passes are
-//   short, and on a card kept busy (a CUDA graph) one launch a pass was
-//   faster (27^3 post-smoothing 0.0115 ms against 0.0139 in one launch,
-//   on an H100). Blocks that walked two planes to make a larger level fit
-//   were slower than one launch a pass (f64 r = 3 at 33^3: 0.0916 ms
-//   against 0.0808), so a block takes one plane.
+//   fit and level_pays (the rule and its data are there; it gives the
+//   scalar f32 r <= 2 instances' 27^3 level one launch too, 0.36 of its
+//   passes' eager time, though by device time alone one launch a pass
+//   was faster there: 0.0113 ms against 0.0141 after two steps). Blocks that walked two planes to make a larger
+//   level fit were slower than one launch a pass (f64 r = 3 at 33^3:
+//   0.0916 ms against 0.0808), so a block takes one plane.
 template <class T, int R, int NF>
 int plan(int nx, int ny, int nz, int* out) {
   const int sms = sm_count();
@@ -882,7 +922,8 @@ int plan(int nx, int ny, int nz, int* out) {
   }
   const int level_cap = sms * level_sm;
   out[0] = split;
-  out[1] = !scalar_r2<T, R, NF>() && (int64_t)g.runs * nx <= level_cap;
+  out[1] = (int64_t)g.runs * nx <= level_cap &&
+           level_pays(nx, ny, nz, R, NF, sizeof(T));
   out[2] = level_cap;
   out[3] = staging;
   return 0;
@@ -1012,9 +1053,10 @@ int launch_level(const void* C, const void* binv, const void* b,
 //
 // At r = 1-4 the fixed-radius plan sends here the lattices whose x planes
 // a block cannot stage (kPlanTooWide: f64 r = 4 from about 313-point
-// rows, long k rows at any radius), never to a plain version. A level's
-// smoothing call at these radii is one launch a pass (the plan's
-// out[1] = 0).
+// rows, long k rows at any radius), never to a plain version; a level's
+// smoothing call there is one launch a pass. From r = 5 a level's call is
+// one cooperative launch of march_rn_level_kernel where the plan says so
+// (the same body, x read through the L2 instead of the read-only cache).
 
 constexpr int kRnChunk = 12;  // taps of a trip issued together
 
@@ -1034,14 +1076,32 @@ __host__ __device__ constexpr int rn_blocks() {
   return NF == 1 ? 3 : 1;
 }
 
-// One pass (apply, residual, sweep, Chebyshev step) at radius r, one
-// block per (run, i-plane), x read through the read-only cache. The
-// epilogue is march's.
-template <class T, int NF>
-__global__ void __launch_bounds__(kMarch, rn_blocks<NF>())
-march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
-                const T* __restrict__ b, const T* __restrict__ binv, T* d,
-                T s0, T s1, T* y, int pass, Geom g, int r) {
+// x at p: through the read-only cache (ld.global.nc) in a pass launch; in
+// a level's launch (LEVEL) by a coherent ld.global, since x there is what
+// other blocks of the same launch wrote before the last grid barrier: the
+// read-only cache is not coherent with those writes, while the barrier's
+// fence orders them before a plain load (which, unlike ld.global.cg, keeps
+// the L1 hits of the taps that share an x: 1.4x the device time of the
+// passes at 17^3, r = 5, through the L2 alone, on an H100).
+template <bool LEVEL, class T>
+__device__ __forceinline__ T ld_x(const T* p) {
+  if constexpr (LEVEL) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// One pass (apply, residual, sweep, Chebyshev step) at radius r over the
+// block's run on plane i, x read through ld_x: the body of march_rn_kernel
+// and march_rn_level_kernel. All threads of the block call it. The
+// epilogue is march's. (g by value: taken by reference, march_rn_kernel's
+// registers moved, 162 -> 168 in f32 with three fields.)
+template <class T, int NF, bool LEVEL>
+__device__ __forceinline__ void march_rn(
+    const T* __restrict__ C, const T* x, const T* __restrict__ b,
+    const T* __restrict__ binv, T* d, T s0, T s1, T* y, int pass,
+    Geom g, int r) {
   __shared__ T red[NF * kMarch];   // the split's partial sums
   constexpr int TR = rn_trips<NF>();
   constexpr int KC = kRnChunk;
@@ -1124,7 +1184,7 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
           const int ok = ok0 + c;
           const bool in = rowin[u] && ok < m &&
                           (unsigned)(k - r + ok) < (unsigned)g.nz;
-          xv[u][c] = in ? __ldg(xw[u] + ok) : T(0);
+          xv[u][c] = in ? ld_x<LEVEL>(xw[u] + ok) : T(0);
 #pragma unroll
           for (int f1 = 0; f1 < NF; ++f1) {
             cv[u][f1][c] =
@@ -1177,7 +1237,7 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
 #pragma unroll
     for (int f = 0; f < NF; ++f) y[f * plane + p] = b[f * plane + p] - acc[f];
   } else if (pass == kSweep && NF == 1) {
-    y[p] = __ldg(x + p) + s0 * (i1 * (b1 - acc[0]));
+    y[p] = ld_x<LEVEL>(x + p) + s0 * (i1 * (b1 - acc[0]));
   } else if (pass == kSweep) {
     T res[NF];
 #pragma unroll
@@ -1189,13 +1249,76 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
       for (int f2 = 0; f2 < NF; ++f2) {
         v = fma_t(binv[(int64_t)(f1 * NF + f2) * plane + p], res[f2], v);
       }
-      y[f1 * plane + p] = __ldg(x + f1 * plane + p) + s0 * v;
+      y[f1 * plane + p] = ld_x<LEVEL>(x + f1 * plane + p) + s0 * v;
     }
   } else if (pass == kCheb) {
     const T res = i1 * (b1 - acc[0]);
     const T dn = s1 != T(0) ? fma_t(s0, res, s1 * d1) : s0 * res;
     d[p] = dn;
-    y[p] = __ldg(x + p) + dn;
+    y[p] = ld_x<LEVEL>(x + p) + dn;
+  }
+}
+
+// One pass at radius r, one block per (run, i-plane), x read through the
+// read-only cache.
+template <class T, int NF>
+__global__ void __launch_bounds__(kMarch, rn_blocks<NF>())
+march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
+                const T* __restrict__ b, const T* __restrict__ binv, T* d,
+                T s0, T s1, T* y, int pass, Geom g, int r) {
+  march_rn<T, NF, false>(C, x, b, binv, d, s0, s1, y, pass, g, r);
+}
+
+// A level's smoothing call at radius r in one cooperative launch, one
+// block per (run, i-plane): the passes of the per-pass route (launch_zero
+// and launch_pass_rn), in order, a grid barrier between them. From zero
+// (x null) the first step, omega0 = s0[0] Binv b (and d, when not null),
+// is a phase of its own written to memory before the first barrier, as
+// march_zero_kernel writes it: with x unstaged there is no staging to fold
+// it into. Then the other steps, the last written to out and the others
+// ping-ponged between tmp and out, then res = b - A out when res is not
+// null. Each pass runs march_rn on the same points at the same split as
+// its own launch, so the two routes agree bitwise. x, out, tmp and d are
+// read by coherent loads (ld_x<true>; d by the thread that wrote it, none
+// of them __restrict__); only C, b and Binv, which no pass writes, go
+// through the read-only cache.
+template <class T, int NF>
+__global__ void __launch_bounds__(kMarch, rn_blocks<NF>())
+march_rn_level_kernel(const T* __restrict__ C, const T* __restrict__ binv,
+                      const T* __restrict__ b, const T* x, T* d, T* out,
+                      T* tmp, T* res, int sweeps, int cheb, Steps st, Geom g,
+                      int r) {
+  const int run = blockIdx.x % g.runs;
+  const int i = blockIdx.x / g.runs;
+  const int pass = cheb ? kCheb : kSweep;
+  const T* cur = x;
+  int k = 0;
+  if (x == nullptr) {
+    T* dst = ((sweeps - 1) & 1) ? tmp : out;
+    const int q = run * g.tp + threadIdx.x;
+    if (threadIdx.x < g.tp && q < g.npl) {
+      const int64_t p = (int64_t)i * g.npl + q;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const T v = from_zero<T, NF>(binv, b, (T)st.s0[0], g.plane, p, f);
+        dst[f * g.plane + p] = v;
+        if (d != nullptr) d[f * g.plane + p] = v;
+      }
+    }
+    cur = dst;
+    k = 1;
+    if (sweeps > 1 || res != nullptr) cg::this_grid().sync();
+  }
+  for (; k < sweeps; ++k) {
+    T* dst = ((sweeps - 1 - k) & 1) ? tmp : out;
+    march_rn<T, NF, true>(C, cur, b, binv, d, (T)st.s0[k], (T)st.s1[k], dst,
+                          pass, g, r);
+    cur = dst;
+    if (k + 1 < sweeps || res != nullptr) cg::this_grid().sync();
+  }
+  if (res != nullptr) {
+    march_rn<T, NF, true>(C, cur, b, binv, nullptr, T(0), T(0), res,
+                          kResidual, g, r);
   }
 }
 
@@ -1208,9 +1331,25 @@ march_rn_kernel(const T* __restrict__ C, const T* __restrict__ x,
 // 2 (0.75 of one); f32 8 (2.2) 0.0724; 17^3 16 (0.82 of one) 0.0158; three
 // fields (one block an SM) 3 x 17^3 16 (0.82 of three) 0.1343 against
 // 0.1302 at 8, 3 x 33^3 2 (2.25) 1.020 against 1.008 at 8. Splits above
-// 16 ran slower at every shape. A level's smoothing call is one launch a
-// pass.
+// 16 ran slower at every shape. The level launch (out[1]) at the same
+// split where its blocks are all co-resident and level_pays.
 constexpr int kRnWaves = 2;
+
+// Blocks of march_rn_level_kernel<T, NF> the card holds at once, asked
+// once per instance (the devices of one process are taken to be alike).
+template <class T, int NF>
+cudaError_t rn_level_capacity(int* capacity) {
+  static int cached = 0;
+  if (cached == 0) {
+    int per_sm = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, march_rn_level_kernel<T, NF>, kMarch, 0);
+    if (e != cudaSuccess) return e;
+    cached = sm_count() * per_sm;
+  }
+  *capacity = cached;
+  return cudaSuccess;
+}
 
 template <class T, int NF>
 int plan_rn(int nx, int ny, int nz, int r, int* out) {
@@ -1238,9 +1377,18 @@ int plan_rn(int nx, int ny, int nz, int r, int* out) {
       best = split;
     }
   }
+  // the level launch: from r = 5 (below it the lattices planned here are
+  // those too wide to stage, whose level calls take one launch a pass)
+  int level_cap = 0;
+  if (r >= 5 && (rn_level_capacity<T, NF>(&level_cap) != cudaSuccess ||
+                 level_cap == 0)) {
+    return -1;
+  }
+  const int64_t blocks = (int64_t)make_geom(nx, ny, nz, best, r).runs * nx;
   out[0] = best;
-  out[1] = 0;
-  out[2] = 0;
+  out[1] = r >= 5 && blocks <= level_cap &&
+           level_pays(nx, ny, nz, r, NF, sizeof(T));
+  out[2] = level_cap;
   out[3] = kUnstaged;
   return 0;
 }
@@ -1266,6 +1414,46 @@ int launch_pass_rn(const void* C, const void* x, const void* b,
   return (int)cudaGetLastError();
 }
 
+// stencil3d_level at a runtime radius r >= 5: march_rn_level_kernel, whose
+// blocks must all be co-resident (else refused, as launch_level).
+template <class T, int NF>
+int launch_level_rn(const void* C, const void* binv, const void* b,
+                    const void* x, void* d, void* out, void* tmp, void* res,
+                    const double* s0, const double* s1, int sweeps, int cheb,
+                    int nx, int ny, int nz, int r, int split,
+                    cudaStream_t stream) {
+  if (!valid_split(split) || sweeps < 1 || sweeps > kMaxSteps ||
+      (cheb && NF != 1) || r < 5) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geom g = make_geom(nx, ny, nz, split, r);
+  int capacity = 0;
+  const cudaError_t e = rn_level_capacity<T, NF>(&capacity);
+  if (e != cudaSuccess) return (int)e;
+  if ((int64_t)g.runs * nx > capacity) {
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  Steps st = {};
+  for (int s = 0; s < sweeps; ++s) {
+    st.s0[s] = s0[s];
+    st.s1[s] = s1[s];
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(g.runs * nx);
+  cfg.blockDim = dim3(kMarch);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, march_rn_level_kernel<T, NF>, (const T*)C, (const T*)binv,
+      (const T*)b, (const T*)x, (T*)d, (T*)out, (T*)tmp, (T*)res, sweeps,
+      cheb, st, g, r);
+}
+
 // stencil3d_plan and stencil3d_pass at a runtime radius r >= 1
 template <class T>
 int plan_entry_rn(int nx, int ny, int nz, int radius, int nf, int* out) {
@@ -1276,6 +1464,26 @@ int plan_entry_rn(int nx, int ny, int nz, int radius, int nf, int* out) {
     case 3: return plan_rn<T, 3>(nx, ny, nz, radius, out);
   }
   return -1;
+}
+
+template <class T>
+int level_entry_rn(const void* C, const void* binv, const void* b,
+                   const void* x, void* d, void* out, void* tmp, void* res,
+                   const double* s0, const double* s1, int sweeps, int cheb,
+                   int nx, int ny, int nz, int radius, int nf, int split,
+                   void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CALL_RN(NF)                                                          \
+  launch_level_rn<T, NF>(C, binv, b, x, d, out, tmp, res, s0, s1, sweeps,    \
+                         cheb, nx, ny, nz, radius, split, st)
+  switch (nf) {
+    case 1: return CALL_RN(1);
+    case 2: return CALL_RN(2);
+    case 3: return CALL_RN(3);
+  }
+#undef CALL_RN
+  return (int)cudaErrorInvalidValue;
 }
 
 template <class T>

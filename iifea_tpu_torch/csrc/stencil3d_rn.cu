@@ -1,9 +1,9 @@
-// The runtime-radius instances of the 3D marching kernel (march_rn_kernel
-// in csrc/stencil3d.cuh), f32 and f64, 1-3 fields, x read through the
-// read-only cache (the unstaged route): the public entries of
-// csrc/stencil3d.cu call these at r >= 5, and at r = 1-4 for the lattices
-// whose x planes a block cannot stage. A level's smoothing call here is one
-// launch per pass (the fused entry is refused).
+// The runtime-radius instances of the 3D marching kernels (march_rn_kernel
+// and march_rn_level_kernel in csrc/stencil3d.cuh), f32 and f64, 1-3
+// fields, x unstaged: the public entries of csrc/stencil3d.cu call these at
+// r >= 5 (a level's smoothing call in one cooperative launch where the
+// plan says so, else one launch a pass), and at r = 1-4 for the lattices
+// whose x planes a block cannot stage (one launch a pass).
 
 #include "stencil3d.cuh"
 
@@ -21,11 +21,16 @@
     return pass_entry_rn<T>(C, x, b, binv, d, omega0, s0, s1, y, nx, ny, nz, \
                             radius, nf, pass, split, staging, stream);       \
   }                                                                          \
-  int stencil3d_level_##SUFFIX(const void*, const void*, const void*,        \
-                               const void*, void*, void*, void*, void*,      \
-                               const double*, const double*, int, int, int,  \
-                               int, int, int, int, int, void*) {             \
-    return (int)cudaErrorInvalidValue;                                       \
+  int stencil3d_level_##SUFFIX(const void* C, const void* binv,              \
+                               const void* b, const void* x, void* d,        \
+                               void* out, void* tmp, void* res,              \
+                               const double* s0, const double* s1,           \
+                               int sweeps, int cheb, int nx, int ny, int nz, \
+                               int radius, int nf, int split,                \
+                               void* stream) {                               \
+    return level_entry_rn<T>(C, binv, b, x, d, out, tmp, res, s0, s1,        \
+                             sweeps, cheb, nx, ny, nz, radius, nf, split,    \
+                             stream);                                        \
   }                                                                          \
   }
 

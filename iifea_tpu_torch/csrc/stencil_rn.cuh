@@ -1,10 +1,12 @@
 // Runtime-radius instances of the 2D stencil kernels for Hopper (sm_90a):
 // the radius is a kernel argument, so one instance per (scalar type,
-// fields, pass) serves every radius above the fixed-radius ones of
-// csrc/stencil2d.cuh (r = 1-4). The public entries of csrc/stencil2d.cu
-// hand r >= 5 (a quartic or higher B-spline background: 121 taps at r = 5)
-// to the source that instantiates these, csrc/stencil2d_rn.cu. (The 3D
-// runtime-radius kernel is march_rn_kernel in csrc/stencil3d.cuh.)
+// fields, pass), and one of the level kernel per (scalar type, fields),
+// serves every radius above the fixed-radius ones of csrc/stencil2d.cuh
+// (r = 1-4). The public entries of csrc/stencil2d.cu hand r >= 5 (a
+// quartic or higher B-spline background: 121 taps at r = 5) to the source
+// that instantiates these, csrc/stencil2d_rn.cu. (The 3D runtime-radius
+// kernels are march_rn_kernel and march_rn_level_kernel in
+// csrc/stencil3d.cuh.)
 //
 // Replaces, at those radii, the Pallas TPU kernels of
 // iifea_tpu/ops/pallas_stencil.py `stencil_mv` (`_mv_kernel`) and
@@ -29,8 +31,13 @@
 //   dynamic shared memory (26^2 x 3 f64 = 16 KB at r = 5), so the shifted
 //   reads of x hit shared memory; the radius a block can stage is the
 //   limit of the 2D instances (the wrappers refuse a larger one);
-// * a multigrid level's smoothing call runs one launch per pass (the plan
-//   entry answers that route at these radii).
+// * a multigrid level's smoothing call (nu sweeps and the trailing
+//   residual) is one cooperative launch of level2d_kernel where every tile
+//   of the level is co-resident (the plan entry, plan_level2d, whose
+//   comment holds the measurements), a grid barrier between passes, each pass the pass kernel's
+//   body on the same tile, x staged through the L2 (ld.global.cg: the
+//   read-only cache is not coherent with the launch's own writes), so it
+//   equals the per-pass route bitwise; else one launch per pass.
 //
 // Launch contract: PyTorch's current stream, no synchronisation, no
 // allocation; y must not alias x or b. Each entry returns the launch's
@@ -39,11 +46,14 @@
 #ifndef IIFEA_STENCIL_RN_CUH_
 #define IIFEA_STENCIL_RN_CUH_
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 namespace rn {
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float fma_r(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -119,19 +129,32 @@ size_t tile_bytes(int radius, int nf) {
   return side * side * nf * sizeof(T);
 }
 
-// One pass of MODE on a 16 x 16 tile (stencil2d_block's modes 0-2; x null
-// in the sweep: the tile is staged as the sweep from zero, omega Binv b).
-template <class T, int NF, int MODE>
-__global__ void __launch_bounds__(kTile2 * kTile2)
-pass2d_kernel(const T* __restrict__ C, const T* __restrict__ x,
-              const T* __restrict__ b, const T* __restrict__ binv, T omega,
-              T* __restrict__ y, int nx, int ny, int r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
+// x at q: through the read-only cache in a pass launch; in a level's
+// launch (LEVEL) through the L2 alone (ld.global.cg), since x there is
+// what other blocks of the same launch wrote before the last grid barrier,
+// and the read-only and L1 caches are not coherent with those writes.
+template <bool LEVEL, class T>
+__device__ __forceinline__ T ld_x(const T* q) {
+  if constexpr (LEVEL) {
+    return __ldcg(q);
+  } else {
+    return __ldg(q);
+  }
+}
+
+// One pass of MODE on the 16 x 16 tile at (i0, j0) (stencil2d_block's
+// modes 0-2; x null in the sweep: the tile is staged as the sweep from
+// zero, omega Binv b), x read through ld_x: the body of pass2d_kernel and
+// level2d_kernel. All threads of the block call it; xs is the tile.
+template <class T, int NF, int MODE, bool LEVEL>
+__device__ __forceinline__ void pass2d(const T* __restrict__ C,
+                                       const T* __restrict__ x,
+                                       const T* __restrict__ b,
+                                       const T* __restrict__ binv, T omega,
+                                       T* __restrict__ y, int nx, int ny,
+                                       int r, int i0, int j0, T* xs) {
   const int m = 2 * r + 1;
   const int side = kTile2 + 2 * r;
-  const int i0 = blockIdx.y * kTile2;
-  const int j0 = blockIdx.x * kTile2;
   const int tid = threadIdx.y * kTile2 + threadIdx.x;
   const int64_t plane = (int64_t)nx * ny;
   for (int t = tid; t < NF * side * side; t += kTile2 * kTile2) {
@@ -143,7 +166,7 @@ pass2d_kernel(const T* __restrict__ C, const T* __restrict__ x,
     T v = T(0);
     if (gi >= 0 && gi < nx && gj >= 0 && gj < ny) {
       const int64_t q = (int64_t)gi * ny + gj;
-      v = x != nullptr ? __ldg(x + f * plane + q)
+      v = x != nullptr ? ld_x<LEVEL>(x + f * plane + q)
                        : from_zero<T, NF>(binv, b, omega, plane, q, f);
     }
     xs[t] = v;
@@ -198,6 +221,17 @@ pass2d_kernel(const T* __restrict__ C, const T* __restrict__ x,
 }
 
 template <class T, int NF, int MODE>
+__global__ void __launch_bounds__(kTile2 * kTile2)
+pass2d_kernel(const T* __restrict__ C, const T* __restrict__ x,
+              const T* __restrict__ b, const T* __restrict__ binv, T omega,
+              T* __restrict__ y, int nx, int ny, int r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  pass2d<T, NF, MODE, false>(C, x, b, binv, omega, y, nx, ny, r,
+                             blockIdx.y * kTile2, blockIdx.x * kTile2,
+                             reinterpret_cast<T*>(smem_raw));
+}
+
+template <class T, int NF, int MODE>
 cudaError_t launch_pass2d(const void* C, const void* x, const void* b,
                           const void* binv, double omega, void* y, int nx,
                           int ny, int r, cudaStream_t stream) {
@@ -238,6 +272,180 @@ cudaError_t pass2d_mode(int mode, const void* C, const void* x,
                                 (int64_t)nx * ny, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// Resident blocks per SM asked of the compiler for a level's launch: the
+// 289 tiles of a 257 x 257 scalar level need 3 on the H100's 132 SMs (at
+// most 80 registers); the block instances 1, where only small levels are
+// co-resident.
+template <int NF>
+__host__ __device__ constexpr int level2d_blocks() {
+  return NF == 1 ? 3 : 1;
+}
+
+// A level's smoothing call at radius r in one cooperative launch, one
+// block per 16 x 16 tile: `sweeps` sweeps from x (x null: from zero, the
+// first sweep omega Binv b folded into the next pass's staging, or with
+// sweeps == 1 written to out, as zero_kernel writes it), the last written
+// to out, the others ping-ponged between tmp and out; then res = b - A out
+// when res is not null. A grid barrier separates the passes. The passes
+// are pass2d_kernel's (the per-pass route's launches, in order) on the
+// same tiles, so the two routes agree bitwise; x, out and tmp are staged
+// through the L2 alone (ld_x<true>).
+template <class T, int NF>
+__global__ void __launch_bounds__(kTile2 * kTile2, level2d_blocks<NF>())
+level2d_kernel(const T* __restrict__ C, const T* __restrict__ binv,
+               const T* __restrict__ b, const T* x, T omega, int sweeps,
+               T* out, T* tmp, T* res, int nx, int ny, int r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  const int i0 = blockIdx.y * kTile2;
+  const int j0 = blockIdx.x * kTile2;
+  const T* cur = x;
+  int s = 0;
+  if (x == nullptr) {
+    const int i = i0 + threadIdx.y;
+    const int j = j0 + threadIdx.x;
+    if (sweeps == 1 && i < nx && j < ny) {
+      const int64_t plane = (int64_t)nx * ny;
+      const int64_t p = (int64_t)i * ny + j;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        out[f * plane + p] = from_zero<T, NF>(binv, b, omega, plane, p, f);
+      }
+    }
+    s = 1;
+  }
+  for (; s < sweeps; ++s) {
+    T* dst = ((sweeps - 1 - s) & 1) ? tmp : out;
+    pass2d<T, NF, kSweep, true>(C, cur, b, binv, omega, dst, nx, ny, r, i0,
+                                j0, xs);
+    cur = dst;
+    if (s + 1 < sweeps || res != nullptr) cg::this_grid().sync();
+  }
+  if (res != nullptr) {
+    pass2d<T, NF, kResidual, true>(C, cur, b, binv, omega, res, nx, ny, r,
+                                   i0, j0, xs);
+  }
+}
+
+// Blocks of level2d_kernel<T, NF> the card holds at once with a radius-r
+// tile each, the kernel's shared memory limit raised first where the tile
+// needs it; asked once per instance and radius below kCachedRadii (the
+// devices of one process are taken to be alike). An error where a query
+// failed.
+constexpr int kCachedRadii = 128;
+
+template <class T, int NF>
+cudaError_t level2d_capacity(int r, int* capacity) {
+  static int cached[kCachedRadii] = {};
+  if (r < kCachedRadii && cached[r] > 0) {
+    *capacity = cached[r];
+    return cudaSuccess;
+  }
+  static cudaError_t raised = cudaErrorNotReady;
+  const size_t smem = tile_bytes<T>(r, NF);
+  if (smem > (size_t)optin_bytes()) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024 && raised != cudaSuccess) {
+    raised = cudaFuncSetAttribute(level2d_kernel<T, NF>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  optin_bytes());
+    if (raised != cudaSuccess) return raised;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, level2d_kernel<T, NF>, kTile2 * kTile2, smem);
+  }
+  *capacity = sms * per_sm;
+  if (e == cudaSuccess && r < kCachedRadii) cached[r] = *capacity;
+  return e;
+}
+
+inline int64_t tiles2d(int nx, int ny) {
+  return (int64_t)((nx + kTile2 - 1) / kTile2) * ((ny + kTile2 - 1) / kTile2);
+}
+
+// The plan of a level's smoothing call at radius r: 1 (one launch) where
+// every tile is co-resident, else 0; -1 where a query failed. The measured
+// rule of the 2D level launches at every radius (tests/
+// compare_smooth_routing.py --levels, H100, the V-cycle's two calls at
+// every 2D path's levels that fit): eagerly, as the V-cycle makes the
+// call, one launch took 0.32-1.01 of its passes' time (r = 5 f64: 257^2
+// 0.98 / 0.98, 129^2 0.57 / 1.01, 65^2 0.70 / 0.62), and in a CUDA graph
+// 0.73-1.05 (r = 5: 1.01-1.05); unlike the 3D level kernels these hold the
+// pass kernel's occupancy, so a level whose planes outgrow the L2 loses
+// nothing (r = 5 257^2, 63 MB; three fields r = 2 at 257^2, 59 MB, 0.98 /
+// 0.92 eagerly).
+template <class T, int NF>
+int plan_level2d(int nx, int ny, int r) {
+  int capacity = 0;
+  if (level2d_capacity<T, NF>(r, &capacity) != cudaSuccess ||
+      capacity == 0) {
+    return -1;
+  }
+  return tiles2d(nx, ny) <= capacity;
+}
+
+template <class T, int NF>
+cudaError_t launch_level2d(const void* C, const void* binv, const void* b,
+                           const void* x, double omega, int sweeps, void* out,
+                           void* tmp, void* res, int nx, int ny, int r,
+                           cudaStream_t stream) {
+  if (sweeps < 1) return cudaErrorInvalidValue;
+  int capacity = 0;
+  const cudaError_t e = level2d_capacity<T, NF>(r, &capacity);
+  if (e != cudaSuccess) return e;
+  if (tiles2d(nx, ny) > capacity) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3((ny + kTile2 - 1) / kTile2, (nx + kTile2 - 1) / kTile2);
+  cfg.blockDim = dim3(kTile2, kTile2);
+  cfg.dynamicSmemBytes = tile_bytes<T>(r, NF);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  return cudaLaunchKernelEx(&cfg, level2d_kernel<T, NF>, (const T*)C,
+                            (const T*)binv, (const T*)b, (const T*)x,
+                            (T)omega, sweeps, (T*)out, (T*)tmp, (T*)res, nx,
+                            ny, r);
+}
+
+// stencil2d_smooth_plan and stencil2d_smooth at a runtime radius r >= 1
+template <class T>
+int smooth_plan2d_entry(int nx, int ny, int radius, int nf) {
+  if (nx <= 0 || ny <= 0 || radius < 1) return -1;
+  switch (nf) {
+    case 1: return plan_level2d<T, 1>(nx, ny, radius);
+    case 2: return plan_level2d<T, 2>(nx, ny, radius);
+    case 3: return plan_level2d<T, 3>(nx, ny, radius);
+  }
+  return -1;
+}
+
+template <class T>
+int smooth2d_entry(const void* C, const void* binv, const void* b,
+                   const void* x, double omega, int sweeps, void* out,
+                   void* tmp, void* res, int nx, int ny, int radius, int nf,
+                   void* stream) {
+  if (nx <= 0 || ny <= 0 || radius < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_RN(NF)                                                        \
+  (int)launch_level2d<T, NF>(C, binv, b, x, omega, sweeps, out, tmp, res,  \
+                             nx, ny, radius, s)
+  switch (nf) {
+    case 1: return CALL_RN(1);
+    case 2: return CALL_RN(2);
+    case 3: return CALL_RN(3);
+  }
+#undef CALL_RN
+  return (int)cudaErrorInvalidValue;
 }
 
 // stencil2d_block at a runtime radius r >= 1

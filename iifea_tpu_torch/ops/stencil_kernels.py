@@ -46,7 +46,9 @@ quartic one's 121 and 1,331): fixed-radius instances at r = 1 to 4, the
 runtime-radius ones above. On the card a 2D radius is limited by the
 staged tile of the runtime-radius instances (``max_radius2d``: 41 in f64
 with three fields); the plain versions take any. At r ≥ 5 a level's
-smoothing call takes one launch per pass. The 3D marching passes stage
+smoothing call is one cooperative launch of the runtime-radius level
+kernels (``level2d_kernel``, ``march_rn_level_kernel``) where the plan
+says so, as at r = 1–4. The 3D marching passes stage
 the x planes of one field at a time where a block cannot hold those of
 every field (the plan's staging, f64 at r = 4 with three fields from a
 73-point row), and none where it cannot hold one field's (f64 at r = 4
@@ -580,9 +582,10 @@ def _smooth_cuda(route, C, binv, b, x, omega, sweeps, shape, radius, nF,
     """``smooth`` on checked CUDA operands by ``route``: PER_PASS is one
     ``jacobi_smooth`` launch per sweep (two sweeps from zero are one
     launch) and a ``stencil_mv_block`` launch for the residual; GRID is one
-    stencil2d_smooth launch (counted as ``smooth``), which needs
-    sweeps ≥ 1 and a level whose tiles are all co-resident (else the launch
-    is refused and this raises)."""
+    stencil2d_smooth launch (counted as ``smooth``; from r = 5 the
+    runtime-radius level kernel), which needs sweeps ≥ 1 and a level whose
+    tiles are all co-resident (else the launch is refused and this
+    raises)."""
     if route == PER_PASS:
         if x is None and sweeps == 0:
             x = torch.zeros_like(b)
@@ -622,12 +625,12 @@ def smooth(C, binv, b, x, omega, sweeps, shape, radius, with_residual=False):
     planes take ``binv`` = the flat 1/diag, block coefficients the
     (nF, nF, n) nodal blocks.
 
-    CPU: plain version. CUDA: where the level's tiles are all co-resident,
-    all passes in ONE launch of the stencil2d_smooth kernel (a cooperative
-    grid, a barrier between the passes, each point's coefficients read once
-    per call; the library decides from the tile count and the card's
-    occupancy), else one launch per pass; either way the same arithmetic,
-    bitwise."""
+    CPU: plain version. CUDA: where the level's tiles are all co-resident
+    (the library's plan, at every radius), all passes in ONE launch of the
+    stencil2d_smooth kernel (a cooperative grid, a
+    barrier between the passes; at r = 1–4 each point's coefficients read
+    once per call where they fit its registers), else one launch per pass;
+    either way the same arithmetic, bitwise."""
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
     kind, nF = _check_block(C, shape, radius, (b,) if x is None else (b, x),
@@ -676,6 +679,9 @@ MAX_LEVEL_STEPS3 = 8
 # at once, one field's at a time, or none (the runtime-radius kernel reads
 # x through the read-only cache)
 ALL_FIELDS, PER_FIELD, UNSTAGED = range(3)
+# the smallest radius of the runtime-radius instances (csrc/stencil_rn.cuh,
+# march_rn_kernel and march_rn_level_kernel)
+RN_RADIUS = 5
 
 
 @functools.cache
@@ -688,9 +694,10 @@ def _plan3(shape, radius, nF, device_index, f64: bool = False):
     staged x planes of every field: f64, r = 4, three fields from a
     73-point row on) or UNSTAGED (where it cannot hold one field's: f64,
     r = 4 from about a 313-point row, long k rows; at every radius from
-    5). The library decides
-    from the run count and occupancy queries of the instance; every
-    lattice has a plan."""
+    5). The library decides from the run count, occupancy queries of the
+    instance and, for the level launch, the rule ``level_pays`` (the
+    level's in-lattice coefficients within the card's L2); every lattice
+    has a plan."""
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         rc = _lib().stencil3d_plan(*shape, radius, nF, int(f64), out)
@@ -814,11 +821,12 @@ def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
                   with_residual, cheb, split=None, staging=None):
     """``smooth3`` on checked CUDA operands by ``route``. PER_PASS launches
     ``passes3``, each counted by ``_pass3``. GRID is one stencil3d_level
-    launch (counted as ``smooth3``; the step from zero folded into the
-    next pass's staging), refused (this raises) where the level's blocks
-    are not all co-resident; it stages every field's x planes (ValueError
-    for PER_FIELD and UNSTAGED). ``split`` and ``staging`` override the
-    plan's."""
+    launch (counted as ``smooth3``), refused (this raises) where the
+    level's blocks are not all co-resident: at r = 1–4 it stages every
+    field's x planes (ValueError for PER_FIELD and UNSTAGED; the step from
+    zero folded into the next pass's staging), from r = 5 none (ValueError
+    for PER_FIELD; the step from zero a phase of its own). ``split`` and
+    ``staging`` override the plan's."""
     sweeps = len(steps)
     s0 = [float(a) for a, _ in steps]
     s1 = [float(c) for _, c in steps]
@@ -829,13 +837,18 @@ def _smooth3_cuda(route, C, binv, b, x, steps, shape, radius, nF,
         staging = plan[3] if staging is None else staging
     d = torch.empty_like(b) if cheb and sweeps >= 1 else None
     if route == GRID:
-        if staging != ALL_FIELDS:
-            raise ValueError("a level's one launch stages every field's x "
-                             "planes: a lattice staged otherwise takes one "
-                             "launch a pass")
+        rn = radius >= RN_RADIUS
+        if staging != (UNSTAGED if rn else ALL_FIELDS):
+            raise ValueError(
+                "a level's one launch stages every field's x planes at "
+                "r = 1-4 and none from r = 5: a lattice staged otherwise "
+                "takes one launch a pass")
         out = torch.empty_like(b)
         res = torch.empty_like(b) if with_residual else None
-        tmp = torch.empty_like(b) if sweeps - (x is None) >= 2 else None
+        # the fixed-radius kernels fold the step from zero into the next
+        # pass's staging; the runtime-radius one writes it
+        folded = x is None and not rn
+        tmp = torch.empty_like(b) if sweeps - folded >= 2 else None
         a0 = (ctypes.c_double * len(s0))(*s0)
         a1 = (ctypes.c_double * len(s1))(*s1)
 
@@ -881,10 +894,12 @@ def smooth3(C, binv, b, x, steps, shape, radius, with_residual=False,
       d ← s0·r + s1·d, x ← x + d, with s1 = 0 on the first step; from zero
       the first step is the sweep s0·binv·b and d its result.
 
-    CPU: ``smooth3_plain``. CUDA: where the plan says the level is small,
-    all passes in ONE launch of the stencil3d_level kernel (a cooperative
-    grid, a barrier between passes), else one launch per pass; either way
-    the same arithmetic, bitwise."""
+    CPU: ``smooth3_plain``. CUDA: where the plan says so (the level's
+    blocks all co-resident and its in-lattice coefficients within the
+    card's L2), all passes in ONE launch of the stencil3d_level kernel (a
+    cooperative grid, a barrier between passes; from r = 5
+    ``march_rn_level_kernel``), else one launch per pass; either way the
+    same arithmetic, bitwise."""
     steps = [(float(a), float(c)) for a, c in steps]
     if cheb and C.dim() != 4:
         raise ValueError("the Chebyshev smoother takes scalar planes")

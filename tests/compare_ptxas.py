@@ -11,7 +11,15 @@ Run on a machine with nvcc, from the repository root:
 into a git-ignored directory). Prints one JSON line per tree (its kernel
 count, the spilling kernels) and one with the kernels of the first tree
 whose registers, stack or spills differ in another, and the kernels only
-one tree has. Imports nothing of JAX.
+one tree has.
+
+    python3 tests/compare_ptxas.py --sass [NAME_REGEX]
+
+prints, for each kernel of this tree's library whose name matches
+NAME_REGEX (default: the level kernels), its global loads by SASS form
+(``cuobjdump -sass``): ``LDG.E...CONSTANT`` is a load through the
+read-only (non-coherent) cache, the form a level launch must not use for
+the vectors it writes. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -45,10 +53,46 @@ def report(tree: Path) -> dict:
         r.get("spill_loads")) for r in rows}
 
 
+def sass_loads(pattern: str) -> None:
+    """One JSON line per kernel whose (mangled) name matches ``pattern``:
+    its LDG instructions counted by form."""
+    import shutil
+    from collections import Counter
+
+    lib = subprocess.run([sys.executable, "-c", BUILD.replace(
+        ".with_suffix('.log')", "")], cwd=HERE, capture_output=True,
+        text=True, check=True).stdout.strip()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    name, loads = None, Counter()
+
+    def flush():
+        if name is not None and re.search(pattern, name):
+            print(json.dumps({"kernel": ANON.sub(r"\1", name),
+                              "ldg": dict(sorted(loads.items()))}),
+                  flush=True)
+
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            flush()
+            name, loads = m.group(1), Counter()
+            continue
+        m = re.search(r"\bLDG(\.[\w.]+)?", line)
+        if m:
+            loads["LDG" + (m.group(1) or "")] += 1
+    flush()
+
+
 def main() -> None:
     args = sys.argv[1:]
+    if args[:1] == ["--sass"]:
+        sass_loads(args[1] if len(args) > 1 else "level")
+        return
     if args[:1] != ["--trees"] or len(args) != 2:
-        sys.exit("usage: compare_ptxas.py --trees DIR,DIR[,...]")
+        sys.exit("usage: compare_ptxas.py --trees DIR,DIR[,...] | --sass "
+                 "[NAME_REGEX]")
     trees = [Path(t).resolve() for t in args[1].split(",")]
     reports = [report(t) for t in trees]
     for t, rep in zip(trees, reports):

@@ -15,6 +15,12 @@ shapes their paths launch them at. Card only; imports no JAX.
     python3 tests/compare_stencil3d.py --sweep block3:25
     # ... and at r >= 5 (the runtime-radius kernel):
     python3 tests/compare_stencil3d.py --sweep quartic64:33 block3r5:17
+    # a level's smoothing call alone, by each route, device and eager ms,
+    # at every 3D path's level shapes (LEVEL_CALLS) or at those given:
+    python3 tests/compare_stencil3d.py --calls [quartic64:17 ...]
+    # host ms per V-cycle of each 3D path (VCYCLES), planned and with
+    # every level on one launch a pass:
+    python3 tests/compare_stencil3d.py --vcycles
     # every 3D marching route's output at every split, hashed, on two trees
     # (bitwise equal or not), and on this tree with NaN in the planes' taps
     # outside the lattice (bitwise equal to zeros there or not):
@@ -175,6 +181,7 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
 # (33³, r = 4; 33³ and 17³, r = 5), f64 and f32
 BLOCK = [("block3", 3, (97, 49, 25, 13), 2), ("block2", 2, (97, 49, 25, 13),
                                               2),
+         ("block3f64", 3, (25, 13), 2, "f64"),
          ("block3r4", 3, (73, 37, 19, 17), 4, "f64"),
          ("block3r5", 3, (17, 33), 5, "f64")]
 SCALAR = [("bh64", "f64", (65, 33, 17), 3), ("bh32", "f32", (65, 33, 17), 3),
@@ -240,16 +247,21 @@ def _calls(label, what, side, r, *dtype):
 
 
 # (label, fields (0: scalar Chebyshev cycle), finest side, radius, dtype):
-# the V-cycles of the 3D elasticity, Poisson and biharmonic paths
+# the V-cycles of the 3D elasticity, Poisson and biharmonic paths, and of
+# the cubic and quartic biharmonic's 33³ nets
 VCYCLES = [("elasticity3", 3, 97, 2, "f32"), ("poisson3", 0, 105, 2, "f32"),
-           ("biharmonic3", 0, 65, 3, "f64")]
+           ("biharmonic3", 0, 65, 3, "f64"), ("cubic3", 0, 33, 4, "f64"),
+           ("quartic3", 0, 33, 5, "f64"), ("quartic3_f32", 0, 33, 5, "f32")]
 
 
-def vcycle_ms(label, nf, side, r, what, reps: int = 20) -> dict:
+def vcycle_ms(label, nf, side, r, what, reps: int = 20,
+              rounds: int = 3) -> dict:
     """Host ms per V-cycle (``minv``, eager, synchronised: the host's
     launch work included) on a hierarchy of random planes, by the tree's
     own routing and, where the tree has a level launch, with every level
-    on one launch per pass."""
+    on one launch per pass: ``rounds`` pairs in turns (A B, B A, ...), each
+    the mean of ``reps`` cycles; the medians, and every pair's ms."""
+    import statistics
     import time
 
     import torch
@@ -278,15 +290,22 @@ def vcycle_ms(label, nf, side, r, what, reps: int = 20) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3
 
-    out = {"planned": timed()}
-    if hasattr(sk, "_plan3"):
-        planned = sk._plan3
+    planned = sk._plan3
+
+    def per_pass():
         sk._plan3 = lambda *a: (planned(*a)[0], 0, *planned(*a)[2:])
         try:
-            out["per_pass_only"] = timed()
+            return timed()
         finally:
             sk._plan3 = planned
-    return out
+
+    runs = {"planned": [], "per_pass_only": []}
+    for k in range(rounds):
+        order = ("planned", "per_pass_only")[::1 - 2 * (k % 2)]
+        for name in order:
+            runs[name].append(timed() if name == "planned" else per_pass())
+    return {**{k: statistics.median(v) for k, v in runs.items()},
+            "runs": runs}
 
 
 def time_tree(tag: str) -> None:
@@ -357,18 +376,80 @@ def sweep(target: str) -> None:
             print(json.dumps({"sweep": target, "split": split,
                               "staging": staging, "pass_ms": ms}),
                   flush=True)
+    level_calls(target, (C, binv, b, x, sh))
+
+
+def eager_ms(fn, reps: int = 50) -> float:
+    """Host ms per call of fn() made back to back, eagerly, as the V-cycle
+    makes it (the host's launch work included), synchronised once at the
+    end."""
+    import time
+
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+# the 3D paths' level shapes a level's one launch can hold (label:side):
+# the 3D elasticity (f32 and its f64 route), the Poisson cycle's smallest,
+# the biharmonic's (f64 and f32), the cubic and quartic biharmonic's, the
+# cubic three-field elasticity's (17³ and the 73³ path's 19³)
+LEVEL_CALLS = ("block3:25", "block3:13", "block2:25", "block2:13",
+               "block3f64:25", "block3f64:13", "poisson:27", "bh64:33",
+               "bh64:17", "bh32:33", "bh32:17", "cubic64:33", "cubic64:17",
+               "cubic32:33", "cubic32:17", "block3r4:19", "block3r4:17",
+               "quartic64:33", "quartic64:17", "quartic32:33",
+               "quartic32:17", "block3r5:17")
+
+
+def level_calls(target: str, operands=None) -> None:
+    """The V-cycle's two smoothing calls at one shape (2 steps from zero
+    with the residual; 2 steps from x) by each route that takes the level,
+    at the plan's split: device ms (a CUDA graph) and eager ms per call,
+    with the plan's route and the level's coefficient bytes in the
+    lattice (what ``level_pays`` holds to the card's L2)."""
+    import torch
+
+    from iifea_tpu_torch.ops import stencil_kernels as sk
+
+    label, side = target.split(":")
+    side = int(side)
+    case = next(c for c in BLOCK + SCALAR if c[0] == label)
+    kind = "block" if label.startswith("block") else "scalar"
+    if operands is None:
+        operands = _operands(kind, case[1], side, case[3], 0, *case[4:])
+    C, binv, b, x, sh = operands
+    r = case[3]
+    nF = case[1] if kind == "block" else 1
+    planned = sk._plan3(sh, r, nF, 0, C.dtype == torch.float64)
+    taps = math.prod(sum(min(i + r, n - 1) - max(i - r, 0) + 1
+                         for i in range(n)) for n in sh)
+    coef_mb = taps * nF * nF * C.element_size() / 1e6
     steps = [(0.9, 0.0), (1.1, 0.3 if kind == "scalar" else 0.0)]
     cheb = kind == "scalar"
     for form, start, res in (("pre", None, True), ("post", x, False)):
         for route in (sk.PER_PASS, sk.GRID):
+            def call():
+                return sk._smooth3_cuda(route, C, binv, b, start, steps, sh,
+                                        r, nF, res, cheb)
             try:
-                ms = device_ms(lambda: sk._smooth3_cuda(
-                    route, C, binv, b, start, steps, sh, r, nF, res, cheb))
+                ms, host = device_ms(call), eager_ms(call)
             except (RuntimeError, ValueError) as e:   # the launch refused
-                ms = str(e)
+                ms = host = str(e)
             print(json.dumps({"sweep": target, "form": form,
                               "route": ["per_pass", "grid"][route],
-                              "call_ms": ms}), flush=True)
+                              "call_ms": ms, "eager_ms": host,
+                              "plan": list(planned),
+                              "coef_mb": coef_mb}), flush=True)
+    del C, binv, b, x, operands
+    torch.cuda.empty_cache()
 
 
 # the splits a marching pass takes (threads per point)
@@ -555,5 +636,17 @@ if __name__ == "__main__":
     elif args[:1] == ["--sweep"]:
         for target in args[1:]:
             sweep(target)
+    elif args == ["--vcycles"]:
+        for label, nf, side, r, what in VCYCLES:
+            print(json.dumps({"vcycle": label, "side": side, "radius": r,
+                              "dtype": what, **vcycle_ms(label, nf, side, r,
+                                                         what)}),
+                  flush=True)
+    elif args[:1] == ["--calls"]:
+        for target in args[1:] or LEVEL_CALLS:
+            level_calls(target)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
     else:
         raise SystemExit(__doc__)

@@ -71,11 +71,12 @@ def _hierarchies(n_fields, radius, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", [1, 2, 5])
 @pytest.mark.parametrize("n_fields", [0, 1, 2, 3])
 def test_torch_smooth_matches_jax_smooth(n_fields, radius, dtype):
     """``_smooth`` of both packages (n_fields = 0: the scalar hierarchy) for
-    ν = 1, 2, 3, from x and from zero, and the residual beside it."""
+    ν = 1, 2, 3, from x and from zero, and the residual beside it (radius
+    5: what the runtime-radius level kernel computes in one launch)."""
     mg_j, mg_t, b, x = _hierarchies(n_fields, radius, dtype, 10 * radius
                                     + n_fields)
     S_j = mg_j.levels[0]

@@ -21,8 +21,9 @@ from iifea_tpu_torch.ops import stencil_kernels as sk
 from iifea_tpu_torch.ops.stencil import StencilOperatorBlock3D
 
 # sides of 5 to 9: neither package coarsens, so each hierarchy is the one
-# level whose smoothing call is under test; one lattice is not a cube
-SHAPES = [(7, 5, 9), (6, 6, 6), (5, 5, 5)]
+# level whose smoothing call is under test; two lattices are not cubes (the
+# last one radius 5's, the runtime-radius level kernel's)
+SHAPES = [(7, 5, 9), (6, 6, 6), (5, 5, 5), (6, 5, 7)]
 # (sweeps, from zero): several steps from x, one step from zero (the V-cycle's
 # from-zero calls of two and more steps are held against JAX's cycle by
 # test_torch_multigrid3d.py and test_torch_block3d.py)
@@ -58,12 +59,12 @@ def _planes(n_fields, radius, shape, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("smoother", ["chebyshev", "jacobi"])
-@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("radius", [1, 2, 3, 5])
 def test_torch_smooth3_scalar_matches_jax(radius, smoother, dtype):
     """``StencilMultigrid3D._smooth`` with its residual (one ``smooth3``
     call) against JAX's ``_smooth`` and b − S.mv_ref(x): ν = 3 from x, ν = 1
     from zero; the Jacobi option at ω = 0.8."""
-    shape = SHAPES[radius - 1]
+    shape = SHAPES[min(radius, 4) - 1]
     C, b, x = _planes(0, radius, shape, dtype, 40 + radius)
     S_j = JStencil3(jnp.asarray(C), shape, radius)
     S_t = from_numpy_state(coeffs=np.asarray(S_j.coeffs), lattice_shape=shape,
@@ -87,13 +88,13 @@ def test_torch_smooth3_scalar_matches_jax(radius, smoother, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", [1, 2, 5])
 @pytest.mark.parametrize("n_fields", [1, 2, 3])
 def test_torch_smooth3_block_matches_jax(n_fields, radius, dtype):
     """``StencilMultigridBlock3D._smooth`` with its residual (one
     ``smooth3`` call) against JAX's ``_smooth`` and b − S.mv(x): ν = 3 from
     x, ν = 1 from zero."""
-    shape = SHAPES[min(n_fields + 2 * radius - 3, 2)]
+    shape = SHAPES[3 if radius == 5 else min(n_fields + 2 * radius - 3, 2)]
     C, b, x = _planes(n_fields, radius, shape, dtype, 50 + 3 * radius
                       + n_fields)
     S_j = JBlock3(jnp.asarray(C), shape, radius)

@@ -172,6 +172,72 @@ def test_torch_smooth_refuses_a_level_that_does_not_fit():
     assert float((r - r_ref).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
+# the runtime-radius level launches (r >= 5): radii, field counts (0: scalar
+# planes), dtypes; a 2D and a 3D level shape whose tiles or blocks are all
+# co-resident at every one of them, the 3D one ending its (j, k) plane in a
+# ragged run
+RN_LEVEL_CASES = [(r, nf, dt) for r in (5, 6, 7) for nf in (0, 1, 2, 3)
+                  for dt in (torch.float32, torch.float64)]
+RN_LEVEL_SHAPE2 = (37, 45)
+RN_LEVEL_SHAPE3 = (9, 11, 13)
+
+
+def _card_operands2(n_fields, radius, shape, dtype, seed):
+    """``_card_operands`` in ``dtype``."""
+    C, binv, b, x = _card_operands(n_fields, radius, shape, seed)
+    return tuple(t.to(dtype) for t in (C, binv, b, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius,n_fields,dtype", RN_LEVEL_CASES)
+def test_torch_smooth_rn_level_on_card(radius, n_fields, dtype):
+    """smooth at r = 5-7 (the runtime-radius level kernel): the plan gives
+    the co-resident level one launch; for ν = 1, 2, 3 from x and from
+    zero, with and without the residual, the fused call is one ``smooth``
+    launch, bitwise equal to the per-pass route and to the routed call,
+    and within 1e-4 (f32) / 1e-12 (f64) of the plain version."""
+    shape = RN_LEVEL_SHAPE2
+    C, binv, b, x = _card_operands2(n_fields, radius, shape, dtype,
+                                    90 + radius + n_fields)
+    nF = max(n_fields, 1)
+    f64 = dtype == torch.float64
+    assert sk._smooth_route(shape, radius, nF, 0, f64) == sk.GRID
+    for sweeps in (1, 2, 3):
+        for start in (x, None):
+            for with_residual in (False, True):
+                args = (C, binv, b, start, 0.8, sweeps, shape, radius)
+                ref = sk.smooth_plain(*args, with_residual)
+                per_pass = sk._smooth_cuda(sk.PER_PASS, *args, nF,
+                                           with_residual)
+                before = sk.launches()
+                fused = sk._smooth_cuda(sk.GRID, *args, nF, with_residual)
+                assert sk.launches() == {**before, "smooth":
+                                         before["smooth"] + 1}
+                routed = sk.smooth(*args, with_residual)
+                torch.cuda.synchronize()
+                for a, a_ref, a_pass, a_routed, scale in zip(
+                        _tuple(fused), _tuple(ref), _tuple(per_pass),
+                        _tuple(routed), (None, b)):
+                    assert _err_ok(a, a_ref, dtype, scale)
+                    assert torch.equal(a, a_pass)
+                    assert torch.equal(a, a_routed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_fields", [0, 3])
+def test_torch_smooth_rn_refuses_a_level_that_does_not_fit(n_fields, dtype):
+    """At r = 5 a level with more tiles than are co-resident (1025²) takes
+    one launch per pass, and its forced fused launch raises."""
+    shape = (1025, 1025)
+    C, binv, b, x = _card_operands2(n_fields, 5, shape, dtype, 15)
+    nF = max(n_fields, 1)
+    assert sk._smooth_route(shape, 5, nF, 0,
+                            dtype == torch.float64) == sk.PER_PASS
+    with pytest.raises(RuntimeError, match="stencil2d_smooth"):
+        sk._smooth_cuda(sk.GRID, C, binv, b, x, 0.8, 2, shape, 5, nF, True)
+
+
 # -- 3D: smooth3 (a level's sweeps or Chebyshev steps and residual) --------
 
 # the 3D cycles' small level shapes, one non-cube, and one whose
@@ -263,12 +329,13 @@ def test_torch_smooth3_entry_on_card(n_fields, radius, dtype, cheb, shape):
                     assert sk.launches() == {**before, "smooth3":
                                              before["smooth3"] + 1}
                 else:
-                    # the library's refusal (at r >= 5 the plan stages one
-                    # field at a time for 2-3 fields, which the wrapper
-                    # refuses first)
+                    # the library's refusal (the level launch stages every
+                    # field's planes at r <= 4, none from r = 5)
                     with pytest.raises(RuntimeError, match="stencil3d_level"):
-                        sk._smooth3_cuda(sk.GRID, *args, nF, with_residual,
-                                         cheb, staging=sk.ALL_FIELDS)
+                        sk._smooth3_cuda(
+                            sk.GRID, *args, nF, with_residual, cheb,
+                            staging=sk.UNSTAGED if radius >= sk.RN_RADIUS
+                            else sk.ALL_FIELDS)
                 torch.cuda.synchronize()
                 for out in got:
                     for a, a_ref, a_pass, scale in zip(
@@ -340,9 +407,8 @@ PATH_LEVELS3 = {
 def test_torch_plan3_at_path_levels(path):
     """The plan at every level shape of the three 3D paths: a power-of-two
     split, and the level launch only where its blocks are co-resident — on
-    the smallest block and radius-3 levels but not the largest, never on
-    the scalar radius-2 ones; a level launch that does not fit is
-    refused."""
+    the smallest level of each path but not the largest; a level launch
+    that does not fit is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
     nF, radius, f64, shapes = PATH_LEVELS3[path]
@@ -355,7 +421,7 @@ def test_torch_plan3_at_path_levels(path):
         if level:
             assert runs * sh[0] <= level_blocks
     assert plans[0][1] == 0
-    assert plans[-1][1] == (0 if path == "poisson" else 1)
+    assert plans[-1][1] == 1
     # the largest level forced into one launch
     sh, dt = shapes[0], torch.float64 if f64 else torch.float32
     n = sh[0] * sh[1] * sh[2]
@@ -375,7 +441,8 @@ def test_torch_smooth3_refuses_other_instances_on_card():
     """Instances that do not exist raise on the card too: the Chebyshev
     smoother on block planes, planes in another dtype than f32 and f64,
     radius 0. f64 block planes and f64 scalar planes at radius 2, and
-    radius 5 (the runtime-radius instances), refused before, run their
+    radius 5 (the runtime-radius instances: a level's call in one
+    cooperative launch where the plan says so), refused before, run their
     instances."""
     C, binv, b, x = _card_operands3(2, 1, (9, 9, 9), torch.float32, 5)
     with pytest.raises(ValueError, match="scalar planes"):
@@ -399,6 +466,66 @@ def test_torch_smooth3_refuses_other_instances_on_card():
     assert _err_ok(sk.smooth3(C5, binv5, b5, x5, STEPS3[:2], (9, 9, 9), 5),
                    sk.smooth3_plain(C5, binv5, b5, x5, STEPS3[:2], (9, 9, 9),
                                     5), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius,n_fields,dtype", RN_LEVEL_CASES)
+def test_torch_smooth3_rn_level_on_card(radius, n_fields, dtype):
+    """smooth3 at r = 5-7 (march_rn_level_kernel) on a level whose blocks
+    are all co-resident: for ν = 1, 2, 3 sweeps (scalar planes also
+    Chebyshev steps) from x and from zero, with and without the residual,
+    the fused call is one ``smooth3`` launch, bitwise equal to the per-pass
+    route and to the routed call (one launch where the plan's rule gives
+    it), and within 1e-4 (f32) / 1e-12 (f64) of the plain version."""
+    shape = RN_LEVEL_SHAPE3
+    C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
+                                    100 + radius + n_fields)
+    nF = max(n_fields, 1)
+    plan = sk._plan3(shape, radius, nF, 0, dtype == torch.float64)
+    runs = -(-shape[1] * shape[2] // (256 // plan[0]))
+    assert runs * shape[0] <= plan[2] and plan[3] == sk.UNSTAGED
+    for cheb in (False, True) if n_fields == 0 else (False,):
+        for sweeps in (1, 2, 3):
+            steps = STEPS3[:sweeps]
+            for start in (x, None):
+                for with_residual in (False, True):
+                    args = (C, binv, b, start, steps, shape, radius)
+                    ref = sk.smooth3_plain(*args, with_residual, cheb)
+                    per_pass = sk._smooth3_cuda(sk.PER_PASS, *args, nF,
+                                                with_residual, cheb)
+                    before = sk.launches()
+                    fused = sk._smooth3_cuda(sk.GRID, *args, nF,
+                                             with_residual, cheb)
+                    assert sk.launches() == {**before, "smooth3":
+                                             before["smooth3"] + 1}
+                    routed = sk.smooth3(*args, with_residual, cheb)
+                    torch.cuda.synchronize()
+                    for a, a_ref, a_pass, a_routed, scale in zip(
+                            _tuple(fused), _tuple(ref), _tuple(per_pass),
+                            _tuple(routed), (None, b)):
+                        assert _err_ok(a, a_ref, dtype, scale)
+                        assert torch.equal(a, a_pass)
+                        assert torch.equal(a, a_routed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_fields", [0, 3])
+def test_torch_smooth3_rn_refuses_a_level_that_does_not_fit(n_fields, dtype):
+    """At r = 5 a level whose blocks are not all co-resident (65³) takes
+    one launch a pass, its forced one launch raises, and asking that
+    launch for a staged route is a ValueError."""
+    shape = (65, 65, 65)
+    C, binv, b, x = _card_operands3(n_fields, 5, shape, dtype, 16)
+    nF = max(n_fields, 1)
+    plan = sk._plan3(shape, 5, nF, 0, dtype == torch.float64)
+    assert plan[1] == 0
+    with pytest.raises(RuntimeError, match="stencil3d_level"):
+        sk._smooth3_cuda(sk.GRID, C, binv, b, x, STEPS3[:2], shape, 5, nF,
+                         True, False)
+    with pytest.raises(ValueError, match="one launch"):
+        sk._smooth3_cuda(sk.GRID, C, binv, b, x, STEPS3[:2], shape, 5, nF,
+                         True, False, staging=sk.ALL_FIELDS)
 
 
 # -- 3D: the per-field staging (f64, r = 4, 2 and 3 fields) -----------------
@@ -475,8 +602,9 @@ RN3_CASES = [(r, sh, nf) for r in (5, 6, 7)
 @pytest.mark.parametrize("radius,shape,n_fields", RN3_CASES)
 def test_torch_stencil3d_rn_stagings_on_card(radius, shape, n_fields, dtype):
     """The runtime-radius marching kernel (r = 5-7): the plan reads x
-    through the read-only cache (its only route) and keeps a level's
-    smoothing call at one launch a pass; the apply, residual, sweep and
+    through the read-only cache (its only route) and gives a level's
+    smoothing call one launch only where the level's blocks are
+    co-resident; the apply, residual, sweep and
     (scalar planes) Chebyshev step at the plan's split and at 16 equal
     their plain versions (f32 1e-4, f64 1e-12), and a second launch
     repeats each bitwise."""
@@ -484,7 +612,9 @@ def test_torch_stencil3d_rn_stagings_on_card(radius, shape, n_fields, dtype):
                                     50 + 3 * radius + n_fields)
     nF = max(n_fields, 1)
     plan = sk._plan3(shape, radius, nF, 0, dtype == torch.float64)
-    assert plan[1] == 0 and plan[3] == sk.UNSTAGED
+    assert plan[3] == sk.UNSTAGED and plan[2] > 0
+    runs = -(-shape[1] * shape[2] // (256 // plan[0]))
+    assert not plan[1] or runs * shape[0] <= plan[2]
     y_ref = sk.apply3_block_plain(C, x, shape, radius)
     refs = {sk._APPLY: y_ref, sk._RESIDUAL: b - y_ref,
             sk._SWEEP: sk.sweep3_block_plain(C, binv, b, x, 0.8, shape,
@@ -574,9 +704,10 @@ def test_torch_stencil3d_padding_not_read_on_card(radius, n_fields, dtype):
     marching route gives bitwise the output it gives with zeros there:
     every pass (apply, residual, sweep, sweep from zero, the Chebyshev
     step on scalar planes) staged (every field's planes, one field's at a
-    time) and unstaged, at the plan's split and at 16, and at r <= 4 a
-    level's smoothing call in one launch where it fits; the outputs with
-    zeros there equal the plain versions (f32 1e-4, f64 1e-12)."""
+    time) and unstaged, at the plan's split and at 16, and a level's
+    smoothing call in one launch where it fits (r <= 4 staging every
+    field's planes, from r = 5 none); the outputs with zeros there equal
+    the plain versions (f32 1e-4, f64 1e-12)."""
     shape = (13, 10, 17)
     C, binv, b, x = _card_operands3(n_fields, radius, shape, dtype,
                                     80 + 3 * radius + n_fields)
@@ -612,12 +743,12 @@ def test_torch_stencil3d_padding_not_read_on_card(radius, n_fields, dtype):
                 torch.cuda.synchronize()
                 assert _err_ok(y, ref, dtype), (split, st, pass_)
                 assert torch.equal(run(C_nan), y), (split, st, pass_)
-    if radius <= 4:
-        def level(planes):
-            return sk._smooth3_cuda(sk.GRID, planes, binv, b, None,
-                                    STEPS3[:2], shape, radius, nF, True,
-                                    n_fields == 0, split=plan[0],
-                                    staging=sk.ALL_FIELDS)
-        if plan[1]:
-            for a, a_nan in zip(level(C), level(C_nan)):
-                assert torch.equal(a, a_nan)
+    def level(planes):
+        return sk._smooth3_cuda(sk.GRID, planes, binv, b, None, STEPS3[:2],
+                                shape, radius, nF, True, n_fields == 0,
+                                split=plan[0],
+                                staging=sk.UNSTAGED if radius >= sk.RN_RADIUS
+                                else sk.ALL_FIELDS)
+    if plan[1]:
+        for a, a_nan in zip(level(C), level(C_nan)):
+            assert torch.equal(a, a_nan)
